@@ -1,0 +1,135 @@
+// The CombSubFast STFT-domain filter chain, one frame row per block.
+//
+// Replaces: ddsp_svc_tpu/ops/pallas_kernels.py::combsub_spectral_pallas,
+// forward (body _combsub_spectral_kernel).
+//
+//   out[r] = irfft(rfft(tooth[r]) * exp(hm[r] + j*pi*hp[r])
+//                  + rfft(noise[r]) * exp(nm[r]) / 128, n) * window
+//
+// Bound on the H100: bytes. Per row the kernel reads 2n + 3(n/2+1) floats
+// and writes n, ~7n floats, for two n-point complex FFTs (~10 n log2 n
+// flops): ~4 flops per byte at n = 1024, below the fp32 ridge of ~20. At the
+// main path's few hundred rows the whole call moves a few MB, so in practice
+// it is bound by the latency of the FFT stages inside each block.
+//
+// Design: the TPU kernel computed the transforms as DFT matmuls for its
+// matrix unit; here each block runs radix-2 FFTs in shared memory. tooth and
+// noise are real, so one complex FFT of z = tooth + i*noise gives both
+// spectra (A = (Z[k] + conj Z[n-k]) / 2, N = (Z[k] - conj Z[n-k]) / 2i).
+// The filters are built in registers from the raw controls, the product is
+// written once as a Hermitian spectrum (imaginary parts of the DC and
+// Nyquist bins dropped, irfft semantics), and a second complex FFT inverts
+// it. The spectra never leave shared memory: 2.5 n complex values, 20 KB at
+// n = 1024. n is a power of two, 64..4096.
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+
+// In-place radix-2 decimation-in-time FFT of s[0, n), loaded in bit-reversed
+// order; tw[k] = exp(-2 pi i k / n) for k < n/2, conjugated for the inverse.
+__device__ void fft_inplace(float2* s, const float2* tw, int n, bool inverse) {
+  for (int len = 2; len <= n; len <<= 1) {
+    const int half = len >> 1;
+    const int step = n / len;
+    for (int i = threadIdx.x; i < n / 2; i += kThreads) {
+      const int pos = i & (half - 1);
+      const int a = (i - pos) * 2 + pos;
+      const int b = a + half;
+      float2 w = tw[pos * step];
+      if (inverse) w.y = -w.y;
+      const float2 u = s[a];
+      const float2 t = cmul(s[b], w);
+      s[a] = make_float2(u.x + t.x, u.y + t.y);
+      s[b] = make_float2(u.x - t.x, u.y - t.y);
+    }
+    __syncthreads();
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+combsub_spectral_kernel(const float* __restrict__ tooth, const float* __restrict__ noise,
+                        const float* __restrict__ hm, const float* __restrict__ hp,
+                        const float* __restrict__ nm, const float* __restrict__ window,
+                        float* __restrict__ out, int n, int log2n) {
+  extern __shared__ float2 sm2[];
+  float2* s = sm2;               // n: z, then the inverse transform
+  float2* p = s + n;             // n/2 + 1: filtered half spectrum
+  float2* tw = p + n / 2 + 1;    // n/2 twiddles
+  const int bins = n / 2 + 1;
+  const size_t row = blockIdx.x;
+  const float* a = tooth + row * n;
+  const float* z = noise + row * n;
+  const int shift = 32 - log2n;
+
+  for (int k = threadIdx.x; k < n / 2; k += kThreads) {
+    float sn, cs;
+    sincospif(2.0f * (float)k / (float)n, &sn, &cs);
+    tw[k] = make_float2(cs, -sn);
+  }
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    s[__brev(i) >> shift] = make_float2(a[i], z[i]);
+  }
+  __syncthreads();
+  fft_inplace(s, tw, n, false);
+
+  const size_t cb = row * bins;
+  for (int k = threadIdx.x; k < bins; k += kThreads) {
+    const float2 zk = s[k];
+    const float2 zc = s[(n - k) & (n - 1)];  // Z[n-k], conjugated below
+    const float2 sa = make_float2(0.5f * (zk.x + zc.x), 0.5f * (zk.y - zc.y));
+    const float2 sn = make_float2(0.5f * (zk.y + zc.y), -0.5f * (zk.x - zc.x));
+    const float mag = expf(hm[cb + k]);
+    float si, co;
+    sincosf(3.14159265358979f * hp[cb + k], &si, &co);
+    const float2 flt = make_float2(mag * co, mag * si);
+    const float nf = expf(nm[cb + k]) / 128.0f;
+    const float2 h = cmul(sa, flt);
+    p[k] = make_float2(h.x + sn.x * nf, h.y + sn.y * nf);
+  }
+  __syncthreads();
+  for (int m = threadIdx.x; m < n; m += kThreads) {
+    float2 x;
+    if (m == 0 || m == n / 2) {
+      x = make_float2(p[m].x, 0.f);
+    } else if (m < n / 2) {
+      x = p[m];
+    } else {
+      x = make_float2(p[n - m].x, -p[n - m].y);
+    }
+    s[__brev(m) >> shift] = x;
+  }
+  __syncthreads();
+  fft_inplace(s, tw, n, true);
+
+  const float inv_n = 1.0f / (float)n;
+  float* o = out + row * n;
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    o[i] = s[i].x * inv_n * window[i];
+  }
+}
+
+}  // namespace
+
+// tooth, noise, out: (rows, n) fp32; hm, hp, nm: (rows, n/2+1); window: (n,).
+extern "C" int combsub_spectral_launch(const float* tooth, const float* noise,
+                                       const float* hm, const float* hp,
+                                       const float* nm, const float* window,
+                                       float* out, int rows, int n, void* stream) {
+  int log2n = 0;
+  while ((1 << log2n) < n) ++log2n;
+  const size_t smem = (size_t)(n + n / 2 + 1 + n / 2) * sizeof(float2);
+  cudaError_t err = cudaFuncSetAttribute(
+      combsub_spectral_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  combsub_spectral_kernel<<<rows, kThreads, smem, (cudaStream_t)stream>>>(
+      tooth, noise, hm, hp, nm, window, out, n, log2n);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,138 @@
+"""Offline conversion: segmentation, the segment loop and the stitching.
+
+Counterpart of `ddsp_svc_tpu/infer/offline.py`. `convert_features` is the
+segment loop of `run_inference` (per-segment bucketed synth, response mask,
+enhancer, silence padding and cross-fade stitching) over features the
+caller already has: units per segment, and f0 and volume for the whole
+input. Feature extraction (HuBERT units, f0, volume) is not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..data.slicer import Slicer
+from ..models.factory import make_bucketed_synth
+from ..models.synths import CombSubFast
+from .enhancer import Enhancer
+
+
+def split(audio: np.ndarray, sample_rate: int, hop_size: float,
+          db_thresh: float = -40, min_len: int = 5000):
+    """Silence segmentation into (start_frame, chunk) (main.py:34-47)."""
+    slicer = Slicer(sr=sample_rate, threshold=db_thresh, min_length=min_len)
+    chunks = slicer.slice(audio)
+    result = []
+    for v in chunks.values():
+        tag = v["split_time"].split(",")
+        if tag[0] != tag[1]:
+            start_frame = int(int(tag[0]) // hop_size)
+            end_frame = int(int(tag[1]) // hop_size)
+            if end_frame > start_frame:
+                result.append(
+                    (start_frame,
+                     audio[int(start_frame * hop_size): int(end_frame * hop_size)])
+                )
+    return result
+
+
+def cross_fade(a: np.ndarray, b: np.ndarray, idx: int) -> np.ndarray:
+    """Linear cross-fade concat at sample idx (main.py:50-57)."""
+    result = np.zeros(idx + b.shape[0])
+    fade_len = a.shape[0] - idx
+    result[:idx] = a[:idx]
+    k = np.linspace(0, 1.0, num=fade_len, endpoint=True)
+    result[idx: a.shape[0]] = (1 - k) * a[idx:] + k * b[:fade_len]
+    result[a.shape[0]:] = b[fade_len:]
+    return result
+
+
+def response_frame_mask(volume: np.ndarray, threshold_db: float) -> np.ndarray:
+    """Volume-threshold mask with 9-frame max dilation, at frame rate."""
+    mask = (volume > 10 ** (threshold_db / 20)).astype(np.float32)
+    mask = np.pad(mask, (4, 4), constant_values=(mask[0], mask[-1]))
+    return np.array([np.max(mask[n: n + 9]) for n in range(len(mask) - 8)])
+
+
+def response_mask(volume: np.ndarray, threshold_db: float, block_size: int
+                  ) -> np.ndarray:
+    """response_frame_mask upsampled linearly to sample rate, (1, T)."""
+    mask = response_frame_mask(volume, threshold_db)
+    nxt = np.concatenate([mask[1:], mask[-1:]])
+    w = (np.arange(block_size) / block_size).astype(np.float32)
+    up = mask[:, None] + (nxt - mask)[:, None] * w[None, :]
+    return up.reshape(1, -1).astype(np.float32)
+
+
+def convert_features(
+    model: CombSubFast,
+    segments: Sequence[Tuple[int, np.ndarray]],
+    f0: np.ndarray,
+    volume: np.ndarray,
+    spk_id: int = 1,
+    spk_mix_dict: Optional[Dict[int, float]] = None,
+    enhancer: Optional[Enhancer] = None,
+    enhancer_adaptive_key=0,
+    threshold_db: float = -60,
+    seed: int = 0,
+    noise_hook: Optional[Callable[[int, tuple], np.ndarray]] = None,
+    enhancer_rand_hook: Optional[Callable[[int], np.ndarray]] = None,
+) -> Tuple[np.ndarray, int]:
+    """Convert an utterance from its features, on the model's device.
+
+    segments: [(start_frame, units (1, n_f, n_unit))], as `split` cuts the
+    input and the units encoder encodes each cut. f0 (1, F, 1) [Hz] after
+    any key change and volume (1, F) cover the whole input on the model's
+    frame grid. noise_hook(i, shape) and enhancer_rand_hook(i) optionally
+    inject segment i's noise excitation and SineGen initial rotations;
+    otherwise both are drawn from a torch.Generator seeded with `seed`.
+    Returns (audio float64 (T,), sample rate).
+    """
+    n_spk = model.unit2ctrl.spk_embed.num_embeddings
+    ids: List[int] = ([int(k) for k in spk_mix_dict] if spk_mix_dict
+                      is not None else [int(spk_id)])
+    bad = [k for k in ids if not 1 <= k <= n_spk]
+    if bad:
+        # an out-of-range embedding lookup would fail on the device
+        raise ValueError(f" [x] speaker ids {bad} out of range [1, {n_spk}]")
+    device = next(model.parameters()).device
+    generator = torch.Generator(device=device).manual_seed(seed)
+    synth = make_bucketed_synth(model, spk_mix_dict=spk_mix_dict)
+    bs = model.block_size
+    sr = model.sampling_rate
+    mask = response_mask(volume[0], threshold_db, bs)
+    spk_id_arr = np.asarray([[int(spk_id)]], dtype=np.int64)
+
+    result = np.zeros(0)
+    current_length = 0
+    sr_o = sr
+    for i, (start_frame, seg_units) in enumerate(segments):
+        n_f = seg_units.shape[1]
+        seg_f0 = f0[:, start_frame: start_frame + n_f, :]
+        seg_volume = volume[:, start_frame: start_frame + n_f]
+        seg_noise = None
+        if noise_hook is not None:
+            seg_noise = np.asarray(noise_hook(i, (1, n_f * bs)), np.float32)
+        seg_out = synth(seg_units, seg_f0, seg_volume, spk_id_arr,
+                        noise=seg_noise, generator=generator)
+        seg_mask = mask[:, start_frame * bs: (start_frame + n_f) * bs]
+        seg_out = seg_out * torch.as_tensor(seg_mask, device=device)
+        if enhancer is not None:
+            enh_rand = None
+            if enhancer_rand_hook is not None:
+                enh_rand = np.asarray(enhancer_rand_hook(i), np.float32)
+            seg_out, sr_o = enhancer.enhance(
+                seg_out, sr, seg_f0, bs, adaptive_key=enhancer_adaptive_key,
+                rand_ini=enh_rand, generator=generator)
+        seg_out = seg_out.cpu().numpy().astype(np.float64).reshape(-1)
+
+        silent_length = round(start_frame * bs * sr_o / sr) - current_length
+        if silent_length >= 0:
+            result = np.append(result, np.zeros(silent_length))
+            result = np.append(result, seg_out)
+        else:
+            result = cross_fade(result, seg_out, current_length + silent_length)
+        current_length = current_length + silent_length + len(seg_out)
+    return result, sr_o

@@ -1,0 +1,83 @@
+"""Model factory: config -> CombSubFast, and the bucketed segment synth.
+
+Counterpart of `ddsp_svc_tpu/models/factory.py` (`build_model` for
+CombSubFast, and `make_jitted_synth(..., mask_padding=True)`).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ..nn.layers import lecun_init_
+from ..utils.config import DotDict
+from ..utils.device import resolve_device
+from .synths import CombSubFast
+
+
+def build_model(args: DotDict, device=None, seed: int = 0) -> CombSubFast:
+    """CombSubFast from a yaml config, weights drawn from `seed`, on
+    `device` (CUDA unless the caller asks for the CPU)."""
+    device = resolve_device(device)
+    if args.model.type != "CombSubFast":
+        raise NotImplementedError(
+            f"model type {args.model.type!r} is not ported yet")
+    if args.model.bf16:
+        raise NotImplementedError("model.bf16 is not ported yet")
+    model = CombSubFast(
+        sampling_rate=args.data.sampling_rate,
+        block_size=args.data.block_size,
+        n_unit=args.data.encoder_out_channels,
+        n_spk=args.model.n_spk,
+        causal=bool(args.model.c),
+        frame_norm=bool(args.model.frame_norm),
+    )
+    lecun_init_(model, torch.Generator().manual_seed(seed))
+    return model.to(device).eval()
+
+
+MIN_BUCKET_FRAMES = 32
+
+
+def make_bucketed_synth(model: CombSubFast,
+                        spk_mix_dict: Optional[Dict[int, float]] = None):
+    """Segment synth with power-of-two frame buckets.
+
+    Segments are padded to max(32, next_pow2(n)) frames: f0 by edge
+    replication, units, volume and noise with zeros, and the true length is
+    passed as `valid_frames` (only when there is padding), so the padded
+    forward equals an exact-length one on the first n frames.
+
+    Returns run(units (1, F, C), f0 (1, F, 1), volume (1, F), spk_id (1, 1),
+    noise=None, generator=None) -> signal (1, F*block) on the model's
+    device. The arrays are numpy; noise optionally injects the uniform(-1, 1)
+    excitation (1, F*block), otherwise it is drawn from `generator`.
+    """
+    block = int(model.block_size)
+    device = next(model.parameters()).device
+
+    @torch.no_grad()
+    def run(units, f0, volume, spk_id, noise=None, generator=None):
+        n = units.shape[1]
+        bucket = max(MIN_BUCKET_FRAMES, 1 << (int(n) - 1).bit_length())
+        pad = bucket - n
+        if pad:
+            units = np.pad(units, ((0, 0), (0, pad), (0, 0)))
+            f0 = np.pad(f0, ((0, 0), (0, pad), (0, 0)), mode="edge")
+            volume = np.pad(volume, ((0, 0), (0, pad)))
+            if noise is not None:
+                noise = np.pad(noise, ((0, 0), (0, pad * block)))
+
+        def dev(a, dtype=torch.float32):
+            return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+        signal, _, _ = model(
+            dev(units), dev(f0), dev(volume), dev(spk_id, torch.int64),
+            spk_mix_dict=spk_mix_dict, infer=True,
+            noise=None if noise is None else dev(noise),
+            valid_frames=n if pad else None, generator=generator,
+        )
+        return signal[:, :n * block]
+
+    return run

@@ -1,0 +1,1 @@
+"""Network modules: layers, PCmer, Unit2Control, NSF-HiFiGAN."""

@@ -1,0 +1,180 @@
+"""PCmer: the conformer-performer backbone of Unit2Control, non-causal path.
+
+Counterpart of `ddsp_svc_tpu/nn/pcmer.py`. Each layer is
+    x = x + SelfAttention(LayerNorm(x));  x = x + ConformerConvModule(x)
+with Performer FAVOR+ attention (dim_head 64, m = int(64 ln 64) = 266
+random features). Module and buffer names follow the reference model's
+state dict (`net.{i}.attn.to_q`, `attn.fast_attention.projection_matrix`,
+`local_mixer.net.{0,2,4,6}`).
+
+At inference the attention runs through the hand-written kernel
+(`ops.kernels.performer_attention`); training and the CPU take the plain
+softmax_kernel + linear_attention below.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.kernels import performer_attention, performer_attention_plain
+from ..ops.masking import frame_mask
+from .layers import Conv1d, glu
+
+
+def gaussian_orthogonal_random_matrix(nb_rows: int, nb_columns: int,
+                                      seed: int) -> np.ndarray:
+    """Orthogonal random feature projection (Performer, scaling=0 mode):
+    QR-orthogonalised Gaussian blocks with chi-distributed row norms. The
+    same numpy draw as the JAX package, so both hold the same matrix for a
+    seed."""
+    rng = np.random.default_rng(seed)
+    blocks = []
+    n_full = nb_rows // nb_columns
+    for _ in range(n_full):
+        q, _ = np.linalg.qr(rng.standard_normal((nb_columns, nb_columns)))
+        blocks.append(q.T)
+    rem = nb_rows - n_full * nb_columns
+    if rem > 0:
+        q, _ = np.linalg.qr(rng.standard_normal((nb_columns, nb_columns)))
+        blocks.append(q.T[:rem])
+    final = np.concatenate(blocks, axis=0)
+    multiplier = np.linalg.norm(
+        rng.standard_normal((nb_rows, nb_columns)), axis=1
+    )
+    return (np.diag(multiplier) @ final).astype(np.float32)
+
+
+def softmax_kernel(data: torch.Tensor, projection: torch.Tensor,
+                   is_query: bool, eps: float = 1e-4) -> torch.Tensor:
+    """FAVOR+ positive softmax features. data (B, H, T, d), projection
+    (m, d) -> (B, H, T, m). The query subtracts its max over the m features
+    of each position; the key keeps the reference's eps inside the exp."""
+    d = data.shape[-1]
+    normalizer = d ** -0.25
+    ratio = projection.shape[0] ** -0.5
+    data_dash = torch.einsum("bhid,jd->bhij", normalizer * data, projection)
+    diag = (data * data).sum(-1, keepdim=True) * 0.5 * normalizer ** 2
+    if is_query:
+        return ratio * (torch.exp(
+            data_dash - diag - data_dash.amax(dim=-1, keepdim=True)) + eps)
+    return ratio * torch.exp(data_dash - diag + eps)
+
+
+def linear_attention(q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor) -> torch.Tensor:
+    """Non-causal linear attention. q, k (B, H, T, m); v (B, H, T, d)."""
+    k_sum = k.sum(dim=-2)
+    d_inv = 1.0 / (torch.einsum("...nd,...d->...n", q, k_sum) + 1e-8)
+    context = torch.einsum("...nd,...ne->...de", k, v)
+    return torch.einsum("...de,...nd,...n->...ne", context, q, d_inv)
+
+
+class FastAttention(nn.Module):
+    """Holds the fixed random projection, as the reference module does."""
+
+    def __init__(self, dim_head: int, nb_features: int, seed: int):
+        super().__init__()
+        self.register_buffer("projection_matrix", torch.from_numpy(
+            gaussian_orthogonal_random_matrix(nb_features, dim_head, seed)))
+
+
+class SelfAttention(nn.Module):
+    """Multi-head Performer self-attention, (B, T, dim) -> (B, T, dim)."""
+
+    def __init__(self, dim: int, heads: int = 8, dim_head: int = 64,
+                 causal: bool = False, proj_seed: int = 0):
+        super().__init__()
+        if causal:
+            raise NotImplementedError(
+                "causal PCmer attention is not ported yet")
+        self.heads = heads
+        self.dim_head = dim_head
+        inner = heads * dim_head
+        self.fast_attention = FastAttention(
+            dim_head, int(dim_head * math.log(dim_head)), proj_seed)
+        self.to_q = nn.Linear(dim, inner)
+        self.to_k = nn.Linear(dim, inner)
+        self.to_v = nn.Linear(dim, inner)
+        self.to_out = nn.Linear(inner, dim)
+
+    def forward(self, x: torch.Tensor, infer: bool = False,
+                valid_frames=None) -> torch.Tensor:
+        """valid_frames: zero the key features past each item's true length,
+        so padded frames feed neither the context nor the denominator."""
+        b, n, _ = x.shape
+
+        def split_heads(t):
+            return t.reshape(b, n, self.heads,
+                             self.dim_head).transpose(1, 2).contiguous()
+
+        q, k, v = (split_heads(f(x)) for f in (self.to_q, self.to_k, self.to_v))
+        proj = self.fast_attention.projection_matrix
+        attend = performer_attention if infer else performer_attention_plain
+        out = attend(q, k, v, proj, valid_frames)
+        out = out.transpose(1, 2).reshape(b, n, self.heads * self.dim_head)
+        return self.to_out(out)
+
+
+class ConformerConvModule(nn.Module):
+    """LN -> pointwise x2 -> GLU -> depthwise k31 -> SiLU -> pointwise."""
+
+    def __init__(self, dim: int, causal: bool = False,
+                 expansion_factor: int = 2, kernel_size: int = 31):
+        super().__init__()
+        inner = dim * expansion_factor
+        self.net = nn.ModuleDict({
+            "0": nn.LayerNorm(dim, eps=1e-5),
+            "2": nn.Conv1d(dim, inner * 2, 1),
+            "4": Conv1d(inner, inner, kernel_size, causal=causal,
+                        groups=inner),
+            "6": nn.Conv1d(inner, dim, 1),
+        })
+
+    def forward(self, x: torch.Tensor, valid_frames=None) -> torch.Tensor:
+        net = self.net
+        x = net["0"](x)
+        x = glu(F.linear(x, net["2"].weight[:, :, 0], net["2"].bias))
+        if valid_frames is not None:
+            # zero pad frames: the depthwise conv then sees exactly the zeros
+            # its own boundary padding gives at the true length
+            x = x * frame_mask(x.shape[1], valid_frames, x.dtype,
+                               x.device)[:, :, None]
+        x = F.silu(net["4"](x))
+        return F.linear(x, net["6"].weight[:, :, 0], net["6"].bias)
+
+
+class PCmerLayer(nn.Module):
+    def __init__(self, dim: int, heads: int, causal: bool = False,
+                 proj_seed: int = 0):
+        super().__init__()
+        self.norm = nn.LayerNorm(dim, eps=1e-5)
+        self.attn = SelfAttention(dim, heads, causal=causal,
+                                  proj_seed=proj_seed)
+        self.local_mixer = ConformerConvModule(dim, causal=causal)
+
+    def forward(self, x: torch.Tensor, infer: bool = False,
+                valid_frames=None) -> torch.Tensor:
+        x = x + self.attn(self.norm(x), infer=infer, valid_frames=valid_frames)
+        return x + self.local_mixer(x, valid_frames=valid_frames)
+
+
+class PCmer(nn.Module):
+    """Stack of PCmer layers; layer i draws its projection from seed i."""
+
+    def __init__(self, num_layers: int, num_heads: int, dim_model: int,
+                 causal: bool = False):
+        super().__init__()
+        self.net = nn.ModuleList(
+            PCmerLayer(dim_model, num_heads, causal=causal, proj_seed=i)
+            for i in range(num_layers)
+        )
+
+    def forward(self, x: torch.Tensor, infer: bool = False,
+                valid_frames=None) -> torch.Tensor:
+        for layer in self.net:
+            x = layer(x, infer=infer, valid_frames=valid_frames)
+        return x

@@ -1,0 +1,100 @@
+"""Unit2Control: units + f0/phase/volume/speaker -> DSP control parameters.
+
+Counterpart of `ddsp_svc_tpu/nn/unit2control.py`:
+  PreNet (Conv k3 -> GroupNorm(4) -> LeakyReLU -> Conv k3)
+  + Linear(1, 256) embeddings of log-scaled f0, phase/pi and volume
+  + the speaker embedding, ids counted from 1 (or a {spk: weight} mix)
+  -> PCmer(3 layers, 8 heads, 256) -> LayerNorm -> weight-norm Linear
+  -> the named control dict.
+Submodules carry the reference model's state-dict names (`unit_prenet.1`,
+`dec_post.0.net.{i}`, `dec_post.2.weight_g`, ...).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from ..ops.masking import frame_mask, valid_col
+from .layers import Conv1d, GroupNorm, WeightNormDense, leaky_relu
+from .pcmer import PCmer
+
+
+def split_to_dict(tensor: torch.Tensor,
+                  tensor_splits: Dict[str, int]) -> Dict[str, torch.Tensor]:
+    out, start = {}, 0
+    for k, size in tensor_splits.items():
+        out[k] = tensor[..., start:start + size]
+        start += size
+    return out
+
+
+class Unit2Control(nn.Module):
+    def __init__(self, input_channel: int, n_spk: int,
+                 output_splits: Dict[str, int], causal: bool = False,
+                 ndim_feat: int = 256, num_layers: int = 3,
+                 num_heads: int = 8, frame_norm: bool = False):
+        super().__init__()
+        if frame_norm:
+            raise NotImplementedError(
+                "frame-local prenet norm (frame_norm) is not ported yet")
+        d = ndim_feat
+        self.output_splits = dict(output_splits)
+        self.unit_prenet = nn.ModuleDict({
+            "1": Conv1d(input_channel, d, 3, causal=causal),
+            "2": GroupNorm(4, d),
+            "4": Conv1d(d, d, 3, causal=causal),
+        })
+        self.f0_embed = nn.Linear(1, d)
+        self.phase_embed = nn.Linear(1, d)
+        self.volume_embed = nn.Linear(1, d)
+        self.spk_embed = nn.Embedding(n_spk, d)
+        self.dec_post = nn.ModuleDict({
+            "0": PCmer(num_layers, num_heads, d, causal=causal),
+            "1": nn.LayerNorm(d, eps=1e-5),
+            "2": WeightNormDense(d, sum(self.output_splits.values())),
+        })
+
+    def forward(self, units: torch.Tensor, f0: torch.Tensor,
+                phase: torch.Tensor, volume: torch.Tensor,
+                spk_id: Optional[torch.Tensor] = None,
+                spk_mix_dict: Optional[Dict[int, float]] = None,
+                infer: bool = False, valid_frames=None
+                ) -> Dict[str, torch.Tensor]:
+        """units (B, F, C), f0 (B, F, 1) [Hz], phase (B, F) [rad],
+        volume (B, F), spk_id (B,) or (B, 1), 1-based. valid_frames: the true
+        length of bucket-padded inputs; statistics, attention and convs are
+        masked to it, and the control tail past it repeats the last valid
+        frame. Returns {name: (B, F, size)}."""
+        prenet = self.unit_prenet
+        fmask = None
+        if valid_frames is not None:
+            fmask = frame_mask(units.shape[1], valid_frames, units.dtype,
+                               units.device)[:, :, None]
+            units = units * fmask
+        x = prenet["1"](units)
+        x = leaky_relu(prenet["2"](x, valid_frames=valid_frames))
+        if fmask is not None:
+            x = x * fmask
+        x = prenet["4"](x)
+        x = (x + self.f0_embed(torch.log1p(f0 / 700.0))
+             + self.phase_embed(phase[..., None] / np.pi)
+             + self.volume_embed(volume[..., None]))
+        if spk_mix_dict is not None:
+            for k, w in spk_mix_dict.items():
+                x = x + w * self.spk_embed.weight[int(k) - 1]
+        else:
+            if spk_id.ndim == 1:
+                spk_id = spk_id[:, None]
+            x = x + self.spk_embed(spk_id - 1)
+        x = self.dec_post["0"](x, infer=infer, valid_frames=valid_frames)
+        e = self.dec_post["2"](self.dec_post["1"](x))
+        if valid_frames is not None:
+            idx = torch.minimum(
+                torch.arange(e.shape[1], device=e.device)[None, :],
+                valid_col(valid_frames, torch.int64, e.device) - 1,
+            )
+            e = torch.take_along_dim(e, idx[:, :, None], dim=1)
+        return split_to_dict(e, self.output_splits)

@@ -1,0 +1,17 @@
+"""Frame-rate -> sample-rate linear upsampling (the reference's
+align_corners upsampler: last frame repeated, last sample dropped)."""
+from __future__ import annotations
+
+import torch
+
+
+def upsample_frames(signal: torch.Tensor, factor: int) -> torch.Tensor:
+    """(B, Frame, Feat) -> (B, Frame*factor, Feat): output sample (f, s) is
+    a[f] + (a[f+1] - a[f]) * s / factor with the last frame repeated."""
+    b, n_frames, feat = signal.shape
+    nxt = torch.cat([signal[:, 1:], signal[:, -1:]], dim=1)
+    slope = nxt - signal
+    w = torch.arange(factor, dtype=torch.float64, device=signal.device)
+    w = (w / factor).to(signal.dtype)
+    out = signal[:, :, None, :] + slope[:, :, None, :] * w[None, None, :, None]
+    return out.reshape(b, n_frames * factor, feat)

@@ -1,0 +1,328 @@
+"""The four hand-written Hopper kernels of the main path, each beside its
+plain PyTorch version.
+
+Counterpart of `ddsp_svc_tpu/ops/pallas_kernels.py`:
+
+    performer_attention      <- performer_attention_pallas (masked form)
+    combsub_spectral         <- combsub_spectral_pallas (forward)
+    harmonic_source          <- harmonic_source_pallas
+    fused_resblocks_inject   <- fused_resblocks_inject_pallas, and with
+                                har=None fused_resblocks_pallas
+
+Each wrapper takes its plain version only for CPU tensors. For any other
+(CUDA) tensor it checks device, dtype, shape and contiguity, allocates the
+outputs, and launches its kernel (csrc/<name>.cu, built by ops/build.py) on
+the current stream, or raises; it never falls back. `wrapper.launches` counts the
+launches. Layouts at these functions are the JAX package's: (B, T, C)
+activations, (B, H, T, d) attention.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .build import library
+from .masking import frame_mask
+from .windows import sqrt_hann_window
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+_SIGNATURES = {
+    "performer_attention_launch": [_P] * 8 + [_I] * 3 + [_F, _F, _P],
+    "combsub_spectral_launch": [_P] * 7 + [_I, _I, _P],
+    "harmonic_source_launch": [_P] * 5 + [_I, _I, _I, _F, _P],
+    "resblocks_launch": [_P] * 12 + [_I] * 9 + [_P],
+}
+
+
+def _c_function(lib_name: str, symbol: str):
+    fn = getattr(library(lib_name), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = _SIGNATURES[symbol]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(lib_name: str, symbol: str, *args) -> None:
+    err = _c_function(lib_name, symbol)(*args)
+    if err != 0:
+        raise RuntimeError(f"{symbol} failed: CUDA error {err}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _check(t: torch.Tensor, name: str, shape, device,
+           dtype=torch.float32) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+
+
+def _lengths(valid, b: int, default: int, device) -> torch.Tensor:
+    """valid lengths (None, int, 0-d or (B,)) as a (B,) int32 tensor."""
+    v = default if valid is None else valid
+    v = torch.as_tensor(v, device=device).to(torch.int32).reshape(-1)
+    return v.expand(b).contiguous()
+
+
+def launch_counts() -> dict:
+    return {f.__name__: f.launches for f in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for f in KERNELS:
+        f.launches = 0
+
+
+# --------------------------- performer attention ---------------------------
+
+
+def performer_attention_plain(q, k, v, projection, valid_frames=None):
+    """softmax_kernel features of q and k, key features zeroed past
+    valid_frames, then non-causal linear attention. (B, H, T, d) fp32."""
+    # nn.pcmer imports this module, so its feature maps are imported here
+    from ..nn.pcmer import linear_attention, softmax_kernel
+
+    qf = softmax_kernel(q, projection, is_query=True)
+    kf = softmax_kernel(k, projection, is_query=False)
+    if valid_frames is not None:
+        kf = kf * frame_mask(k.shape[2], valid_frames, kf.dtype,
+                             kf.device)[:, None, :, None]
+    return linear_attention(qf, kf, v)
+
+
+def performer_attention(q, k, v, projection, valid_frames=None):
+    """Fused non-causal FAVOR+ attention: q, k, v (B, H, T, 64) fp32,
+    projection (266, 64) -> (B, H, T, 64). valid_frames (int, 0-d or (B,))
+    masks the key features of padded frames; output rows past it are
+    meaningless, as in the plain version."""
+    if q.device.type == "cpu":
+        return performer_attention_plain(q, k, v, projection, valid_frames)
+    b, h, t, d = q.shape
+    m = projection.shape[0]
+    if (m, d) != (266, 64):
+        raise ValueError(f"performer_attention takes dim_head 64 and 266 "
+                         f"features, got {d} and {m}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        _check(x, name, (b, h, t, d), q.device)
+    _check(projection, "projection", (m, d), q.device)
+    valid = _lengths(valid_frames, b, t, q.device)
+    ctx_size = m * (d + 1)  # the (m, d) context and the m key sums
+    part = torch.empty((b * h * -(-t // 32) * ctx_size,), device=q.device)
+    ctx = torch.empty((b * h * ctx_size,), device=q.device)
+    out = torch.empty_like(q)
+    _launch("performer_attention", "performer_attention_launch",
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), projection.data_ptr(),
+            valid.data_ptr(), part.data_ptr(), ctx.data_ptr(), out.data_ptr(),
+            b, h, t, d ** -0.25, m ** -0.5, _stream(q))
+    performer_attention.launches += 1
+    return out
+
+
+# ------------------------------ combsub spectral ----------------------------
+
+
+def combsub_spectral_plain(tooth_frames, noise_frames, hm, hp, nm,
+                           n_fft: int):
+    """irfft(rfft(tooth) * exp(hm + j*pi*hp) + rfft(noise) * exp(nm)/128)
+    * sqrt_hann, per row. (R, n_fft) frames, (R, n_fft//2+1) controls."""
+    tf = torch.fft.rfft(tooth_frames, n_fft)
+    nf = torch.fft.rfft(noise_frames, n_fft)
+    flt = torch.polar(torch.exp(hm), np.pi * hp)
+    sig = torch.fft.irfft(tf * flt + nf * (torch.exp(nm) / 128.0), n_fft)
+    return sig * sqrt_hann_window(n_fft, dtype=sig.dtype, device=sig.device)
+
+
+def combsub_spectral(tooth_frames, noise_frames, hm, hp, nm, n_fft: int):
+    """The CombSubFast STFT-domain filter chain of one frame row per block:
+    windowed excitation frames (R, n_fft) and raw controls (R, n_fft//2+1)
+    -> windowed output frames (R, n_fft). n_fft a power of two, 64..4096."""
+    if tooth_frames.device.type == "cpu":
+        return combsub_spectral_plain(tooth_frames, noise_frames, hm, hp, nm,
+                                      n_fft)
+    if n_fft & (n_fft - 1) or not 64 <= n_fft <= 4096:
+        raise ValueError(f"combsub_spectral takes a power-of-two n_fft in "
+                         f"[64, 4096], got {n_fft}")
+    rows = tooth_frames.shape[0]
+    dev = tooth_frames.device
+    _check(tooth_frames, "tooth_frames", (rows, n_fft), dev)
+    _check(noise_frames, "noise_frames", (rows, n_fft), dev)
+    for name, x in (("hm", hm), ("hp", hp), ("nm", nm)):
+        _check(x, name, (rows, n_fft // 2 + 1), dev)
+    window = sqrt_hann_window(n_fft, device=dev)
+    out = torch.empty_like(tooth_frames)
+    _launch("combsub_spectral", "combsub_spectral_launch",
+            tooth_frames.data_ptr(), noise_frames.data_ptr(), hm.data_ptr(),
+            hp.data_ptr(), nm.data_ptr(), window.data_ptr(), out.data_ptr(),
+            rows, n_fft, _stream(out))
+    combsub_spectral.launches += 1
+    return out
+
+
+# ------------------------------ harmonic source -----------------------------
+
+
+def harmonic_source_plain(start, rad, w, b, upp: int, sine_amp: float = 0.1):
+    """tanh(sine_amp * sum_k w_k sin(2 pi wrap(start_k + rad_k s)) + b) for
+    s = 1..upp. start, rad (B, F, H); w (H,); b (1,) -> (B, F*upp)."""
+    s = torch.arange(1, upp + 1, dtype=start.dtype, device=start.device)
+    ph = start[:, :, None, :] + rad[:, :, None, :] * s[None, None, :, None]
+    ph = ph - torch.round(ph)
+    acc = (torch.sin(2.0 * np.pi * ph) * w).sum(-1)
+    bsz, f, _ = start.shape
+    return torch.tanh(sine_amp * acc + b).reshape(bsz, f * upp)
+
+
+def harmonic_source(start, rad, w, b, upp: int, sine_amp: float = 0.1):
+    """The NSF harmonic source merge: only the merged audio is written, the
+    (B, F, upp, H) sine bank never exists. Same arguments as the plain
+    version; b is a (1,) tensor so that no host read is needed."""
+    if start.device.type == "cpu":
+        return harmonic_source_plain(start, rad, w, b, upp, sine_amp)
+    bsz, f, n_h = start.shape
+    dev = start.device
+    _check(start, "start", (bsz, f, n_h), dev)
+    _check(rad, "rad", (bsz, f, n_h), dev)
+    _check(w, "w", (n_h,), dev)
+    _check(b, "b", (1,), dev)
+    out = torch.empty((bsz, f * upp), dtype=torch.float32, device=dev)
+    _launch("harmonic_source", "harmonic_source_launch",
+            start.data_ptr(), rad.data_ptr(), w.data_ptr(), b.data_ptr(),
+            out.data_ptr(), bsz * f, n_h, upp, sine_amp, _stream(out))
+    harmonic_source.launches += 1
+    return out
+
+
+# ------------------------- resblock trio (+ injection) ----------------------
+
+TRIO_KERNEL_SIZES = (3, 7, 11)
+TRIO_CHANNELS = (8, 16, 32, 64)
+
+
+def resblock1_cf(x, weights, biases, kernel_size: int,
+                 dilations: Sequence[int], mask=None):
+    """One ResBlock1 chain on channel-first x (B, C, T): per dilation
+    leaky(0.1) -> dilated conv -> leaky(0.1) -> conv, residual add.
+    weights (n_dil, 2, C, C, k), biases (n_dil, 2, C); mask (B?, 1, T)
+    zeroes each conv's input past the valid length."""
+    k = kernel_size
+    for i, d in enumerate(dilations):
+        t = F.leaky_relu(x, 0.1)
+        if mask is not None:
+            t = t * mask
+        t = F.conv1d(t, weights[i][0], biases[i][0],
+                     padding=(k * d - d) // 2, dilation=d)
+        t = F.leaky_relu(t, 0.1)
+        if mask is not None:
+            t = t * mask
+        t = F.conv1d(t, weights[i][1], biases[i][1], padding=(k - 1) // 2)
+        x = x + t
+    return x
+
+
+def noise_conv_cf(har, weight, bias, stride: int, t_out: int):
+    """The Generator's f0-source injection conv: har (B, 1, T_final) ->
+    (B, C, t_out); kernel 2*stride with padding stride//2, or kernel 1."""
+    return F.conv1d(har, weight, bias, stride=stride,
+                    padding=stride // 2)[..., :t_out]
+
+
+def resblocks_inject_plain(x_up, har, nc_weight, nc_bias, weights, biases,
+                           s_src: int, dilations=(1, 3, 5), valid=None):
+    """x = x_up + noise_conv(har), then the mean of the ResBlock1 chains.
+    x_up (B, T, C); har (B, T_final, 1) or None (no injection); nc_weight
+    (C, 1, ksrc); weights[r] (n_dil, 2, C, C, k_r); biases[r] (n_dil, 2, C);
+    valid (optional sample counts) masks every conv input and zeroes the
+    output past it. Returns (B, T, C)."""
+    x = x_up.transpose(1, 2)
+    t = x.shape[-1]
+    if har is not None:
+        x = x + noise_conv_cf(har.transpose(1, 2), nc_weight, nc_bias, s_src,
+                              t)
+    mask = None
+    if valid is not None:
+        mask = frame_mask(t, valid, x.dtype, x.device)[:, None, :]
+        x = x * mask
+    acc = None
+    for w, b in zip(weights, biases):
+        h = resblock1_cf(x, w, b, w.shape[-1], dilations, mask)
+        acc = h if acc is None else acc + h
+    out = acc / len(weights)
+    if mask is not None:
+        out = out * mask
+    return out.transpose(1, 2)
+
+
+def fused_resblocks_inject(x_up, har, nc_weight, nc_bias, weights, biases,
+                           s_src: int, dilations=(1, 3, 5), valid=None):
+    """The narrow-stage trio in one kernel: injection conv, three ResBlock1
+    chains (k = 3/7/11) and their mean, on time tiles held in shared
+    memory. Same arguments and result as resblocks_inject_plain; har=None
+    runs the trio alone (the fused_resblocks_pallas form)."""
+    if x_up.device.type == "cpu":
+        return resblocks_inject_plain(x_up, har, nc_weight, nc_bias, weights,
+                                      biases, s_src, dilations, valid)
+    bsz, t, c = x_up.shape
+    dev = x_up.device
+    ks = tuple(int(w.shape[-1]) for w in weights)
+    if ks != TRIO_KERNEL_SIZES or c not in TRIO_CHANNELS:
+        raise ValueError(f"fused_resblocks_inject takes kernel sizes "
+                         f"{TRIO_KERNEL_SIZES} and C in {TRIO_CHANNELS}, got "
+                         f"{ks} and C={c}")
+    dils = tuple(int(d) for d in dilations)
+    # the receptive margin of the widest chain must fit the kernel's 64-sample
+    # tile halo, and each tap offset its 32-column row padding
+    if len(dils) != 3 or 5 * sum(dils) + 15 > 64 or 5 * max(dils) > 32:
+        raise ValueError(f"unsupported dilations {dils}")
+    x_cf = x_up.transpose(1, 2).contiguous()
+    _check(x_cf, "x_up", (bsz, c, t), dev)
+    w_k, b_k = [], []
+    for w, bias, k in zip(weights, biases, ks):
+        _check(w, "weight", (3, 2, c, c, k), dev)
+        _check(bias, "bias", (3, 2, c), dev)
+        # kernel layout (dilation, conv, C_in, tap, C_out)
+        w_k.append(w.permute(0, 1, 3, 4, 2).contiguous())
+        b_k.append(bias)
+    har2 = wnc = bnc = None
+    t_final = ksrc = 0
+    if har is not None:
+        t_final = har.shape[1]
+        ksrc = nc_weight.shape[-1]
+        har2 = har.reshape(bsz, t_final)
+        _check(har2, "har", (bsz, t_final), dev)
+        _check(nc_weight, "nc_weight", (c, 1, ksrc), dev)
+        _check(nc_bias, "nc_bias", (c,), dev)
+        wnc = nc_weight.reshape(c, ksrc)
+        bnc = nc_bias
+    vl = None if valid is None else _lengths(valid, bsz, t, dev)
+    out = torch.empty_like(x_cf)
+    _launch("resblocks", "resblocks_launch",
+            x_cf.data_ptr(), _ptr(har2), _ptr(wnc), _ptr(bnc),
+            *(w.data_ptr() for w in w_k), *(b.data_ptr() for b in b_k),
+            _ptr(vl), out.data_ptr(), bsz, c, t, t_final, s_src, ksrc,
+            *dils, _stream(out))
+    fused_resblocks_inject.launches += 1
+    return out.transpose(1, 2)
+
+
+KERNELS = (performer_attention, combsub_spectral, harmonic_source,
+           fused_resblocks_inject)
+reset_launch_counts()

@@ -1,0 +1,112 @@
+"""Framing, overlap-add, STFT and the NSF-HiFiGAN log-mel frontend.
+
+Transforms go through torch.fft (cuFFT on the card). The mel filterbank is
+a numpy copy of `ddsp_svc_tpu/ops/spectral.py::mel_filterbank` (librosa
+slaney parity), so both packages share one basis bit for bit.
+"""
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .windows import hann_window
+
+
+def frame_signal(x: torch.Tensor, frame_size: int, hop: int) -> torch.Tensor:
+    """(B, T) -> (B, n_frames, frame_size), n = (T - frame)//hop + 1
+    (torch unfold semantics)."""
+    return x.unfold(-1, frame_size, hop)
+
+
+def overlap_add_half(frames: torch.Tensor, hop: int) -> torch.Tensor:
+    """50%-overlap OLA as two shifted adds. (B, n, 2*hop) -> (B, (n+1)*hop)."""
+    b, n, frame = frames.shape
+    if frame != 2 * hop:
+        raise ValueError(f"frame {frame} != 2 * hop {hop}")
+    first = frames[:, :, :hop].reshape(b, n * hop)
+    second = frames[:, :, hop:].reshape(b, n * hop)
+    pad = frames.new_zeros((b, hop))
+    return torch.cat([first, pad], 1) + torch.cat([pad, second], 1)
+
+
+def stft(x: torch.Tensor, n_fft: int, hop: int, window: torch.Tensor
+         ) -> torch.Tensor:
+    """center=False STFT. (B, T) -> (B, n_frames, n_fft//2+1) complex; a
+    window shorter than n_fft is zero-padded on both sides (torch.stft)."""
+    win_length = window.shape[0]
+    if win_length < n_fft:
+        lpad = (n_fft - win_length) // 2
+        window = F.pad(window, (lpad, n_fft - win_length - lpad))
+    return torch.fft.rfft(frame_signal(x, n_fft, hop) * window, n_fft)
+
+
+def _hz_to_mel(f):
+    """Slaney mel scale (librosa default, htk=False)."""
+    f = np.asarray(f, dtype=np.float64)
+    f_sp = 200.0 / 3
+    min_log_hz = 1000.0
+    min_log_mel = min_log_hz / f_sp
+    logstep = np.log(6.4) / 27.0
+    return np.where(
+        f >= min_log_hz,
+        min_log_mel + np.log(np.maximum(f, 1e-10) / min_log_hz) / logstep,
+        f / f_sp,
+    )
+
+
+def _mel_to_hz(m):
+    m = np.asarray(m, dtype=np.float64)
+    f_sp = 200.0 / 3
+    min_log_hz = 1000.0
+    min_log_mel = min_log_hz / f_sp
+    logstep = np.log(6.4) / 27.0
+    return np.where(m >= min_log_mel,
+                    min_log_hz * np.exp(logstep * (m - min_log_mel)), f_sp * m)
+
+
+@lru_cache(maxsize=16)
+def mel_filterbank(sr: int, n_fft: int, n_mels: int, fmin: float = 0.0,
+                   fmax: float | None = None) -> np.ndarray:
+    """Slaney-normalized triangular mel filterbank, (n_mels, n_fft//2+1)
+    float32 (librosa.filters.mel parity). Cached: treat as read-only."""
+    fmax = sr / 2 if fmax is None else fmax
+    fft_freqs = np.linspace(0.0, sr / 2, n_fft // 2 + 1)
+    mel_pts = np.linspace(_hz_to_mel(fmin), _hz_to_mel(fmax), n_mels + 2)
+    hz_pts = _mel_to_hz(mel_pts)
+    fdiff = np.diff(hz_pts)
+    ramps = hz_pts[:, None] - fft_freqs[None, :]
+    lower = -ramps[:-2] / fdiff[:-1, None]
+    upper = ramps[2:] / fdiff[1:, None]
+    weights = np.maximum(0.0, np.minimum(lower, upper))
+    enorm = 2.0 / (hz_pts[2: n_mels + 2] - hz_pts[:n_mels])
+    return (weights * enorm[:, None]).astype(np.float32)
+
+
+def log_mel_spectrogram(x: torch.Tensor, sr: int, n_fft: int, hop: int,
+                        win_length: int, n_mels: int, fmin: float, fmax: float,
+                        clip_val: float = 1e-5, mxu_bf16: bool = False,
+                        keyshift: float = 0.0, speed: float = 1.0
+                        ) -> torch.Tensor:
+    """NSF-HiFiGAN mel frontend (nvSTFT.get_mel parity, fp32 FFT branch):
+    reflect pad ((win-hop)//2, max((win-hop+1)//2, hop)), center=False
+    STFT, magnitude sqrt(re^2 + im^2 + 1e-9), slaney mel, log(clamp).
+    (B, T) -> (B, n_mels, n_frames)."""
+    if mxu_bf16:
+        raise NotImplementedError("the bf16 DFT mel branch is not ported yet")
+    if keyshift != 0 or speed != 1:
+        raise NotImplementedError(
+            "keyshift/speed mel analysis is not ported yet"
+        )
+    pad_l = (win_length - hop) // 2
+    pad_r = max((win_length - hop + 1) // 2, hop)
+    x = F.pad(x[:, None, :], (pad_l, pad_r), mode="reflect")[:, 0, :]
+    win = hann_window(win_length, dtype=x.dtype, device=x.device)
+    spec = stft(x, n_fft, hop, win)
+    mag = torch.sqrt(spec.real ** 2 + spec.imag ** 2 + 1e-9)
+    basis = torch.as_tensor(mel_filterbank(sr, n_fft, n_mels, fmin, fmax),
+                            device=x.device)
+    mel = torch.einsum("mf,btf->bmt", basis, mag)
+    return torch.log(torch.clamp(mel, min=clip_val))

@@ -1,0 +1,23 @@
+"""Periodic windows (torch.hann_window conventions), computed in float64 on
+the host and cast, as `ddsp_svc_tpu/ops/windows.py` does, so both packages
+hold bit-identical window constants."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _periodic_hann(n: int) -> np.ndarray:
+    return 0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n) / max(n, 1))
+
+
+def hann_window(n: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """Periodic Hann window of length n."""
+    return torch.as_tensor(_periodic_hann(n), dtype=dtype, device=device)
+
+
+def sqrt_hann_window(n: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """sqrt of the periodic Hann window: the 50%-overlap analysis/synthesis
+    window of the CombSubFast synthesizer."""
+    return torch.as_tensor(np.sqrt(_periodic_hann(n)), dtype=dtype,
+                           device=device)

@@ -1,0 +1,20 @@
+"""YAML config -> attribute-access dict (missing keys read as None)."""
+from __future__ import annotations
+
+import yaml
+
+
+class DotDict(dict):
+    """dict with attribute access; nested dicts wrap lazily, missing -> None."""
+
+    def __getattr__(self, name: str):
+        val = dict.get(self, name)
+        return DotDict(val) if type(val) is dict else val
+
+    __setattr__ = dict.__setitem__
+    __delattr__ = dict.__delitem__
+
+
+def load_config(path_config: str) -> DotDict:
+    with open(path_config, "r") as f:
+        return DotDict(yaml.safe_load(f))

@@ -1,0 +1,105 @@
+"""The weight bridge: the JAX package's flax variables -> the port's
+state_dict.
+
+Each function takes the flax variable tree as nested dicts of numpy arrays
+and inverts the layouts that `ddsp_svc_tpu/utils/convert.py` documents:
+    Conv             (k, in, out) -> (out, in, k)
+    Dense            (in, out)    -> (out, in)
+    ConvTranspose    (k, in, out) -> (in, out, k)
+    WeightNormDense  g (out,), v (in, out) -> weight_g (out, 1), weight_v
+    PCmer projections from the `constants` collection.
+The keys are the port's, which are the reference model's own.
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def _t(a) -> torch.Tensor:
+    return torch.tensor(np.asarray(a, np.float32))
+
+
+def _conv(p: Mapping) -> Dict[str, torch.Tensor]:
+    out = {"weight": _t(np.asarray(p["kernel"]).transpose(2, 1, 0))}
+    if "bias" in p:
+        out["bias"] = _t(p["bias"])
+    return out
+
+
+def _dense(p: Mapping) -> Dict[str, torch.Tensor]:
+    return {"weight": _t(np.asarray(p["kernel"]).T), "bias": _t(p["bias"])}
+
+
+def _pointwise(p: Mapping) -> Dict[str, torch.Tensor]:
+    """A Dense applied per frame -> a kernel-1 conv (out, in, 1)."""
+    return {"weight": _t(np.asarray(p["kernel"]).T[:, :, None]),
+            "bias": _t(p["bias"])}
+
+
+def _norm(p: Mapping) -> Dict[str, torch.Tensor]:
+    return {"weight": _t(p["scale"]), "bias": _t(p["bias"])}
+
+
+def _put(sd: Dict[str, torch.Tensor], prefix: str, tensors: Mapping) -> None:
+    for k, v in tensors.items():
+        sd[f"{prefix}.{k}"] = v
+
+
+def jax_synth_to_torch(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """CombSubFast flax variables {'params', 'constants'} -> state_dict."""
+    p = variables["params"]["unit2ctrl"]
+    consts = variables["constants"]["unit2ctrl"]["decoder"]
+    sd: Dict[str, torch.Tensor] = {}
+    u = "unit2ctrl"
+    _put(sd, f"{u}.unit_prenet.1", _conv(p["prenet_conv0"]["Conv_0"]))
+    _put(sd, f"{u}.unit_prenet.2", _norm(p["prenet_gn"]))
+    _put(sd, f"{u}.unit_prenet.4", _conv(p["prenet_conv1"]["Conv_0"]))
+    for name in ("f0_embed", "phase_embed", "volume_embed"):
+        _put(sd, f"{u}.{name}", _dense(p[name]))
+    sd[f"{u}.spk_embed.weight"] = _t(p["spk_embed"]["embedding"])
+    _put(sd, f"{u}.dec_post.1", _norm(p["norm"]))
+    wn = p["dense_out"]
+    sd[f"{u}.dec_post.2.weight_g"] = _t(np.asarray(wn["g"])[:, None])
+    sd[f"{u}.dec_post.2.weight_v"] = _t(np.asarray(wn["v"]).T)
+    sd[f"{u}.dec_post.2.bias"] = _t(wn["bias"])
+    layers = p["decoder"]
+    for i in range(len(layers)):
+        lp = f"{u}.dec_post.0.net.{i}"
+        layer = layers[f"layer_{i}"]
+        _put(sd, f"{lp}.norm", _norm(layer["norm"]))
+        for name in ("to_q", "to_k", "to_v", "to_out"):
+            _put(sd, f"{lp}.attn.{name}", _dense(layer["attn"][name]))
+        sd[f"{lp}.attn.fast_attention.projection_matrix"] = _t(
+            consts[f"layer_{i}"]["attn"]["projection"])
+        conv = layer["conv"]
+        _put(sd, f"{lp}.local_mixer.net.0", _norm(conv["LayerNorm_0"]))
+        _put(sd, f"{lp}.local_mixer.net.2", _pointwise(conv["Dense_0"]))
+        _put(sd, f"{lp}.local_mixer.net.4", _conv(conv["Conv1d_0"]["Conv_0"]))
+        _put(sd, f"{lp}.local_mixer.net.6", _pointwise(conv["Dense_1"]))
+    return sd
+
+
+def jax_nsf_to_torch(params: Mapping, h: Mapping) -> Dict[str, torch.Tensor]:
+    """NSF-HiFiGAN Generator flax params (the 'params' collection) ->
+    state_dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    _put(sd, "conv_pre", _conv(params["conv_pre"]))
+    _put(sd, "conv_post", _conv(params["conv_post"]))
+    _put(sd, "m_source.l_linear", _dense(params["source_linear"]))
+    n_k = len(h["resblock_kernel_sizes"])
+    n_dil = len(h["resblock_dilation_sizes"][0])
+    for i in range(len(h["upsample_rates"])):
+        up = params[f"up_{i}"]
+        sd[f"ups.{i}.weight"] = _t(np.asarray(up["kernel"]).transpose(1, 2, 0))
+        sd[f"ups.{i}.bias"] = _t(up["bias"])
+        _put(sd, f"noise_convs.{i}", _conv(params[f"noise_conv_{i}"]))
+        for j in range(n_k):
+            block = params[f"resblock_{i}_{j}"]
+            rp = f"resblocks.{i * n_k + j}"
+            for m in range(n_dil):
+                _put(sd, f"{rp}.convs1.{m}", _conv(block[f"conv1_{m}"]))
+                _put(sd, f"{rp}.convs2.{m}", _conv(block[f"conv2_{m}"]))
+    return sd

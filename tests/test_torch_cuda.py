@@ -1,0 +1,111 @@
+"""PyTorch port, on the card only: each hand-written CUDA kernel against its
+plain PyTorch version on CUDA tensors, fp32 with TF32 off, at small and
+ragged shapes (chip_smoke.py holds them at the main path's shapes). Every
+test here is marked `cuda` and skips without a GPU. This file imports
+neither JAX nor the JAX package, so it also runs where JAX is not
+installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+"""
+import numpy as np
+import pytest
+import torch
+
+from ddsp_svc_tpu_torch.nn.nsf_hifigan import _source_phase
+from ddsp_svc_tpu_torch.nn.pcmer import gaussian_orthogonal_random_matrix
+from ddsp_svc_tpu_torch.ops import kernels as K
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels build and run only "
+                    "on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _randn(gen, *shape, scale=1.0, shift=0.0):
+    return torch.randn(shape, generator=gen, device=gen.device) * scale + shift
+
+
+@pytest.mark.parametrize("b,t,valid", [(2, 40, None), (1, 256, 200),
+                                       (2, 1000, [999, 3]), (2, 64, [0, 64])])
+def test_performer_attention_kernel(cuda, b, t, valid):
+    """2e-5 of max |ref| on each row's valid prefix (the JAX package's
+    kernel tolerance); a row with no valid frame gives zeros in both."""
+    g = torch.Generator(device=cuda).manual_seed(t)
+    q, k, v = (_randn(g, b, 8, t, 64) for _ in range(3))
+    proj = torch.from_numpy(gaussian_orthogonal_random_matrix(266, 64, 5)).to(cuda)
+    ref = K.performer_attention_plain(q, k, v, proj, valid)
+    got = K.performer_attention(q, k, v, proj, valid)
+    n = [t] * b if valid is None else np.broadcast_to(valid, (b,))
+    for i in range(b):
+        if n[i] == 0:
+            assert not got[i].any() and not ref[i].any()
+            continue
+        r, o = ref[i, :, :n[i]], got[i, :, :n[i]]
+        assert (o - r).abs().max().item() <= 2e-5 * r.abs().max().item()
+
+
+@pytest.mark.parametrize("n_fft,rows", [(64, 3), (1024, 9), (4096, 5)])
+def test_combsub_spectral_kernel(cuda, n_fft, rows):
+    """2e-5 of max |ref|, the JAX package's kernel tolerance."""
+    g = torch.Generator(device=cuda).manual_seed(n_fft)
+    bins = n_fft // 2 + 1
+    args = (_randn(g, rows, n_fft), _randn(g, rows, n_fft),
+            _randn(g, rows, bins, scale=0.3), _randn(g, rows, bins),
+            _randn(g, rows, bins, scale=0.3, shift=-3.0), n_fft)
+    ref = K.combsub_spectral_plain(*args)
+    got = K.combsub_spectral(*args)
+    assert ((got - ref).abs().max() / ref.abs().max()).item() < 2e-5
+
+
+@pytest.mark.parametrize("upp", [64, 300, 512])
+def test_harmonic_source_kernel(cuda, upp):
+    """atol 2e-5, the JAX package's kernel tolerance."""
+    g = torch.Generator(device=cuda).manual_seed(upp)
+    f0 = 100 + 400 * torch.rand((2, 33), generator=g, device=cuda)
+    ri = torch.rand((2, 9), generator=g, device=cuda)
+    ri[:, 0] = 0
+    start, rad = _source_phase(f0, upp, 44100, ri, 8)
+    args = (start.contiguous(), rad.contiguous(), _randn(g, 9, scale=0.3),
+            _randn(g, 1, scale=0.05), upp)
+    ref = K.harmonic_source_plain(*args)
+    got = K.harmonic_source(*args)
+    assert (got - ref).abs().max().item() < 2e-5
+
+
+@pytest.mark.parametrize("c,t,s_src,valid,inject", [
+    (64, 700, 4, None, True), (32, 1500, 2, [1400, 600], True),
+    (16, 3000, 1, None, True), (8, 5000, 1, 4000, True),
+    (64, 333, 1, None, False), (16, 50, 2, None, True)])
+def test_resblocks_inject_kernel(cuda, c, t, s_src, valid, inject):
+    """atol 1e-4, rtol 1e-4: the JAX package's trio kernel tolerance."""
+    g = torch.Generator(device=cuda).manual_seed(c * t)
+    ksrc = 2 * s_src if s_src > 1 else 1
+    ws = [_randn(g, 3, 2, c, c, k, scale=(2.0 / (k * c)) ** 0.5)
+          for k in (3, 7, 11)]
+    bs = [_randn(g, 3, 2, c, scale=0.01) for _ in range(3)]
+    har = _randn(g, 2, t * s_src, 1, scale=0.1) if inject else None
+    args = (_randn(g, 2, t, c), har, _randn(g, c, 1, ksrc, scale=0.2),
+            _randn(g, c, scale=0.05), ws, bs, s_src)
+    ref = K.resblocks_inject_plain(*args, valid=valid)
+    got = K.fused_resblocks_inject(*args, valid=valid)
+    torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+
+
+def test_wrappers_count_launches(cuda):
+    K.reset_launch_counts()
+    g = torch.Generator(device=cuda).manual_seed(0)
+    f0 = 100 + 400 * torch.rand((1, 4), generator=g, device=cuda)
+    start, rad = _source_phase(f0, 64, 16000, torch.zeros((1, 9), device=cuda), 8)
+    w, b = _randn(g, 9), _randn(g, 1)
+    K.harmonic_source_plain(start.contiguous(), rad.contiguous(), w, b, 64)
+    K.harmonic_source(start.contiguous(), rad.contiguous(), w, b, 64)
+    assert K.launch_counts() == {"performer_attention": 0, "combsub_spectral": 0,
+                                 "harmonic_source": 1,
+                                 "fused_resblocks_inject": 0}

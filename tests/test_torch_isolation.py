@@ -1,0 +1,95 @@
+"""PyTorch port, isolation: the package and chip_smoke.py stand without JAX,
+flax and the JAX package, and entry points never fall back to the CPU."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+_CHILD = r"""
+import importlib, importlib.abc, pkgutil, sys
+
+sys.modules["jax"] = None
+sys.modules["flax"] = None
+
+
+class RefuseJaxPackage(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name == "ddsp_svc_tpu" or name.startswith("ddsp_svc_tpu."):
+            raise ImportError(f"refused: {name}")
+        return None
+
+
+sys.meta_path.insert(0, RefuseJaxPackage())
+
+import torch
+import ddsp_svc_tpu_torch
+
+names = [m.name for m in pkgutil.walk_packages(ddsp_svc_tpu_torch.__path__,
+                                                "ddsp_svc_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+assert len(names) >= 20, names
+
+from ddsp_svc_tpu_torch.infer.enhancer import Enhancer, NsfHifiGAN
+from ddsp_svc_tpu_torch.models.factory import build_model
+from ddsp_svc_tpu_torch.utils.config import DotDict
+
+args = DotDict({"data": {"sampling_rate": 16000, "block_size": 64,
+                         "encoder_out_channels": 8},
+                "model": {"type": "CombSubFast", "n_spk": 2}})
+h = {"sampling_rate": 16000, "num_mels": 8, "n_fft": 256, "win_size": 256,
+     "hop_size": 64, "fmin": 40, "fmax": 8000, "upsample_rates": [8, 8],
+     "upsample_kernel_sizes": [16, 16], "upsample_initial_channel": 16,
+     "resblock_kernel_sizes": [3, 7, 11],
+     "resblock_dilation_sizes": [[1, 3, 5]] * 3}
+model = build_model(args, device="cpu")
+nsf = NsfHifiGAN(None, h=h, device="cpu")
+assert next(model.parameters()).device.type == "cpu"
+
+torch.cuda.is_available = lambda: False  # as on a machine with no card
+for make in (lambda: build_model(args), lambda: NsfHifiGAN(None, h=h),
+             lambda: Enhancer("nsf-hifigan", None, h=h)):
+    try:
+        make()
+    except RuntimeError as e:
+        assert "device='cpu'" in str(e), e
+    else:
+        raise AssertionError("an entry point ran on the CPU unasked")
+assert not any(m == "jax" or m.startswith(("jax.", "flax", "ddsp_svc_tpu."))
+               for m in sys.modules if sys.modules[m] is not None)
+print("ISOLATED", len(names))
+"""
+
+
+def test_package_imports_and_builds_without_jax():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", _CHILD], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "ISOLATED" in out.stdout
+
+
+def _imports(path: pathlib.Path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "flax", "ddsp_svc_tpu", "torchaudio")
+
+
+@pytest.mark.parametrize("path", [ROOT / "chip_smoke.py"] + sorted(
+    (ROOT / "ddsp_svc_tpu_torch").rglob("*.py")),
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_sources_import_no_jax(path):
+    bad = [n for n in _imports(path) if _forbidden(n)]
+    assert not bad, (path, bad)

@@ -1,0 +1,140 @@
+#!/usr/bin/env python3
+"""Where the PyTorch port's main path spends its time on the card.
+
+Runs offline conversion (`convert_features`: CombSubFast from
+configs/combsub.yaml + the 44.1 kHz NSF-HiFiGAN, weights from seeds) on
+three segments of 200, 384 and 512 frames, warms up, then traces one run
+with torch.profiler and prints:
+  - wall time of the traced run, device busy time (sum of kernel times),
+    and the device's idle share of the wall time;
+  - device time by group (the four hand-written kernels, convolutions,
+    GEMMs, FFTs, everything else) and the top kernels by device time.
+Run from the root of a checkout on a machine with an NVIDIA GPU:
+
+    python3 tools/profile_torch_main_path.py [--batch-frames 0] [--top 25]
+
+--batch-frames N additionally profiles one batched forward of 16 items of N
+frames (bench.py's shapes are 512). TF32 is off, as in chip_smoke.py.
+"""
+import argparse
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+from chip_smoke import H_NSF, SEGMENT_FRAMES  # noqa: E402  (the main path's shapes)
+
+GROUPS = (
+    ("kernel: performer_attention", ("favor_",)),
+    ("kernel: combsub_spectral", ("combsub_spectral",)),
+    ("kernel: harmonic_source", ("harmonic_source",)),
+    ("kernel: fused_resblocks_inject", ("resblocks_kernel",)),
+    ("convolutions (cuDNN)", ("conv", "cudnn", "implicit", "winograd",
+                              "dgrad", "wgrad", "xmma", "sm90_")),
+    ("GEMM (cuBLAS)", ("gemm", "cutlass", "ampere_", "sgemm")),
+    ("FFT (cuFFT)", ("fft", "regular_fft", "vector_fft")),
+)
+
+
+def group_of(name: str) -> str:
+    low = name.lower()
+    for label, keys in GROUPS:
+        if any(k in low for k in keys):
+            return label
+    return "other (elementwise, reductions, copies)"
+
+
+def profile(torch, fn, top: int, label: str) -> None:
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            t = ev.time_range.elapsed_us()
+            n, c = by_name.get(ev.name, (0.0, 0))
+            by_name[ev.name] = (n + t, c + 1)
+    busy = sum(t for t, _ in by_name.values()) / 1e3
+    print(f"[{label}] wall {wall * 1e3:.2f} ms, device busy {busy:.2f} ms, "
+          f"idle share {1 - busy / (wall * 1e3):.3f}, "
+          f"{sum(c for _, c in by_name.values())} kernel launches")
+    groups = {}
+    for name, (t, c) in by_name.items():
+        g = groups.setdefault(group_of(name), [0.0, 0])
+        g[0] += t / 1e3
+        g[1] += c
+    for g, (t, c) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        print(f"[{label}]   {t:9.3f} ms {100 * t / busy:5.1f}%  {c:5d} launches  {g}")
+    print(f"[{label}] top kernels by device time:")
+    for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
+        print(f"[{label}]   {t / 1e3:9.3f} ms {c:5d}x  {name[:110]}")
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--top", type=int, default=25)
+    ap.add_argument("--batch-frames", type=int, default=0)
+    a = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("FAIL: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    from ddsp_svc_tpu_torch.infer.enhancer import Enhancer
+    from ddsp_svc_tpu_torch.infer.offline import convert_features
+    from ddsp_svc_tpu_torch.models.factory import build_model
+    from ddsp_svc_tpu_torch.utils.config import load_config
+
+    args = load_config(os.path.join(ROOT, "configs", "combsub.yaml"))
+    model = build_model(args, device="cuda", seed=0)
+    enhancer = Enhancer("nsf-hifigan", None, h=H_NSF, seed=1, device="cuda")
+    n_unit = args.data.encoder_out_channels
+    rng = np.random.default_rng(0)
+    segments, pos = [], 0
+    for n in SEGMENT_FRAMES:
+        pos += 20
+        segments.append((pos, rng.standard_normal((1, n, n_unit)).astype(np.float32)))
+        pos += n
+    total = pos + 20
+    f0 = (220 + 90 * np.sin(np.linspace(0, 6 * np.pi, total)))[None, :, None]
+    volume = (0.05 + 0.3 * rng.random((1, total))).astype(np.float32)
+
+    def run():
+        convert_features(model, segments, f0.astype(np.float32), volume,
+                         enhancer=enhancer)
+
+    profile(torch, run, a.top, "main path B=1")
+    if a.batch_frames:
+        b, n = 16, a.batch_frames
+        g = torch.Generator(device="cuda").manual_seed(3)
+        units = torch.randn((b, n, n_unit), generator=g, device="cuda")
+        f0b = 110 + 300 * torch.rand((b, n, 1), generator=g, device="cuda")
+        vol = torch.rand((b, n), generator=g, device="cuda")
+        spk = torch.ones((b, 1), dtype=torch.int64, device="cuda")
+
+        @torch.no_grad()
+        def batched():
+            signal, _, _ = model(units, f0b, vol, spk, generator=g)
+            enhancer.enhancer(signal, f0b[..., 0], generator=g)
+
+        profile(torch, batched, a.top, f"batched B={b} x {n}")
+
+
+if __name__ == "__main__":
+    main()
