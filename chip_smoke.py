@@ -15,17 +15,25 @@ Phases, each printing its own lines:
      from configs/combsub.yaml and the 44.1 kHz NSF-HiFiGAN at full width,
      weights from a seed, on three segments (200, 384, 512 frames); the
      kernels' launch counts over that run; the same run on the plain
-     versions; audio-seconds per second at batch 1 and batched.
+     versions; audio-seconds per second at batch 1 and batched;
+  5. training path: the port's trainer (`python -m ddsp_svc_tpu_torch.train`
+     main) on a synthetic dataset in the AudioDataset layout at
+     configs/combsub.yaml's full width (batch 24, 2-s crops, RSS loss
+     256..2048 x 4 scales): fp32 steps with a validation pass and a
+     checkpoint, a resume from it, then model.bf16 steps; each run's launch
+     counts; one fp32 and one bf16 step on the kernels against the same step
+     on the plain versions (loss and every parameter gradient); ms per step.
 The last two lines are the kernels JSON and {"ok": true, "device": ...}.
 Any failed check exits non-zero before them. Without a GPU it fails.
 """
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 
 import numpy as np
 
@@ -50,6 +58,11 @@ H_NSF = {
     "resblock_dilation_sizes": [[1, 3, 5], [1, 3, 5], [1, 3, 5]],
 }
 SEGMENT_FRAMES = (200, 384, 512)
+# the training path: RSS bucket indices pinned for the kernel-vs-plain step
+# (375, 853, 1331, 2047), and the numbers of steps of each training run
+PINNED_LOSS_IDX = (1, 5, 9, 15)
+FP32_STEPS, BF16_STEPS, TIMED_STEPS = 3, 3, 5
+TRAIN_CROP_SAMPLES = 172 * 512  # 2 s at 44.1 kHz, block 512
 TRIO_STAGES = ((64, 4), (32, 2), (16, 1))  # (C, source-conv stride)
 TPU_KERNELS = "ddsp_svc_tpu/ops/pallas_kernels.py"
 
@@ -91,19 +104,26 @@ def bound(n_bytes: float, n_ops: float):
 def compare(torch, name, kern, plain, inputs, tol_abs, tol_rel_max,
             tol_rtol=0.0, select=lambda y: y):
     """Kernel vs plain on every input set: max |err| <= tol_abs + tol_rtol
-    |ref| + tol_rel_max * max|ref|. Returns (max_abs_err, ms, plain_ms)."""
+    |ref| + tol_rel_max * max|ref|, for each output of a kernel that returns
+    several (each against its own max|ref|). Returns (max_abs_err, ms,
+    plain_ms)."""
     err = 0.0
     for args in inputs:
-        ref = select(plain(*args))
-        got = select(kern(*args))
+        refs, gots = plain(*args), kern(*args)
         torch.cuda.synchronize()
-        if not torch.isfinite(got).all():
-            fail(f"{name}: non-finite kernel output")
-        diff = (got - ref).abs()
-        limit = tol_abs + tol_rtol * ref.abs() + tol_rel_max * ref.abs().max()
-        if (diff > limit).any():
-            fail(f"{name}: max |err| {diff.max().item():.3e} over tolerance")
-        err = max(err, diff.max().item())
+        if not isinstance(refs, tuple):
+            refs, gots = (refs,), (gots,)
+        for ref, got in zip(refs, gots):
+            ref, got = select(ref), select(got)
+            if not torch.isfinite(got).all():
+                fail(f"{name}: non-finite kernel output")
+            diff = (got - ref).abs()
+            limit = (tol_abs + tol_rtol * ref.abs()
+                     + tol_rel_max * ref.abs().max())
+            if (diff > limit).any():
+                fail(f"{name}: max |err| {diff.max().item():.3e} over "
+                     "tolerance")
+            err = max(err, diff.max().item())
     return err, time_ms(torch, kern, inputs), time_ms(torch, plain, inputs)
 
 
@@ -215,8 +235,70 @@ def kernel_phase(torch, K, gen):
         e, ms, pms = compare(torch, label, K.fused_resblocks_inject,
                              K.resblocks_inject_plain, inputs, 1e-4, 0.0,
                              tol_rtol=1e-4)
+        # counted as #4's stage at C = 64, without the injection conv's input
+        # (or, for the valid form, as the full stage)
+        c, t_s = 64, t_final // 4
+        flops = 2 * c * c * 6 * (3 + 7 + 11) * t_s
+        nbytes = 4 * (2 * c * t_s + 6 * c * c * 21 + 18 * c)
+        if "inject" not in kw:
+            flops += 2 * c * 8 * t_s
+            nbytes += 4 * t_final
+        t_b, by = bound(nbytes, flops)
         say(f"kernel {label} C=64: max|err| {e:.3e} (atol 1e-4, rtol 1e-4), "
-            f"{ms:.3f} ms, plain {pms:.3f} ms")
+            f"{ms:.3f} ms, plain {pms:.3f} ms, bound {t_b:.4f} ms ({by})")
+
+    # 6. DFT magnitude of the RSS loss at every bucket size, at the frame rows
+    # of one training batch (24 crops of 88064 samples, hop = n_fft); the
+    # bound counts an FFT of the same size (2.5 n log2 n per real row), not
+    # the direct DFT's n^2
+    from ddsp_svc_tpu_torch.models.losses import default_buckets
+
+    err = ms_sum = pms_sum = lms_sum = flops = nbytes = 0.0
+
+    def library_mag(x, n):
+        return torch.abs(torch.fft.rfft(x, n))
+
+    for n in default_buckets(256, 2048):
+        rows_n = 24 * ((TRAIN_CROP_SAMPLES - n) // n + 1)
+        win = torch.hann_window(n, periodic=True, device=dev)
+        inputs = [(randn(rows_n, n, scale=0.1) * win, n) for _ in range(2)]
+        e, ms, pms = compare(torch, f"dft_magnitude n={n}", K.dft_magnitude,
+                             K.dft_magnitude_plain, inputs, 2e-3, 0.0)
+        lms = time_ms(torch, library_mag, inputs)
+        bins = n // 2 + 1
+        f_n = rows_n * (2.5 * n * math.log2(n) + 4 * bins)
+        b_n = 4 * rows_n * (n + bins)
+        say(f"kernel dft_magnitude n={n} rows={rows_n}: max|err| {e:.3e}, "
+            f"{ms:.4f} ms, plain {pms:.4f} ms, library {lms:.4f} ms, bound "
+            f"{bound(b_n, f_n)[0]:.4f} ms")
+        err, ms_sum, pms_sum, lms_sum = (max(err, e), ms_sum + ms,
+                                         pms_sum + pms, lms_sum + lms)
+        flops += f_n
+        nbytes += b_n
+    rows["dft_magnitude"] = dict(
+        route="cuda", source="ddsp_svc_tpu_torch/csrc/dft_magnitude.cu",
+        replaces=f"{TPU_KERNELS}:241", max_abs_err=err, ms=ms_sum,
+        plain_ms=pms_sum, bound=bound(nbytes, flops), library_ms=lms_sum,
+        tol="atol 2e-3 (the JAX package's kernel test); times are the sum "
+            "of one call at each of the 16 bucket sizes")
+
+    # 7. the spectral chain's adjoint at the training batch: 24 x 173 frame
+    # rows of n_fft 1024, all five gradients
+    r, n = 24 * 173, 1024
+    bins = n // 2 + 1
+    inputs = [(randn(r, n, scale=1e-3), randn(r, n), randn(r, n),
+               randn(r, bins, scale=0.3), randn(r, bins),
+               randn(r, bins, scale=0.3, shift=-3.0), n) for _ in range(2)]
+    err, ms, pms = compare(torch, "combsub_spectral_bwd",
+                           K.combsub_spectral_bwd,
+                           K.combsub_spectral_bwd_plain, inputs, 0.0, 2e-5)
+    flops = r * (5 * 2.5 * n * math.log2(n) + 40 * bins)
+    nbytes = 4 * (r * (5 * n + 6 * bins) + n)
+    rows["combsub_spectral_bwd"] = dict(
+        route="cuda", source="ddsp_svc_tpu_torch/csrc/combsub_spectral.cu",
+        replaces=f"{TPU_KERNELS}:781", max_abs_err=err, ms=ms, plain_ms=pms,
+        bound=bound(nbytes, flops), library_ms=None,
+        tol="2e-5 x max|ref| per gradient (the JAX package's kernel test)")
     return rows
 
 
@@ -226,8 +308,10 @@ def plain_kernels(K):
     run of the main path on the card)."""
     from ddsp_svc_tpu_torch.models import synths
     from ddsp_svc_tpu_torch.nn import nsf_hifigan, pcmer
+    from ddsp_svc_tpu_torch.ops import spectral
     swaps = [(pcmer, "performer_attention", K.performer_attention_plain),
              (synths, "combsub_spectral", K.combsub_spectral_plain),
+             (spectral, "dft_magnitude", K.dft_magnitude_plain),
              (nsf_hifigan, "harmonic_source", K.harmonic_source_plain),
              (nsf_hifigan, "fused_resblocks_inject",
               K.resblocks_inject_plain)]
@@ -239,6 +323,21 @@ def plain_kernels(K):
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
+
+
+OFFLINE_KERNELS = ("performer_attention", "combsub_spectral",
+                   "harmonic_source", "fused_resblocks_inject")
+
+
+def path_launches(K, label: str, expect) -> dict:
+    """Read the launch counts of the run just made and fail if a kernel that
+    this path runs was launched no time."""
+    launches = K.launch_counts()
+    say(f"{label} launches: {json.dumps(launches)}")
+    for name in expect:
+        if launches[name] <= 0:
+            fail(f"{name} was not launched on the {label}")
+    return launches
 
 
 def main_path_phase(torch, K):
@@ -289,11 +388,7 @@ def main_path_phase(torch, K):
     t0 = time.perf_counter()
     audio, sr_o = run()
     first_s = time.perf_counter() - t0
-    launches = K.launch_counts()
-    say(f"main path launches: {json.dumps(launches)}")
-    for name, count in launches.items():
-        if count <= 0:
-            fail(f"{name} was not launched on the main path")
+    launches = path_launches(K, "offline path", OFFLINE_KERNELS)
     rms = float(np.sqrt(np.mean(audio ** 2)))
     expect = round(starts[-1] * bs * sr_o / sr) + SEGMENT_FRAMES[-1] * bs
     if audio.shape != (expect,) or not np.isfinite(audio).all() or rms <= 0:
@@ -352,6 +447,214 @@ def main_path_phase(torch, K):
     return launches
 
 
+def write_dataset(root: str, n_spk: int, files_per_spk: int, seconds: float,
+                  sr: int, block: int, n_unit: int, seed: int) -> None:
+    """A synthetic feature store in the AudioDataset layout: per speaker a
+    few voiced clips (harmonic tone with vibrato plus breath noise), random
+    units (F, n_unit), f0 and volume per frame, and the speakers' mean
+    log-f0 (f0_stats.npy) for the validation's transposition."""
+    from ddsp_svc_tpu_torch.data.wavio import write_wav
+
+    rng = np.random.default_rng(seed)
+    t = int(seconds * sr)
+    n_frames = t // block + 1
+    stats = {}
+    for spk in range(1, n_spk + 1):
+        for sub in ("audio", "units", "f0", "volume"):
+            os.makedirs(os.path.join(root, sub, str(spk)), exist_ok=True)
+        base = 110.0 * spk
+        stats[str(spk)] = float(np.log(base))
+        for i in range(files_per_spk):
+            tt = np.arange(t) / sr
+            f0 = base * (1 + 0.03 * np.sin(2 * np.pi * (4 + i) * tt))
+            phase = 2 * np.pi * np.cumsum(f0) / sr
+            audio = sum(0.2 / h * np.sin(h * phase) for h in range(1, 6))
+            audio = audio + 0.01 * rng.standard_normal(t)
+            name = f"s{spk}_{i}"
+            write_wav(os.path.join(root, "audio", str(spk), name + ".wav"),
+                      audio.astype(np.float32), sr)
+            np.save(os.path.join(root, "units", str(spk), name + ".0.npy"),
+                    rng.standard_normal((n_frames, n_unit)).astype(np.float32))
+            np.save(os.path.join(root, "f0", str(spk), name + ".npy"),
+                    f0[::block][:n_frames].astype(np.float32))
+            np.save(os.path.join(root, "volume", str(spk), name + ".npy"),
+                    np.full((n_frames,), 0.15, np.float32))
+    np.save(os.path.join(root, "f0_stats.npy"), stats, allow_pickle=True)
+
+
+def grads_agree(label, model_k, model_p, tol_rel: float, tol_cos: float):
+    """Every parameter gradient of the kernel run against the plain run:
+    relative L2 distance and cosine. Returns the worst of each."""
+    worst_rel, worst_cos = 0.0, 1.0
+    plain = dict(model_p.named_parameters())
+    for name, p in model_k.named_parameters():
+        g, r = p.grad.double(), plain[name].grad.double()
+        nr = r.norm().item()
+        rel = (g - r).norm().item() / (nr + 1e-12)
+        cos = 1.0 if nr < 1e-10 else (
+            (g * r).sum().item() / (g.norm().item() * nr + 1e-30))
+        if not (rel < tol_rel and cos > tol_cos):
+            fail(f"{label}: gradient of {name} disagrees with the plain "
+                 f"versions: rel {rel:.3e} (< {tol_rel}), cos {cos:.7f} "
+                 f"(> {tol_cos})")
+        worst_rel, worst_cos = max(worst_rel, rel), min(worst_cos, cos)
+    return worst_rel, worst_cos
+
+
+def warm_up_buckets(state, batch, rss, train_step) -> None:
+    """Steps whose pinned scales cover every bucket once, so that no cuFFT
+    plan is made inside a timed or traced step."""
+    idx = list(range(len(rss.buckets)))
+    for i in range(0, len(idx), rss.n_scale):
+        train_step(state, batch, rss, loss_idx=idx[i:i + rss.n_scale])
+
+
+def train_phase(torch, K) -> dict:
+    """The training path at configs/combsub.yaml's full width; returns the
+    summed launch counts of its runs."""
+    import yaml
+    from ddsp_svc_tpu_torch.data.dataset import get_data_loaders
+    from ddsp_svc_tpu_torch.models.factory import build_model
+    from ddsp_svc_tpu_torch.models.losses import RSSLoss
+    from ddsp_svc_tpu_torch.train import __main__ as train_main
+    from ddsp_svc_tpu_torch.train.step import (
+        TrainState, batch_to_device, create_optimizer, train_step)
+    from ddsp_svc_tpu_torch.utils.config import load_config
+
+    args = load_config(os.path.join(ROOT, "configs", "combsub.yaml"))
+    sr, block = args.data.sampling_rate, args.data.block_size
+    n_unit = args.data.encoder_out_channels
+    work = os.path.join(ROOT, "build", "chip_smoke_train")
+    shutil.rmtree(work, ignore_errors=True)
+    write_dataset(os.path.join(work, "train"), 2, 3, 4.0, sr, block, n_unit, 0)
+    write_dataset(os.path.join(work, "val"), 2, 1, 4.0, sr, block, n_unit, 1)
+    args["data"].update(train_path=os.path.join(work, "train"),
+                        valid_path=os.path.join(work, "val"))
+    args["train"].update(interval_log=1, epochs=1000)
+    say(f"training path: CombSubFast {sr} Hz block {block} n_unit {n_unit}, "
+        f"batch {args.train.batch_size} x {args.data.duration} s crops, RSS "
+        f"{args.loss.fft_min}..{args.loss.fft_max} x {args.loss.n_scale} "
+        f"scales; synthetic dataset of 6 training and 2 validation clips")
+
+    def config(name: str, bf16: bool, interval_val: int) -> str:
+        cfg = json.loads(json.dumps(args))
+        cfg["model"]["bf16"] = bf16
+        cfg["env"]["expdir"] = os.path.join(work, "exp_" + name)
+        cfg["train"]["interval_val"] = interval_val
+        path = os.path.join(work, name + ".yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(cfg, f)
+        return path
+
+    def run(cfg_path: str, steps: int, label: str):
+        before = {k: v.clone() for k, v in
+                  build_model(load_config(cfg_path), device="cuda",
+                              seed=0).state_dict().items()}
+        t0 = time.perf_counter()
+        state, saver = train_main.main(["-c", cfg_path, "--max-steps",
+                                        str(steps)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with open(os.path.join(saver.expdir, "log_values.jsonl")) as f:
+            losses = [json.loads(line)["train/loss"] for line in f
+                      if "train/loss" in line]
+        if len(losses) < steps or not np.isfinite(losses).all():
+            fail(f"{label}: losses {losses}")
+        moved = sum(not torch.equal(v, before[k])
+                    for k, v in state.model.state_dict().items())
+        say(f"{label}: {steps} steps to global step {saver.global_step} in "
+            f"{wall:.1f} s (validation and checkpoint included), losses "
+            f"{[round(x, 4) for x in losses[-steps:]]}, {moved} tensors moved")
+        if moved == 0:
+            fail(f"{label}: no parameter moved")
+        return state, saver
+
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    # fp32: steps with one validation pass and a checkpoint, then a resume
+    cfg32 = config("fp32", False, FP32_STEPS)
+    K.reset_launch_counts()
+    run(cfg32, FP32_STEPS, "train fp32")
+    state, saver = run(cfg32, 1, "train fp32 resumed")
+    if state.step != FP32_STEPS + 1:
+        fail(f"the resumed run did not restore step {FP32_STEPS}")
+    counts = path_launches(K, "training path (fp32, resumed)",
+                           ("dft_magnitude", "combsub_spectral",
+                            "performer_attention"))
+    if counts["combsub_spectral_bwd"]:
+        fail("fp32 training launched the combsub adjoint (its chain is the "
+             "plain torch.fft one)")
+    add(counts)
+    # model.bf16: the spectral chain runs on its kernel and its adjoint
+    cfg16 = config("bf16", True, 10 ** 6)
+    K.reset_launch_counts()
+    run(cfg16, BF16_STEPS, "train bf16")
+    add(path_launches(K, "training path (bf16)",
+                      ("dft_magnitude", "combsub_spectral",
+                       "combsub_spectral_bwd")))
+
+    # one step on the kernels against the same step on the plain versions:
+    # same weights, batch, noise and loss scales, at loss eps 1e-3 (the
+    # conditioned regime of the JAX package's gradient parity tests)
+    loader, _ = get_data_loaders(load_config(cfg32))
+    batch = batch_to_device(next(iter(loader.epoch(0))), "cuda")
+    g = torch.Generator(device="cuda").manual_seed(7)
+    noise = torch.rand(batch["audio"].shape, generator=g, device="cuda") * 2 - 1
+    rss = RSSLoss(int(args.loss.fft_min), int(args.loss.fft_max),
+                  int(args.loss.n_scale), eps=1e-3)
+    # per-parameter bounds of tests/test_train_parity.py (rel < 2e-2, cos >
+    # 1 - 1e-4); under bf16 the chains' fp32 rounding differences pass
+    # through bf16 matmuls in the backward and come out at ~1e-3 (the bf16
+    # and fp32 steps themselves differ by ~3e-2)
+    for bf16 in (False, True):
+        tol_rel, tol_cos = 2e-2, 1 - 1e-4
+        cfg = load_config(cfg16 if bf16 else cfg32)
+        label = "bf16" if bf16 else "fp32"
+        states = []
+        for plain in (False, True):
+            model = build_model(cfg, device="cuda", seed=0)
+            st = TrainState(0, model, create_optimizer(model, 1e-4))
+            ctx = plain_kernels(K) if plain else nullcontext()
+            with ctx:
+                loss = float(train_step(st, batch, rss, noise=noise,
+                                        loss_idx=PINNED_LOSS_IDX))
+            states.append((st, loss))
+        (sk, lk), (sp, lp) = states
+        rel_loss = abs(lk - lp) / abs(lp)
+        worst_rel, worst_cos = grads_agree(f"{label} step", sk.model,
+                                           sp.model, tol_rel, tol_cos)
+        say(f"train step {label}, kernels vs plain versions: loss {lk:.6f} vs "
+            f"{lp:.6f} (rel {rel_loss:.2e}, tolerance 1e-4); worst parameter "
+            f"gradient rel {worst_rel:.3e} (< {tol_rel}), cos "
+            f"{worst_cos:.7f} (> {tol_cos})")
+        if not rel_loss < 1e-4:
+            fail(f"{label} step loss disagrees with the plain versions")
+
+        for plain in (False, True):
+            st = states[int(plain)][0]
+            ctx = plain_kernels(K) if plain else nullcontext()
+            times = []
+            with ctx:
+                warm_up_buckets(st, batch, rss, train_step)
+                for _ in range(TIMED_STEPS + 1):
+                    t0 = time.perf_counter()
+                    train_step(st, batch, rss)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+            say(f"train step {label} on the "
+                f"{'plain versions' if plain else 'kernels'}: "
+                f"{np.median(times[1:]) * 1e3:.1f} ms median of "
+                f"{TIMED_STEPS} (batch {args.train.batch_size} x "
+                f"{batch['audio'].shape[1]} samples, RSS "
+                f"{args.loss.n_scale} scales drawn per step)")
+    shutil.rmtree(work, ignore_errors=True)
+    return total
+
+
 def main() -> None:
     try:
         import torch
@@ -385,7 +688,10 @@ def main() -> None:
         say(f"kernel {name}: max|err| {row['max_abs_err']:.3e} ({row['tol']}), "
             f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
             f"{t_b:.4f} ms ({by})")
-    launches = main_path_phase(torch, K)
+    offline = main_path_phase(torch, K)
+    training = train_phase(torch, K)
+    # launches: the sum over the main paths' runs (offline, then training)
+    launches = {k: offline[k] + training[k] for k in offline}
 
     report = []
     for name, row in rows.items():

@@ -18,13 +18,12 @@ from .synths import CombSubFast
 
 def build_model(args: DotDict, device=None, seed: int = 0) -> CombSubFast:
     """CombSubFast from a yaml config, weights drawn from `seed`, on
-    `device` (CUDA unless the caller asks for the CPU)."""
+    `device` (CUDA unless the caller asks for the CPU). model.bf16 runs the
+    PCmer in bf16; the parameters stay fp32."""
     device = resolve_device(device)
     if args.model.type != "CombSubFast":
         raise NotImplementedError(
             f"model type {args.model.type!r} is not ported yet")
-    if args.model.bf16:
-        raise NotImplementedError("model.bf16 is not ported yet")
     model = CombSubFast(
         sampling_rate=args.data.sampling_rate,
         block_size=args.data.block_size,
@@ -32,6 +31,7 @@ def build_model(args: DotDict, device=None, seed: int = 0) -> CombSubFast:
         n_spk=args.model.n_spk,
         causal=bool(args.model.c),
         frame_norm=bool(args.model.frame_norm),
+        bf16=bool(args.model.bf16),
     )
     lecun_init_(model, torch.Generator().manual_seed(seed))
     return model.to(device).eval()

@@ -1,12 +1,13 @@
-"""The CombSubFast synthesizer, inference path.
+"""The CombSubFast synthesizer, inference and training.
 
 Counterpart of `ddsp_svc_tpu/models/synths.py::CombSubFast`: a sinc-comb
 excitation and uniform noise, filtered per 50%-overlap sqrt-Hann frame by
 exp(mag + j*pi*phase) (harmonic) and exp(mag)/128 (noise) from the
-Unit2Control outputs, then overlap-added. At inference the filter chain is
-the hand-written combsub_spectral kernel, used exactly where the JAX
-package's `_use_fused_spectral` gate would use its Pallas kernel
-(block_size % 64 == 0); other block sizes take the FFT chain.
+Unit2Control outputs, then overlap-added. The filter chain is the
+hand-written combsub_spectral kernel (differentiable, its backward the
+adjoint kernel) exactly where the JAX package's gate uses its Pallas kernel:
+at inference, or in training under bf16, with block_size % 64 == 0. fp32
+training and other block sizes take the plain torch.fft chain.
 """
 from __future__ import annotations
 
@@ -29,16 +30,19 @@ from ..ops.windows import sqrt_hann_window
 
 class CombSubFast(nn.Module):
     def __init__(self, sampling_rate: int, block_size: int, n_unit: int = 256,
-                 n_spk: int = 1, causal: bool = False, frame_norm: bool = False):
+                 n_spk: int = 1, causal: bool = False, frame_norm: bool = False,
+                 bf16: bool = False):
         super().__init__()
         self.sampling_rate = sampling_rate
         self.block_size = block_size
+        self.bf16 = bf16
         n = block_size + 1
         self.unit2ctrl = Unit2Control(
             n_unit, n_spk,
             {"harmonic_magnitude": n, "harmonic_phase": n,
              "noise_magnitude": n},
             causal, frame_norm=frame_norm,
+            compute_dtype=torch.bfloat16 if bf16 else None,
         )
 
     def forward(self, units_frames: torch.Tensor, f0_frames: torch.Tensor,
@@ -85,7 +89,7 @@ class CombSubFast(nn.Module):
         def rows(c):  # last filter frame repeated -> n_frames + 1 rows
             return torch.cat([c, c[:, -1:]], 1).reshape(b * n1, bs + 1)
 
-        chain = (combsub_spectral if infer and bs % 64 == 0
+        chain = (combsub_spectral if (infer or self.bf16) and bs % 64 == 0
                  else combsub_spectral_plain)
         signal_frames = chain(
             tooth_frames.reshape(b * n1, fs), noise_frames.reshape(b * n1, fs),

@@ -3,6 +3,10 @@
 Counterparts of `ddsp_svc_tpu/nn/layers.py`. Parameters carry the torch
 names of the reference model's modules (`weight`, `bias`, `weight_g`,
 `weight_v`), so a reference state dict loads into them directly.
+
+A `compute_dtype` (torch.bfloat16, or None for fp32) casts a layer's input,
+weight and bias at call time, as flax's `dtype=` does: the parameters stay
+fp32 and receive fp32 gradients through the cast.
 """
 from __future__ import annotations
 
@@ -15,21 +19,35 @@ import torch.nn.functional as F
 from ..ops.masking import frame_mask, valid_col
 
 
+def _cast(t, dtype):
+    return t if dtype is None or t is None else t.to(dtype)
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor, bias=None,
+           compute_dtype=None) -> torch.Tensor:
+    """F.linear in `compute_dtype` (None: the input's own)."""
+    return F.linear(_cast(x, compute_dtype), _cast(weight, compute_dtype),
+                    _cast(bias, compute_dtype))
+
+
 class Conv1d(nn.Conv1d):
     """1D convolution over (B, T, C) with 'same' or causal (left) padding:
     causal pads (k-1, 0), otherwise ((k-1)//2, k//2) (extorch.Conv1dEx)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  causal: bool = False, groups: int = 1, bias: bool = True,
-                 stride: int = 1):
+                 stride: int = 1, compute_dtype=None):
         super().__init__(in_channels, out_channels, kernel_size,
                          stride=stride, groups=groups, bias=bias)
         k = kernel_size
         self.time_pad = (k - 1, 0) if causal else ((k - 1) // 2, k // 2)
+        self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv1d(F.pad(x.transpose(1, 2), self.time_pad), self.weight,
-                     self.bias, self.stride, 0, 1, self.groups)
+        dt = self.compute_dtype
+        y = F.conv1d(F.pad(_cast(x, dt).transpose(1, 2), self.time_pad),
+                     _cast(self.weight, dt), _cast(self.bias, dt),
+                     self.stride, 0, 1, self.groups)
         return y.transpose(1, 2)
 
 

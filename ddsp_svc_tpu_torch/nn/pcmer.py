@@ -10,6 +10,12 @@ state dict (`net.{i}.attn.to_q`, `attn.fast_attention.projection_matrix`,
 At inference the attention runs through the hand-written kernel
 (`ops.kernels.performer_attention`); training and the CPU take the plain
 softmax_kernel + linear_attention below.
+
+compute_dtype=torch.bfloat16 (model.bf16) runs the QKV/out projections, the
+random-feature projection, the attention contractions and the conv module's
+matmuls in bf16, as the JAX package does; LayerNorms, the FAVOR+
+exponentials, the attention denominators, the residual stream and the
+parameters stay fp32.
 """
 from __future__ import annotations
 
@@ -22,7 +28,7 @@ import torch.nn.functional as F
 
 from ..ops.kernels import performer_attention, performer_attention_plain
 from ..ops.masking import frame_mask
-from .layers import Conv1d, glu
+from .layers import Conv1d, glu, linear
 
 
 def gaussian_orthogonal_random_matrix(nb_rows: int, nb_columns: int,
@@ -52,25 +58,33 @@ def softmax_kernel(data: torch.Tensor, projection: torch.Tensor,
                    is_query: bool, eps: float = 1e-4) -> torch.Tensor:
     """FAVOR+ positive softmax features. data (B, H, T, d), projection
     (m, d) -> (B, H, T, m). The query subtracts its max over the m features
-    of each position; the key keeps the reference's eps inside the exp."""
+    of each position; the key keeps the reference's eps inside the exp.
+    The projection runs in data's dtype, the exponentials in fp32; the
+    features come back in data's dtype."""
     d = data.shape[-1]
     normalizer = d ** -0.25
     ratio = projection.shape[0] ** -0.5
-    data_dash = torch.einsum("bhid,jd->bhij", normalizer * data, projection)
-    diag = (data * data).sum(-1, keepdim=True) * 0.5 * normalizer ** 2
+    data_dash = torch.einsum("bhid,jd->bhij", normalizer * data,
+                             projection.to(data.dtype)).float()
+    data32 = data.float()
+    diag = (data32 * data32).sum(-1, keepdim=True) * 0.5 * normalizer ** 2
     if is_query:
-        return ratio * (torch.exp(
+        out = ratio * (torch.exp(
             data_dash - diag - data_dash.amax(dim=-1, keepdim=True)) + eps)
-    return ratio * torch.exp(data_dash - diag + eps)
+    else:
+        out = ratio * torch.exp(data_dash - diag + eps)
+    return out.to(data.dtype)
 
 
 def linear_attention(q: torch.Tensor, k: torch.Tensor,
                      v: torch.Tensor) -> torch.Tensor:
-    """Non-causal linear attention. q, k (B, H, T, m); v (B, H, T, d)."""
-    k_sum = k.sum(dim=-2)
-    d_inv = 1.0 / (torch.einsum("...nd,...d->...n", q, k_sum) + 1e-8)
+    """Non-causal linear attention. q, k (B, H, T, m); v (B, H, T, d). The
+    key sums and denominators are fp32 whatever the inputs' dtype."""
+    k_sum = k.float().sum(dim=-2)
+    d_inv = 1.0 / (torch.einsum("...nd,...d->...n", q.float(), k_sum) + 1e-8)
     context = torch.einsum("...nd,...ne->...de", k, v)
-    return torch.einsum("...de,...nd,...n->...ne", context, q, d_inv)
+    return torch.einsum("...de,...nd,...n->...ne", context, q,
+                        d_inv.to(q.dtype))
 
 
 class FastAttention(nn.Module):
@@ -86,13 +100,14 @@ class SelfAttention(nn.Module):
     """Multi-head Performer self-attention, (B, T, dim) -> (B, T, dim)."""
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 64,
-                 causal: bool = False, proj_seed: int = 0):
+                 causal: bool = False, proj_seed: int = 0, compute_dtype=None):
         super().__init__()
         if causal:
             raise NotImplementedError(
                 "causal PCmer attention is not ported yet")
         self.heads = heads
         self.dim_head = dim_head
+        self.compute_dtype = compute_dtype
         inner = heads * dim_head
         self.fast_attention = FastAttention(
             dim_head, int(dim_head * math.log(dim_head)), proj_seed)
@@ -106,55 +121,70 @@ class SelfAttention(nn.Module):
         """valid_frames: zero the key features past each item's true length,
         so padded frames feed neither the context nor the denominator."""
         b, n, _ = x.shape
+        dt = self.compute_dtype
 
-        def split_heads(t):
+        def split_heads(layer):
+            t = linear(x, layer.weight, layer.bias, dt)
             return t.reshape(b, n, self.heads,
                              self.dim_head).transpose(1, 2).contiguous()
 
-        q, k, v = (split_heads(f(x)) for f in (self.to_q, self.to_k, self.to_v))
+        q, k, v = (split_heads(f) for f in (self.to_q, self.to_k, self.to_v))
         proj = self.fast_attention.projection_matrix
-        attend = performer_attention if infer else performer_attention_plain
-        out = attend(q, k, v, proj, valid_frames)
+        if infer:
+            # the attention kernel takes fp32 only: bf16 q, k, v are cast up
+            # for it (the JAX kernel feeds its matrix unit bf16 here instead)
+            out = performer_attention(q.float(), k.float(), v.float(), proj,
+                                      valid_frames).to(q.dtype)
+        else:
+            out = performer_attention_plain(q, k, v, proj, valid_frames)
         out = out.transpose(1, 2).reshape(b, n, self.heads * self.dim_head)
-        return self.to_out(out)
+        return linear(out, self.to_out.weight, self.to_out.bias,
+                      dt).to(x.dtype)
 
 
 class ConformerConvModule(nn.Module):
     """LN -> pointwise x2 -> GLU -> depthwise k31 -> SiLU -> pointwise."""
 
     def __init__(self, dim: int, causal: bool = False,
-                 expansion_factor: int = 2, kernel_size: int = 31):
+                 expansion_factor: int = 2, kernel_size: int = 31,
+                 compute_dtype=None):
         super().__init__()
         inner = dim * expansion_factor
+        self.compute_dtype = compute_dtype
         self.net = nn.ModuleDict({
             "0": nn.LayerNorm(dim, eps=1e-5),
             "2": nn.Conv1d(dim, inner * 2, 1),
             "4": Conv1d(inner, inner, kernel_size, causal=causal,
-                        groups=inner),
+                        groups=inner, compute_dtype=compute_dtype),
             "6": nn.Conv1d(inner, dim, 1),
         })
 
     def forward(self, x: torch.Tensor, valid_frames=None) -> torch.Tensor:
         net = self.net
+        dt = self.compute_dtype
+        in_dtype = x.dtype
         x = net["0"](x)
-        x = glu(F.linear(x, net["2"].weight[:, :, 0], net["2"].bias))
+        x = glu(linear(x, net["2"].weight[:, :, 0], net["2"].bias, dt))
         if valid_frames is not None:
             # zero pad frames: the depthwise conv then sees exactly the zeros
             # its own boundary padding gives at the true length
             x = x * frame_mask(x.shape[1], valid_frames, x.dtype,
                                x.device)[:, :, None]
         x = F.silu(net["4"](x))
-        return F.linear(x, net["6"].weight[:, :, 0], net["6"].bias)
+        return linear(x, net["6"].weight[:, :, 0], net["6"].bias,
+                      dt).to(in_dtype)
 
 
 class PCmerLayer(nn.Module):
     def __init__(self, dim: int, heads: int, causal: bool = False,
-                 proj_seed: int = 0):
+                 proj_seed: int = 0, compute_dtype=None):
         super().__init__()
         self.norm = nn.LayerNorm(dim, eps=1e-5)
         self.attn = SelfAttention(dim, heads, causal=causal,
-                                  proj_seed=proj_seed)
-        self.local_mixer = ConformerConvModule(dim, causal=causal)
+                                  proj_seed=proj_seed,
+                                  compute_dtype=compute_dtype)
+        self.local_mixer = ConformerConvModule(dim, causal=causal,
+                                               compute_dtype=compute_dtype)
 
     def forward(self, x: torch.Tensor, infer: bool = False,
                 valid_frames=None) -> torch.Tensor:
@@ -166,10 +196,11 @@ class PCmer(nn.Module):
     """Stack of PCmer layers; layer i draws its projection from seed i."""
 
     def __init__(self, num_layers: int, num_heads: int, dim_model: int,
-                 causal: bool = False):
+                 causal: bool = False, compute_dtype=None):
         super().__init__()
         self.net = nn.ModuleList(
-            PCmerLayer(dim_model, num_heads, causal=causal, proj_seed=i)
+            PCmerLayer(dim_model, num_heads, causal=causal, proj_seed=i,
+                       compute_dtype=compute_dtype)
             for i in range(num_layers)
         )
 

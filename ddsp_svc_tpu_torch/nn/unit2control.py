@@ -6,6 +6,8 @@ Counterpart of `ddsp_svc_tpu/nn/unit2control.py`:
   + the speaker embedding, ids counted from 1 (or a {spk: weight} mix)
   -> PCmer(3 layers, 8 heads, 256) -> LayerNorm -> weight-norm Linear
   -> the named control dict.
+compute_dtype (torch.bfloat16 under model.bf16) reaches the PCmer only; the
+prenet, embeddings and output head stay fp32, as in the JAX package.
 Submodules carry the reference model's state-dict names (`unit_prenet.1`,
 `dec_post.0.net.{i}`, `dec_post.2.weight_g`, ...).
 """
@@ -35,7 +37,8 @@ class Unit2Control(nn.Module):
     def __init__(self, input_channel: int, n_spk: int,
                  output_splits: Dict[str, int], causal: bool = False,
                  ndim_feat: int = 256, num_layers: int = 3,
-                 num_heads: int = 8, frame_norm: bool = False):
+                 num_heads: int = 8, frame_norm: bool = False,
+                 compute_dtype=None):
         super().__init__()
         if frame_norm:
             raise NotImplementedError(
@@ -52,7 +55,8 @@ class Unit2Control(nn.Module):
         self.volume_embed = nn.Linear(1, d)
         self.spk_embed = nn.Embedding(n_spk, d)
         self.dec_post = nn.ModuleDict({
-            "0": PCmer(num_layers, num_heads, d, causal=causal),
+            "0": PCmer(num_layers, num_heads, d, causal=causal,
+                       compute_dtype=compute_dtype),
             "1": nn.LayerNorm(d, eps=1e-5),
             "2": WeightNormDense(d, sum(self.output_splits.values())),
         })

@@ -27,7 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ddsp_svc_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 SOURCES = ("performer_attention", "combsub_spectral", "harmonic_source",
-           "resblocks")
+           "resblocks", "dft_magnitude")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

@@ -1,13 +1,20 @@
-"""The four hand-written Hopper kernels of the main path, each beside its
-plain PyTorch version.
+"""The hand-written Hopper kernels, each beside its plain PyTorch version.
 
 Counterpart of `ddsp_svc_tpu/ops/pallas_kernels.py`:
 
     performer_attention      <- performer_attention_pallas (masked form)
     combsub_spectral         <- combsub_spectral_pallas (forward)
+    combsub_spectral_bwd     <- combsub_spectral_pallas (backward,
+                                _combsub_spectral_bwd_impl)
     harmonic_source          <- harmonic_source_pallas
     fused_resblocks_inject   <- fused_resblocks_inject_pallas, and with
                                 har=None fused_resblocks_pallas
+    dft_magnitude            <- dft_magnitude_pallas
+
+combsub_spectral and dft_magnitude are differentiable: on CUDA tensors they
+run inside a torch.autograd.Function whose backward is the combsub_spectral_bwd
+kernel for the former and, as the JAX package's VJP is for the latter, plain
+PyTorch.
 
 Each wrapper takes its plain version only for CPU tensors. For any other
 (CUDA) tensor it checks device, dtype, shape and contiguity, allocates the
@@ -36,6 +43,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "performer_attention_launch": [_P] * 8 + [_I] * 3 + [_F, _F, _P],
     "combsub_spectral_launch": [_P] * 7 + [_I, _I, _P],
+    "combsub_spectral_bwd_launch": [_P] * 12 + [_I, _I, _P],
+    "dft_magnitude_launch": [_P] * 2 + [_I, _I, _P],
     "harmonic_source_launch": [_P] * 5 + [_I, _I, _I, _F, _P],
     "resblocks_launch": [_P] * 12 + [_I] * 9 + [_P],
 }
@@ -147,26 +156,36 @@ def combsub_spectral_plain(tooth_frames, noise_frames, hm, hp, nm,
     tf = torch.fft.rfft(tooth_frames, n_fft)
     nf = torch.fft.rfft(noise_frames, n_fft)
     flt = torch.polar(torch.exp(hm), np.pi * hp)
-    sig = torch.fft.irfft(tf * flt + nf * (torch.exp(nm) / 128.0), n_fft)
+    spec = tf * flt + nf * (torch.exp(nm) / 128.0)
+    # irfft ignores the imaginary parts of the DC and Nyquist bins, but only
+    # if they are zero does cuFFT's C2R agree: at n_fft 1024 and 2048 or more
+    # rows it reads them and every output row is off by ~2e-2 of max|out|
+    keep = torch.ones(spec.shape[-1], dtype=spec.real.dtype, device=spec.device)
+    keep[0] = 0.0
+    if n_fft % 2 == 0:
+        keep[-1] = 0.0
+    spec = torch.complex(spec.real, spec.imag * keep)
+    sig = torch.fft.irfft(spec, n_fft)
     return sig * sqrt_hann_window(n_fft, dtype=sig.dtype, device=sig.device)
 
 
-def combsub_spectral(tooth_frames, noise_frames, hm, hp, nm, n_fft: int):
-    """The CombSubFast STFT-domain filter chain of one frame row per block:
-    windowed excitation frames (R, n_fft) and raw controls (R, n_fft//2+1)
-    -> windowed output frames (R, n_fft). n_fft a power of two, 64..4096."""
-    if tooth_frames.device.type == "cpu":
-        return combsub_spectral_plain(tooth_frames, noise_frames, hm, hp, nm,
-                                      n_fft)
+def _check_combsub(n_fft: int, rows: int, dev, named) -> None:
     if n_fft & (n_fft - 1) or not 64 <= n_fft <= 4096:
         raise ValueError(f"combsub_spectral takes a power-of-two n_fft in "
                          f"[64, 4096], got {n_fft}")
+    for name, x in named:
+        width = n_fft if name in ("g", "tooth_frames", "noise_frames") \
+            else n_fft // 2 + 1
+        _check(x, name, (rows, width), dev)
+
+
+def _combsub_spectral_launch(tooth_frames, noise_frames, hm, hp, nm,
+                             n_fft: int):
     rows = tooth_frames.shape[0]
     dev = tooth_frames.device
-    _check(tooth_frames, "tooth_frames", (rows, n_fft), dev)
-    _check(noise_frames, "noise_frames", (rows, n_fft), dev)
-    for name, x in (("hm", hm), ("hp", hp), ("nm", nm)):
-        _check(x, name, (rows, n_fft // 2 + 1), dev)
+    _check_combsub(n_fft, rows, dev, (
+        ("tooth_frames", tooth_frames), ("noise_frames", noise_frames),
+        ("hm", hm), ("hp", hp), ("nm", nm)))
     window = sqrt_hann_window(n_fft, device=dev)
     out = torch.empty_like(tooth_frames)
     _launch("combsub_spectral", "combsub_spectral_launch",
@@ -175,6 +194,141 @@ def combsub_spectral(tooth_frames, noise_frames, hm, hp, nm, n_fft: int):
             rows, n_fft, _stream(out))
     combsub_spectral.launches += 1
     return out
+
+
+class _CombsubSpectralFn(torch.autograd.Function):
+    """The forward kernel, with the adjoint kernel as its backward."""
+
+    @staticmethod
+    def forward(ctx, tooth_frames, noise_frames, hm, hp, nm, n_fft):
+        ctx.n_fft = n_fft
+        ctx.save_for_backward(tooth_frames, noise_frames, hm, hp, nm)
+        return _combsub_spectral_launch(tooth_frames, noise_frames, hm, hp,
+                                        nm, n_fft)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = combsub_spectral_bwd(g.contiguous(), *ctx.saved_tensors,
+                                     ctx.n_fft)
+        return (*grads, None)
+
+
+def combsub_spectral(tooth_frames, noise_frames, hm, hp, nm, n_fft: int):
+    """The CombSubFast STFT-domain filter chain of one frame row per block:
+    windowed excitation frames (R, n_fft) and raw controls (R, n_fft//2+1)
+    -> windowed output frames (R, n_fft). n_fft a power of two, 64..4096.
+    Differentiable in all five inputs."""
+    if tooth_frames.device.type == "cpu":
+        return combsub_spectral_plain(tooth_frames, noise_frames, hm, hp, nm,
+                                      n_fft)
+    return _CombsubSpectralFn.apply(tooth_frames, noise_frames, hm, hp, nm,
+                                    n_fft)
+
+
+def combsub_spectral_bwd_plain(g, tooth_frames, noise_frames, hm, hp, nm,
+                               n_fft: int):
+    """The analytic adjoint of combsub_spectral_plain written out (the
+    arithmetic of `_combsub_spectral_bwd_kernel`): returns the gradients of
+    sum(g * out) with respect to (tooth, noise, hm, hp, nm)."""
+    bins = n_fft // 2 + 1
+    dev = g.device
+    win = sqrt_hann_window(n_fft, dtype=g.dtype, device=dev)
+    w = torch.full((bins,), 2.0 / n_fft, dtype=g.dtype, device=dev)
+    w[0] = w[-1] = 1.0 / n_fft
+    ds = torch.fft.rfft(g * win, n_fft) * w
+    spec_a = torch.fft.rfft(tooth_frames, n_fft)
+    spec_n = torch.fft.rfft(noise_frames, n_fft)
+    h = torch.polar(torch.exp(hm), np.pi * hp)
+    q = torch.exp(nm) / 128.0
+    dh = ds * spec_a.conj() * h.conj()
+    d_hm, d_hp = dh.real, np.pi * dh.imag
+    d_nm = (ds * spec_n.conj()).real * q
+
+    def half_sum(x):  # Re sum_k x[k] e^{+2 pi j k t / n}, k = 0 .. n/2
+        return torch.fft.ifft(x, n_fft).real * n_fft
+
+    return (half_sum(ds * h.conj()), half_sum(ds * q), d_hm, d_hp, d_nm)
+
+
+def combsub_spectral_bwd(g, tooth_frames, noise_frames, hm, hp, nm,
+                         n_fft: int):
+    """The adjoint of combsub_spectral in one kernel (a block per frame row):
+    the upstream gradient g (R, n_fft) and the forward's inputs -> (d_tooth,
+    d_noise, d_hm, d_hp, d_nm)."""
+    if g.device.type == "cpu":
+        return combsub_spectral_bwd_plain(g, tooth_frames, noise_frames, hm,
+                                          hp, nm, n_fft)
+    rows = g.shape[0]
+    dev = g.device
+    _check_combsub(n_fft, rows, dev, (
+        ("g", g), ("tooth_frames", tooth_frames),
+        ("noise_frames", noise_frames), ("hm", hm), ("hp", hp), ("nm", nm)))
+    window = sqrt_hann_window(n_fft, device=dev)
+    d_tooth, d_noise = torch.empty_like(g), torch.empty_like(g)
+    d_hm, d_hp, d_nm = (torch.empty_like(hm) for _ in range(3))
+    _launch("combsub_spectral", "combsub_spectral_bwd_launch",
+            g.data_ptr(), tooth_frames.data_ptr(), noise_frames.data_ptr(),
+            hm.data_ptr(), hp.data_ptr(), nm.data_ptr(), window.data_ptr(),
+            d_tooth.data_ptr(), d_noise.data_ptr(), d_hm.data_ptr(),
+            d_hp.data_ptr(), d_nm.data_ptr(), rows, n_fft, _stream(g))
+    combsub_spectral_bwd.launches += 1
+    return d_tooth, d_noise, d_hm, d_hp, d_nm
+
+
+# ------------------------------- DFT magnitude ------------------------------
+
+DFT_MAX_N = 8192
+
+
+def dft_magnitude_plain(frames, n_fft: int):
+    """sqrt(re^2 + im^2 + 1e-12) of rfft(frames, n_fft): (R, n_fft) ->
+    (R, n_fft//2+1), for any n_fft."""
+    spec = torch.fft.rfft(frames, n_fft)
+    return torch.sqrt(spec.real ** 2 + spec.imag ** 2 + 1e-12)
+
+
+def _dft_magnitude_launch(frames, n_fft: int):
+    rows = frames.shape[0]
+    if not 2 <= n_fft <= DFT_MAX_N:
+        raise ValueError(f"dft_magnitude takes n_fft in [2, {DFT_MAX_N}], "
+                         f"got {n_fft}")
+    _check(frames, "frames", (rows, n_fft), frames.device)
+    out = torch.empty((rows, n_fft // 2 + 1), dtype=torch.float32,
+                      device=frames.device)
+    _launch("dft_magnitude", "dft_magnitude_launch", frames.data_ptr(),
+            out.data_ptr(), rows, n_fft, _stream(out))
+    dft_magnitude.launches += 1
+    return out
+
+
+class _DftMagnitudeFn(torch.autograd.Function):
+    """The magnitude kernel forward; the backward is plain PyTorch, as the
+    JAX package's custom VJP is plain XLA: with X = rfft(frames) and
+    inv = g / max(|X|, 1e-12), d frames = Re sum_k inv X[k] e^{+2 pi j k t/n}
+    (= (inv re) C^T - (inv im) S^T in the JAX package's DFT-matrix form)."""
+
+    @staticmethod
+    def forward(ctx, frames, n_fft):
+        mag = _dft_magnitude_launch(frames, n_fft)
+        ctx.n_fft = n_fft
+        ctx.save_for_backward(frames, mag)
+        return mag
+
+    @staticmethod
+    def backward(ctx, g):
+        frames, mag = ctx.saved_tensors
+        n = ctx.n_fft
+        spec = torch.fft.rfft(frames, n) * (g / mag.clamp_min(1e-12))
+        return torch.fft.ifft(spec, n).real * n, None
+
+
+def dft_magnitude(frames, n_fft: int):
+    """|rfft(frames, n_fft)| with the 1e-12 floor inside the root, for any
+    n_fft up to 8192: frames (R, n_fft) fp32 -> (R, n_fft//2+1). One block
+    per tile of 16 rows and up to 128 bins; differentiable."""
+    if frames.device.type == "cpu":
+        return dft_magnitude_plain(frames, n_fft)
+    return _DftMagnitudeFn.apply(frames, n_fft)
 
 
 # ------------------------------ harmonic source -----------------------------
@@ -324,5 +478,5 @@ def fused_resblocks_inject(x_up, har, nc_weight, nc_bias, weights, biases,
 
 
 KERNELS = (performer_attention, combsub_spectral, harmonic_source,
-           fused_resblocks_inject)
+           fused_resblocks_inject, dft_magnitude, combsub_spectral_bwd)
 reset_launch_counts()

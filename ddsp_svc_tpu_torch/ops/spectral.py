@@ -1,8 +1,12 @@
-"""Framing, overlap-add, STFT and the NSF-HiFiGAN log-mel frontend.
+"""Framing, overlap-add, STFT, the loss spectrogram and the NSF-HiFiGAN
+log-mel frontend.
 
-Transforms go through torch.fft (cuFFT on the card). The mel filterbank is
-a numpy copy of `ddsp_svc_tpu/ops/spectral.py::mel_filterbank` (librosa
-slaney parity), so both packages share one basis bit for bit.
+Transforms go through torch.fft (cuFFT on the card), except the loss
+spectrogram's magnitude, which goes through the dft_magnitude kernel on the
+card as the JAX package routes it through dft_magnitude_pallas on the TPU
+(it takes any n_fft). The mel filterbank is a numpy copy of
+`ddsp_svc_tpu/ops/spectral.py::mel_filterbank` (librosa slaney parity), so
+both packages share one basis bit for bit.
 """
 from __future__ import annotations
 
@@ -12,6 +16,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .kernels import dft_magnitude
 from .windows import hann_window
 
 
@@ -41,6 +46,25 @@ def stft(x: torch.Tensor, n_fft: int, hop: int, window: torch.Tensor
         lpad = (n_fft - win_length) // 2
         window = F.pad(window, (lpad, n_fft - win_length - lpad))
     return torch.fft.rfft(frame_signal(x, n_fft, hop) * window, n_fft)
+
+
+def spectrogram(x: torch.Tensor, n_fft: int, hop: int | None = None,
+                power: float = 1.0, normalized: bool = True) -> torch.Tensor:
+    """Magnitude spectrogram with torchaudio.transforms.Spectrogram semantics
+    (periodic Hann window, center=False, 'window' normalisation), hop n_fft
+    by default. (B, T) -> (B, n_fft//2+1, n_frames). The magnitude carries
+    the 1e-12 floor of dft_magnitude inside its square root."""
+    hop = n_fft if hop is None else hop
+    win = hann_window(n_fft, dtype=x.dtype, device=x.device)
+    frames = frame_signal(x, n_fft, hop) * win  # (B, F, n_fft)
+    b, f, _ = frames.shape
+    mag = dft_magnitude(frames.reshape(b * f, n_fft), n_fft)
+    mag = mag.reshape(b, f, n_fft // 2 + 1)
+    if power != 1.0:
+        mag = mag ** power
+    if normalized:
+        mag = mag / torch.sqrt(torch.sum(win * win))
+    return mag.transpose(-1, -2)
 
 
 def _hz_to_mel(f):

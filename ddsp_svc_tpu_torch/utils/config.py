@@ -1,4 +1,4 @@
-"""YAML config -> attribute-access dict (missing keys read as None)."""
+"""YAML config <-> attribute-access dict (missing keys read as None)."""
 from __future__ import annotations
 
 import yaml
@@ -18,3 +18,13 @@ class DotDict(dict):
 def load_config(path_config: str) -> DotDict:
     with open(path_config, "r") as f:
         return DotDict(yaml.safe_load(f))
+
+
+def save_config(path: str, args: dict) -> None:
+    """Write a config back as yaml (next to the checkpoints)."""
+    with open(path, "w") as f:
+        yaml.safe_dump(_plain(args), f, sort_keys=False)
+
+
+def _plain(d):
+    return {k: _plain(v) for k, v in d.items()} if isinstance(d, dict) else d

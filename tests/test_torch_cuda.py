@@ -98,6 +98,61 @@ def test_resblocks_inject_kernel(cuda, c, t, s_src, valid, inject):
     torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("n_fft,rows", [(256, 100), (375, 33), (1092, 17),
+                                        (2047, 40), (8, 3)])
+def test_dft_magnitude_kernel(cuda, n_fft, rows):
+    """atol 2e-3 (the JAX package's kernel test) on the magnitude, and the
+    gradient through the autograd Function against autograd of the plain
+    version at atol 2e-3."""
+    g = torch.Generator(device=cuda).manual_seed(n_fft)
+    x = _randn(g, rows, n_fft)
+    gm = _randn(g, rows, n_fft // 2 + 1)
+    xk, xp = x.clone().requires_grad_(), x.clone().requires_grad_()
+    mk, mp = K.dft_magnitude(xk, n_fft), K.dft_magnitude_plain(xp, n_fft)
+    torch.testing.assert_close(mk, mp, atol=2e-3, rtol=0)
+    (mk * gm).sum().backward()
+    (mp * gm).sum().backward()
+    torch.testing.assert_close(xk.grad, xp.grad, atol=2e-3, rtol=0)
+
+
+@pytest.mark.parametrize("n_fft,rows", [(64, 3), (1024, 9), (1024, 4152),
+                                        (4096, 5)])
+def test_combsub_spectral_bwd_kernel(cuda, n_fft, rows):
+    """Each of the five gradients within 2e-5 of its max |ref| (the JAX
+    package's kernel tolerance), by the kernel and by autograd through
+    combsub_spectral, against the plain adjoint."""
+    g = torch.Generator(device=cuda).manual_seed(n_fft + rows)
+    bins = n_fft // 2 + 1
+    args = (_randn(g, rows, n_fft), _randn(g, rows, n_fft),
+            _randn(g, rows, bins, scale=1.5), _randn(g, rows, bins, scale=1.5),
+            _randn(g, rows, bins, scale=1.5))
+    up = _randn(g, rows, n_fft)
+    ref = K.combsub_spectral_bwd_plain(up, *args, n_fft)
+    got = K.combsub_spectral_bwd(up, *args, n_fft)
+    xs = [a.clone().requires_grad_() for a in args]
+    (K.combsub_spectral(*xs, n_fft) * up).sum().backward()
+    for r, o, x in zip(ref, got, xs):
+        for out in (o, x.grad):
+            assert ((out - r).abs().max() / r.abs().max()).item() < 2e-5
+
+
+def test_combsub_spectral_plain_at_training_rows(cuda):
+    """The plain chain on the card at a training batch's 4152 rows against
+    the same chain in float64 on the CPU. cuFFT's C2R reads the imaginary
+    parts of the DC and Nyquist bins at 2048 or more rows of n_fft 1024
+    (every row ~2e-2 off when they are not zero); the plain version zeroes
+    them, as irfft's semantics drop them."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    n_fft, rows = 1024, 4152
+    bins = n_fft // 2 + 1
+    args = (_randn(g, rows, n_fft), _randn(g, rows, n_fft),
+            _randn(g, rows, bins, scale=1.5), _randn(g, rows, bins, scale=1.5),
+            _randn(g, rows, bins, scale=1.5))
+    got = K.combsub_spectral_plain(*args, n_fft).double().cpu()
+    ref = K.combsub_spectral_plain(*(a.double().cpu() for a in args), n_fft)
+    assert ((got - ref).abs().max() / ref.abs().max()).item() < 2e-5
+
+
 def test_wrappers_count_launches(cuda):
     K.reset_launch_counts()
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -108,4 +163,6 @@ def test_wrappers_count_launches(cuda):
     K.harmonic_source(start.contiguous(), rad.contiguous(), w, b, 64)
     assert K.launch_counts() == {"performer_attention": 0, "combsub_spectral": 0,
                                  "harmonic_source": 1,
-                                 "fused_resblocks_inject": 0}
+                                 "fused_resblocks_inject": 0,
+                                 "dft_magnitude": 0,
+                                 "combsub_spectral_bwd": 0}

@@ -1,5 +1,6 @@
 """PyTorch port, isolation: the package and chip_smoke.py stand without JAX,
-flax and the JAX package, and entry points never fall back to the CPU."""
+flax and the JAX package (every module, the training ones included), and
+entry points, the trainer's among them, never fall back to the CPU."""
 import ast
 import os
 import pathlib
@@ -33,7 +34,7 @@ names = [m.name for m in pkgutil.walk_packages(ddsp_svc_tpu_torch.__path__,
                                                 "ddsp_svc_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 20, names
+assert len(names) >= 30, names
 
 from ddsp_svc_tpu_torch.infer.enhancer import Enhancer, NsfHifiGAN
 from ddsp_svc_tpu_torch.models.factory import build_model
@@ -50,10 +51,20 @@ h = {"sampling_rate": 16000, "num_mels": 8, "n_fft": 256, "win_size": 256,
 model = build_model(args, device="cpu")
 nsf = NsfHifiGAN(None, h=h, device="cpu")
 assert next(model.parameters()).device.type == "cpu"
+args16 = DotDict({**args, "model": {**args["model"], "bf16": True}})
+model16 = build_model(args16, device="cpu")
+assert {p.dtype for p in model16.parameters()} == {torch.float32}
+
+import os, tempfile, yaml
+from ddsp_svc_tpu_torch.train.__main__ import main as train_main
+cfg = os.path.join(tempfile.mkdtemp(), "cfg.yaml")
+with open(cfg, "w") as f:
+    yaml.safe_dump(dict(args), f)
 
 torch.cuda.is_available = lambda: False  # as on a machine with no card
 for make in (lambda: build_model(args), lambda: NsfHifiGAN(None, h=h),
-             lambda: Enhancer("nsf-hifigan", None, h=h)):
+             lambda: Enhancer("nsf-hifigan", None, h=h),
+             lambda: train_main(["-c", cfg])):
     try:
         make()
     except RuntimeError as e:

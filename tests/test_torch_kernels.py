@@ -17,6 +17,26 @@ from ddsp_svc_tpu_torch.ops import kernels as K
 torch.set_num_threads(2)
 
 
+@pytest.fixture(autouse=True)
+def _ieee_fp32():
+    """Every comparison here is of two fp32 computations at JAX's kernel
+    tolerances, so the torch side is pinned to full-precision fp32 matmuls
+    on MKL (no oneDNN reduced-precision path) whatever state the worker
+    process holds."""
+    saved = torch.get_float32_matmul_precision(), torch.backends.mkldnn.enabled
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.mkldnn.enabled = False
+    yield
+    torch.set_float32_matmul_precision(saved[0])
+    torch.backends.mkldnn.enabled = saved[1]
+
+
+def _state() -> str:
+    return (f"torch threads {torch.get_num_threads()}, fp32 matmul precision "
+            f"{torch.get_float32_matmul_precision()}, cpu capability "
+            f"{torch.backends.cpu.get_cpu_capability()}")
+
+
 def _t(a, device="cpu"):
     return torch.from_numpy(np.asarray(a)).to(device)
 
@@ -65,9 +85,15 @@ def test_performer_attention_plain_matches_jax(valid):
         kf = kf * frame_mask(40, jnp.asarray(valid), kf.dtype)[:, None, :, None]
     ref = np.asarray(jpcmer.linear_attention(qf, kf, jnp.asarray(v)))
     got = K.performer_attention(_t(q), _t(k), _t(v), _t(proj), valid).numpy()
-    for i in range(2):
-        r, g = ref[i, :, :n[i]], got[i, :, :n[i]]
-        assert np.abs(g - r).max() / np.abs(r).max() < 2e-5
+    exact = K.performer_attention(*(_t(a).double() for a in (q, k, v, proj)),
+                                  valid).numpy()
+    dev = [float(np.abs(got[i, :, :n[i]] - ref[i, :, :n[i]]).max()
+                 / np.abs(ref[i, :, :n[i]]).max()) for i in range(2)]
+    dev64 = [float(np.abs(got[i, :, :n[i]] - exact[i, :, :n[i]]).max()
+                   / np.abs(exact[i, :, :n[i]]).max()) for i in range(2)]
+    assert max(dev) < 2e-5, (
+        f"relative deviation per row {dev} (bound 2e-5); the port's fp32 "
+        f"against its own float64 run {dev64}; {_state()}")
 
 
 def test_performer_attention_plain_matches_pallas_reference():
@@ -152,6 +178,53 @@ def test_resblocks_plain_no_inject_and_valid():
         assert not masked[i, n:].any()
 
 
+@pytest.mark.parametrize("n_fft", [375, 1092])
+def test_dft_magnitude_plain_matches_jax(n_fft):
+    """Against dft_magnitude_pallas in interpret mode at two of the RSS
+    loss's non-power-of-two sizes: the magnitude at atol 2e-3 and the
+    gradient of sum(log(mag + 1e-7)) (through its custom VJP) at atol 2e-3,
+    the JAX package's own kernel tolerances (test_pallas_kernels.py)."""
+    import jax
+
+    rng = np.random.default_rng(n_fft)
+    frames = rng.standard_normal((20, n_fft)).astype(np.float32)
+    ref = np.asarray(jpk.dft_magnitude_pallas(jnp.asarray(frames), n_fft, True))
+    x = _t(frames).requires_grad_()
+    got = K.dft_magnitude(x, n_fft)
+    np.testing.assert_allclose(got.detach().numpy(), ref, atol=2e-3, rtol=0)
+    torch.log(got + 1e-7).sum().backward()
+    ref_g = np.asarray(jax.grad(lambda fr: jnp.sum(jnp.log(
+        jpk.dft_magnitude_pallas(fr, n_fft, True) + 1e-7)))(jnp.asarray(frames)))
+    np.testing.assert_allclose(x.grad.numpy(), ref_g, atol=2e-3, rtol=0)
+
+
+@pytest.mark.parametrize("n_fft,rows", [(256, 37), (1024, 5)])
+def test_combsub_spectral_bwd_plain_matches_jax(n_fft, rows):
+    """The plain adjoint, and autograd through combsub_spectral on the CPU,
+    against the Pallas backward kernel in interpret mode: 2e-5 of max |ref|
+    per gradient, the JAX package's kernel-vs-reference tolerance."""
+    rng = np.random.default_rng(12)
+    bins = n_fft // 2 + 1
+    g = rng.standard_normal((rows, n_fft)).astype(np.float32)
+    args = (rng.standard_normal((rows, n_fft)).astype(np.float32),
+            rng.standard_normal((rows, n_fft)).astype(np.float32),
+            (rng.standard_normal((rows, bins)) * 0.3).astype(np.float32),
+            rng.standard_normal((rows, bins)).astype(np.float32),
+            (rng.standard_normal((rows, bins)) * 0.3 - 3).astype(np.float32))
+    ref = jpk._combsub_spectral_bwd_impl(
+        *(jnp.asarray(a) for a in (g,) + args), n_fft, False, True)
+    plain = K.combsub_spectral_bwd(_t(g), *(_t(a) for a in args), n_fft)
+    xs = [_t(a).requires_grad_() for a in args]
+    (K.combsub_spectral(*xs, n_fft) * _t(g)).sum().backward()
+    for name, r, p, x in zip(("tooth", "noise", "hm", "hp", "nm"), ref, plain,
+                             xs):
+        r = np.asarray(r)
+        scale = np.abs(r).max()
+        for how, got in (("plain", p.numpy()), ("autograd", x.grad.numpy())):
+            err = np.abs(got - r).max() / scale
+            assert err < 2e-5, (name, how, err)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take():
     """Shape checks run before any launch, so they are testable here with
     meta tensors standing in for the card's."""
@@ -162,6 +235,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     ctl = torch.empty((3, 321), device="meta")
     with pytest.raises(ValueError, match="power-of-two"):
         K.combsub_spectral(fr, fr, ctl, ctl, ctl, 640)
+    with pytest.raises(ValueError, match="power-of-two"):
+        K.combsub_spectral_bwd(fr, fr, fr, ctl, ctl, ctl, 640)
+    with pytest.raises(ValueError, match="n_fft in"):
+        K.dft_magnitude(torch.empty((3, 9000), device="meta"), 9000)
     x = torch.empty((1, 50, 24), device="meta")
     w = [torch.empty((3, 2, 24, 24, k), device="meta") for k in (3, 7, 11)]
     with pytest.raises(ValueError, match="C in"):

@@ -4,14 +4,16 @@
 Runs offline conversion (`convert_features`: CombSubFast from
 configs/combsub.yaml + the 44.1 kHz NSF-HiFiGAN, weights from seeds) on
 three segments of 200, 384 and 512 frames, warms up, then traces one run
-with torch.profiler and prints:
+with torch.profiler (and, with --train, one training step of the fp32 and
+of the model.bf16 model at batch 24 x 2 s) and prints:
   - wall time of the traced run, device busy time (sum of kernel times),
     and the device's idle share of the wall time;
   - device time by group (the four hand-written kernels, convolutions,
     GEMMs, FFTs, everything else) and the top kernels by device time.
 Run from the root of a checkout on a machine with an NVIDIA GPU:
 
-    python3 tools/profile_torch_main_path.py [--batch-frames 0] [--top 25]
+    python3 tools/profile_torch_main_path.py [--batch-frames 0] [--train]
+                                             [--top 25]
 
 --batch-frames N additionally profiles one batched forward of 16 items of N
 frames (bench.py's shapes are 512). TF32 is off, as in chip_smoke.py.
@@ -31,13 +33,16 @@ from chip_smoke import H_NSF, SEGMENT_FRAMES  # noqa: E402  (the main path's sha
 
 GROUPS = (
     ("kernel: performer_attention", ("favor_",)),
+    ("kernel: combsub_spectral_bwd", ("combsub_spectral_bwd",)),
     ("kernel: combsub_spectral", ("combsub_spectral",)),
+    ("kernel: dft_magnitude", ("dft_magnitude",)),
     ("kernel: harmonic_source", ("harmonic_source",)),
     ("kernel: fused_resblocks_inject", ("resblocks_kernel",)),
     ("convolutions (cuDNN)", ("conv", "cudnn", "implicit", "winograd",
                               "dgrad", "wgrad", "xmma", "sm90_")),
     ("GEMM (cuBLAS)", ("gemm", "cutlass", "ampere_", "sgemm")),
     ("FFT (cuFFT)", ("fft", "regular_fft", "vector_fft")),
+    ("optimizer (AdamW)", ("multi_tensor", "adam")),
 )
 
 
@@ -62,7 +67,10 @@ def profile(torch, fn, top: int, label: str) -> None:
         wall = time.perf_counter() - t0
     by_name = {}
     for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
+        # user annotations (Optimizer.step#AdamW.step) span kernels listed
+        # on their own: counting them too would count that time twice
+        if (ev.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(ev, "is_user_annotation", False)):
             t = ev.time_range.elapsed_us()
             n, c = by_name.get(ev.name, (0.0, 0))
             by_name[ev.name] = (n + t, c + 1)
@@ -86,6 +94,7 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--batch-frames", type=int, default=0)
+    ap.add_argument("--train", action="store_true")
     a = ap.parse_args()
     import torch
 
@@ -98,6 +107,7 @@ def main() -> None:
                          text=True).stdout.strip())
     from ddsp_svc_tpu_torch.infer.enhancer import Enhancer
     from ddsp_svc_tpu_torch.infer.offline import convert_features
+    from chip_smoke import warm_up_buckets
     from ddsp_svc_tpu_torch.models.factory import build_model
     from ddsp_svc_tpu_torch.utils.config import load_config
 
@@ -134,6 +144,41 @@ def main() -> None:
             enhancer.enhancer(signal, f0b[..., 0], generator=g)
 
         profile(torch, batched, a.top, f"batched B={b} x {n}")
+    if a.train:
+        profile_training(torch, args, a.top)
+
+
+def profile_training(torch, args, top: int) -> None:
+    """One training step at the config's batch and crop (random batch on the
+    device, the RSS scales drawn per step), fp32 and model.bf16, after steps
+    that made every bucket's cuFFT plans."""
+    from chip_smoke import warm_up_buckets
+    from ddsp_svc_tpu_torch.models.factory import build_model
+    from ddsp_svc_tpu_torch.models.losses import RSSLoss
+    from ddsp_svc_tpu_torch.train.step import (
+        TrainState, create_optimizer, train_step)
+
+    b = int(args.train.batch_size)
+    frames = int(args.data.duration * args.data.sampling_rate
+                 / args.data.block_size)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    batch = dict(
+        units=torch.randn((b, frames, args.data.encoder_out_channels),
+                          generator=g, device="cuda"),
+        f0=110 + 300 * torch.rand((b, frames, 1), generator=g, device="cuda"),
+        volume=0.05 + 0.3 * torch.rand((b, frames), generator=g, device="cuda"),
+        spk_id=torch.ones((b, 1), dtype=torch.int64, device="cuda"),
+        audio=0.3 * torch.randn((b, frames * args.data.block_size),
+                                generator=g, device="cuda"))
+    rss = RSSLoss(int(args.loss.fft_min), int(args.loss.fft_max),
+                  int(args.loss.n_scale))
+    for bf16 in (False, True):
+        args["model"]["bf16"] = bf16
+        model = build_model(args, device="cuda", seed=0)
+        state = TrainState(0, model, create_optimizer(model, 1e-4))
+        warm_up_buckets(state, batch, rss, train_step)
+        profile(torch, lambda: train_step(state, batch, rss), top,
+                f"train step {'bf16' if bf16 else 'fp32'} B={b} x {frames}")
 
 
 if __name__ == "__main__":
