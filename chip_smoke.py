@@ -20,9 +20,10 @@ Phases, each printing its own lines:
      main) on a synthetic dataset in the AudioDataset layout at
      configs/combsub.yaml's full width (batch 24, 2-s crops, RSS loss
      256..2048 x 4 scales): fp32 steps with a validation pass and a
-     checkpoint, a resume from it, then model.bf16 steps; each run's launch
-     counts; one fp32 and one bf16 step on the kernels against the same step
-     on the plain versions (loss and every parameter gradient); ms per step.
+     checkpoint, a resume from it, then model.bf16 steps with a validation
+     pass; each run's launch counts; a bf16 validation forward, and one fp32
+     and one bf16 step, on the kernels against the same on the plain
+     versions (signal; loss and every parameter gradient); ms per step.
 The last two lines are the kernels JSON and {"ok": true, "device": ...}.
 Any failed check exits non-zero before them. Without a GPU it fails.
 """
@@ -501,14 +502,6 @@ def grads_agree(label, model_k, model_p, tol_rel: float, tol_cos: float):
     return worst_rel, worst_cos
 
 
-def warm_up_buckets(state, batch, rss, train_step) -> None:
-    """Steps whose pinned scales cover every bucket once, so that no cuFFT
-    plan is made inside a timed or traced step."""
-    idx = list(range(len(rss.buckets)))
-    for i in range(0, len(idx), rss.n_scale):
-        train_step(state, batch, rss, loss_idx=idx[i:i + rss.n_scale])
-
-
 def train_phase(torch, K) -> dict:
     """The training path at configs/combsub.yaml's full width; returns the
     summed launch counts of its runs."""
@@ -518,7 +511,8 @@ def train_phase(torch, K) -> dict:
     from ddsp_svc_tpu_torch.models.losses import RSSLoss
     from ddsp_svc_tpu_torch.train import __main__ as train_main
     from ddsp_svc_tpu_torch.train.step import (
-        TrainState, batch_to_device, create_optimizer, train_step)
+        TrainState, batch_to_device, create_optimizer, eval_step, train_step,
+        warm_up_buckets)
     from ddsp_svc_tpu_torch.utils.config import load_config
 
     args = load_config(os.path.join(ROOT, "configs", "combsub.yaml"))
@@ -589,13 +583,15 @@ def train_phase(torch, K) -> dict:
         fail("fp32 training launched the combsub adjoint (its chain is the "
              "plain torch.fft one)")
     add(counts)
-    # model.bf16: the spectral chain runs on its kernel and its adjoint
-    cfg16 = config("bf16", True, 10 ** 6)
+    # model.bf16: the spectral chain runs on its kernel and its adjoint; the
+    # validation pass at the last step casts q, k, v up to fp32 for the
+    # attention kernel
+    cfg16 = config("bf16", True, BF16_STEPS)
     K.reset_launch_counts()
     run(cfg16, BF16_STEPS, "train bf16")
     add(path_launches(K, "training path (bf16)",
                       ("dft_magnitude", "combsub_spectral",
-                       "combsub_spectral_bwd")))
+                       "combsub_spectral_bwd", "performer_attention")))
 
     # one step on the kernels against the same step on the plain versions:
     # same weights, batch, noise and loss scales, at loss eps 1e-3 (the
@@ -606,6 +602,33 @@ def train_phase(torch, K) -> dict:
     noise = torch.rand(batch["audio"].shape, generator=g, device="cuda") * 2 - 1
     rss = RSSLoss(int(args.loss.fft_min), int(args.loss.fft_max),
                   int(args.loss.n_scale), eps=1e-3)
+
+    # the bf16 validation forward (infer=True) on the kernels against the
+    # same forward on the plain versions. Both feed the attention fp32 q, k,
+    # v cast up from bf16; their fp32 rounding differences (~1e-6) flip bf16
+    # roundings downstream (2^-8 relative each), and the flips grow through
+    # the three PCmer layers towards bf16's own noise (bf16 vs fp32 reads
+    # 1.8e-2). So the signal is held to the JAX package's bf16 bound, 5e-2
+    # relative RMS (tests/test_bf16.py); its spectral loss, which the flips
+    # hardly move, to 1e-4
+    model16 = build_model(load_config(cfg16), device="cuda", seed=0)
+    outs = []
+    for plain in (False, True):
+        with plain_kernels(K) if plain else nullcontext():
+            gen = torch.Generator(device="cuda").manual_seed(42)
+            sig, loss = eval_step(model16, batch, rss, gen)
+        outs.append((sig, float(loss)))
+    (sig_k, loss_k), (sig_p, loss_p) = outs
+    rel_rms = ((sig_k - sig_p).pow(2).mean()
+               / sig_p.pow(2).mean()).sqrt().item()
+    rel_loss = abs(loss_k - loss_p) / abs(loss_p)
+    say(f"validation forward bf16, kernels vs plain versions: signal rel RMS "
+        f"{rel_rms:.3e} (tolerance 5e-2), all-bucket loss {loss_k:.6f} vs "
+        f"{loss_p:.6f} (rel {rel_loss:.2e}, tolerance 1e-4)")
+    if not (torch.isfinite(sig_k).all() and rel_rms < 5e-2
+            and rel_loss < 1e-4):
+        fail("bf16 validation forward disagrees with the plain versions")
+
     # per-parameter bounds of tests/test_train_parity.py (rel < 2e-2, cos >
     # 1 - 1e-4); under bf16 the chains' fp32 rounding differences pass
     # through bf16 matmuls in the backward and come out at ~1e-3 (the bf16
@@ -639,7 +662,7 @@ def train_phase(torch, K) -> dict:
             ctx = plain_kernels(K) if plain else nullcontext()
             times = []
             with ctx:
-                warm_up_buckets(st, batch, rss, train_step)
+                warm_up_buckets(st, batch, rss)
                 for _ in range(TIMED_STEPS + 1):
                     t0 = time.perf_counter()
                     train_step(st, batch, rss)

@@ -1,10 +1,10 @@
 """Multi-scale spectral losses of training.
 
 Counterpart of `ddsp_svc_tpu/models/losses.py`:
-  - sss_loss: spectral convergence + alpha * L1(log magnitude) on a
-    power-1, window-normalised, center=False spectrogram with hop n_fft;
-  - RSSLoss: per step, n_scale FFT sizes drawn uniformly from a static set
-    of linearly spaced buckets in [fft_min, fft_max), averaged; `mss` is the
+  - sss_loss: spectral convergence + L1(log magnitude) on a power-1,
+    window-normalised, center=False spectrogram with hop n_fft;
+  - RSSLoss: per step, n_scale FFT sizes drawn uniformly from 16 linearly
+    spaced buckets in [fft_min, fft_max), averaged; `mss` is the
     deterministic all-bucket average used for validation;
   - mel_l1: the log-mel L1 distance.
 The spectrogram's magnitude goes through the dft_magnitude kernel on the
@@ -20,9 +20,11 @@ import torch
 
 from ..ops.spectral import log_mel_spectrogram, spectrogram
 
+N_BUCKETS = 16
+
 
 def sss_loss(x_true: torch.Tensor, x_pred: torch.Tensor, n_fft: int,
-             alpha: float = 1.0, eps: float = 1e-7) -> torch.Tensor:
+             eps: float = 1e-7) -> torch.Tensor:
     """Single-scale spectral loss of (B, T) signals."""
     s_true = spectrogram(x_true, n_fft) + eps
     s_pred = spectrogram(x_pred, n_fft) + eps
@@ -30,29 +32,27 @@ def sss_loss(x_true: torch.Tensor, x_pred: torch.Tensor, n_fft: int,
         torch.sqrt(torch.sum((s_true - s_pred) ** 2, dim=(1, 2)))
         / torch.sqrt(torch.sum((s_true + s_pred) ** 2, dim=(1, 2))))
     log_term = torch.mean(torch.abs(torch.log(s_true) - torch.log(s_pred)))
-    return converge + alpha * log_term
+    return converge + log_term
 
 
-def default_buckets(fft_min: int, fft_max: int, n_buckets: int = 16) -> tuple:
-    """Linearly spaced static FFT sizes spanning [fft_min, fft_max) (the
-    JAX package's default set; 256..2048 gives 256, 375, ..., 2047)."""
+def default_buckets(fft_min: int, fft_max: int) -> tuple:
+    """N_BUCKETS linearly spaced static FFT sizes spanning [fft_min,
+    fft_max) (the JAX package's default set; 256..2048 gives 256, 375, ...,
+    2047)."""
     sizes = np.unique(
-        np.round(np.linspace(fft_min, fft_max - 1, n_buckets)).astype(int))
+        np.round(np.linspace(fft_min, fft_max - 1, N_BUCKETS)).astype(int))
     return tuple(int(s) for s in sizes)
 
 
 class RSSLoss:
-    """Random-scale spectral loss over a static bucket set:
+    """Random-scale spectral loss over the default bucket set:
     loss = rss(x_pred, x_true, generator) or rss(x_pred, x_true, idx=...)."""
 
     def __init__(self, fft_min: int = 256, fft_max: int = 2048,
-                 n_scale: int = 4, alpha: float = 1.0, eps: float = 1e-7,
-                 buckets: Optional[Sequence[int]] = None, n_buckets: int = 16):
+                 n_scale: int = 4, eps: float = 1e-7):
         self.n_scale = n_scale
-        self.alpha = alpha
         self.eps = eps
-        self.buckets = (tuple(buckets) if buckets is not None
-                        else default_buckets(fft_min, fft_max, n_buckets))
+        self.buckets = default_buckets(fft_min, fft_max)
 
     def draw(self, generator: Optional[torch.Generator] = None) -> list:
         """n_scale bucket indices, uniform, from a host generator."""
@@ -60,19 +60,18 @@ class RSSLoss:
                             generator=generator)
         return [int(i) for i in idx]
 
-    def _sss(self, x_true, x_pred, n_fft):
-        return sss_loss(x_true, x_pred, n_fft, self.alpha, self.eps)
-
     def __call__(self, x_pred: torch.Tensor, x_true: torch.Tensor,
                  generator: Optional[torch.Generator] = None,
                  idx: Optional[Sequence[int]] = None) -> torch.Tensor:
         idx = self.draw(generator) if idx is None else idx
-        total = sum(self._sss(x_true, x_pred, self.buckets[i]) for i in idx)
+        total = sum(sss_loss(x_true, x_pred, self.buckets[i], self.eps)
+                    for i in idx)
         return total / len(idx)
 
     def mss(self, x_pred: torch.Tensor, x_true: torch.Tensor) -> torch.Tensor:
         """Deterministic all-bucket average (the validation metric)."""
-        total = sum(self._sss(x_true, x_pred, n) for n in self.buckets)
+        total = sum(sss_loss(x_true, x_pred, n, self.eps)
+                    for n in self.buckets)
         return total / len(self.buckets)
 
 

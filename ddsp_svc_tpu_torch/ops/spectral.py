@@ -48,22 +48,17 @@ def stft(x: torch.Tensor, n_fft: int, hop: int, window: torch.Tensor
     return torch.fft.rfft(frame_signal(x, n_fft, hop) * window, n_fft)
 
 
-def spectrogram(x: torch.Tensor, n_fft: int, hop: int | None = None,
-                power: float = 1.0, normalized: bool = True) -> torch.Tensor:
-    """Magnitude spectrogram with torchaudio.transforms.Spectrogram semantics
-    (periodic Hann window, center=False, 'window' normalisation), hop n_fft
-    by default. (B, T) -> (B, n_fft//2+1, n_frames). The magnitude carries
-    the 1e-12 floor of dft_magnitude inside its square root."""
-    hop = n_fft if hop is None else hop
+def spectrogram(x: torch.Tensor, n_fft: int) -> torch.Tensor:
+    """The loss's magnitude spectrogram, with the semantics of
+    torchaudio.transforms.Spectrogram(n_fft, hop_length=n_fft, power=1,
+    normalized=True, center=False): periodic Hann window, 'window'
+    normalisation. (B, T) -> (B, n_fft//2+1, n_frames). The magnitude
+    carries the 1e-12 floor of dft_magnitude inside its square root."""
     win = hann_window(n_fft, dtype=x.dtype, device=x.device)
-    frames = frame_signal(x, n_fft, hop) * win  # (B, F, n_fft)
+    frames = frame_signal(x, n_fft, n_fft) * win  # (B, F, n_fft)
     b, f, _ = frames.shape
     mag = dft_magnitude(frames.reshape(b * f, n_fft), n_fft)
-    mag = mag.reshape(b, f, n_fft // 2 + 1)
-    if power != 1.0:
-        mag = mag ** power
-    if normalized:
-        mag = mag / torch.sqrt(torch.sum(win * win))
+    mag = mag.reshape(b, f, n_fft // 2 + 1) / torch.sqrt(torch.sum(win * win))
     return mag.transpose(-1, -2)
 
 

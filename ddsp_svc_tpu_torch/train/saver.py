@@ -55,28 +55,26 @@ class Saver:
                 path += ".wav"
             write_wav(path, np.asarray(audio).reshape(-1), self.sample_rate)
 
-    def get_interval_time(self, update: bool = True) -> float:
+    def get_interval_time(self) -> float:
+        """Seconds since the last call (or since the start)."""
         now = time.time()
         dt = now - self.last_time
-        if update:
-            self.last_time = now
+        self.last_time = now
         return dt
 
-    def get_total_time(self, to_str: bool = True):
+    def get_total_time(self) -> str:
+        """Time since the start as HH:MM:SS."""
         total = time.time() - self.init_time
-        if to_str:
-            return str(int(total // 3600)).zfill(2) + time.strftime(
-                ":%M:%S", time.gmtime(total))
-        return total
+        return str(int(total // 3600)).zfill(2) + time.strftime(
+            ":%M:%S", time.gmtime(total))
 
     def global_step_increment(self) -> None:
         self.global_step += 1
 
     def save_model(self, model: torch.nn.Module,
-                   optimizer: Optional[torch.optim.Optimizer] = None,
-                   postfix: Optional[str] = None) -> str:
-        name = f"model_{postfix}.pt" if postfix else "model.pt"
-        path = os.path.join(self.expdir, name)
+                   optimizer: Optional[torch.optim.Optimizer],
+                   postfix: str) -> str:
+        path = os.path.join(self.expdir, f"model_{postfix}.pt")
         self.log_info(f" [*] model checkpoint saved: {path}")
         save_checkpoint(path, self.global_step, model, optimizer)
         return path

@@ -74,6 +74,15 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor], rss,
     return loss.detach()
 
 
+def warm_up_buckets(state: TrainState, batch: Dict[str, torch.Tensor],
+                    rss) -> None:
+    """Steps whose pinned scales cover every loss bucket once, so that no
+    cuFFT plan is made inside a later timed or traced step."""
+    idx = list(range(len(rss.buckets)))
+    for i in range(0, len(idx), rss.n_scale):
+        train_step(state, batch, rss, loss_idx=idx[i:i + rss.n_scale])
+
+
 @torch.no_grad()
 def eval_step(model: torch.nn.Module, batch: Dict[str, torch.Tensor], rss,
               generator: Optional[torch.Generator] = None):

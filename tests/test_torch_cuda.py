@@ -153,6 +153,45 @@ def test_combsub_spectral_plain_at_training_rows(cuda):
     assert ((got - ref).abs().max() / ref.abs().max()).item() < 2e-5
 
 
+def test_bf16_infer_forward_matches_plain(cuda, monkeypatch):
+    """A model.bf16 CombSubFast at inference (q, k, v cast up to fp32 for
+    the attention kernel; the spectral chain on its kernel) against the same
+    model with both kernels swapped for their plain versions. Both run the
+    attention in fp32; their fp32 rounding differences (~1e-6) flip bf16
+    roundings downstream (2^-8 each) that grow through the PCmer layers
+    towards bf16's own noise, so the bound is the JAX package's bf16 bound,
+    5e-2 relative RMS (tests/test_bf16.py); chip_smoke.py reads 7.3e-3 at
+    full width."""
+    from ddsp_svc_tpu_torch.models import synths
+    from ddsp_svc_tpu_torch.nn import pcmer
+    from ddsp_svc_tpu_torch.nn.layers import lecun_init_
+
+    g = torch.Generator(device=cuda).manual_seed(9)
+    model = lecun_init_(synths.CombSubFast(44100, 512, n_unit=32, n_spk=2,
+                                           bf16=True),
+                        torch.Generator().manual_seed(0)).to(cuda)
+    b, frames = 2, 96
+    args = (_randn(g, b, frames, 32),
+            110 + 300 * torch.rand((b, frames, 1), generator=g, device=cuda),
+            torch.rand((b, frames), generator=g, device=cuda),
+            torch.tensor([[1], [2]], device=cuda))
+    K.reset_launch_counts()
+    with torch.no_grad():
+        got, _, _ = model(*args, infer=True,
+                          generator=torch.Generator(device=cuda).manual_seed(1))
+        counts = K.launch_counts()
+        monkeypatch.setattr(pcmer, "performer_attention",
+                            K.performer_attention_plain)
+        monkeypatch.setattr(synths, "combsub_spectral",
+                            K.combsub_spectral_plain)
+        ref, _, _ = model(*args, infer=True,
+                          generator=torch.Generator(device=cuda).manual_seed(1))
+    assert counts["performer_attention"] > 0 and counts["combsub_spectral"] > 0
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    rel_rms = ((got - ref).pow(2).mean() / ref.pow(2).mean()).sqrt().item()
+    assert rel_rms < 5e-2, rel_rms
+
+
 def test_wrappers_count_launches(cuda):
     K.reset_launch_counts()
     g = torch.Generator(device=cuda).manual_seed(0)

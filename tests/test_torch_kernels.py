@@ -17,20 +17,6 @@ from ddsp_svc_tpu_torch.ops import kernels as K
 torch.set_num_threads(2)
 
 
-@pytest.fixture(autouse=True)
-def _ieee_fp32():
-    """Every comparison here is of two fp32 computations at JAX's kernel
-    tolerances, so the torch side is pinned to full-precision fp32 matmuls
-    on MKL (no oneDNN reduced-precision path) whatever state the worker
-    process holds."""
-    saved = torch.get_float32_matmul_precision(), torch.backends.mkldnn.enabled
-    torch.set_float32_matmul_precision("highest")
-    torch.backends.mkldnn.enabled = False
-    yield
-    torch.set_float32_matmul_precision(saved[0])
-    torch.backends.mkldnn.enabled = saved[1]
-
-
 def _state() -> str:
     return (f"torch threads {torch.get_num_threads()}, fp32 matmul precision "
             f"{torch.get_float32_matmul_precision()}, cpu capability "

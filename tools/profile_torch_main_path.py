@@ -107,7 +107,6 @@ def main() -> None:
                          text=True).stdout.strip())
     from ddsp_svc_tpu_torch.infer.enhancer import Enhancer
     from ddsp_svc_tpu_torch.infer.offline import convert_features
-    from chip_smoke import warm_up_buckets
     from ddsp_svc_tpu_torch.models.factory import build_model
     from ddsp_svc_tpu_torch.utils.config import load_config
 
@@ -152,11 +151,10 @@ def profile_training(torch, args, top: int) -> None:
     """One training step at the config's batch and crop (random batch on the
     device, the RSS scales drawn per step), fp32 and model.bf16, after steps
     that made every bucket's cuFFT plans."""
-    from chip_smoke import warm_up_buckets
     from ddsp_svc_tpu_torch.models.factory import build_model
     from ddsp_svc_tpu_torch.models.losses import RSSLoss
     from ddsp_svc_tpu_torch.train.step import (
-        TrainState, create_optimizer, train_step)
+        TrainState, create_optimizer, train_step, warm_up_buckets)
 
     b = int(args.train.batch_size)
     frames = int(args.data.duration * args.data.sampling_rate
@@ -176,7 +174,7 @@ def profile_training(torch, args, top: int) -> None:
         args["model"]["bf16"] = bf16
         model = build_model(args, device="cuda", seed=0)
         state = TrainState(0, model, create_optimizer(model, 1e-4))
-        warm_up_buckets(state, batch, rss, train_step)
+        warm_up_buckets(state, batch, rss)
         profile(torch, lambda: train_step(state, batch, rss), top,
                 f"train step {'bf16' if bf16 else 'fp32'} B={b} x {frames}")
 
