@@ -11,19 +11,22 @@ Phases, each printing its own lines:
   2. build: every CUDA kernel from the checkout's sources (nvcc, sm_90a);
   3. kernels: each hand-written kernel against its plain PyTorch version at
      the main path's shapes, with error, time, plain time and bound;
-  4. main path: offline conversion (`convert_features`) with CombSubFast
-     from configs/combsub.yaml and the 44.1 kHz NSF-HiFiGAN at full width,
-     weights from a seed, on three segments (200, 384, 512 frames); the
-     kernels' launch counts over that run; the same run on the plain
-     versions; audio-seconds per second at batch 1 and batched;
-  5. training path: the port's trainer (`python -m ddsp_svc_tpu_torch.train`
-     main) on a synthetic dataset in the AudioDataset layout at
-     configs/combsub.yaml's full width (batch 24, 2-s crops, RSS loss
-     256..2048 x 4 scales): fp32 steps with a validation pass and a
-     checkpoint, a resume from it, then model.bf16 steps with a validation
-     pass; each run's launch counts; a bf16 validation forward, and one fp32
-     and one bf16 step, on the kernels against the same on the plain
-     versions (signal; loss and every parameter gradient); ms per step.
+  4. offline paths: conversion (`convert_features`) with each synthesizer
+     at the full width of its config (CombSubFast from configs/combsub.yaml,
+     Sins from configs/sins.yaml, CombSub from configs/combsub-old.yaml) and
+     the 44.1 kHz NSF-HiFiGAN, weights from seeds, on three segments (200,
+     384, 512 frames); the kernels' launch counts over each run; the same
+     run on the plain versions; audio-seconds per second at batch 1 (and,
+     for CombSubFast, batched);
+  5. training paths: the port's trainer (`python -m ddsp_svc_tpu_torch.train`
+     main) on a synthetic dataset in the AudioDataset layout at each
+     config's full width (batch 24, 2-s crops, RSS loss 256..2048 x 4
+     scales): fp32 steps with a validation pass and a checkpoint; for
+     CombSubFast also a resume from it, then model.bf16 steps with a
+     validation pass and a bf16 validation forward on the kernels against
+     the plain versions; each run's launch counts; one fp32 step (and for
+     CombSubFast one bf16 step) on the kernels against the same on the
+     plain versions (loss and every parameter gradient); ms per step.
 The last two lines are the kernels JSON and {"ok": true, "device": ...}.
 Any failed check exits non-zero before them. Without a GPU it fails.
 """
@@ -66,6 +69,17 @@ FP32_STEPS, BF16_STEPS, TIMED_STEPS = 3, 3, 5
 TRAIN_CROP_SAMPLES = 172 * 512  # 2 s at 44.1 kHz, block 512
 TRIO_STAGES = ((64, 4), (32, 2), (16, 1))  # (C, source-conv stride)
 TPU_KERNELS = "ddsp_svc_tpu/ops/pallas_kernels.py"
+# each synthesizer's config and the kernels its offline path runs (the
+# enhancer's harmonic source and trio included); its training path runs the
+# same synth kernels, dft_magnitude in the loss, and the attention kernel in
+# the validation forward
+ENHANCER_KERNELS = ("harmonic_source", "fused_resblocks_inject")
+SYNTHS = (("CombSubFast", "combsub.yaml",
+           ("performer_attention", "combsub_spectral")),
+          ("Sins", "sins.yaml",
+           ("performer_attention", "oscillator_bank", "ltv_fir_convolve")),
+          ("CombSub", "combsub-old.yaml",
+           ("performer_attention", "ltv_fir_convolve")))
 
 
 def fail(msg: str) -> None:
@@ -233,9 +247,13 @@ def kernel_phase(torch, K, gen):
                       ("fused_resblocks_inject valid=40000",
                        dict(valid=40000))):
         inputs = [trio_inputs(64, 4, **kw)]
-        e, ms, pms = compare(torch, label, K.fused_resblocks_inject,
-                             K.resblocks_inject_plain, inputs, 1e-4, 0.0,
-                             tol_rtol=1e-4)
+        if "inject" in kw:  # the fused_resblocks wrapper (#5)
+            def kern(x, har, ncw, ncb, ws, bs, s, dils, valid):
+                return K.fused_resblocks(x, ws, bs, dils, valid)
+        else:
+            kern = K.fused_resblocks_inject
+        e, ms, pms = compare(torch, label, kern, K.resblocks_inject_plain,
+                             inputs, 1e-4, 0.0, tol_rtol=1e-4)
         # counted as #4's stage at C = 64, without the injection conv's input
         # (or, for the valid form, as the full stage)
         c, t_s = 64, t_final // 4
@@ -247,6 +265,13 @@ def kernel_phase(torch, K, gen):
         t_b, by = bound(nbytes, flops)
         say(f"kernel {label} C=64: max|err| {e:.3e} (atol 1e-4, rtol 1e-4), "
             f"{ms:.3f} ms, plain {pms:.3f} ms, bound {t_b:.4f} ms ({by})")
+        if "inject" in kw:
+            rows["fused_resblocks"] = dict(
+                route="cuda", source="ddsp_svc_tpu_torch/csrc/resblocks.cu",
+                replaces=f"{TPU_KERNELS}:1315", max_abs_err=e, ms=ms,
+                plain_ms=pms, bound=(t_b, by), library_ms=None,
+                tol="atol 1e-4 + rtol 1e-4 (the JAX package's kernel test); "
+                    "the C = 64 stage without the injection")
 
     # 6. DFT magnitude of the RSS loss at every bucket size, at the frame rows
     # of one training batch (24 crops of 88064 samples, hop = n_fft); the
@@ -300,6 +325,99 @@ def kernel_phase(torch, K, gen):
         replaces=f"{TPU_KERNELS}:781", max_abs_err=err, ms=ms, plain_ms=pms,
         bound=bound(nbytes, flops), library_ms=None,
         tol="2e-5 x max|ref| per gradient (the JAX package's kernel test)")
+
+    # 8. the Sins oscillator bank, 128 harmonics at block 512, amplitudes
+    # <= 0.1 (the JAX package's kernel test), at the offline 512-frame bucket
+    # (1 x 512 frames) and a training batch (24 x 172 frames); both sines
+    # (__sinf and sinf) are measured, the wrapper's default first. The
+    # bound counts 9 fp32 operations per (sample, harmonic): the lerp (2),
+    # the harmonic multiple (1), the wrap (3), the sine (1), the sum (2)
+    bs, n_h = 512, 128
+    err = rel = ms_sum = pms_sum = flops = nbytes = 0.0
+    for b, f in ((1, 512), (24, 172)):
+        inputs = [((torch.rand((b, f * bs), generator=gen, device=dev) * 2
+                    - 1) * math.pi,
+                   torch.rand((b, f, n_h), generator=gen, device=dev) * 0.1,
+                   bs) for _ in range(2)]
+        scale = max(K.oscillator_bank_plain(*a).abs().max().item()
+                    for a in inputs)
+        line = []
+        for fast in (K.OSC_FAST_SIN, not K.OSC_FAST_SIN):
+            def kern(p, a, s, _fast=fast):
+                return K._oscillator_bank_launch(p, a, s, fast_sin=_fast)
+            e, ms, pms = compare(torch, f"oscillator_bank {b}x{f}", kern,
+                                 K.oscillator_bank_plain, inputs, 2e-3, 0.0)
+            line.append(f"{'__sinf' if fast else 'sinf'} max|err| {e:.3e} "
+                        f"(rel {e / scale:.2e}) {ms:.4f} ms")
+            if fast == K.OSC_FAST_SIN:
+                err, rel = max(err, e), max(rel, e / scale)
+                ms_sum, pms_sum = ms_sum + ms, pms_sum + pms
+        terms = b * f * bs * n_h
+        f_n, b_n = 9 * terms, 4 * (2 * b * f * bs + b * f * n_h)
+        flops += f_n
+        nbytes += b_n
+        say(f"kernel oscillator_bank {b} x {f} frames x {n_h} harmonics: "
+            f"{'; '.join(line)}; plain {pms:.4f} ms, bound "
+            f"{bound(b_n, f_n)[0]:.4f} ms (max|ref| {scale:.3f})")
+    rows["oscillator_bank"] = dict(
+        route="cuda", source="ddsp_svc_tpu_torch/csrc/oscillator_bank.cu",
+        replaces=f"{TPU_KERNELS}:49", max_abs_err=err, ms=ms_sum,
+        plain_ms=pms_sum, bound=bound(nbytes, flops), library_ms=None,
+        tol=f"atol 2e-3 at amplitudes <= 0.1 (the JAX package's kernel "
+            f"test), relative {rel:.2e}; times are the sum of the offline "
+            f"and the training shape")
+
+    # 9. the LTV-FIR convolution of frequency_filter: frames of 1024 with
+    # impulse responses of 510 (all-pass and noise filters) and 1022
+    # (CombSub's harmonic filter), n_fft 2048, at the offline rows (one
+    # 512-frame bucket + 1) and a training batch's (24 x 173); the library
+    # time is the three-call cuFFT chain irfft(rfft(a) * rfft(h)). The bound
+    # counts three real FFTs of n_fft (2.5 n log2 n each), as #6's does
+    def library_conv(a, h, n):
+        return torch.fft.irfft(torch.fft.rfft(a, n) * torch.fft.rfft(h, n), n)
+
+    n_fft, frame = 2048, 1024
+    err = ms_sum = pms_sum = lms_sum = flops = nbytes = 0.0
+    for r in (513, 24 * 173):
+        for ir in (510, 1022):
+            inputs = [(randn(r, frame), randn(r, ir, scale=0.02), n_fft)
+                      for _ in range(2)]
+            e, ms, pms = compare(torch, f"ltv_fir_convolve {r}x{ir}",
+                                 K.ltv_fir_convolve, K.ltv_fir_convolve_plain,
+                                 inputs, 0.0, 2e-4)
+            lms = time_ms(torch, library_conv, inputs)
+            f_n = r * (3 * 2.5 * n_fft * math.log2(n_fft)
+                       + 6 * (n_fft // 2 + 1))
+            b_n = 4 * r * (frame + ir + n_fft)
+            say(f"kernel ltv_fir_convolve rows={r} ir={ir}: max|err| {e:.3e}, "
+                f"{ms:.4f} ms, plain {pms:.4f} ms, three-call cuFFT chain "
+                f"{lms:.4f} ms, bound {bound(b_n, f_n)[0]:.4f} ms")
+            err, ms_sum, pms_sum, lms_sum = (max(err, e), ms_sum + ms,
+                                             pms_sum + pms, lms_sum + lms)
+            flops += f_n
+            nbytes += b_n
+    # the gradients through the autograd Function against autograd of the
+    # plain version, at the training rows
+    a, h, g = randn(4152, frame), randn(4152, 1022, scale=0.02), \
+        randn(4152, n_fft)
+    grads = []
+    for fn in (K.ltv_fir_convolve, K.ltv_fir_convolve_plain):
+        xs = [a.clone().requires_grad_(), h.clone().requires_grad_()]
+        (fn(*xs, n_fft) * g).sum().backward()
+        grads.append([x.grad for x in xs])
+    for name, gk, gp in zip(("a", "h"), *grads):
+        e = ((gk - gp).abs().max() / gp.abs().max()).item()
+        say(f"kernel ltv_fir_convolve gradient of {name} at 4152 rows: "
+            f"{e:.3e} x max|ref| (tolerance 2e-4)")
+        if not e <= 2e-4:
+            fail(f"ltv_fir_convolve: gradient of {name} disagrees")
+    rows["ltv_fir_convolve"] = dict(
+        route="cuda", source="ddsp_svc_tpu_torch/csrc/ltv_fir_convolve.cu",
+        replaces=f"{TPU_KERNELS}:399", max_abs_err=err, ms=ms_sum,
+        plain_ms=pms_sum, bound=bound(nbytes, flops), library_ms=lms_sum,
+        tol="2e-4 x max|ref| (the JAX package's kernel test); times are the "
+            "sum over the offline and training rows at ir 510 and 1022; "
+            "library: the three-call cuFFT chain")
     return rows
 
 
@@ -309,9 +427,11 @@ def plain_kernels(K):
     run of the main path on the card)."""
     from ddsp_svc_tpu_torch.models import synths
     from ddsp_svc_tpu_torch.nn import nsf_hifigan, pcmer
-    from ddsp_svc_tpu_torch.ops import spectral
+    from ddsp_svc_tpu_torch.ops import fft_filter, spectral
     swaps = [(pcmer, "performer_attention", K.performer_attention_plain),
              (synths, "combsub_spectral", K.combsub_spectral_plain),
+             (synths, "oscillator_bank", K.oscillator_bank_plain),
+             (fft_filter, "ltv_fir_convolve", K.ltv_fir_convolve_plain),
              (spectral, "dft_magnitude", K.dft_magnitude_plain),
              (nsf_hifigan, "harmonic_source", K.harmonic_source_plain),
              (nsf_hifigan, "fused_resblocks_inject",
@@ -326,10 +446,6 @@ def plain_kernels(K):
             setattr(mod, name, fn)
 
 
-OFFLINE_KERNELS = ("performer_attention", "combsub_spectral",
-                   "harmonic_source", "fused_resblocks_inject")
-
-
 def path_launches(K, label: str, expect) -> dict:
     """Read the launch counts of the run just made and fail if a kernel that
     this path runs was launched no time."""
@@ -341,18 +457,22 @@ def path_launches(K, label: str, expect) -> dict:
     return launches
 
 
-def main_path_phase(torch, K):
+def main_path_phase(torch, K, synth: str, config: str, expect,
+                    batched: bool):
+    """The offline path of one synthesizer; returns its run's launch
+    counts."""
     from ddsp_svc_tpu_torch.infer.enhancer import Enhancer
     from ddsp_svc_tpu_torch.infer.offline import convert_features
     from ddsp_svc_tpu_torch.models.factory import build_model
     from ddsp_svc_tpu_torch.utils.config import load_config
 
-    args = load_config(os.path.join(ROOT, "configs", "combsub.yaml"))
+    args = load_config(os.path.join(ROOT, "configs", config))
     model = build_model(args, device="cuda", seed=0)
     enhancer = Enhancer("nsf-hifigan", None, h=H_NSF, seed=1, device="cuda")
     bs, sr = args.data.block_size, args.data.sampling_rate
     n_unit = args.data.encoder_out_channels
-    say(f"main path: CombSubFast {sr} Hz block {bs} n_unit {n_unit} "
+    label = f"offline path ({synth})"
+    say(f"{label}: {synth} {sr} Hz block {bs} n_unit {n_unit} "
         f"n_spk {args.model.n_spk} fp32, NSF-HiFiGAN initial channel "
         f"{H_NSF['upsample_initial_channel']}, {len(H_NSF['upsample_rates'])}"
         f" stages, {H_NSF['num_mels']} mels; weights from seeds 0/1")
@@ -389,21 +509,21 @@ def main_path_phase(torch, K):
     t0 = time.perf_counter()
     audio, sr_o = run()
     first_s = time.perf_counter() - t0
-    launches = path_launches(K, "offline path", OFFLINE_KERNELS)
+    launches = path_launches(K, label, tuple(expect) + ENHANCER_KERNELS)
     rms = float(np.sqrt(np.mean(audio ** 2)))
-    expect = round(starts[-1] * bs * sr_o / sr) + SEGMENT_FRAMES[-1] * bs
-    if audio.shape != (expect,) or not np.isfinite(audio).all() or rms <= 0:
-        fail(f"main path audio: shape {audio.shape} (expected ({expect},)), "
+    length = round(starts[-1] * bs * sr_o / sr) + SEGMENT_FRAMES[-1] * bs
+    if audio.shape != (length,) or not np.isfinite(audio).all() or rms <= 0:
+        fail(f"{label} audio: shape {audio.shape} (expected ({length},)), "
              f"finite {np.isfinite(audio).all()}, rms {rms}")
     with plain_kernels(K):
         ref, _ = run()
     err = float(np.abs(audio - ref).max())
     scale = float(np.abs(ref).max())
-    say(f"main path audio: {audio.shape[0]} samples at {sr_o} Hz, rms "
+    say(f"{label} audio: {audio.shape[0]} samples at {sr_o} Hz, rms "
         f"{rms:.4f}; kernels vs plain versions on the card: max|err| "
         f"{err:.3e} = {err / scale:.3e} x max|ref| (tolerance 1e-3 x max|ref|)")
     if not err <= 1e-3 * scale:
-        fail("main path audio disagrees with the plain versions")
+        fail(f"{label} audio disagrees with the plain versions")
 
     times = []
     for _ in range(3):
@@ -411,10 +531,12 @@ def main_path_phase(torch, K):
         run()
         times.append(time.perf_counter() - t0)
     seg_audio_s = sum(SEGMENT_FRAMES) * bs / sr
-    say(f"main path B=1: {sum(SEGMENT_FRAMES)} frames ({seg_audio_s:.3f} "
+    say(f"{label} B=1: {sum(SEGMENT_FRAMES)} frames ({seg_audio_s:.3f} "
         f"audio-s) in {np.median(times) * 1e3:.1f} ms median of 3 "
         f"(first run {first_s * 1e3:.1f} ms): "
         f"{seg_audio_s / np.median(times):.1f} audio-s/s")
+    if not batched:
+        return launches
 
     # one batched forward at bench.py's shapes: 512 frames per item
     batch, n_frames = 16, 512
@@ -443,7 +565,8 @@ def main_path_phase(torch, K):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     dt = float(np.median(times))
-    say(f"batched forward B={batch} x {n_frames} frames: {dt * 1e3:.1f} ms "
+    say(f"{label} batched forward B={batch} x {n_frames} frames: "
+        f"{dt * 1e3:.1f} ms "
         f"median of 3: {batch * n_frames * bs / sr / dt:.1f} audio-s/s")
     return launches
 
@@ -502,9 +625,12 @@ def grads_agree(label, model_k, model_p, tol_rel: float, tol_cos: float):
     return worst_rel, worst_cos
 
 
-def train_phase(torch, K) -> dict:
-    """The training path at configs/combsub.yaml's full width; returns the
-    summed launch counts of its runs."""
+def train_phase(torch, K, synth: str, config: str, expect,
+                full: bool) -> dict:
+    """The training path of one synthesizer at its config's full width;
+    returns the summed launch counts of its trainer runs. full (the default
+    model, CombSubFast) adds a resume, a model.bf16 run, a bf16 validation
+    forward and a bf16 step against the plain versions."""
     import yaml
     from ddsp_svc_tpu_torch.data.dataset import get_data_loaders
     from ddsp_svc_tpu_torch.models.factory import build_model
@@ -515,7 +641,7 @@ def train_phase(torch, K) -> dict:
         warm_up_buckets)
     from ddsp_svc_tpu_torch.utils.config import load_config
 
-    args = load_config(os.path.join(ROOT, "configs", "combsub.yaml"))
+    args = load_config(os.path.join(ROOT, "configs", config))
     sr, block = args.data.sampling_rate, args.data.block_size
     n_unit = args.data.encoder_out_channels
     work = os.path.join(ROOT, "build", "chip_smoke_train")
@@ -525,12 +651,13 @@ def train_phase(torch, K) -> dict:
     args["data"].update(train_path=os.path.join(work, "train"),
                         valid_path=os.path.join(work, "val"))
     args["train"].update(interval_log=1, epochs=1000)
-    say(f"training path: CombSubFast {sr} Hz block {block} n_unit {n_unit}, "
+    say(f"training path ({synth}): {sr} Hz block {block} n_unit {n_unit}, "
         f"batch {args.train.batch_size} x {args.data.duration} s crops, RSS "
         f"{args.loss.fft_min}..{args.loss.fft_max} x {args.loss.n_scale} "
         f"scales; synthetic dataset of 6 training and 2 validation clips")
+    expect_train = tuple(expect) + ("dft_magnitude",)
 
-    def config(name: str, bf16: bool, interval_val: int) -> str:
+    def config_file(name: str, bf16: bool, interval_val: int) -> str:
         cfg = json.loads(json.dumps(args))
         cfg["model"]["bf16"] = bf16
         cfg["env"]["expdir"] = os.path.join(work, "exp_" + name)
@@ -550,10 +677,12 @@ def train_phase(torch, K) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         with open(os.path.join(saver.expdir, "log_values.jsonl")) as f:
-            losses = [json.loads(line)["train/loss"] for line in f
-                      if "train/loss" in line]
+            values = [json.loads(line) for line in f]
+        losses = [v["train/loss"] for v in values if "train/loss" in v]
         if len(losses) < steps or not np.isfinite(losses).all():
             fail(f"{label}: losses {losses}")
+        if not any("validation/loss" in v for v in values):
+            fail(f"{label}: no validation pass")
         moved = sum(not torch.equal(v, before[k])
                     for k, v in state.model.state_dict().items())
         say(f"{label}: {steps} steps to global step {saver.global_step} in "
@@ -569,29 +698,29 @@ def train_phase(torch, K) -> dict:
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
 
-    # fp32: steps with one validation pass and a checkpoint, then a resume
-    cfg32 = config("fp32", False, FP32_STEPS)
+    # fp32: steps with one validation pass and a checkpoint (then, for the
+    # default model, a resume from it)
+    cfg32 = config_file("fp32", False, FP32_STEPS)
     K.reset_launch_counts()
-    run(cfg32, FP32_STEPS, "train fp32")
-    state, saver = run(cfg32, 1, "train fp32 resumed")
-    if state.step != FP32_STEPS + 1:
-        fail(f"the resumed run did not restore step {FP32_STEPS}")
-    counts = path_launches(K, "training path (fp32, resumed)",
-                           ("dft_magnitude", "combsub_spectral",
-                            "performer_attention"))
+    run(cfg32, FP32_STEPS, f"train {synth} fp32")
+    if full:
+        state, saver = run(cfg32, 1, f"train {synth} fp32 resumed")
+        if state.step != FP32_STEPS + 1:
+            fail(f"the resumed run did not restore step {FP32_STEPS}")
+    counts = path_launches(K, f"training path ({synth}, fp32)", expect_train)
     if counts["combsub_spectral_bwd"]:
         fail("fp32 training launched the combsub adjoint (its chain is the "
              "plain torch.fft one)")
     add(counts)
-    # model.bf16: the spectral chain runs on its kernel and its adjoint; the
-    # validation pass at the last step casts q, k, v up to fp32 for the
-    # attention kernel
-    cfg16 = config("bf16", True, BF16_STEPS)
-    K.reset_launch_counts()
-    run(cfg16, BF16_STEPS, "train bf16")
-    add(path_launches(K, "training path (bf16)",
-                      ("dft_magnitude", "combsub_spectral",
-                       "combsub_spectral_bwd", "performer_attention")))
+    if full:
+        # model.bf16: the spectral chain runs on its kernel and its adjoint;
+        # the validation pass at the last step casts q, k, v up to fp32 for
+        # the attention kernel
+        cfg16 = config_file("bf16", True, BF16_STEPS)
+        K.reset_launch_counts()
+        run(cfg16, BF16_STEPS, f"train {synth} bf16")
+        add(path_launches(K, f"training path ({synth}, bf16)",
+                          expect_train + ("combsub_spectral_bwd",)))
 
     # one step on the kernels against the same step on the plain versions:
     # same weights, batch, noise and loss scales, at loss eps 1e-3 (the
@@ -603,40 +732,42 @@ def train_phase(torch, K) -> dict:
     rss = RSSLoss(int(args.loss.fft_min), int(args.loss.fft_max),
                   int(args.loss.n_scale), eps=1e-3)
 
-    # the bf16 validation forward (infer=True) on the kernels against the
-    # same forward on the plain versions. Both feed the attention fp32 q, k,
-    # v cast up from bf16; their fp32 rounding differences (~1e-6) flip bf16
-    # roundings downstream (2^-8 relative each), and the flips grow through
-    # the three PCmer layers towards bf16's own noise (bf16 vs fp32 reads
-    # 1.8e-2). So the signal is held to the JAX package's bf16 bound, 5e-2
-    # relative RMS (tests/test_bf16.py); its spectral loss, which the flips
-    # hardly move, to 1e-4
-    model16 = build_model(load_config(cfg16), device="cuda", seed=0)
-    outs = []
-    for plain in (False, True):
-        with plain_kernels(K) if plain else nullcontext():
-            gen = torch.Generator(device="cuda").manual_seed(42)
-            sig, loss = eval_step(model16, batch, rss, gen)
-        outs.append((sig, float(loss)))
-    (sig_k, loss_k), (sig_p, loss_p) = outs
-    rel_rms = ((sig_k - sig_p).pow(2).mean()
-               / sig_p.pow(2).mean()).sqrt().item()
-    rel_loss = abs(loss_k - loss_p) / abs(loss_p)
-    say(f"validation forward bf16, kernels vs plain versions: signal rel RMS "
-        f"{rel_rms:.3e} (tolerance 5e-2), all-bucket loss {loss_k:.6f} vs "
-        f"{loss_p:.6f} (rel {rel_loss:.2e}, tolerance 1e-4)")
-    if not (torch.isfinite(sig_k).all() and rel_rms < 5e-2
-            and rel_loss < 1e-4):
-        fail("bf16 validation forward disagrees with the plain versions")
+    if full:
+        # the bf16 validation forward (infer=True) on the kernels against the
+        # same forward on the plain versions. Both feed the attention fp32 q,
+        # k, v cast up from bf16; their fp32 rounding differences (~1e-6)
+        # flip bf16 roundings downstream (2^-8 relative each), and the flips
+        # grow through the three PCmer layers towards bf16's own noise (bf16
+        # vs fp32 reads 1.8e-2). So the signal is held to the JAX package's
+        # bf16 bound, 5e-2 relative RMS (tests/test_bf16.py); its spectral
+        # loss, which the flips hardly move, to 1e-4
+        model16 = build_model(load_config(cfg16), device="cuda", seed=0)
+        outs = []
+        for plain in (False, True):
+            with plain_kernels(K) if plain else nullcontext():
+                gen = torch.Generator(device="cuda").manual_seed(42)
+                sig, loss = eval_step(model16, batch, rss, gen)
+            outs.append((sig, float(loss)))
+        (sig_k, loss_k), (sig_p, loss_p) = outs
+        rel_rms = ((sig_k - sig_p).pow(2).mean()
+                   / sig_p.pow(2).mean()).sqrt().item()
+        rel_loss = abs(loss_k - loss_p) / abs(loss_p)
+        say(f"validation forward {synth} bf16, kernels vs plain versions: "
+            f"signal rel RMS {rel_rms:.3e} (tolerance 5e-2), all-bucket loss "
+            f"{loss_k:.6f} vs {loss_p:.6f} (rel {rel_loss:.2e}, tolerance "
+            f"1e-4)")
+        if not (torch.isfinite(sig_k).all() and rel_rms < 5e-2
+                and rel_loss < 1e-4):
+            fail("bf16 validation forward disagrees with the plain versions")
 
     # per-parameter bounds of tests/test_train_parity.py (rel < 2e-2, cos >
     # 1 - 1e-4); under bf16 the chains' fp32 rounding differences pass
     # through bf16 matmuls in the backward and come out at ~1e-3 (the bf16
     # and fp32 steps themselves differ by ~3e-2)
-    for bf16 in (False, True):
+    for bf16 in ((False, True) if full else (False,)):
         tol_rel, tol_cos = 2e-2, 1 - 1e-4
         cfg = load_config(cfg16 if bf16 else cfg32)
-        label = "bf16" if bf16 else "fp32"
+        label = f"{synth} {'bf16' if bf16 else 'fp32'}"
         states = []
         for plain in (False, True):
             model = build_model(cfg, device="cuda", seed=0)
@@ -711,10 +842,18 @@ def main() -> None:
         say(f"kernel {name}: max|err| {row['max_abs_err']:.3e} ({row['tol']}), "
             f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
             f"{t_b:.4f} ms ({by})")
-    offline = main_path_phase(torch, K)
-    training = train_phase(torch, K)
-    # launches: the sum over the main paths' runs (offline, then training)
-    launches = {k: offline[k] + training[k] for k in offline}
+    # launches: the sum over the main paths' runs, each counted from 0 just
+    # before it (offline, then training, for each synthesizer)
+    launches = {k: 0 for k in K.launch_counts()}
+    for i, (synth, config, expect) in enumerate(SYNTHS):
+        t0 = time.perf_counter()
+        runs = [main_path_phase(torch, K, synth, config, expect,
+                                batched=i == 0),
+                train_phase(torch, K, synth, config, expect, full=i == 0)]
+        say(f"{synth} paths: {time.perf_counter() - t0:.1f} s")
+        for counts in runs:
+            for k, v in counts.items():
+                launches[k] += v
 
     report = []
     for name, row in rows.items():

@@ -25,34 +25,11 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "fft_radix2.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
-}
-
-// In-place radix-2 decimation-in-time FFT of s[0, n), loaded in bit-reversed
-// order; tw[k] = exp(-2 pi i k / n) for k < n/2, conjugated for the inverse.
-__device__ void fft_inplace(float2* s, const float2* tw, int n, bool inverse) {
-  for (int len = 2; len <= n; len <<= 1) {
-    const int half = len >> 1;
-    const int step = n / len;
-    for (int i = threadIdx.x; i < n / 2; i += kThreads) {
-      const int pos = i & (half - 1);
-      const int a = (i - pos) * 2 + pos;
-      const int b = a + half;
-      float2 w = tw[pos * step];
-      if (inverse) w.y = -w.y;
-      const float2 u = s[a];
-      const float2 t = cmul(s[b], w);
-      s[a] = make_float2(u.x + t.x, u.y + t.y);
-      s[b] = make_float2(u.x - t.x, u.y - t.y);
-    }
-    __syncthreads();
-  }
-}
 
 __global__ void __launch_bounds__(kThreads)
 combsub_spectral_kernel(const float* __restrict__ tooth, const float* __restrict__ noise,
@@ -69,11 +46,7 @@ combsub_spectral_kernel(const float* __restrict__ tooth, const float* __restrict
   const float* z = noise + row * n;
   const int shift = 32 - log2n;
 
-  for (int k = threadIdx.x; k < n / 2; k += kThreads) {
-    float sn, cs;
-    sincospif(2.0f * (float)k / (float)n, &sn, &cs);
-    tw[k] = make_float2(cs, -sn);
-  }
+  fill_twiddles(tw, n);
   for (int i = threadIdx.x; i < n; i += kThreads) {
     s[__brev(i) >> shift] = make_float2(a[i], z[i]);
   }
@@ -163,11 +136,7 @@ combsub_spectral_bwd_kernel(const float* __restrict__ g, const float* __restrict
   const float* z = noise + row * n;
   const int shift = 32 - log2n;
 
-  for (int k = threadIdx.x; k < n / 2; k += kThreads) {
-    float sn, cs;
-    sincospif(2.0f * (float)k / (float)n, &sn, &cs);
-    tw[k] = make_float2(cs, -sn);
-  }
+  fill_twiddles(tw, n);
   for (int i = threadIdx.x; i < n; i += kThreads) {
     const int j = __brev(i) >> shift;
     s[j] = make_float2(a[i], z[i]);
@@ -234,8 +203,7 @@ extern "C" int combsub_spectral_bwd_launch(const float* g, const float* tooth,
                                            const float* window, float* d_tooth,
                                            float* d_noise, float* d_hm, float* d_hp,
                                            float* d_nm, int rows, int n, void* stream) {
-  int log2n = 0;
-  while ((1 << log2n) < n) ++log2n;
+  const int log2n = log2_of(n);
   const size_t smem = (size_t)(4 * n + n / 2) * sizeof(float2);
   cudaError_t err = cudaFuncSetAttribute(
       combsub_spectral_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -250,8 +218,7 @@ extern "C" int combsub_spectral_launch(const float* tooth, const float* noise,
                                        const float* hm, const float* hp,
                                        const float* nm, const float* window,
                                        float* out, int rows, int n, void* stream) {
-  int log2n = 0;
-  while ((1 << log2n) < n) ++log2n;
+  const int log2n = log2_of(n);
   const size_t smem = (size_t)(n + n / 2 + 1 + n / 2) * sizeof(float2);
   cudaError_t err = cudaFuncSetAttribute(
       combsub_spectral_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

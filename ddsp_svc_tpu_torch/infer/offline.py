@@ -12,10 +12,10 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 from ..data.slicer import Slicer
 from ..models.factory import make_bucketed_synth
-from ..models.synths import CombSubFast
 from .enhancer import Enhancer
 
 
@@ -67,7 +67,7 @@ def response_mask(volume: np.ndarray, threshold_db: float, block_size: int
 
 
 def convert_features(
-    model: CombSubFast,
+    model: nn.Module,
     segments: Sequence[Tuple[int, np.ndarray]],
     f0: np.ndarray,
     volume: np.ndarray,
@@ -80,7 +80,8 @@ def convert_features(
     noise_hook: Optional[Callable[[int, tuple], np.ndarray]] = None,
     enhancer_rand_hook: Optional[Callable[[int], np.ndarray]] = None,
 ) -> Tuple[np.ndarray, int]:
-    """Convert an utterance from its features, on the model's device.
+    """Convert an utterance from its features, on the model's device, with
+    any of the three synthesizers (`build_model`).
 
     segments: [(start_frame, units (1, n_f, n_unit))], as `split` cuts the
     input and the units encoder encodes each cut. f0 (1, F, 1) [Hz] after

@@ -1,7 +1,8 @@
-"""Model factory: config -> CombSubFast, and the bucketed segment synth.
+"""Model factory: config -> Sins, CombSub or CombSubFast, and the bucketed
+segment synth.
 
-Counterpart of `ddsp_svc_tpu/models/factory.py` (`build_model` for
-CombSubFast, and `make_jitted_synth(..., mask_padding=True)`).
+Counterpart of `ddsp_svc_tpu/models/factory.py` (`build_model`, and
+`make_jitted_synth(..., mask_padding=True)`).
 """
 from __future__ import annotations
 
@@ -9,30 +10,38 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 from ..nn.layers import lecun_init_
 from ..utils.config import DotDict
 from ..utils.device import resolve_device
-from .synths import CombSubFast
+from .synths import CombSub, CombSubFast, Sins
 
 
-def build_model(args: DotDict, device=None, seed: int = 0) -> CombSubFast:
-    """CombSubFast from a yaml config, weights drawn from `seed`, on
-    `device` (CUDA unless the caller asks for the CPU). model.bf16 runs the
-    PCmer in bf16; the parameters stay fp32."""
+def build_model(args: DotDict, device=None, seed: int = 0) -> nn.Module:
+    """The synthesizer of `model.type` (Sins, CombSub or CombSubFast) from a
+    yaml config, weights drawn from `seed`, on `device` (CUDA unless the
+    caller asks for the CPU). model.bf16 runs the PCmer in bf16; the
+    parameters stay fp32."""
     device = resolve_device(device)
-    if args.model.type != "CombSubFast":
-        raise NotImplementedError(
-            f"model type {args.model.type!r} is not ported yet")
-    model = CombSubFast(
-        sampling_rate=args.data.sampling_rate,
-        block_size=args.data.block_size,
-        n_unit=args.data.encoder_out_channels,
-        n_spk=args.model.n_spk,
-        causal=bool(args.model.c),
-        frame_norm=bool(args.model.frame_norm),
-        bf16=bool(args.model.bf16),
-    )
+    mtype = args.model.type
+    common = dict(sampling_rate=args.data.sampling_rate,
+                  block_size=args.data.block_size,
+                  n_unit=args.data.encoder_out_channels,
+                  n_spk=args.model.n_spk, causal=bool(args.model.c),
+                  bf16=bool(args.model.bf16))
+    if mtype == "Sins":
+        model = Sins(n_harmonics=args.model.n_harmonics,
+                     n_mag_allpass=args.model.n_mag_allpass,
+                     n_mag_noise=args.model.n_mag_noise, **common)
+    elif mtype == "CombSub":
+        model = CombSub(n_mag_allpass=args.model.n_mag_allpass,
+                        n_mag_harmonic=args.model.n_mag_harmonic,
+                        n_mag_noise=args.model.n_mag_noise, **common)
+    elif mtype == "CombSubFast":
+        model = CombSubFast(frame_norm=bool(args.model.frame_norm), **common)
+    else:
+        raise ValueError(f" [x] Unknown Model: {mtype}")
     lecun_init_(model, torch.Generator().manual_seed(seed))
     return model.to(device).eval()
 
@@ -40,7 +49,7 @@ def build_model(args: DotDict, device=None, seed: int = 0) -> CombSubFast:
 MIN_BUCKET_FRAMES = 32
 
 
-def make_bucketed_synth(model: CombSubFast,
+def make_bucketed_synth(model: nn.Module,
                         spk_mix_dict: Optional[Dict[int, float]] = None):
     """Segment synth with power-of-two frame buckets.
 

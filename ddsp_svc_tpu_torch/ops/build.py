@@ -6,8 +6,9 @@ into a shared library with a plain C interface, loaded with ctypes:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o build/ddsp_svc_tpu_torch/<name>-<hash>.so <name>.cu
 
-The library name carries a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one loads from the build directory. All
+The library name carries a hash of the source, of the headers it includes
+from csrc/ and of the flags, so an edited source or header rebuilds and an
+unchanged one loads from the build directory. All
 missing libraries build at first use, one nvcc process per source, started
 together. Nothing here runs at import time.
 """
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -27,7 +29,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ddsp_svc_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 SOURCES = ("performer_attention", "combsub_spectral", "harmonic_source",
-           "resblocks", "dft_magnitude")
+           "resblocks", "dft_magnitude", "oscillator_bank", "ltv_fir_convolve")
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -47,7 +50,10 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join((CSRC / h.decode()).read_bytes()
+                       for h in _LOCAL_INCLUDE.findall(src))
+    digest = hashlib.sha256(src + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 

@@ -1,9 +1,12 @@
-"""Excitation generators: the combtooth sinc comb and Nyquist masking of
-harmonic amplitudes."""
+"""Excitation generators: the combtooth sinc comb, Nyquist masking of
+harmonic amplitudes, and the additive oscillator bank (plain version; the
+card runs `ops/kernels.py::oscillator_bank`)."""
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .interp import upsample_frames
 
 
 def combtooth(rot: torch.Tensor, f0: torch.Tensor, sr: float,
@@ -29,3 +32,25 @@ def remove_above_fmax(amplitudes: torch.Tensor, pitch: torch.Tensor,
                           dtype=pitch.dtype, device=pitch.device)
     aa = (pitch * levels < fmax).to(amplitudes.dtype) + 1e-7
     return amplitudes * aa
+
+
+def oscillator_bank(phase: torch.Tensor, amplitudes_frames: torch.Tensor,
+                    block_size: int, harmonic_chunk: int = 32) -> torch.Tensor:
+    """Additive harmonic synthesis, sum_k up(amp_k) * sin((k+1) * phase).
+    phase (B, T) [rad]; amplitudes_frames (B, F, n_harm), upsampled linearly
+    (last frame repeated) to T = F * block_size. Harmonics are taken
+    `harmonic_chunk` at a time, so no (B, T, n_harm) tensor exists. The sine
+    argument is wrapped to [-pi, pi] as the TPU kernel wraps it
+    (`pallas_kernels.py::_osc_kernel`); the JAX package's XLA version does
+    not wrap. Differentiable by autograd. Returns (B, T)."""
+    n_harm = amplitudes_frames.shape[-1]
+    out = torch.zeros_like(phase)
+    for k0 in range(0, n_harm, harmonic_chunk):
+        amp = upsample_frames(amplitudes_frames[..., k0:k0 + harmonic_chunk],
+                              block_size)
+        levels = torch.arange(k0 + 1, k0 + amp.shape[-1] + 1,
+                              dtype=phase.dtype, device=phase.device)
+        y = phase[..., None] * levels
+        y = y - (2.0 * np.pi) * torch.round(y * (0.5 / np.pi))
+        out = out + (amp * torch.sin(y)).sum(-1)
+    return out

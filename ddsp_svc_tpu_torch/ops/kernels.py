@@ -7,14 +7,18 @@ Counterpart of `ddsp_svc_tpu/ops/pallas_kernels.py`:
     combsub_spectral_bwd     <- combsub_spectral_pallas (backward,
                                 _combsub_spectral_bwd_impl)
     harmonic_source          <- harmonic_source_pallas
-    fused_resblocks_inject   <- fused_resblocks_inject_pallas, and with
-                                har=None fused_resblocks_pallas
+    fused_resblocks_inject   <- fused_resblocks_inject_pallas
+    fused_resblocks          <- fused_resblocks_pallas (the same kernel
+                                without the injection)
     dft_magnitude            <- dft_magnitude_pallas
+    oscillator_bank          <- oscillator_bank_pallas
+    ltv_fir_convolve         <- ltv_fir_convolve_pallas
 
-combsub_spectral and dft_magnitude are differentiable: on CUDA tensors they
-run inside a torch.autograd.Function whose backward is the combsub_spectral_bwd
-kernel for the former and, as the JAX package's VJP is for the latter, plain
-PyTorch.
+combsub_spectral, dft_magnitude, oscillator_bank and ltv_fir_convolve are
+differentiable: on CUDA tensors they run inside a torch.autograd.Function
+whose backward is the combsub_spectral_bwd kernel for the first and plain
+PyTorch for the others (the JAX package's VJPs of #6 and #9 are plain XLA;
+oscillator_bank_pallas has none).
 
 Each wrapper takes its plain version only for CPU tensors. For any other
 (CUDA) tensor it checks device, dtype, shape and contiguity, allocates the
@@ -33,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from .build import library
+from .exciters import oscillator_bank as oscillator_bank_plain
 from .masking import frame_mask
 from .windows import sqrt_hann_window
 
@@ -47,6 +52,8 @@ _SIGNATURES = {
     "dft_magnitude_launch": [_P] * 2 + [_I, _I, _P],
     "harmonic_source_launch": [_P] * 5 + [_I, _I, _I, _F, _P],
     "resblocks_launch": [_P] * 12 + [_I] * 9 + [_P],
+    "oscillator_bank_launch": [_P] * 3 + [_I] * 5 + [_P],
+    "ltv_fir_convolve_launch": [_P] * 3 + [_I] * 4 + [_P],
 }
 
 
@@ -156,16 +163,13 @@ def combsub_spectral_plain(tooth_frames, noise_frames, hm, hp, nm,
     tf = torch.fft.rfft(tooth_frames, n_fft)
     nf = torch.fft.rfft(noise_frames, n_fft)
     flt = torch.polar(torch.exp(hm), np.pi * hp)
+    # ops.spectral imports this module, so its irfft is imported here; it
+    # drops the imaginary parts of DC and Nyquist, which cuFFT's C2R would
+    # read (at n_fft 1024 from 2048 rows up every row is ~2e-2 off otherwise)
+    from .spectral import irfft_any
+
     spec = tf * flt + nf * (torch.exp(nm) / 128.0)
-    # irfft ignores the imaginary parts of the DC and Nyquist bins, but only
-    # if they are zero does cuFFT's C2R agree: at n_fft 1024 and 2048 or more
-    # rows it reads them and every output row is off by ~2e-2 of max|out|
-    keep = torch.ones(spec.shape[-1], dtype=spec.real.dtype, device=spec.device)
-    keep[0] = 0.0
-    if n_fft % 2 == 0:
-        keep[-1] = 0.0
-    spec = torch.complex(spec.real, spec.imag * keep)
-    sig = torch.fft.irfft(spec, n_fft)
+    sig = irfft_any(spec, n_fft)
     return sig * sqrt_hann_window(n_fft, dtype=sig.dtype, device=sig.device)
 
 
@@ -473,10 +477,197 @@ def fused_resblocks_inject(x_up, har, nc_weight, nc_bias, weights, biases,
             *(w.data_ptr() for w in w_k), *(b.data_ptr() for b in b_k),
             _ptr(vl), out.data_ptr(), bsz, c, t, t_final, s_src, ksrc,
             *dils, _stream(out))
-    fused_resblocks_inject.launches += 1
+    # the no-injection form is the fused_resblocks_pallas kernel: counted apart
+    (fused_resblocks if har is None else fused_resblocks_inject).launches += 1
     return out.transpose(1, 2)
 
 
+def fused_resblocks(x, weights, biases, dilations=(1, 3, 5), valid=None):
+    """The trio alone (fused_resblocks_pallas): fused_resblocks_inject with
+    har=None, whose launches are counted here."""
+    return fused_resblocks_inject(x, None, None, None, weights, biases, 1,
+                                  dilations, valid)
+
+
+# ------------------------------ oscillator bank -----------------------------
+
+# __sinf (the SFU's sine) or sinf (accurate, ~20 instructions) on the
+# argument wrapped to [-pi, pi]; chip_smoke.py measures both against the
+# plain version
+OSC_FAST_SIN = True
+
+
+def _oscillator_bank_launch(phase, amplitudes_frames, block_size: int,
+                            fast_sin: bool = OSC_FAST_SIN):
+    bsz, t = phase.shape
+    _, f, n_h = amplitudes_frames.shape
+    dev = phase.device
+    if t != f * block_size:
+        raise ValueError(f"oscillator_bank takes T = F * block_size, got T={t}"
+                         f", F={f}, block_size={block_size}")
+    _check(phase, "phase", (bsz, t), dev)
+    _check(amplitudes_frames, "amplitudes_frames", (bsz, f, n_h), dev)
+    out = torch.empty_like(phase)
+    _launch("oscillator_bank", "oscillator_bank_launch", phase.data_ptr(),
+            amplitudes_frames.data_ptr(), out.data_ptr(), bsz * f, f, n_h,
+            block_size, int(fast_sin), _stream(out))
+    oscillator_bank.launches += 1
+    return out
+
+
+def oscillator_bank_bwd_plain(g, phase, amplitudes_frames, block_size: int,
+                              harmonic_chunk: int = 32,
+                              phase_grad: bool = False):
+    """The adjoint of the oscillator bank in closed form (the JAX package's
+    oscillator_bank_pallas has no VJP), chunked over harmonics as the plain
+    forward is. With s_k = sin(wrap((k+1) phase)) and the upsampling
+    up[f, j] = a[f] (1 - j/bs) + a[f+1] j/bs (a[F] = a[F-1]):
+        d a[f]   += sum_j g[f, j] s_k (1 - j/bs),
+        d a[f+1] += sum_j g[f, j] s_k j/bs,
+        d phase   = sum_k g up_k (k+1) cos(wrap((k+1) phase)).
+    Returns (d_phase, or None unless phase_grad, d_amplitudes_frames)."""
+    from .interp import upsample_frames
+
+    b, f, n_h = amplitudes_frames.shape
+    bs = block_size
+    w = (torch.arange(bs, dtype=torch.float64, device=g.device) / bs
+         ).to(g.dtype)[:, None]
+    d_amps = torch.empty_like(amplitudes_frames)
+    d_phase = torch.zeros_like(phase) if phase_grad else None
+    for k0 in range(0, n_h, harmonic_chunk):
+        amps = amplitudes_frames[..., k0:k0 + harmonic_chunk]
+        levels = torch.arange(k0 + 1, k0 + amps.shape[-1] + 1,
+                              dtype=phase.dtype, device=phase.device)
+        y = phase[..., None] * levels
+        y = y - (2.0 * np.pi) * torch.round(y * (0.5 / np.pi))
+        gs = (g[..., None] * torch.sin(y)).reshape(b, f, bs, -1)
+        d = (gs * (1.0 - w)).sum(2)
+        hi = (gs * w).sum(2)
+        d[:, 1:] += hi[:, :-1]
+        d[:, -1] += hi[:, -1]
+        d_amps[..., k0:k0 + amps.shape[-1]] = d
+        if phase_grad:
+            up = upsample_frames(amps, bs)
+            d_phase += (g[..., None] * up * levels * torch.cos(y)).sum(-1)
+    return d_phase, d_amps
+
+
+class _OscillatorBankFn(torch.autograd.Function):
+    """The kernel forward, oscillator_bank_bwd_plain as the backward; the
+    phase's gradient only when asked for (the phase comes from f0)."""
+
+    @staticmethod
+    def forward(ctx, phase, amplitudes_frames, block_size, harmonic_chunk):
+        ctx.block_size, ctx.harmonic_chunk = block_size, harmonic_chunk
+        ctx.save_for_backward(phase, amplitudes_frames)
+        return _oscillator_bank_launch(phase, amplitudes_frames, block_size)
+
+    @staticmethod
+    def backward(ctx, g):
+        phase, amps = ctx.saved_tensors
+        d_phase, d_amps = oscillator_bank_bwd_plain(
+            g, phase, amps, ctx.block_size, ctx.harmonic_chunk,
+            phase_grad=ctx.needs_input_grad[0])
+        return d_phase, d_amps, None, None
+
+
+def oscillator_bank(phase, amplitudes_frames, block_size: int,
+                    harmonic_chunk: int = 32):
+    """Additive synthesis in one kernel: phase (B, T) [rad] and
+    amplitudes_frames (B, F, n_harm), T = F * block_size, fp32 ->
+    sum_k lerp(amp_k) sin(wrap((k+1) phase)), (B, T). One thread per output
+    sample; the (B, T, n_harm) bank never exists. harmonic_chunk bounds the
+    plain version's (and the backward's) memory. Differentiable."""
+    if phase.device.type == "cpu":
+        return oscillator_bank_plain(phase, amplitudes_frames, block_size,
+                                     harmonic_chunk)
+    return _OscillatorBankFn.apply(phase, amplitudes_frames, block_size,
+                                   harmonic_chunk)
+
+
+# ------------------------------ LTV-FIR convolve ----------------------------
+
+LTV_MAX_N = 4096
+
+
+def ltv_fir_convolve_plain(a_frames, ir_frames, n_fft: int):
+    """Per row irfft(rfft(a, n) * rfft(h, n), n): with n >= frame + ir - 1
+    the linear convolution of each frame with its impulse response. a (R,
+    frame), h (R, ir) -> (R, n_fft)."""
+    from .spectral import irfft_any
+
+    spec = torch.fft.rfft(a_frames, n_fft) * torch.fft.rfft(ir_frames, n_fft)
+    return irfft_any(spec, n_fft)
+
+
+def _ltv_fir_convolve_launch(a_frames, ir_frames, n_fft: int):
+    rows, frame = a_frames.shape
+    ir = ir_frames.shape[-1]
+    dev = a_frames.device
+    if n_fft & (n_fft - 1) or not 64 <= n_fft <= LTV_MAX_N:
+        raise ValueError(f"ltv_fir_convolve takes a power-of-two n_fft in "
+                         f"[64, {LTV_MAX_N}], got {n_fft}")
+    if frame + ir - 1 > n_fft:
+        raise ValueError(f"frame {frame} + ir {ir} - 1 exceeds n_fft {n_fft}")
+    _check(a_frames, "a_frames", (rows, frame), dev)
+    _check(ir_frames, "ir_frames", (rows, ir), dev)
+    out = torch.empty((rows, n_fft), dtype=torch.float32, device=dev)
+    _launch("ltv_fir_convolve", "ltv_fir_convolve_launch", a_frames.data_ptr(),
+            ir_frames.data_ptr(), out.data_ptr(), rows, frame, ir, n_fft,
+            _stream(out))
+    ltv_fir_convolve.launches += 1
+    return out
+
+
+def ltv_fir_convolve_bwd_plain(g, a_frames, ir_frames, n_fft: int,
+                               needs=(True, True)):
+    """The adjoint of ltv_fir_convolve_plain, plain PyTorch as the JAX
+    package's VJP is plain XLA (`pallas_kernels.py::_ltv_conv_vjp_bwd`):
+    a linear convolution's adjoint is a correlation,
+        d a = irfft(rfft(g) conj(rfft(h)))[:frame],
+        d h = irfft(rfft(g) conj(rfft(a)))[:ir].
+    needs: which of (d a, d h) to compute; the other is None."""
+    from .spectral import irfft_any
+
+    spec_g = torch.fft.rfft(g, n_fft)
+    d_a = d_h = None
+    if needs[0]:
+        d_a = irfft_any(spec_g * torch.fft.rfft(ir_frames, n_fft).conj(),
+                        n_fft)[:, :a_frames.shape[-1]]
+    if needs[1]:
+        d_h = irfft_any(spec_g * torch.fft.rfft(a_frames, n_fft).conj(),
+                        n_fft)[:, :ir_frames.shape[-1]]
+    return d_a, d_h
+
+
+class _LtvFirConvolveFn(torch.autograd.Function):
+    """The kernel forward, ltv_fir_convolve_bwd_plain as the backward."""
+
+    @staticmethod
+    def forward(ctx, a_frames, ir_frames, n_fft):
+        ctx.n_fft = n_fft
+        ctx.save_for_backward(a_frames, ir_frames)
+        return _ltv_fir_convolve_launch(a_frames, ir_frames, n_fft)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, h = ctx.saved_tensors
+        d_a, d_h = ltv_fir_convolve_bwd_plain(
+            g, a, h, ctx.n_fft, needs=ctx.needs_input_grad[:2])
+        return d_a, d_h, None
+
+
+def ltv_fir_convolve(a_frames, ir_frames, n_fft: int):
+    """The framed spectral convolution of `frequency_filter` in one kernel
+    (a block per row, radix-2 FFTs in shared memory): a_frames (R, frame),
+    ir_frames (R, ir) fp32, n_fft a power of two >= frame + ir - 1 ->
+    (R, n_fft). Differentiable in both inputs."""
+    if a_frames.device.type == "cpu":
+        return ltv_fir_convolve_plain(a_frames, ir_frames, n_fft)
+    return _LtvFirConvolveFn.apply(a_frames, ir_frames, n_fft)
+
+
 KERNELS = (performer_attention, combsub_spectral, harmonic_source,
-           fused_resblocks_inject, dft_magnitude, combsub_spectral_bwd)
+           fused_resblocks_inject, fused_resblocks, dft_magnitude,
+           combsub_spectral_bwd, oscillator_bank, ltv_fir_convolve)
 reset_launch_counts()

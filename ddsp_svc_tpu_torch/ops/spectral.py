@@ -1,5 +1,5 @@
-"""Framing, overlap-add, STFT, the loss spectrogram and the NSF-HiFiGAN
-log-mel frontend.
+"""Framing, overlap-add, STFT, the inverse real FFT of any size, the loss
+spectrogram and the NSF-HiFiGAN log-mel frontend.
 
 Transforms go through torch.fft (cuFFT on the card), except the loss
 spectrogram's magnitude, which goes through the dft_magnitude kernel on the
@@ -20,6 +20,25 @@ from .kernels import dft_magnitude
 from .windows import hann_window
 
 
+def next_pow2(n: int) -> int:
+    return 1 << (int(n) - 1).bit_length()
+
+
+def irfft_any(spec: torch.Tensor, n: int) -> torch.Tensor:
+    """irfft of a half spectrum (..., n//2+1) to n real samples, for any n,
+    with irfft's semantics: the imaginary parts of the DC bin and, for even
+    n, the Nyquist bin are dropped. torch.fft.irfft drops them on the CPU,
+    but cuFFT's C2R reads them (measured on an H100 from 2048 rows of n
+    1024 up), so they are zeroed first. Counterpart of
+    `ddsp_svc_tpu/ops/spectral.py::irfft_any`, whose DFT path drops them."""
+    keep = torch.ones(spec.shape[-1], dtype=spec.real.dtype,
+                      device=spec.device)
+    keep[0] = 0.0
+    if n % 2 == 0:
+        keep[n // 2] = 0.0
+    return torch.fft.irfft(torch.complex(spec.real, spec.imag * keep), n)
+
+
 def frame_signal(x: torch.Tensor, frame_size: int, hop: int) -> torch.Tensor:
     """(B, T) -> (B, n_frames, frame_size), n = (T - frame)//hop + 1
     (torch unfold semantics)."""
@@ -35,6 +54,23 @@ def overlap_add_half(frames: torch.Tensor, hop: int) -> torch.Tensor:
     second = frames[:, :, hop:].reshape(b, n * hop)
     pad = frames.new_zeros((b, hop))
     return torch.cat([first, pad], 1) + torch.cat([pad, second], 1)
+
+
+def overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:
+    """General overlap-add (nn.Fold): (B, n, frame) -> (B, (n-1)*hop +
+    frame). Built from shifted adds of hop-wide slabs, in a fixed order, so
+    that the sum is the same on every run (an index_add_ on CUDA would sum
+    in the order its atomics land)."""
+    b, n, frame = frames.shape
+    k = -(-frame // hop)
+    if k * hop != frame:
+        frames = F.pad(frames, (0, k * hop - frame))
+    out = None
+    for j in range(k):
+        slab = F.pad(frames[:, :, j * hop:(j + 1) * hop].reshape(b, n * hop),
+                     (j * hop, (k - 1 - j) * hop))
+        out = slab if out is None else out + slab
+    return out[:, :(n - 1) * hop + frame]
 
 
 def stft(x: torch.Tensor, n_fft: int, hop: int, window: torch.Tensor

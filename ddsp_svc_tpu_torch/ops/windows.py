@@ -16,6 +16,13 @@ def hann_window(n: int, dtype=torch.float32, device=None) -> torch.Tensor:
     return torch.as_tensor(_periodic_hann(n), dtype=dtype, device=device)
 
 
+def bartlett_window(n: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """Periodic Bartlett (triangular) window of length n (the analysis
+    window of the LTV-FIR filter's frames)."""
+    w = 1.0 - np.abs(2.0 * np.arange(n) / max(n, 1) - 1.0)
+    return torch.as_tensor(w, dtype=dtype, device=device)
+
+
 def sqrt_hann_window(n: int, dtype=torch.float32, device=None) -> torch.Tensor:
     """sqrt of the periodic Hann window: the 50%-overlap analysis/synthesis
     window of the CombSubFast synthesizer."""

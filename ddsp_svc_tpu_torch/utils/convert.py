@@ -49,7 +49,9 @@ def _put(sd: Dict[str, torch.Tensor], prefix: str, tensors: Mapping) -> None:
 
 
 def jax_synth_to_torch(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """CombSubFast flax variables {'params', 'constants'} -> state_dict."""
+    """Synthesizer flax variables {'params', 'constants'} -> state_dict, for
+    Sins, CombSub and CombSubFast alike: each holds one Unit2Control, and
+    they differ only in the width of its output layer (dense_out)."""
     p = variables["params"]["unit2ctrl"]
     consts = variables["constants"]["unit2ctrl"]["decoder"]
     sd: Dict[str, torch.Tensor] = {}

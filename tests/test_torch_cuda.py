@@ -192,6 +192,104 @@ def test_bf16_infer_forward_matches_plain(cuda, monkeypatch):
     assert rel_rms < 5e-2, rel_rms
 
 
+@pytest.mark.parametrize("b,f,h,block,fast", [
+    (1, 512, 128, 512, True), (2, 7, 128, 512, False), (2, 9, 60, 300, True),
+    (3, 5, 33, 64, False)])
+def test_oscillator_bank_kernel(cuda, b, f, h, block, fast):
+    """atol 2e-3 at amplitudes <= 0.1 (the JAX package's kernel test), with
+    both sines; the gradient of the amplitudes through the autograd
+    Function (its closed-form backward) against autograd of the plain
+    version at 1e-5 of max |ref|, and the phase's gradient only when
+    asked for."""
+    g = torch.Generator(device=cuda).manual_seed(f * h)
+    phase = (torch.rand((b, f * block), generator=g, device=cuda) * 2 - 1) * np.pi
+    amps = torch.rand((b, f, h), generator=g, device=cuda) * 0.1
+    ref = K.oscillator_bank_plain(phase, amps, block)
+    got = K._oscillator_bank_launch(phase, amps, block, fast_sin=fast)
+    torch.testing.assert_close(got, ref, atol=2e-3, rtol=0)
+    up = _randn(g, b, f * block)
+    ak, ap = amps.clone().requires_grad_(), amps.clone().requires_grad_()
+    (K.oscillator_bank(phase, ak, block) * up).sum().backward()
+    (K.oscillator_bank_plain(phase, ap, block) * up).sum().backward()
+    assert ((ak.grad - ap.grad).abs().max()
+            <= 1e-5 * ap.grad.abs().max()).item()
+    pk, pp = phase.clone().requires_grad_(), phase.clone().requires_grad_()
+    (K.oscillator_bank(pk, amps, block) * up).sum().backward()
+    (K.oscillator_bank_plain(pp, amps, block) * up).sum().backward()
+    assert ((pk.grad - pp.grad).abs().max()
+            <= 1e-5 * pp.grad.abs().max()).item()
+
+
+@pytest.mark.parametrize("rows,frame,ir,n", [(513, 1024, 510, 2048),
+                                            (4152, 1024, 1022, 2048),
+                                            (5, 128, 126, 256),
+                                            (3, 1000, 77, 2048)])
+def test_ltv_fir_convolve_kernel(cuda, rows, frame, ir, n):
+    """The output and both gradients within 2e-4 of their max |ref| (the
+    JAX package's kernel test), against the plain version and autograd
+    through it, at the Sins/CombSub shapes (offline and training rows) and
+    ragged ones."""
+    g = torch.Generator(device=cuda).manual_seed(rows + ir)
+    a = _randn(g, rows, frame)
+    h = _randn(g, rows, ir, scale=0.02)
+    up = _randn(g, rows, n)
+    ak, hk = a.clone().requires_grad_(), h.clone().requires_grad_()
+    ap, hp = a.clone().requires_grad_(), h.clone().requires_grad_()
+    got = K.ltv_fir_convolve(ak, hk, n)
+    ref = K.ltv_fir_convolve_plain(ap, hp, n)
+    assert ((got - ref).abs().max() <= 2e-4 * ref.abs().max()).item()
+    (got * up).sum().backward()
+    (ref * up).sum().backward()
+    for x, y in ((ak.grad, ap.grad), (hk.grad, hp.grad)):
+        assert ((x - y).abs().max() <= 2e-4 * y.abs().max()).item()
+
+
+def test_ltv_fir_convolve_plain_at_training_rows(cuda):
+    """The plain version on the card at a training batch's 4152 rows
+    against float64 on the CPU: its spectra have real DC and Nyquist bins,
+    and irfft_any zeroes their imaginary parts before cuFFT's C2R."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    a, h = _randn(g, 4152, 1024), _randn(g, 4152, 1022, scale=0.02)
+    got = K.ltv_fir_convolve_plain(a, h, 2048).double().cpu()
+    ref = K.ltv_fir_convolve_plain(a.double().cpu(), h.double().cpu(), 2048)
+    assert ((got - ref).abs().max() / ref.abs().max()).item() < 2e-5
+
+
+def test_synths_on_kernels_match_plain(cuda, monkeypatch):
+    """Sins and CombSub forwards at 44.1 kHz / block 512 (narrow control
+    net) through the oscillator-bank and LTV-FIR kernels against the same
+    forwards with both swapped for their plain versions: 1e-4 of max |ref|
+    (the kernels' own errors, 2e-4 of max at the convolution, land well
+    inside it after the filters' averaging)."""
+    from ddsp_svc_tpu_torch.models import synths
+    from ddsp_svc_tpu_torch.nn.layers import lecun_init_
+    from ddsp_svc_tpu_torch.ops import fft_filter
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    b, frames = 2, 40
+    args = (_randn(g, b, frames, 32),
+            110 + 300 * torch.rand((b, frames, 1), generator=g, device=cuda),
+            torch.rand((b, frames), generator=g, device=cuda),
+            torch.tensor([[1], [2]], device=cuda))
+    noise = torch.rand((b, frames * 512), generator=g, device=cuda) * 2 - 1
+    for model in (synths.Sins(44100, 512, 128, 256, 256, n_unit=32, n_spk=2),
+                  synths.CombSub(44100, 512, 256, 512, 256, n_unit=32,
+                                 n_spk=2)):
+        model = lecun_init_(model, torch.Generator().manual_seed(0)).to(cuda)
+        K.reset_launch_counts()
+        with torch.no_grad():
+            got, _, _ = model(*args, noise=noise, valid_frames=[40, 31])
+            counts = K.launch_counts()
+            with monkeypatch.context() as mp:
+                mp.setattr(synths, "oscillator_bank", K.oscillator_bank_plain)
+                mp.setattr(fft_filter, "ltv_fir_convolve",
+                           K.ltv_fir_convolve_plain)
+                ref, _, _ = model(*args, noise=noise, valid_frames=[40, 31])
+        assert counts["ltv_fir_convolve"] > 0
+        assert (counts["oscillator_bank"] > 0) == isinstance(model, synths.Sins)
+        assert ((got - ref).abs().max() <= 1e-4 * ref.abs().max()).item()
+
+
 def test_wrappers_count_launches(cuda):
     K.reset_launch_counts()
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -203,5 +301,8 @@ def test_wrappers_count_launches(cuda):
     assert K.launch_counts() == {"performer_attention": 0, "combsub_spectral": 0,
                                  "harmonic_source": 1,
                                  "fused_resblocks_inject": 0,
+                                 "fused_resblocks": 0,
                                  "dft_magnitude": 0,
-                                 "combsub_spectral_bwd": 0}
+                                 "combsub_spectral_bwd": 0,
+                                 "oscillator_bank": 0,
+                                 "ltv_fir_convolve": 0}

@@ -1,6 +1,8 @@
 """PyTorch port, isolation: the package and chip_smoke.py stand without JAX,
-flax and the JAX package (every module, the training ones included), and
-entry points, the trainer's among them, never fall back to the CPU."""
+flax and the JAX package (every module, the training ones and the Sins and
+CombSub synthesizers included), and entry points, the trainer's and the
+factory's for all three synthesizers among them, never fall back to the
+CPU."""
 import ast
 import os
 import pathlib
@@ -34,7 +36,7 @@ names = [m.name for m in pkgutil.walk_packages(ddsp_svc_tpu_torch.__path__,
                                                 "ddsp_svc_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 30, names
+assert len(names) >= 31, names
 
 from ddsp_svc_tpu_torch.infer.enhancer import Enhancer, NsfHifiGAN
 from ddsp_svc_tpu_torch.models.factory import build_model
@@ -51,6 +53,17 @@ h = {"sampling_rate": 16000, "num_mels": 8, "n_fft": 256, "win_size": 256,
 model = build_model(args, device="cpu")
 nsf = NsfHifiGAN(None, h=h, device="cpu")
 assert next(model.parameters()).device.type == "cpu"
+others = [DotDict({**args, "model": {**args["model"], **m}}) for m in (
+    {"type": "Sins", "n_harmonics": 8, "n_mag_allpass": 16, "n_mag_noise": 16},
+    {"type": "CombSub", "n_mag_allpass": 16, "n_mag_harmonic": 32,
+     "n_mag_noise": 16})]
+for other in others:
+    synth = build_model(other, device="cpu")
+    with torch.no_grad():
+        sig, _, _ = synth(torch.zeros((1, 4, 8)), torch.full((1, 4, 1), 200.0),
+                          torch.ones((1, 4)), torch.ones((1, 1), dtype=torch.int64),
+                          generator=torch.Generator().manual_seed(0))
+    assert sig.shape == (1, 4 * 64) and bool(torch.isfinite(sig).all())
 args16 = DotDict({**args, "model": {**args["model"], "bf16": True}})
 model16 = build_model(args16, device="cpu")
 assert {p.dtype for p in model16.parameters()} == {torch.float32}
@@ -62,7 +75,8 @@ with open(cfg, "w") as f:
     yaml.safe_dump(dict(args), f)
 
 torch.cuda.is_available = lambda: False  # as on a machine with no card
-for make in (lambda: build_model(args), lambda: NsfHifiGAN(None, h=h),
+for make in (lambda: build_model(args), lambda: build_model(others[0]),
+             lambda: build_model(others[1]), lambda: NsfHifiGAN(None, h=h),
              lambda: Enhancer("nsf-hifigan", None, h=h),
              lambda: train_main(["-c", cfg])):
     try:

@@ -1,18 +1,20 @@
 #!/usr/bin/env python3
 """Where the PyTorch port's main path spends its time on the card.
 
-Runs offline conversion (`convert_features`: CombSubFast from
-configs/combsub.yaml + the 44.1 kHz NSF-HiFiGAN, weights from seeds) on
-three segments of 200, 384 and 512 frames, warms up, then traces one run
-with torch.profiler (and, with --train, one training step of the fp32 and
-of the model.bf16 model at batch 24 x 2 s) and prints:
+Runs offline conversion (`convert_features`: the synthesizer of --config,
+CombSubFast from configs/combsub.yaml by default, + the 44.1 kHz
+NSF-HiFiGAN, weights from seeds) on three segments of 200, 384 and 512
+frames, warms up, then traces one run with torch.profiler (and, with
+--train, one training step of the fp32 and of the model.bf16 model at the
+config's batch, 24 x 2 s) and prints:
   - wall time of the traced run, device busy time (sum of kernel times),
     and the device's idle share of the wall time;
-  - device time by group (the four hand-written kernels, convolutions,
-    GEMMs, FFTs, everything else) and the top kernels by device time.
+  - device time by group (the hand-written kernels, convolutions, GEMMs,
+    FFTs, everything else) and the top kernels by device time.
 Run from the root of a checkout on a machine with an NVIDIA GPU:
 
-    python3 tools/profile_torch_main_path.py [--batch-frames 0] [--train]
+    python3 tools/profile_torch_main_path.py [--config configs/sins.yaml]
+                                             [--batch-frames 0] [--train]
                                              [--top 25]
 
 --batch-frames N additionally profiles one batched forward of 16 items of N
@@ -38,6 +40,8 @@ GROUPS = (
     ("kernel: dft_magnitude", ("dft_magnitude",)),
     ("kernel: harmonic_source", ("harmonic_source",)),
     ("kernel: fused_resblocks_inject", ("resblocks_kernel",)),
+    ("kernel: oscillator_bank", ("oscillator_bank",)),
+    ("kernel: ltv_fir_convolve", ("ltv_fir_convolve",)),
     ("convolutions (cuDNN)", ("conv", "cudnn", "implicit", "winograd",
                               "dgrad", "wgrad", "xmma", "sm90_")),
     ("GEMM (cuBLAS)", ("gemm", "cutlass", "ampere_", "sgemm")),
@@ -92,6 +96,8 @@ def profile(torch, fn, top: int, label: str) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--config", default=os.path.join("configs",
+                                                     "combsub.yaml"))
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--batch-frames", type=int, default=0)
     ap.add_argument("--train", action="store_true")
@@ -110,7 +116,8 @@ def main() -> None:
     from ddsp_svc_tpu_torch.models.factory import build_model
     from ddsp_svc_tpu_torch.utils.config import load_config
 
-    args = load_config(os.path.join(ROOT, "configs", "combsub.yaml"))
+    args = load_config(os.path.join(ROOT, a.config))
+    print(f"config {a.config}: {args.model.type}")
     model = build_model(args, device="cuda", seed=0)
     enhancer = Enhancer("nsf-hifigan", None, h=H_NSF, seed=1, device="cuda")
     n_unit = args.data.encoder_out_channels
