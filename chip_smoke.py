@@ -72,14 +72,17 @@ TPU_KERNELS = "ddsp_svc_tpu/ops/pallas_kernels.py"
 # each synthesizer's config and the kernels its offline path runs (the
 # enhancer's harmonic source and trio included); its training path runs the
 # same synth kernels, dft_magnitude in the loss, and the attention kernel in
-# the validation forward
+# the validation forward. The last field, full: the default model
+# (CombSubFast) adds the batched offline forward and, in training, a resume
+# and the model.bf16 runs
 ENHANCER_KERNELS = ("harmonic_source", "fused_resblocks_inject")
 SYNTHS = (("CombSubFast", "combsub.yaml",
-           ("performer_attention", "combsub_spectral")),
+           ("performer_attention", "combsub_spectral"), True),
           ("Sins", "sins.yaml",
-           ("performer_attention", "oscillator_bank", "ltv_fir_convolve")),
+           ("performer_attention", "oscillator_bank", "ltv_fir_convolve"),
+           False),
           ("CombSub", "combsub-old.yaml",
-           ("performer_attention", "ltv_fir_convolve")))
+           ("performer_attention", "ltv_fir_convolve"), False))
 
 
 def fail(msg: str) -> None:
@@ -328,10 +331,9 @@ def kernel_phase(torch, K, gen):
 
     # 8. the Sins oscillator bank, 128 harmonics at block 512, amplitudes
     # <= 0.1 (the JAX package's kernel test), at the offline 512-frame bucket
-    # (1 x 512 frames) and a training batch (24 x 172 frames); both sines
-    # (__sinf and sinf) are measured, the wrapper's default first. The
-    # bound counts 9 fp32 operations per (sample, harmonic): the lerp (2),
-    # the harmonic multiple (1), the wrap (3), the sine (1), the sum (2)
+    # (1 x 512 frames) and a training batch (24 x 172 frames). The bound
+    # counts 9 fp32 operations per (sample, harmonic): the lerp (2), the
+    # harmonic multiple (1), the wrap (3), the sine (1), the sum (2)
     bs, n_h = 512, 128
     err = rel = ms_sum = pms_sum = flops = nbytes = 0.0
     for b, f in ((1, 512), (24, 172)):
@@ -341,24 +343,19 @@ def kernel_phase(torch, K, gen):
                    bs) for _ in range(2)]
         scale = max(K.oscillator_bank_plain(*a).abs().max().item()
                     for a in inputs)
-        line = []
-        for fast in (K.OSC_FAST_SIN, not K.OSC_FAST_SIN):
-            def kern(p, a, s, _fast=fast):
-                return K._oscillator_bank_launch(p, a, s, fast_sin=_fast)
-            e, ms, pms = compare(torch, f"oscillator_bank {b}x{f}", kern,
-                                 K.oscillator_bank_plain, inputs, 2e-3, 0.0)
-            line.append(f"{'__sinf' if fast else 'sinf'} max|err| {e:.3e} "
-                        f"(rel {e / scale:.2e}) {ms:.4f} ms")
-            if fast == K.OSC_FAST_SIN:
-                err, rel = max(err, e), max(rel, e / scale)
-                ms_sum, pms_sum = ms_sum + ms, pms_sum + pms
+        e, ms, pms = compare(torch, f"oscillator_bank {b}x{f}",
+                             K.oscillator_bank, K.oscillator_bank_plain,
+                             inputs, 2e-3, 0.0)
+        err, rel = max(err, e), max(rel, e / scale)
+        ms_sum, pms_sum = ms_sum + ms, pms_sum + pms
         terms = b * f * bs * n_h
         f_n, b_n = 9 * terms, 4 * (2 * b * f * bs + b * f * n_h)
         flops += f_n
         nbytes += b_n
         say(f"kernel oscillator_bank {b} x {f} frames x {n_h} harmonics: "
-            f"{'; '.join(line)}; plain {pms:.4f} ms, bound "
-            f"{bound(b_n, f_n)[0]:.4f} ms (max|ref| {scale:.3f})")
+            f"max|err| {e:.3e} (rel {e / scale:.2e}), {ms:.4f} ms, plain "
+            f"{pms:.4f} ms, bound {bound(b_n, f_n)[0]:.4f} ms (max|ref| "
+            f"{scale:.3f})")
     rows["oscillator_bank"] = dict(
         route="cuda", source="ddsp_svc_tpu_torch/csrc/oscillator_bank.cu",
         replaces=f"{TPU_KERNELS}:49", max_abs_err=err, ms=ms_sum,
@@ -845,11 +842,10 @@ def main() -> None:
     # launches: the sum over the main paths' runs, each counted from 0 just
     # before it (offline, then training, for each synthesizer)
     launches = {k: 0 for k in K.launch_counts()}
-    for i, (synth, config, expect) in enumerate(SYNTHS):
+    for synth, config, expect, full in SYNTHS:
         t0 = time.perf_counter()
-        runs = [main_path_phase(torch, K, synth, config, expect,
-                                batched=i == 0),
-                train_phase(torch, K, synth, config, expect, full=i == 0)]
+        runs = [main_path_phase(torch, K, synth, config, expect, batched=full),
+                train_phase(torch, K, synth, config, expect, full=full)]
         say(f"{synth} paths: {time.perf_counter() - t0:.1f} s")
         for counts in runs:
             for k, v in counts.items():

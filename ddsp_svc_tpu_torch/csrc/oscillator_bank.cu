@@ -23,10 +23,10 @@
 // over the harmonics with its phase in a register; the (B, T, n_h) bank
 // never exists. The lerp, the argument and the wrap use the _rn intrinsics so
 // that nothing contracts into an FMA and each rounds as the plain PyTorch
-// version's separate elementwise operations do. kFast picks the sine: the
-// SFU's __sinf (abs error ~4e-7 on [-pi, pi]) or the accurate sinf (~20
-// instructions); the wrapper's default is set from chip_smoke.py's
-// measurement of both against the plain version.
+// version's separate elementwise operations do. The sine is the SFU's
+// __sinf (abs error ~4e-7 on [-pi, pi]): against the plain version it
+// measured 1.2x the error of the accurate sinf (both are dominated by the
+// argument's own rounding) at 2.5x its speed on the H100 (PERF.md).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -37,7 +37,6 @@ constexpr int kThreads = 128;
 constexpr float kTwoPi = 6.28318530717958647692f;
 constexpr float kInvTwoPi = 0.15915494309189533577f;
 
-template <bool kFast>
 __global__ void __launch_bounds__(kThreads)
 oscillator_bank_kernel(const float* __restrict__ phase, const float* __restrict__ amps,
                        float* __restrict__ out, int n_frames, int n_h, int block) {
@@ -63,8 +62,7 @@ oscillator_bank_kernel(const float* __restrict__ phase, const float* __restrict_
     const float amp = __fadd_rn(a0[k], __fmul_rn(slope[k], frac));
     float y = __fmul_rn(ph, (float)(k + 1));
     y = __fsub_rn(y, __fmul_rn(kTwoPi, rintf(__fmul_rn(y, kInvTwoPi))));
-    const float sv = kFast ? __sinf(y) : sinf(y);
-    acc = __fadd_rn(acc, __fmul_rn(amp, sv));
+    acc = __fadd_rn(acc, __fmul_rn(amp, __sinf(y)));
   }
   out[row * block + j] = acc;
 }
@@ -74,15 +72,14 @@ oscillator_bank_kernel(const float* __restrict__ phase, const float* __restrict_
 // phase, out: (rows * block,) fp32, rows = B * n_frames; amps: (rows, n_h).
 extern "C" int oscillator_bank_launch(const float* phase, const float* amps, float* out,
                                       int rows, int n_frames, int n_h, int block,
-                                      int fast, void* stream) {
+                                      void* stream) {
   if (rows == 0) return 0;
   const dim3 grid(rows, (block + kThreads - 1) / kThreads);
   const size_t smem = (size_t)2 * n_h * sizeof(float);
-  auto kernel = fast ? oscillator_bank_kernel<true> : oscillator_bank_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      oscillator_bank_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(phase, amps, out, n_frames,
-                                                         n_h, block);
+  oscillator_bank_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      phase, amps, out, n_frames, n_h, block);
   return (int)cudaGetLastError();
 }

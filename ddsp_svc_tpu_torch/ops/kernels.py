@@ -52,7 +52,7 @@ _SIGNATURES = {
     "dft_magnitude_launch": [_P] * 2 + [_I, _I, _P],
     "harmonic_source_launch": [_P] * 5 + [_I, _I, _I, _F, _P],
     "resblocks_launch": [_P] * 12 + [_I] * 9 + [_P],
-    "oscillator_bank_launch": [_P] * 3 + [_I] * 5 + [_P],
+    "oscillator_bank_launch": [_P] * 3 + [_I] * 4 + [_P],
     "ltv_fir_convolve_launch": [_P] * 3 + [_I] * 4 + [_P],
 }
 
@@ -491,14 +491,7 @@ def fused_resblocks(x, weights, biases, dilations=(1, 3, 5), valid=None):
 
 # ------------------------------ oscillator bank -----------------------------
 
-# __sinf (the SFU's sine) or sinf (accurate, ~20 instructions) on the
-# argument wrapped to [-pi, pi]; chip_smoke.py measures both against the
-# plain version
-OSC_FAST_SIN = True
-
-
-def _oscillator_bank_launch(phase, amplitudes_frames, block_size: int,
-                            fast_sin: bool = OSC_FAST_SIN):
+def _oscillator_bank_launch(phase, amplitudes_frames, block_size: int):
     bsz, t = phase.shape
     _, f, n_h = amplitudes_frames.shape
     dev = phase.device
@@ -510,51 +503,29 @@ def _oscillator_bank_launch(phase, amplitudes_frames, block_size: int,
     out = torch.empty_like(phase)
     _launch("oscillator_bank", "oscillator_bank_launch", phase.data_ptr(),
             amplitudes_frames.data_ptr(), out.data_ptr(), bsz * f, f, n_h,
-            block_size, int(fast_sin), _stream(out))
+            block_size, _stream(out))
     oscillator_bank.launches += 1
     return out
 
 
 def oscillator_bank_bwd_plain(g, phase, amplitudes_frames, block_size: int,
-                              harmonic_chunk: int = 32,
-                              phase_grad: bool = False):
-    """The adjoint of the oscillator bank in closed form (the JAX package's
-    oscillator_bank_pallas has no VJP), chunked over harmonics as the plain
-    forward is. With s_k = sin(wrap((k+1) phase)) and the upsampling
-    up[f, j] = a[f] (1 - j/bs) + a[f+1] j/bs (a[F] = a[F-1]):
-        d a[f]   += sum_j g[f, j] s_k (1 - j/bs),
-        d a[f+1] += sum_j g[f, j] s_k j/bs,
-        d phase   = sum_k g up_k (k+1) cos(wrap((k+1) phase)).
-    Returns (d_phase, or None unless phase_grad, d_amplitudes_frames)."""
-    from .interp import upsample_frames
-
-    b, f, n_h = amplitudes_frames.shape
-    bs = block_size
-    w = (torch.arange(bs, dtype=torch.float64, device=g.device) / bs
-         ).to(g.dtype)[:, None]
-    d_amps = torch.empty_like(amplitudes_frames)
-    d_phase = torch.zeros_like(phase) if phase_grad else None
-    for k0 in range(0, n_h, harmonic_chunk):
-        amps = amplitudes_frames[..., k0:k0 + harmonic_chunk]
-        levels = torch.arange(k0 + 1, k0 + amps.shape[-1] + 1,
-                              dtype=phase.dtype, device=phase.device)
-        y = phase[..., None] * levels
-        y = y - (2.0 * np.pi) * torch.round(y * (0.5 / np.pi))
-        gs = (g[..., None] * torch.sin(y)).reshape(b, f, bs, -1)
-        d = (gs * (1.0 - w)).sum(2)
-        hi = (gs * w).sum(2)
-        d[:, 1:] += hi[:, :-1]
-        d[:, -1] += hi[:, -1]
-        d_amps[..., k0:k0 + amps.shape[-1]] = d
-        if phase_grad:
-            up = upsample_frames(amps, bs)
-            d_phase += (g[..., None] * up * levels * torch.cos(y)).sum(-1)
-    return d_phase, d_amps
+                              harmonic_chunk: int = 32, needs=(False, True)):
+    """The adjoint of the oscillator bank (the JAX package's
+    oscillator_bank_pallas has no VJP): autograd through the plain version,
+    re-run here. needs: which of (d phase, d amplitudes_frames) to compute;
+    the other is None."""
+    with torch.enable_grad():
+        xs = [x.detach().requires_grad_(n)
+              for x, n in zip((phase, amplitudes_frames), needs)]
+        out = oscillator_bank_plain(*xs, block_size, harmonic_chunk)
+        grads = iter(torch.autograd.grad(
+            out, [x for x in xs if x.requires_grad], g))
+    return tuple(next(grads) if n else None for n in needs)
 
 
 class _OscillatorBankFn(torch.autograd.Function):
-    """The kernel forward, oscillator_bank_bwd_plain as the backward; the
-    phase's gradient only when asked for (the phase comes from f0)."""
+    """The kernel forward, oscillator_bank_bwd_plain as the backward; each
+    gradient only when asked for (the phase comes from f0 and needs none)."""
 
     @staticmethod
     def forward(ctx, phase, amplitudes_frames, block_size, harmonic_chunk):
@@ -565,10 +536,9 @@ class _OscillatorBankFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         phase, amps = ctx.saved_tensors
-        d_phase, d_amps = oscillator_bank_bwd_plain(
+        return oscillator_bank_bwd_plain(
             g, phase, amps, ctx.block_size, ctx.harmonic_chunk,
-            phase_grad=ctx.needs_input_grad[0])
-        return d_phase, d_amps, None, None
+            ctx.needs_input_grad[:2]) + (None, None)
 
 
 def oscillator_bank(phase, amplitudes_frames, block_size: int,
@@ -576,8 +546,9 @@ def oscillator_bank(phase, amplitudes_frames, block_size: int,
     """Additive synthesis in one kernel: phase (B, T) [rad] and
     amplitudes_frames (B, F, n_harm), T = F * block_size, fp32 ->
     sum_k lerp(amp_k) sin(wrap((k+1) phase)), (B, T). One thread per output
-    sample; the (B, T, n_harm) bank never exists. harmonic_chunk bounds the
-    plain version's (and the backward's) memory. Differentiable."""
+    sample; the (B, T, n_harm) bank never exists in the forward.
+    harmonic_chunk bounds the plain forward's memory; the backward, autograd
+    of the plain version, keeps the sines of every chunk. Differentiable."""
     if phase.device.type == "cpu":
         return oscillator_bank_plain(phase, amplitudes_frames, block_size,
                                      harmonic_chunk)
