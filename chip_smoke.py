@@ -18,7 +18,15 @@ Phases, each printing its own lines:
      384, 512 frames); the kernels' launch counts over each run; the same
      run on the plain versions; audio-seconds per second at batch 1 (and,
      for CombSubFast, batched);
-  5. training paths: the port's trainer (`python -m ddsp_svc_tpu_torch.train`
+  5. enhancer forms (after the CombSubFast offline path, on its three
+     segments' audio and f0): the default form (#3, #4), fused_inject=False
+     (#3, #5) and fused_stage=True (#3, #11) at H_NSF's full width, each
+     against the same run on the plain versions, with its launch counts and
+     B=1 wall; Enhancer.enhance_batch at B = 16 on a 512-frame bucket of
+     mixed lengths (default and fused_inject=False), each item against its
+     own enhance call with the tail past it exactly 0; one enhance with
+     adaptive key 2 (44.1 <-> 49.5 kHz);
+  6. training paths: the port's trainer (`python -m ddsp_svc_tpu_torch.train`
      main) on a synthetic dataset in the AudioDataset layout at each
      config's full width (batch 24, 2-s crops, RSS loss 256..2048 x 4
      scales): fp32 steps with a validation pass and a checkpoint; for
@@ -68,6 +76,7 @@ PINNED_LOSS_IDX = (1, 5, 9, 15)
 FP32_STEPS, BF16_STEPS, TIMED_STEPS = 3, 3, 5
 TRAIN_CROP_SAMPLES = 172 * 512  # 2 s at 44.1 kHz, block 512
 TRIO_STAGES = ((64, 4), (32, 2), (16, 1))  # (C, source-conv stride)
+TRIO_K = (3, 7, 11)
 TPU_KERNELS = "ddsp_svc_tpu/ops/pallas_kernels.py"
 # each synthesizer's config and the kernels its offline path runs (the
 # enhancer's harmonic source and trio included); its training path runs the
@@ -76,6 +85,15 @@ TPU_KERNELS = "ddsp_svc_tpu/ops/pallas_kernels.py"
 # (CombSubFast) adds the batched offline forward and, in training, a resume
 # and the model.bf16 runs
 ENHANCER_KERNELS = ("harmonic_source", "fused_resblocks_inject")
+# the enhancer's forms (generator_overrides) and the kernels each runs
+ENHANCER_FORMS = (("default", {}, ENHANCER_KERNELS),
+                  ("fused_inject=False", {"fused_inject": False},
+                   ("harmonic_source", "fused_resblocks")),
+                  ("fused_stage=True", {"fused_stage": True},
+                   ("harmonic_source", "fused_stage")))
+# enhance_batch: 16 items of these lengths in one 512-frame bucket
+BATCH_FRAMES = (512, 384, 300, 200, 511, 450, 128, 333, 256, 500, 64, 400,
+                280, 350, 199, 417)
 SYNTHS = (("CombSubFast", "combsub.yaml",
            ("performer_attention", "combsub_spectral"), True),
           ("Sins", "sins.yaml",
@@ -415,6 +433,112 @@ def kernel_phase(torch, K, gen):
         tol="2e-4 x max|ref| (the JAX package's kernel test); times are the "
             "sum over the offline and training rows at ir 510 and 1022; "
             "library: the three-call cuFFT chain")
+
+    # 10. one resblock chain (no path runs it; the JAX package's neither):
+    # the C = 64 stage of a 512-frame segment, T = 65536, at each k
+    c, t_s = 64, t_final // 4
+    err = ms_sum = pms_sum = flops = nbytes = 0.0
+    for k in TRIO_K:
+        inputs = [(randn(1, t_s, c), randn(3, 2, c, c, k,
+                                           scale=(2.0 / (k * c)) ** 0.5),
+                   randn(3, 2, c, scale=0.01), k) for _ in range(2)]
+        e, ms, pms = compare(torch, f"fused_resblock_chain k={k}",
+                             K.fused_resblock_chain, K.resblock_chain_plain,
+                             inputs, 1e-4, 0.0, tol_rtol=1e-4)
+        f_k = 2 * c * c * 6 * k * t_s
+        b_k = 4 * (2 * c * t_s + 6 * c * c * k + 6 * c)
+        say(f"kernel fused_resblock_chain C={c} T={t_s} k={k}: max|err| "
+            f"{e:.3e} (atol 1e-4, rtol 1e-4), {ms:.3f} ms, plain {pms:.3f} "
+            f"ms, bound {bound(b_k, f_k)[0]:.4f} ms")
+        err, ms_sum, pms_sum = max(err, e), ms_sum + ms, pms_sum + pms
+        flops += f_k
+        nbytes += b_k
+    rows["fused_resblock_chain"] = dict(
+        route="cuda", source="ddsp_svc_tpu_torch/csrc/resblock_chain.cu",
+        replaces=f"{TPU_KERNELS}:1415", max_abs_err=err, ms=ms_sum,
+        plain_ms=pms_sum, bound=bound(nbytes, flops), library_ms=None,
+        tol="atol 1e-4 + rtol 1e-4 (the JAX package's kernel test); times "
+            "are the sum of k = 3, 7, 11 at C = 64, T = 65536")
+
+    # 11. the fused stage: H_NSF's three narrow stages (u = 2) of a 512-frame
+    # segment, from x_pre (1, T / 2, 2C); beside it the same stage as the
+    # cuDNN ConvTranspose followed by #4
+    def stage_inputs(c, s):
+        t_out = t_final // s
+        ws = [randn(3, 2, c, c, k, scale=(2.0 / (k * c)) ** 0.5)
+              for k in TRIO_K]
+        bs = [randn(3, 2, c, scale=0.01) for _ in range(3)]
+        ksrc = 2 * s if s > 1 else 1
+        return (randn(1, t_out // 2, 2 * c), randn(1, t_final, 1, scale=0.1),
+                randn(2 * c, c, 4, scale=(1.0 / (2 * c * 4)) ** 0.5),
+                randn(c, scale=0.05), randn(c, 1, ksrc, scale=0.2),
+                randn(c, scale=0.05), ws, bs, 2, s)
+
+    def unfused_stage(x_pre, har, uw, ub, nw, nb, ws, bs, u, s):
+        x_up = torch.nn.functional.conv_transpose1d(
+            torch.nn.functional.leaky_relu(x_pre.transpose(1, 2), 0.1), uw, ub,
+            stride=u, padding=u // 2).transpose(1, 2)
+        return K.fused_resblocks_inject(x_up, har, nw, nb, ws, bs, s)
+
+    err = ms_sum = pms_sum = flops = nbytes = 0.0
+    for c, s in TRIO_STAGES:
+        inputs = [stage_inputs(c, s) for _ in range(2)]
+        e, ms, pms = compare(torch, f"fused_stage C={c}", K.fused_stage,
+                             K.stage_plain, inputs, 2e-4, 0.0, tol_rtol=2e-4)
+        ums = time_ms(torch, unfused_stage, inputs)
+        t_out, ksrc = t_final // s, (2 * s if s > 1 else 1)
+        f_c = (2 * c * c * 6 * 21 * t_out + 2 * 2 * c * c * 2 * t_out
+               + 2 * c * ksrc * t_out)
+        b_c = 4 * (2 * c * t_out // 2 + t_final + c * t_out
+                   + 6 * c * c * 21 + 8 * c * c + 20 * c + c * ksrc)
+        say(f"kernel fused_stage C={c} T_out={t_out}: max|err| {e:.3e} (atol "
+            f"2e-4, rtol 2e-4), {ms:.3f} ms, plain {pms:.3f} ms, cuDNN "
+            f"ConvTranspose + fused_resblocks_inject {ums:.3f} ms, bound "
+            f"{bound(b_c, f_c)[0]:.4f} ms")
+        err, ms_sum, pms_sum = max(err, e), ms_sum + ms, pms_sum + pms
+        flops += f_c
+        nbytes += b_c
+    rows["fused_stage"] = dict(
+        route="cuda", source="ddsp_svc_tpu_torch/csrc/fused_stage.cu",
+        replaces=f"{TPU_KERNELS}:1694", max_abs_err=err, ms=ms_sum,
+        plain_ms=pms_sum, bound=bound(nbytes, flops), library_ms=None,
+        tol="atol 2e-4 + rtol 2e-4 (the JAX package's kernel test); times "
+            "are the sum of the three narrow stages (C = 64, 32, 16)")
+
+    # the backward of #4, #10 and #11 (autograd Functions re-running the
+    # plain versions) at the C = 64 stage against autograd of the plain
+    # versions, with a random cotangent
+    def grads(fn, tensors, statics, up):
+        xs = [[x.clone().requires_grad_() for x in a] if isinstance(a, list)
+              else a.clone().requires_grad_() for a in tensors]
+        (fn(*xs, *statics) * up).sum().backward()
+        return [x.grad.double() for a in xs
+                for x in (a if isinstance(a, list) else [a])]
+
+    trio = trio_inputs(64, 4)
+    chain = (randn(1, t_s, 64), randn(3, 2, 64, 64, 7, scale=(2 / 448) ** 0.5),
+             randn(3, 2, 64, scale=0.01))
+    stage = stage_inputs(64, 4)
+    up = randn(1, t_s, 64)
+    for name, kern, plain, tensors, statics in (
+            ("fused_resblocks_inject", K.fused_resblocks_inject,
+             K.resblocks_inject_plain, list(trio[:6]), (4,)),
+            ("fused_resblock_chain", K.fused_resblock_chain,
+             K.resblock_chain_plain, list(chain), (7,)),
+            ("fused_stage", K.fused_stage, K.stage_plain, list(stage[:8]),
+             (2, 4))):
+        worst_rel, worst_cos = 0.0, 1.0
+        for gk, gp in zip(grads(kern, tensors, statics, up),
+                          grads(plain, tensors, statics, up)):
+            rel = ((gk - gp).norm() / gp.norm()).item()
+            cos = ((gk * gp).sum() / (gk.norm() * gp.norm())).item()
+            worst_rel, worst_cos = max(worst_rel, rel), min(worst_cos, cos)
+        say(f"kernel {name} backward at C=64 T={t_s}, kernel vs autograd of "
+            f"the plain version: worst gradient rel {worst_rel:.3e} (< 2e-2),"
+            f" cos {worst_cos:.7f} (> 1 - 1e-4)")
+        if not (worst_rel < 2e-2 and worst_cos > 1 - 1e-4):
+            fail(f"{name}: backward disagrees with autograd of the plain "
+                 "version")
     return rows
 
 
@@ -432,7 +556,11 @@ def plain_kernels(K):
              (spectral, "dft_magnitude", K.dft_magnitude_plain),
              (nsf_hifigan, "harmonic_source", K.harmonic_source_plain),
              (nsf_hifigan, "fused_resblocks_inject",
-              K.resblocks_inject_plain)]
+              K.resblocks_inject_plain),
+             (nsf_hifigan, "fused_resblocks",
+              lambda x, ws, bs, dils, valid=None: K.resblocks_inject_plain(
+                  x, None, None, None, ws, bs, 1, dils, valid)),
+             (nsf_hifigan, "fused_stage", K.stage_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, fn in swaps:
         setattr(mod, name, fn)
@@ -455,9 +583,10 @@ def path_launches(K, label: str, expect) -> dict:
 
 
 def main_path_phase(torch, K, synth: str, config: str, expect,
-                    batched: bool):
+                    batched: bool, segments_out=None):
     """The offline path of one synthesizer; returns its run's launch
-    counts."""
+    counts. segments_out: a list that receives each segment's enhancer
+    input of the first run (audio, rate, f0, hop, rand_ini)."""
     from ddsp_svc_tpu_torch.infer.enhancer import Enhancer
     from ddsp_svc_tpu_torch.infer.offline import convert_features
     from ddsp_svc_tpu_torch.models.factory import build_model
@@ -502,10 +631,21 @@ def main_path_phase(torch, K, synth: str, config: str, expect,
         torch.cuda.synchronize()
         return out, sr_o
 
+    if segments_out is not None:
+        enhance = enhancer.enhance
+
+        def recording(audio, sr_in, f0_seg, hop, **kw):
+            segments_out.append((audio.clone(), sr_in, f0_seg, hop,
+                                 kw["rand_ini"]))
+            return enhance(audio, sr_in, f0_seg, hop, **kw)
+
+        enhancer.enhance = recording
     K.reset_launch_counts()
     t0 = time.perf_counter()
     audio, sr_o = run()
     first_s = time.perf_counter() - t0
+    if segments_out is not None:
+        enhancer.enhance = enhance
     launches = path_launches(K, label, tuple(expect) + ENHANCER_KERNELS)
     rms = float(np.sqrt(np.mean(audio ** 2)))
     length = round(starts[-1] * bs * sr_o / sr) + SEGMENT_FRAMES[-1] * bs
@@ -566,6 +706,132 @@ def main_path_phase(torch, K, synth: str, config: str, expect,
         f"{dt * 1e3:.1f} ms "
         f"median of 3: {batch * n_frames * bs / sr / dt:.1f} audio-s/s")
     return launches
+
+
+def enhancer_phase(torch, K, segments) -> dict:
+    """The enhancer in each form on the offline path's segments, batched
+    enhance and the adaptive key; returns the summed launch counts."""
+    from ddsp_svc_tpu_torch.infer.enhancer import Enhancer
+
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    seg_audio_s = sum(a.shape[-1] for a, *_ in segments) / H_NSF["sampling_rate"]
+    for label, forms, expect in ENHANCER_FORMS:
+        enh = Enhancer("nsf-hifigan", None, h=H_NSF, seed=1, device="cuda",
+                       generator_overrides=forms)
+
+        def run():
+            outs = [enh.enhance(a, sr, f0, hop, rand_ini=ri)[0]
+                    for a, sr, f0, hop, ri in segments]
+            torch.cuda.synchronize()
+            return outs
+
+        K.reset_launch_counts()
+        outs = run()
+        counts = path_launches(K, f"enhancer ({label})", expect)
+        add(counts)
+        if forms.get("fused_stage") and (
+                counts["fused_stage"] != 3 * len(segments)
+                or counts["fused_resblocks_inject"] + counts["fused_resblocks"]):
+            fail(f"the {label} form did not run its three narrow stages on "
+                 "the fused stage kernel")
+        with plain_kernels(K):
+            refs = run()
+        err = max(((o - r).abs().max() / r.abs().max()).item()
+                  for o, r in zip(outs, refs))
+        if not (all(torch.isfinite(o).all() for o in outs) and err <= 1e-3):
+            fail(f"enhancer ({label}) audio disagrees with the plain versions")
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run()
+            times.append(time.perf_counter() - t0)
+        dt = float(np.median(times))
+        say(f"enhancer ({label}) B=1 on {len(segments)} segments "
+            f"({seg_audio_s:.3f} audio-s): kernels vs plain versions max|err| "
+            f"{err:.3e} x max|ref| (tolerance 1e-3); {dt * 1e3:.1f} ms median "
+            f"of 3: {seg_audio_s / dt:.1f} audio-s/s")
+
+    # enhance_batch: 16 segments of mixed lengths in one 512-frame bucket at
+    # the enhancer's own rate, each against its own enhance call
+    rng = np.random.default_rng(4)
+    hop, sr = H_NSF["hop_size"], H_NSF["sampling_rate"]
+    audios, f0s = [], []
+    for n in BATCH_FRAMES:
+        tt = np.arange(n * hop) / sr
+        f0_hz = 150 + 200 * rng.random()
+        audios.append((0.3 * np.sin(2 * np.pi * f0_hz * tt)
+                       + 0.02 * rng.standard_normal(n * hop)).astype(np.float32))
+        f0s.append(np.full((1, n, 1), f0_hz, np.float32))
+    ris = rng.random((len(BATCH_FRAMES), 9)).astype(np.float32)
+    ris[:, 0] = 0
+    b_audio_s = sum(BATCH_FRAMES) * hop / sr
+    for label, forms, expect in ENHANCER_FORMS[:2]:
+        enh = Enhancer("nsf-hifigan", None, h=H_NSF, seed=1, device="cuda",
+                       generator_overrides=forms)
+        raw = []
+        forward_batch = enh.enhancer._forward_batch
+
+        def recording(*a):
+            raw.append((forward_batch(*a), a[3]))
+            return raw[-1][0]
+
+        enh.enhancer._forward_batch = recording
+        K.reset_launch_counts()
+        outs, _ = enh.enhance_batch(audios, sr, f0s, hop, rand_ini=ris,
+                                    pad_to=max(BATCH_FRAMES) * hop)
+        torch.cuda.synchronize()
+        add(path_launches(K, f"enhance_batch ({label})", expect))
+        out, n_mel = raw[0]
+        upp = out.shape[-1] // max(BATCH_FRAMES)
+        worst = 0.0
+        for i, n in enumerate(n_mel.tolist()):
+            if out[i, n * upp:].any():
+                fail(f"enhance_batch ({label}): item {i}'s tail is not 0")
+            single, _ = enh.enhance(torch.as_tensor(audios[i], device="cuda")[None],
+                                    sr, f0s[i], hop, rand_ini=ris[i:i + 1])
+            if single.shape != outs[i].shape:
+                fail(f"enhance_batch ({label}): item {i} has shape "
+                     f"{tuple(outs[i].shape)}, its enhance {tuple(single.shape)}")
+            worst = max(worst, ((outs[i] - single).abs().max()
+                                / single.abs().max()).item())
+        if not worst <= 1e-4:
+            fail(f"enhance_batch ({label}) disagrees with enhance: {worst:.3e}")
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            enh.enhance_batch(audios, sr, f0s, hop, rand_ini=ris,
+                              pad_to=max(BATCH_FRAMES) * hop)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        dt = float(np.median(times))
+        say(f"enhance_batch ({label}) B={len(BATCH_FRAMES)} x {max(BATCH_FRAMES)}"
+            f"-frame bucket ({b_audio_s:.3f} audio-s): each item vs its own "
+            f"enhance max|err| {worst:.3e} x max|ref| (tolerance 1e-4), tails "
+            f"0; {dt * 1e3:.1f} ms median of 3: {b_audio_s / dt:.1f} audio-s/s")
+
+    # the adaptive key 2: 44100 -> 49500 Hz and back, on the longest segment;
+    # the expected length follows the resampler's ceil and the mel's frames
+    a, sr_in, f0, hop_in, ri = max(segments, key=lambda seg: seg[0].shape[-1])
+    enh = Enhancer("nsf-hifigan", None, h=H_NSF, seed=1, device="cuda")
+    out, _ = enh.enhance(a, sr_in, f0, hop_in, adaptive_key=2, rand_ini=ri)
+    rate = 100 * round(sr * 2 ** (2 / 12) / 100)
+    res = math.ceil(a.shape[-1] * rate / sr_in)
+    win = H_NSF["win_size"]
+    pads = (win - hop) // 2 + max((win - hop + 1) // 2, hop)
+    n_mel = (res + pads - H_NSF["n_fft"]) // hop + 1
+    length = math.ceil(n_mel * hop * sr / rate)
+    if out.shape != (1, length) or not torch.isfinite(out).all():
+        fail(f"enhance(adaptive_key=2): shape {tuple(out.shape)} (expected "
+             f"(1, {length})), finite {bool(torch.isfinite(out).all())}")
+    say(f"enhance adaptive_key=2 ({sr_in} -> {rate} -> {sr} Hz): "
+        f"{a.shape[-1]} samples -> {out.shape[-1]}, finite, rms "
+        f"{out.pow(2).mean().sqrt().item():.4f}")
+    return total
 
 
 def write_dataset(root: str, n_spk: int, files_per_spk: int, seconds: float,
@@ -844,8 +1110,12 @@ def main() -> None:
     launches = {k: 0 for k in K.launch_counts()}
     for synth, config, expect, full in SYNTHS:
         t0 = time.perf_counter()
-        runs = [main_path_phase(torch, K, synth, config, expect, batched=full),
-                train_phase(torch, K, synth, config, expect, full=full)]
+        segments = [] if full else None
+        runs = [main_path_phase(torch, K, synth, config, expect, batched=full,
+                                segments_out=segments)]
+        if full:
+            runs.append(enhancer_phase(torch, K, segments))
+        runs.append(train_phase(torch, K, synth, config, expect, full=full))
         say(f"{synth} paths: {time.perf_counter() - t0:.1f} s")
         for counts in runs:
             for k, v in counts.items():

@@ -1,8 +1,9 @@
 """Host-side WAV I/O in numpy (a copy of `ddsp_svc_tpu/data/wavio.py`).
 
 Reads PCM 8/16/24/32-bit and float32/float64 WAV into float32 in [-1, 1],
-mixes stereo down, and writes PCM16 or float32. Resampling on load is not
-ported yet: `load_audio` raises when the file's rate differs from `sr`.
+mixes stereo down, and writes PCM16 or float32. `load_audio` resamples
+on load on the host's CPU with `ops.resample`, as the JAX package's
+`_resample_host` does.
 """
 from __future__ import annotations
 
@@ -11,6 +12,9 @@ import wave
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
+
+from ..ops.resample import resample
 
 
 def read_wav(path: str) -> Tuple[np.ndarray, int]:
@@ -124,14 +128,15 @@ def wav_bytes(audio: np.ndarray, sr: int, subtype: str = "PCM_16") -> bytes:
 def load_audio(
     path: str, sr: Optional[int] = None, mono: bool = True
 ) -> Tuple[np.ndarray, int]:
-    """Read and mix down; the file must already be at `sr` if given."""
+    """librosa.load-equivalent: read, mix down, resample to `sr` if given
+    (on the CPU, whatever device the caller computes on)."""
     x, native_sr = read_wav(path)
     if mono and x.ndim > 1:
         x = x.mean(axis=0)
     if sr is not None and sr != native_sr:
-        raise NotImplementedError(
-            f"{path} is at {native_sr} Hz, not {sr}: resampling on load is "
-            "not ported yet")
+        y = resample(torch.from_numpy(np.atleast_2d(x).astype(np.float32)),
+                     native_sr, sr).numpy()
+        x, native_sr = (y[0] if x.ndim == 1 else y), sr
     return x.astype(np.float32), native_sr
 
 

@@ -9,10 +9,16 @@ conv_post k7 -> tanh. Module names follow the reference state dict
 `m_source.l_linear`), with weight norm folded into plain weights.
 
 Activations are channel-first inside; the public forward keeps the JAX
-package's (B, F, num_mels) mel layout. The narrow stages (C <= 64) run
-their injection conv and resblock trio through the hand-written kernel
-(`ops.kernels.fused_resblocks_inject`); the wide stages (C = 256, 128)
-stay on F.conv1d, as the JAX package left them to XLA.
+package's (B, F, num_mels) mel layout. The narrow stages (C <= 64) go
+through the hand-written kernels, in the JAX Generator's forms:
+`fused_inject=True` (default) runs the injection conv and the resblock
+trio in one kernel (`ops.kernels.fused_resblocks_inject`), False runs the
+injection on F.conv1d and the trio alone (`fused_resblocks`);
+`fused_stage=True` runs each stage that `_stage_fusable` admits, the
+transposed conv included, in one kernel (`fused_stage`);
+`fused_resblocks=False` keeps every stage on F.conv1d. The wide stages (C
+= 256, 128) stay on F.conv1d, as the JAX package left them to XLA.
+`valid_frames` masks a bucket-padded batch per item, as in JAX.
 """
 from __future__ import annotations
 
@@ -23,9 +29,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.kernels import (TRIO_CHANNELS, TRIO_KERNEL_SIZES,
-                           fused_resblocks_inject, harmonic_source,
-                           noise_conv_cf, resblock1_cf)
+from ..ops.kernels import (STAGE_RATES, TRIO_CHANNELS, TRIO_KERNEL_SIZES,
+                           fused_resblocks, fused_resblocks_inject,
+                           fused_stage, harmonic_source, noise_conv_cf,
+                           resblock1_cf)
+from ..ops.masking import frame_mask
 from ..ops.phase import _cumsum_mod1_compensated, _wrap
 
 LRELU_SLOPE = 0.1
@@ -81,12 +89,13 @@ class ResBlock1(nn.Module):
                          for c1, c2 in zip(self.convs1, self.convs2)])
         return w, b
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (B, C, T) channel-first."""
+    def forward(self, x: torch.Tensor, mask=None) -> torch.Tensor:
+        """x (B, C, T) channel-first; mask (B?, 1, T) zeroes each conv's
+        input past the valid length."""
         pairs = list(zip(self.convs1, self.convs2))
         return resblock1_cf(x, [(c1.weight, c2.weight) for c1, c2 in pairs],
                             [(c1.bias, c2.bias) for c1, c2 in pairs],
-                            self.kernel_size, self.dilation)
+                            self.kernel_size, self.dilation, mask)
 
 
 class SourceModule(nn.Module):
@@ -103,13 +112,19 @@ class Generator(nn.Module):
                  upsample_kernel_sizes: Sequence[int],
                  upsample_initial_channel: int,
                  resblock_kernel_sizes: Sequence[int],
-                 resblock_dilation_sizes: Sequence[Sequence[int]]):
+                 resblock_dilation_sizes: Sequence[Sequence[int]],
+                 fused_resblocks: bool = True, fused_inject: bool = True,
+                 fused_stage: bool = False):
         super().__init__()
         self.sampling_rate = sampling_rate
         self.upsample_rates = tuple(upsample_rates)
+        self.upsample_kernel_sizes = tuple(upsample_kernel_sizes)
         self.resblock_kernel_sizes = tuple(resblock_kernel_sizes)
         self.resblock_dilation_sizes = tuple(
             tuple(d) for d in resblock_dilation_sizes)
+        self.fused_resblocks = fused_resblocks
+        self.fused_inject = fused_inject
+        self.fused_stage = fused_stage
         self.m_source = SourceModule()
         self.conv_pre = nn.Conv1d(num_mels, upsample_initial_channel, 7,
                                   padding=3)
@@ -136,45 +151,105 @@ class Generator(nn.Module):
 
     def _use_fused(self, ch: int) -> bool:
         """The JAX package's gate for its fp32 trio kernel (C <= 64, three
-        resblocks sharing one dilation schedule), narrowed to the widths the
-        kernel instantiates."""
-        return (ch in TRIO_CHANNELS
+        resblocks sharing one dilation schedule), narrowed to the widths and
+        kernel sizes the kernel instantiates."""
+        return (bool(self.fused_resblocks) and ch in TRIO_CHANNELS
                 and self.resblock_kernel_sizes == TRIO_KERNEL_SIZES
                 and len(set(self.resblock_dilation_sizes)) == 1)
 
+    def _stage_fusable(self, c_in: int, u: int, k: int) -> bool:
+        """The JAX package's gate for its fused stage (k = 2u, C_in a
+        multiple of 8, u dividing the 64-sample tile halo), narrowed to the
+        rates the kernel takes; decided from the geometry alone."""
+        return (bool(self.fused_stage) and k == 2 * u and c_in % 8 == 0
+                and u in STAGE_RATES)
+
     def forward(self, mel: torch.Tensor, f0_frames: torch.Tensor,
-                rand_ini: torch.Tensor) -> torch.Tensor:
+                rand_ini: torch.Tensor, valid_frames=None) -> torch.Tensor:
         """mel (B, F, num_mels); f0_frames (B, F); rand_ini (B, 9).
-        Returns (B, F * prod(upsample_rates))."""
+        Returns (B, F * prod(upsample_rates)).
+
+        valid_frames (int, 0-d or (B,)): the true frame counts of a
+        bucket-padded batch. The mel, the source and every stage boundary
+        are zeroed past each item's length, each conv sees the zero padding
+        an exact-length forward sees, and the output past it is exactly 0;
+        the trio kernels take the per-row sample counts, the fused stage is
+        not used (as in JAX)."""
         upp = math.prod(self.upsample_rates)
+        masks = {}
+
+        def mask(scale: int) -> torch.Tensor:  # (B?, 1, F * scale)
+            if scale not in masks:
+                masks[scale] = frame_mask(mel.shape[1] * scale, vf * scale,
+                                          mel.dtype, mel.device)[:, None, :]
+            return masks[scale]
+
+        if valid_frames is not None:
+            vf = torch.as_tensor(valid_frames, device=mel.device)
+            mel = mel * mask(1).transpose(1, 2)
         lin = self.m_source.l_linear
         har = harmonic_source_fused(f0_frames, upp, self.sampling_rate,
                                     rand_ini, lin.weight[0], lin.bias)
+        if valid_frames is not None:
+            har = har * mask(upp).transpose(1, 2)
         har_cf = har.transpose(1, 2)
         x = self.conv_pre(mel.transpose(1, 2))
+        if valid_frames is not None:
+            x = x * mask(1)
         n_k = len(self.resblock_kernel_sizes)
         n_up = len(self.upsample_rates)
-        for i in range(n_up):
+        dils = self.resblock_dilation_sizes[0]
+        cum = 1
+        for i, (u, k) in enumerate(zip(self.upsample_rates,
+                                       self.upsample_kernel_sizes)):
+            cum *= u
             s = math.prod(self.upsample_rates[i + 1:]) if i + 1 < n_up else 1
-            x = self.ups[i](F.leaky_relu(x, LRELU_SLOPE))
-            nc = self.noise_convs[i]
+            up, nc = self.ups[i], self.noise_convs[i]
             rbs = self.resblocks[i * n_k:(i + 1) * n_k]
-            if self._use_fused(x.shape[1]):
+            ch = x.shape[1] // 2
+            fused = self._use_fused(ch)
+            if fused:
                 stacks = [rb.stacked() for rb in rbs]
-                x = fused_resblocks_inject(
-                    x.transpose(1, 2), har, nc.weight, nc.bias,
-                    [w for w, _ in stacks], [b for _, b in stacks], s,
-                    self.resblock_dilation_sizes[0],
-                ).transpose(1, 2)
-            else:
-                x = x + noise_conv_cf(har_cf, nc.weight, nc.bias, s,
-                                      x.shape[-1])
-                x = sum(rb(x) for rb in rbs) / n_k
+                ws, bs = [w for w, _ in stacks], [b for _, b in stacks]
+            if (fused and valid_frames is None
+                    and self._stage_fusable(x.shape[1], u, k)):
+                x = fused_stage(x.transpose(1, 2), har, up.weight, up.bias,
+                                nc.weight, nc.bias, ws, bs, u, s,
+                                dils).transpose(1, 2)
+                continue
+            x = up(F.leaky_relu(x, LRELU_SLOPE))
+            stage_mask = None
+            vsamp = None
+            if valid_frames is not None:
+                stage_mask, vsamp = mask(cum), vf * cum
+                x = x * stage_mask
+            if fused and self.fused_inject:
+                # the trio kernels zero their output past vsamp themselves
+                x = fused_resblocks_inject(x.transpose(1, 2), har, nc.weight,
+                                           nc.bias, ws, bs, s, dils,
+                                           valid=vsamp).transpose(1, 2)
+                continue
+            x = x + noise_conv_cf(har_cf, nc.weight, nc.bias, s, x.shape[-1])
+            if stage_mask is not None:
+                x = x * stage_mask
+            if fused:
+                x = fused_resblocks(x.transpose(1, 2), ws, bs, dils,
+                                    valid=vsamp).transpose(1, 2)
+                continue
+            x = sum(rb(x, stage_mask) for rb in rbs) / n_k
+            if stage_mask is not None:
+                x = x * stage_mask
         x = self.conv_post(F.leaky_relu(x, 0.01))
-        return torch.tanh(x)[:, 0, :]
+        out = torch.tanh(x)[:, 0, :]
+        if valid_frames is not None:
+            # conv_post's bias makes the pad region a nonzero constant
+            out = out * mask(upp)[:, 0, :]
+        return out
 
 
-def generator_from_h(h: dict) -> Generator:
+def generator_from_h(h: dict, **forms) -> Generator:
+    """The Generator of config `h`; forms: fused_resblocks, fused_inject,
+    fused_stage (the JAX package's `generator_overrides`)."""
     return Generator(
         sampling_rate=h["sampling_rate"],
         num_mels=h["num_mels"],
@@ -183,5 +258,6 @@ def generator_from_h(h: dict) -> Generator:
         upsample_initial_channel=h["upsample_initial_channel"],
         resblock_kernel_sizes=h["resblock_kernel_sizes"],
         resblock_dilation_sizes=h["resblock_dilation_sizes"],
+        **forms,
     )
 

@@ -10,15 +10,19 @@ Counterpart of `ddsp_svc_tpu/ops/pallas_kernels.py`:
     fused_resblocks_inject   <- fused_resblocks_inject_pallas
     fused_resblocks          <- fused_resblocks_pallas (the same kernel
                                 without the injection)
+    fused_resblock_chain     <- fused_resblock_chain_pallas
+    fused_stage              <- fused_stage_pallas
     dft_magnitude            <- dft_magnitude_pallas
     oscillator_bank          <- oscillator_bank_pallas
     ltv_fir_convolve         <- ltv_fir_convolve_pallas
 
-combsub_spectral, dft_magnitude, oscillator_bank and ltv_fir_convolve are
-differentiable: on CUDA tensors they run inside a torch.autograd.Function
-whose backward is the combsub_spectral_bwd kernel for the first and plain
-PyTorch for the others (the JAX package's VJPs of #6 and #9 are plain XLA;
-oscillator_bank_pallas has none).
+Every wrapper but performer_attention, harmonic_source and
+combsub_spectral_bwd is differentiable: on CUDA tensors it runs inside a
+torch.autograd.Function whose backward is the combsub_spectral_bwd kernel
+for combsub_spectral, and plain PyTorch for the others (the JAX package's
+VJPs of #6 and #9 are plain XLA, those of the resblock and stage kernels
+re-run their XLA references; oscillator_bank_pallas has none). The
+per-row `valid` forms of the trio are inference-only, as in JAX.
 
 Each wrapper takes its plain version only for CPU tensors. For any other
 (CUDA) tensor it checks device, dtype, shape and contiguity, allocates the
@@ -54,14 +58,18 @@ _SIGNATURES = {
     "resblocks_launch": [_P] * 12 + [_I] * 9 + [_P],
     "oscillator_bank_launch": [_P] * 3 + [_I] * 4 + [_P],
     "ltv_fir_convolve_launch": [_P] * 3 + [_I] * 4 + [_P],
+    "resblock_chain_launch": [_P] * 4 + [_I] * 7 + [_P],
+    "fused_stage_launch": [_P] * 14 + [_I] * 12 + [_P],
+    "fused_stage_scratch_floats": [_I] * 3,
 }
+_RESTYPES = {"fused_stage_scratch_floats": ctypes.c_longlong}
 
 
 def _c_function(lib_name: str, symbol: str):
     fn = getattr(library(lib_name), symbol)
     if fn.argtypes is None:
         fn.argtypes = _SIGNATURES[symbol]
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(symbol, ctypes.c_int)
     return fn
 
 
@@ -369,10 +377,53 @@ def harmonic_source(start, rad, w, b, upp: int, sine_amp: float = 0.1):
     return out
 
 
+# ------------------ backward by re-running the plain version ----------------
+
+
+def _replay_grads(plain, tensors, needs, g):
+    """The gradients of sum(g * plain(*tensors)) with respect to the tensors
+    whose `needs` is set (None for the others), by autograd through the
+    plain version run again: the JAX package's custom VJPs of the resblock
+    kernels re-run their XLA references the same way."""
+    with torch.enable_grad():
+        xs = [x if x is None else x.detach().requires_grad_(bool(n))
+              for x, n in zip(tensors, needs)]
+        want = [x for x in xs if x is not None and x.requires_grad]
+        grads = iter(torch.autograd.grad(plain(*xs), want, g) if want else ())
+    return tuple(next(grads) if x is not None and x.requires_grad else None
+                 for x in xs)
+
+
+class _PlainBackwardFn(torch.autograd.Function):
+    """launch(*tensors) as the forward; the backward is _replay_grads of
+    plain(*tensors), each gradient only when asked for."""
+
+    @staticmethod
+    def forward(ctx, launch, plain, *tensors):
+        ctx.plain = plain
+        ctx.save_for_backward(*tensors)
+        return launch(*tensors)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, None) + _replay_grads(
+            ctx.plain, ctx.saved_tensors, ctx.needs_input_grad[2:], g)
+
+
+def _inference_only(name: str, tensors) -> None:
+    """The per-row valid forms have no backward (as in the JAX package,
+    whose custom VJPs never pass `valid`)."""
+    if torch.is_grad_enabled() and any(
+            x is not None and x.requires_grad for x in tensors):
+        raise ValueError(f"{name} with valid= is inference-only: call it "
+                         "under torch.no_grad()")
+
+
 # ------------------------- resblock trio (+ injection) ----------------------
 
 TRIO_KERNEL_SIZES = (3, 7, 11)
 TRIO_CHANNELS = (8, 16, 32, 64)
+STAGE_RATES = (1, 2, 4, 8)
 
 
 def resblock1_cf(x, weights, biases, kernel_size: int,
@@ -429,52 +480,62 @@ def resblocks_inject_plain(x_up, har, nc_weight, nc_bias, weights, biases,
     return out.transpose(1, 2)
 
 
-def fused_resblocks_inject(x_up, har, nc_weight, nc_bias, weights, biases,
-                           s_src: int, dilations=(1, 3, 5), valid=None):
-    """The narrow-stage trio in one kernel: injection conv, three ResBlock1
-    chains (k = 3/7/11) and their mean, on time tiles held in shared
-    memory. Same arguments and result as resblocks_inject_plain; har=None
-    runs the trio alone (the fused_resblocks_pallas form)."""
-    if x_up.device.type == "cpu":
-        return resblocks_inject_plain(x_up, har, nc_weight, nc_bias, weights,
-                                      biases, s_src, dilations, valid)
-    bsz, t, c = x_up.shape
-    dev = x_up.device
-    ks = tuple(int(w.shape[-1]) for w in weights)
-    if ks != TRIO_KERNEL_SIZES or c not in TRIO_CHANNELS:
-        raise ValueError(f"fused_resblocks_inject takes kernel sizes "
-                         f"{TRIO_KERNEL_SIZES} and C in {TRIO_CHANNELS}, got "
-                         f"{ks} and C={c}")
+def _check_dilations(dilations) -> tuple:
     dils = tuple(int(d) for d in dilations)
-    # the receptive margin of the widest chain must fit the kernel's 64-sample
+    # the receptive margin of the widest chain must fit the kernels' 64-sample
     # tile halo, and each tap offset its 32-column row padding
     if len(dils) != 3 or 5 * sum(dils) + 15 > 64 or 5 * max(dils) > 32:
         raise ValueError(f"unsupported dilations {dils}")
-    x_cf = x_up.transpose(1, 2).contiguous()
-    _check(x_cf, "x_up", (bsz, c, t), dev)
-    w_k, b_k = [], []
+    return dils
+
+
+def _trio_weights(weights, biases, c: int, dev):
+    """The trio's weights in the kernels' layout (dilation, conv, C_in, tap,
+    C_out), after checking kernel sizes and shapes."""
+    ks = tuple(int(w.shape[-1]) for w in weights)
+    if ks != TRIO_KERNEL_SIZES:
+        raise ValueError(f"the trio kernels take kernel sizes "
+                         f"{TRIO_KERNEL_SIZES}, got {ks}")
+    w_k = []
     for w, bias, k in zip(weights, biases, ks):
         _check(w, "weight", (3, 2, c, c, k), dev)
         _check(bias, "bias", (3, 2, c), dev)
-        # kernel layout (dilation, conv, C_in, tap, C_out)
         w_k.append(w.permute(0, 1, 3, 4, 2).contiguous())
-        b_k.append(bias)
+    return w_k
+
+
+def _injection(har, nc_weight, nc_bias, bsz: int, c: int, dev):
+    """har (B, T_final, 1) and the injection conv's weight as the kernels
+    read them: ((B, T_final), (C, ksrc), (C,), T_final, ksrc)."""
+    t_final, ksrc = har.shape[1], nc_weight.shape[-1]
+    har2 = har.reshape(bsz, t_final)
+    _check(har2, "har", (bsz, t_final), dev)
+    _check(nc_weight, "nc_weight", (c, 1, ksrc), dev)
+    _check(nc_bias, "nc_bias", (c,), dev)
+    return har2, nc_weight.reshape(c, ksrc), nc_bias, t_final, ksrc
+
+
+def _trio_launch(x_up, har, nc_weight, nc_bias, weights, biases, s_src: int,
+                 dilations, valid):
+    bsz, t, c = x_up.shape
+    dev = x_up.device
+    if c not in TRIO_CHANNELS:
+        raise ValueError(f"fused_resblocks_inject takes C in {TRIO_CHANNELS}, "
+                         f"got C={c}")
+    dils = _check_dilations(dilations)
+    x_cf = x_up.transpose(1, 2).contiguous()
+    _check(x_cf, "x_up", (bsz, c, t), dev)
+    w_k = _trio_weights(weights, biases, c, dev)
     har2 = wnc = bnc = None
     t_final = ksrc = 0
     if har is not None:
-        t_final = har.shape[1]
-        ksrc = nc_weight.shape[-1]
-        har2 = har.reshape(bsz, t_final)
-        _check(har2, "har", (bsz, t_final), dev)
-        _check(nc_weight, "nc_weight", (c, 1, ksrc), dev)
-        _check(nc_bias, "nc_bias", (c,), dev)
-        wnc = nc_weight.reshape(c, ksrc)
-        bnc = nc_bias
+        har2, wnc, bnc, t_final, ksrc = _injection(har, nc_weight, nc_bias,
+                                                   bsz, c, dev)
     vl = None if valid is None else _lengths(valid, bsz, t, dev)
     out = torch.empty_like(x_cf)
     _launch("resblocks", "resblocks_launch",
             x_cf.data_ptr(), _ptr(har2), _ptr(wnc), _ptr(bnc),
-            *(w.data_ptr() for w in w_k), *(b.data_ptr() for b in b_k),
+            *(w.data_ptr() for w in w_k), *(b.data_ptr() for b in biases),
             _ptr(vl), out.data_ptr(), bsz, c, t, t_final, s_src, ksrc,
             *dils, _stream(out))
     # the no-injection form is the fused_resblocks_pallas kernel: counted apart
@@ -482,11 +543,153 @@ def fused_resblocks_inject(x_up, har, nc_weight, nc_bias, weights, biases,
     return out.transpose(1, 2)
 
 
+def fused_resblocks_inject(x_up, har, nc_weight, nc_bias, weights, biases,
+                           s_src: int, dilations=(1, 3, 5), valid=None):
+    """The narrow-stage trio in one kernel: injection conv, three ResBlock1
+    chains (k = 3/7/11) and their mean, on time tiles held in shared
+    memory. Same arguments and result as resblocks_inject_plain; har=None
+    runs the trio alone (the fused_resblocks_pallas form). Differentiable
+    (the backward re-runs the plain version) except with valid=."""
+    if x_up.device.type == "cpu":
+        return resblocks_inject_plain(x_up, har, nc_weight, nc_bias, weights,
+                                      biases, s_src, dilations, valid)
+    n = len(weights)
+    tensors = (x_up, har, nc_weight, nc_bias, *weights, *biases)
+    if valid is not None:
+        _inference_only("fused_resblocks_inject", tensors)
+        return _trio_launch(x_up, har, nc_weight, nc_bias, weights, biases,
+                            s_src, dilations, valid)
+    return _PlainBackwardFn.apply(
+        lambda x, h, nw, nb, *wb: _trio_launch(x, h, nw, nb, wb[:n], wb[n:],
+                                               s_src, dilations, None),
+        lambda x, h, nw, nb, *wb: resblocks_inject_plain(
+            x, h, nw, nb, wb[:n], wb[n:], s_src, dilations),
+        *tensors)
+
+
 def fused_resblocks(x, weights, biases, dilations=(1, 3, 5), valid=None):
     """The trio alone (fused_resblocks_pallas): fused_resblocks_inject with
     har=None, whose launches are counted here."""
     return fused_resblocks_inject(x, None, None, None, weights, biases, 1,
                                   dilations, valid)
+
+
+# ---------------------------- one resblock chain ----------------------------
+
+
+def resblock_chain_plain(x, weight, bias, kernel_size: int,
+                         dilations=(1, 3, 5)):
+    """One ResBlock1 chain on the JAX package's (B, T, C) layout: weight
+    (n_dil, 2, C, C, k), bias (n_dil, 2, C) -> (B, T, C)."""
+    return resblock1_cf(x.transpose(1, 2), weight, bias, kernel_size,
+                        dilations).transpose(1, 2)
+
+
+def _chain_launch(x, weight, bias, kernel_size: int, dilations):
+    bsz, t, c = x.shape
+    k = int(kernel_size)
+    dev = x.device
+    if k not in TRIO_KERNEL_SIZES or c not in TRIO_CHANNELS:
+        raise ValueError(f"fused_resblock_chain takes k in {TRIO_KERNEL_SIZES}"
+                         f" and C in {TRIO_CHANNELS}, got k={k} and C={c}")
+    dils = _check_dilations(dilations)
+    x_cf = x.transpose(1, 2).contiguous()
+    _check(x_cf, "x", (bsz, c, t), dev)
+    _check(weight, "weight", (3, 2, c, c, k), dev)
+    _check(bias, "bias", (3, 2, c), dev)
+    w_k = weight.permute(0, 1, 3, 4, 2).contiguous()
+    out = torch.empty_like(x_cf)
+    _launch("resblock_chain", "resblock_chain_launch", x_cf.data_ptr(),
+            w_k.data_ptr(), bias.data_ptr(), out.data_ptr(), bsz, c, t, k,
+            *dils, _stream(out))
+    fused_resblock_chain.launches += 1
+    return out.transpose(1, 2)
+
+
+def fused_resblock_chain(x, weight, bias, kernel_size: int,
+                         dilations=(1, 3, 5)):
+    """One ResBlock1 chain (no trio mean) in one kernel, the trio kernel's
+    tiles with one chain: x (B, T, C) fp32, C in 8..64, k in 3/7/11; same
+    arguments and result as resblock_chain_plain. Differentiable (the
+    backward re-runs the plain version)."""
+    if x.device.type == "cpu":
+        return resblock_chain_plain(x, weight, bias, kernel_size, dilations)
+    return _PlainBackwardFn.apply(
+        lambda *ts: _chain_launch(*ts, kernel_size, dilations),
+        lambda *ts: resblock_chain_plain(*ts, kernel_size, dilations),
+        x, weight, bias)
+
+
+# ------------------------------- fused stage --------------------------------
+
+
+def stage_plain(x_pre, har, up_weight, up_bias, nc_weight, nc_bias, weights,
+                biases, u: int, s_src: int, dilations=(1, 3, 5)):
+    """A narrow Generator stage: leaky(0.1) -> ConvTranspose(stride u,
+    kernel k, padding (k - u) // 2) -> + the injection conv of har -> the
+    trio mean. x_pre (B, T_in, C_in); har (B, T_final, 1); up_weight
+    (C_in, C, k) and nc_weight (C, 1, ksrc) in the port's layouts; weights
+    and biases as resblocks_inject_plain. Returns (B, T_out, C)."""
+    k = up_weight.shape[-1]
+    x = F.conv_transpose1d(F.leaky_relu(x_pre.transpose(1, 2), 0.1),
+                           up_weight, up_bias, stride=u, padding=(k - u) // 2)
+    return resblocks_inject_plain(x.transpose(1, 2), har, nc_weight, nc_bias,
+                                  weights, biases, s_src, dilations)
+
+
+def _stage_launch(x_pre, har, up_weight, up_bias, nc_weight, nc_bias,
+                  weights, biases, u: int, s_src: int, dilations):
+    bsz, t_in, c_in = x_pre.shape
+    c, k = up_weight.shape[1], up_weight.shape[-1]
+    dev = x_pre.device
+    if c not in TRIO_CHANNELS or u not in STAGE_RATES or k != 2 * u \
+            or c_in != 2 * c:
+        raise ValueError(f"fused_stage takes C in {TRIO_CHANNELS}, C_in = 2C, "
+                         f"u in {STAGE_RATES} and k = 2u, got C={c}, "
+                         f"C_in={c_in}, u={u}, k={k}")
+    dils = _check_dilations(dilations)
+    p = (k - u) // 2
+    t_out = (t_in - 1) * u - 2 * p + k
+    x_cf = x_pre.transpose(1, 2).contiguous()
+    _check(x_cf, "x_pre", (bsz, c_in, t_in), dev)
+    _check(up_weight, "up_weight", (c_in, c, k), dev)
+    _check(up_bias, "up_bias", (c,), dev)
+    w_up = up_weight.permute(0, 2, 1).contiguous()  # (C_in, tap, C_out)
+    w_k = _trio_weights(weights, biases, c, dev)
+    har2, wnc, bnc, t_final, ksrc = _injection(har, nc_weight, nc_bias, bsz,
+                                               c, dev)
+    out = torch.empty((bsz, c, t_out), dtype=torch.float32, device=dev)
+    # each tile's x0, kept for its second and third chains
+    x0 = torch.empty((_c_function("fused_stage", "fused_stage_scratch_floats")(
+        bsz, c, t_out),), dtype=torch.float32, device=dev)
+    _launch("fused_stage", "fused_stage_launch", x_cf.data_ptr(),
+            har2.data_ptr(), w_up.data_ptr(), up_bias.data_ptr(),
+            wnc.data_ptr(), bnc.data_ptr(), *(w.data_ptr() for w in w_k),
+            *(b.data_ptr() for b in biases), out.data_ptr(), x0.data_ptr(),
+            bsz, c, t_in,
+            t_out, u, p, t_final, s_src, ksrc, *dils, _stream(out))
+    fused_stage.launches += 1
+    return out.transpose(1, 2)
+
+
+def fused_stage(x_pre, har, up_weight, up_bias, nc_weight, nc_bias, weights,
+                biases, u: int, s_src: int, dilations=(1, 3, 5)):
+    """A whole narrow Generator stage in one kernel: the trio kernel whose
+    tile starts from leaky(x_pre) through the transposed conv, read at the
+    input's own rate, plus the injection conv. C in 8..64, C_in = 2C, u in
+    1/2/4/8 with k = 2u. Same arguments and result as stage_plain.
+    Differentiable (the backward re-runs the plain version)."""
+    if x_pre.device.type == "cpu":
+        return stage_plain(x_pre, har, up_weight, up_bias, nc_weight, nc_bias,
+                           weights, biases, u, s_src, dilations)
+    n = len(weights)
+    return _PlainBackwardFn.apply(
+        lambda x, h, uw, ub, nw, nb, *wb: _stage_launch(
+            x, h, uw, ub, nw, nb, wb[:n], wb[n:], u, s_src, dilations),
+        lambda x, h, uw, ub, nw, nb, *wb: stage_plain(
+            x, h, uw, ub, nw, nb, wb[:n], wb[n:], u, s_src, dilations),
+        x_pre, har, up_weight, up_bias, nc_weight, nc_bias, *weights,
+        *biases)
 
 
 # ------------------------------ oscillator bank -----------------------------
@@ -514,31 +717,9 @@ def oscillator_bank_bwd_plain(g, phase, amplitudes_frames, block_size: int,
     oscillator_bank_pallas has no VJP): autograd through the plain version,
     re-run here. needs: which of (d phase, d amplitudes_frames) to compute;
     the other is None."""
-    with torch.enable_grad():
-        xs = [x.detach().requires_grad_(n)
-              for x, n in zip((phase, amplitudes_frames), needs)]
-        out = oscillator_bank_plain(*xs, block_size, harmonic_chunk)
-        grads = iter(torch.autograd.grad(
-            out, [x for x in xs if x.requires_grad], g))
-    return tuple(next(grads) if n else None for n in needs)
-
-
-class _OscillatorBankFn(torch.autograd.Function):
-    """The kernel forward, oscillator_bank_bwd_plain as the backward; each
-    gradient only when asked for (the phase comes from f0 and needs none)."""
-
-    @staticmethod
-    def forward(ctx, phase, amplitudes_frames, block_size, harmonic_chunk):
-        ctx.block_size, ctx.harmonic_chunk = block_size, harmonic_chunk
-        ctx.save_for_backward(phase, amplitudes_frames)
-        return _oscillator_bank_launch(phase, amplitudes_frames, block_size)
-
-    @staticmethod
-    def backward(ctx, g):
-        phase, amps = ctx.saved_tensors
-        return oscillator_bank_bwd_plain(
-            g, phase, amps, ctx.block_size, ctx.harmonic_chunk,
-            ctx.needs_input_grad[:2]) + (None, None)
+    return _replay_grads(
+        lambda p, a: oscillator_bank_plain(p, a, block_size, harmonic_chunk),
+        (phase, amplitudes_frames), needs, g)
 
 
 def oscillator_bank(phase, amplitudes_frames, block_size: int,
@@ -552,8 +733,12 @@ def oscillator_bank(phase, amplitudes_frames, block_size: int,
     if phase.device.type == "cpu":
         return oscillator_bank_plain(phase, amplitudes_frames, block_size,
                                      harmonic_chunk)
-    return _OscillatorBankFn.apply(phase, amplitudes_frames, block_size,
-                                   harmonic_chunk)
+    # the phase comes from f0 and needs no gradient; each is computed only
+    # when asked for
+    return _PlainBackwardFn.apply(
+        lambda p, a: _oscillator_bank_launch(p, a, block_size),
+        lambda p, a: oscillator_bank_plain(p, a, block_size, harmonic_chunk),
+        phase, amplitudes_frames)
 
 
 # ------------------------------ LTV-FIR convolve ----------------------------
@@ -640,5 +825,6 @@ def ltv_fir_convolve(a_frames, ir_frames, n_fft: int):
 
 KERNELS = (performer_attention, combsub_spectral, harmonic_source,
            fused_resblocks_inject, fused_resblocks, dft_magnitude,
-           combsub_spectral_bwd, oscillator_bank, ltv_fir_convolve)
+           combsub_spectral_bwd, oscillator_bank, ltv_fir_convolve,
+           fused_resblock_chain, fused_stage)
 reset_launch_counts()

@@ -140,24 +140,34 @@ def mel_filterbank(sr: int, n_fft: int, n_mels: int, fmin: float = 0.0,
     return (weights * enorm[:, None]).astype(np.float32)
 
 
+def mel_reflect_pad(x: torch.Tensor, win_length: int, hop: int
+                    ) -> torch.Tensor:
+    """The mel frontend's reflect padding ((win-hop)//2, max((win-hop+1)//2,
+    hop)) of (B, T) audio."""
+    pad_l = (win_length - hop) // 2
+    pad_r = max((win_length - hop + 1) // 2, hop)
+    return F.pad(x[:, None, :], (pad_l, pad_r), mode="reflect")[:, 0, :]
+
+
 def log_mel_spectrogram(x: torch.Tensor, sr: int, n_fft: int, hop: int,
                         win_length: int, n_mels: int, fmin: float, fmax: float,
                         clip_val: float = 1e-5, mxu_bf16: bool = False,
-                        keyshift: float = 0.0, speed: float = 1.0
-                        ) -> torch.Tensor:
+                        keyshift: float = 0.0, speed: float = 1.0,
+                        pre_padded: bool = False) -> torch.Tensor:
     """NSF-HiFiGAN mel frontend (nvSTFT.get_mel parity, fp32 FFT branch):
     reflect pad ((win-hop)//2, max((win-hop+1)//2, hop)), center=False
     STFT, magnitude sqrt(re^2 + im^2 + 1e-9), slaney mel, log(clamp).
-    (B, T) -> (B, n_mels, n_frames)."""
+    (B, T) -> (B, n_mels, n_frames). pre_padded=True: the caller already
+    applied that padding (each item of a mixed-length batch its own
+    reflection, `Enhancer.enhance_batch`)."""
     if mxu_bf16:
         raise NotImplementedError("the bf16 DFT mel branch is not ported yet")
     if keyshift != 0 or speed != 1:
         raise NotImplementedError(
             "keyshift/speed mel analysis is not ported yet"
         )
-    pad_l = (win_length - hop) // 2
-    pad_r = max((win_length - hop + 1) // 2, hop)
-    x = F.pad(x[:, None, :], (pad_l, pad_r), mode="reflect")[:, 0, :]
+    if not pre_padded:
+        x = mel_reflect_pad(x, win_length, hop)
     win = hann_window(win_length, dtype=x.dtype, device=x.device)
     spec = stft(x, n_fft, hop, win)
     mag = torch.sqrt(spec.real ** 2 + spec.imag ** 2 + 1e-9)

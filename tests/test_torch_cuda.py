@@ -290,6 +290,142 @@ def test_synths_on_kernels_match_plain(cuda, monkeypatch):
         assert ((got - ref).abs().max() <= 1e-4 * ref.abs().max()).item()
 
 
+def _trio(g, c, scale=2.0):
+    ws = [_randn(g, 3, 2, c, c, k, scale=(scale / (k * c)) ** 0.5)
+          for k in (3, 7, 11)]
+    return ws, [_randn(g, 3, 2, c, scale=0.01) for _ in range(3)]
+
+
+@pytest.mark.parametrize("c,t,k", [(64, 700, 3), (32, 1500, 7),
+                                   (16, 3000, 11), (8, 5000, 7),
+                                   (64, 333, 11)])
+def test_resblock_chain_kernel(cuda, c, t, k):
+    """atol 1e-4, rtol 1e-4: the JAX package's chain kernel tolerance."""
+    g = torch.Generator(device=cuda).manual_seed(c + t + k)
+    args = (_randn(g, 2, t, c), _randn(g, 3, 2, c, c, k,
+                                       scale=(2.0 / (k * c)) ** 0.5),
+            _randn(g, 3, 2, c, scale=0.01), k)
+    torch.testing.assert_close(K.fused_resblock_chain(*args),
+                               K.resblock_chain_plain(*args), atol=1e-4,
+                               rtol=1e-4)
+
+
+def _stage_args(g, c, t_in, u, s_src, b):
+    k = 2 * u
+    t_out = (t_in - 1) * u - 2 * ((k - u) // 2) + k
+    ksrc = 2 * s_src if s_src > 1 else 1
+    ws, bs = _trio(g, c, 1.5)
+    return (_randn(g, b, t_in, 2 * c), _randn(g, b, t_out * s_src, 1, scale=0.1),
+            _randn(g, 2 * c, c, k, scale=(2.0 / (2 * c * k)) ** 0.5),
+            _randn(g, c, scale=0.05), _randn(g, c, 1, ksrc, scale=0.2),
+            _randn(g, c, scale=0.05), ws, bs, u, s_src)
+
+
+@pytest.mark.parametrize("c,t_in,u,s_src,b", [
+    (64, 350, 2, 4, 1), (32, 700, 2, 2, 2), (16, 1500, 2, 1, 1),
+    (8, 517, 1, 2, 2), (16, 333, 4, 2, 2), (32, 100, 8, 1, 1)])
+def test_fused_stage_kernel(cuda, c, t_in, u, s_src, b):
+    """atol 2e-4, rtol 2e-4 (the JAX package's stage kernel tolerance) at
+    every width and rate the kernel takes, ksrc = 1, u = 1 (T_out = T_in +
+    1) and lengths no tile divides."""
+    g = torch.Generator(device=cuda).manual_seed(c * t_in + u)
+    args = _stage_args(g, c, t_in, u, s_src, b)
+    got, ref = K.fused_stage(*args), K.stage_plain(*args)
+    assert got.shape == ref.shape
+    torch.testing.assert_close(got, ref, atol=2e-4, rtol=2e-4)
+
+
+def _grads_agree(kern, plain, tensors, statics, up):
+    """Gradients of sum(up * f(...)) with respect to every tensor argument,
+    through the kernel's autograd Function and through autograd of the plain
+    version: relative L2 < 2e-2 and cosine > 1 - 1e-4 each (the parity
+    bounds of chip_smoke.py)."""
+    grads = []
+    for fn in (kern, plain):
+        xs = [[x.clone().requires_grad_() for x in t] if isinstance(t, list)
+              else t.clone().requires_grad_() for t in tensors]
+        (fn(*xs, *statics) * up).sum().backward()
+        flat = [x for t in xs for x in (t if isinstance(t, list) else [t])]
+        grads.append([x.grad.double() for x in flat])
+    for gk, gp in zip(*grads):
+        rel = ((gk - gp).norm() / gp.norm()).item()
+        cos = ((gk * gp).sum() / (gk.norm() * gp.norm())).item()
+        assert rel < 2e-2 and cos > 1 - 1e-4, (rel, cos)
+
+
+def test_resblock_kernels_backward(cuda):
+    """The backward of #4 (with the injection), #5 (without), #10 and #11
+    through their autograd Functions against autograd of the plain versions;
+    the per-row valid form refuses to run with gradients."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    c, t, s = 16, 600, 2
+    ws, bs = _trio(g, c)
+    x, har = _randn(g, 2, t, c), _randn(g, 2, t * s, 1, scale=0.1)
+    ncw, ncb = _randn(g, c, 1, 4, scale=0.2), _randn(g, c, scale=0.05)
+    up = _randn(g, 2, t, c)
+    _grads_agree(K.fused_resblocks_inject, K.resblocks_inject_plain,
+                 [x, har, ncw, ncb, ws, bs], (s,), up)
+    _grads_agree(K.fused_resblocks, lambda x_, w_, b_: K.resblocks_inject_plain(
+        x_, None, None, None, w_, b_, 1), [x, ws, bs], (), up)
+    _grads_agree(K.fused_resblock_chain, K.resblock_chain_plain,
+                 [x, ws[1], bs[1]], (7,), up)
+    args = _stage_args(g, c, t // 2, 2, s, 2)
+    _grads_agree(K.fused_stage, K.stage_plain, list(args[:8]), args[8:],
+                 _randn(g, 2, t, c))
+    with pytest.raises(ValueError, match="inference-only"):
+        K.fused_resblocks(x, [w.requires_grad_() for w in ws], bs, valid=300)
+
+
+def test_generator_forms_on_kernels_match_plain(cuda, monkeypatch):
+    """The Generator in each form (stages of 32, 16, 8 channels on the
+    kernels) against the same forward with every kernel swapped for its
+    plain version: 1e-4 of max |ref|, unbatched and with per-item
+    valid_frames (whose tail is exactly 0); each form launches its own
+    kernels."""
+    from ddsp_svc_tpu_torch.nn import nsf_hifigan
+    from ddsp_svc_tpu_torch.nn.layers import lecun_init_
+
+    h = {"sampling_rate": 16000, "num_mels": 16,
+         "upsample_rates": [4, 4, 2, 2, 2],
+         "upsample_kernel_sizes": [8, 8, 4, 4, 4],
+         "upsample_initial_channel": 64, "resblock_kernel_sizes": [3, 7, 11],
+         "resblock_dilation_sizes": [[1, 3, 5]] * 3}
+    g = torch.Generator(device=cuda).manual_seed(12)
+    b, f, lengths = 3, 40, [40, 29, 11]
+    mel = _randn(g, b, f, 16)
+    f0 = 150 + 100 * torch.rand((b, f), generator=g, device=cuda)
+    ri = torch.rand((b, 9), generator=g, device=cuda)
+    ri[:, 0] = 0
+    plain = dict(harmonic_source=K.harmonic_source_plain,
+                 fused_resblocks_inject=K.resblocks_inject_plain,
+                 fused_resblocks=lambda x_, w_, b_, d_, valid=None:
+                 K.resblocks_inject_plain(x_, None, None, None, w_, b_, 1, d_,
+                                          valid),
+                 fused_stage=K.stage_plain)
+    for forms, kernel in (({}, "fused_resblocks_inject"),
+                          ({"fused_inject": False}, "fused_resblocks"),
+                          ({"fused_stage": True}, "fused_stage")):
+        model = lecun_init_(nsf_hifigan.generator_from_h(h, **forms),
+                            torch.Generator().manual_seed(0)).to(cuda).eval()
+        for valid in (None, torch.tensor(lengths, device=cuda)):
+            K.reset_launch_counts()
+            with torch.no_grad():
+                got = model(mel, f0, ri, valid_frames=valid)
+                counts = K.launch_counts()
+                with monkeypatch.context() as mp:
+                    for name, fn in plain.items():
+                        mp.setattr(nsf_hifigan, name, fn)
+                    ref = model(mel, f0, ri, valid_frames=valid)
+            # under valid_frames the fused stage steps aside for the trio
+            want = "fused_resblocks_inject" if (
+                kernel == "fused_stage" and valid is not None) else kernel
+            assert counts[want] == 3 and counts["harmonic_source"] == 1, counts
+            assert ((got - ref).abs().max() <= 1e-4 * ref.abs().max()).item()
+            if valid is not None:
+                for i, n in enumerate(lengths):
+                    assert not got[i, n * 128:].any()
+
+
 def test_wrappers_count_launches(cuda):
     K.reset_launch_counts()
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -305,4 +441,6 @@ def test_wrappers_count_launches(cuda):
                                  "dft_magnitude": 0,
                                  "combsub_spectral_bwd": 0,
                                  "oscillator_bank": 0,
-                                 "ltv_fir_convolve": 0}
+                                 "ltv_fir_convolve": 0,
+                                 "fused_resblock_chain": 0,
+                                 "fused_stage": 0}

@@ -1,8 +1,8 @@
 """PyTorch port, isolation: the package and chip_smoke.py stand without JAX,
-flax and the JAX package (every module, the training ones and the Sins and
-CombSub synthesizers included), and entry points, the trainer's and the
-factory's for all three synthesizers among them, never fall back to the
-CPU."""
+flax and the JAX package (every module, the training ones, the Sins and
+CombSub synthesizers, the resampler and the enhancer's forms with an
+adaptive key included), and entry points, the trainer's and the factory's
+for all three synthesizers among them, never fall back to the CPU."""
 import ast
 import os
 import pathlib
@@ -36,7 +36,7 @@ names = [m.name for m in pkgutil.walk_packages(ddsp_svc_tpu_torch.__path__,
                                                 "ddsp_svc_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 31, names
+assert len(names) >= 32, names
 
 from ddsp_svc_tpu_torch.infer.enhancer import Enhancer, NsfHifiGAN
 from ddsp_svc_tpu_torch.models.factory import build_model
@@ -64,6 +64,15 @@ for other in others:
                           torch.ones((1, 4)), torch.ones((1, 1), dtype=torch.int64),
                           generator=torch.Generator().manual_seed(0))
     assert sig.shape == (1, 4 * 64) and bool(torch.isfinite(sig).all())
+import numpy as np
+for forms in ({"fused_inject": False}, {"fused_stage": True}):
+    enh = Enhancer("nsf-hifigan", None, h=h, device="cpu",
+                   generator_overrides=forms)
+    out, sr = enh.enhance(torch.zeros((1, 1000)), 16000,
+                          np.full((1, 17, 1), 200.0, np.float32), 64,
+                          adaptive_key=2)
+    # 1000 -> 1125 samples at 18 kHz, 17 mel frames x 64, 1088 -> 968 at 16 kHz
+    assert sr == 16000 and out.shape == (1, 968), out.shape
 args16 = DotDict({**args, "model": {**args["model"], "bf16": True}})
 model16 = build_model(args16, device="cpu")
 assert {p.dtype for p in model16.parameters()} == {torch.float32}

@@ -226,6 +226,58 @@ def test_resblocks_plain_no_inject_and_valid():
         assert not masked[i, n:].any()
 
 
+@pytest.mark.parametrize("k", [3, 7, 11])
+def test_resblock_chain_plain_matches_jax(k):
+    """One chain at C = 16, T = 500 (the JAX kernel test's shape) against
+    fused_resblock_chain_pallas in interpret mode (fp32 matrix-unit inputs)
+    and resblocks_reference: atol 1e-4, rtol 1e-4, that test's tolerance."""
+    rng = np.random.default_rng(12 + k)
+    c, t = 16, 500
+    x = rng.standard_normal((2, t, c)).astype(np.float32)
+    w = (rng.standard_normal((3, 2, k, c, c)) * (2.0 / (k * c)) ** 0.5
+         ).astype(np.float32)
+    b = (rng.standard_normal((3, 2, c)) * 0.01).astype(np.float32)
+    jx, jw, jb = jnp.asarray(x), jnp.asarray(w), jnp.asarray(b)
+    got = K.fused_resblock_chain(_t(x), _t(w.transpose(0, 1, 4, 3, 2).copy()),
+                                 _t(b), k).numpy()
+    for ref in (jpk.fused_resblock_chain_pallas(
+                    jx, jw, jb, k, tile=256, mxu_bf16=False, interpret=True),
+                jpk.resblocks_reference(jx, (jw,), (jb,), (k,), (1, 3, 5))):
+        np.testing.assert_allclose(got, np.asarray(ref), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("b,t_in,s_src,ksrc", [(2, 96, 4, 8), (1, 70, 1, 1)])
+def test_stage_plain_matches_jax(b, t_in, s_src, ksrc):
+    """stage_plain on the JAX kernel tests' two geometries (C = 8, u = 2;
+    the second is the last stage's ksrc = 1 with a tile tail) against
+    fused_stage_pallas in interpret mode and stage_reference: atol 2e-4,
+    rtol 2e-4, those tests' tolerance."""
+    rng = np.random.default_rng(11 + t_in)
+    c_in, c, u, k_up = 16, 8, 2, 4
+    p = (k_up - u) // 2
+    x_pre = rng.standard_normal((b, t_in, c_in)).astype(np.float32)
+    har = (rng.standard_normal((b, t_in * u * s_src, 1)) * 0.1
+           ).astype(np.float32)
+    up_k = (rng.standard_normal((k_up, c_in, c)) * 0.2).astype(np.float32)
+    up_b = (rng.standard_normal(c) * 0.05).astype(np.float32)
+    nc_k = (rng.standard_normal((ksrc, 1, c)) * 0.2).astype(np.float32)
+    nc_b = (rng.standard_normal(c) * 0.05).astype(np.float32)
+    jw, tw, bs = _trio_params(rng, c)
+    jargs = [jnp.asarray(a) for a in (x_pre, har, up_k, up_b, nc_k, nc_b)]
+    jws, jbs = [jnp.asarray(w) for w in jw], [jnp.asarray(x) for x in bs]
+    got = K.fused_stage(
+        _t(x_pre), _t(har), _t(up_k.transpose(1, 2, 0).copy()), _t(up_b),
+        _t(nc_k.transpose(2, 1, 0).copy()), _t(nc_b), [_t(w) for w in tw],
+        [_t(x) for x in bs], u, s_src).numpy()
+    assert got.shape == (b, t_in * u, c)
+    for ref in (jpk.fused_stage_pallas(
+                    *jargs, *jws, *jbs, u, p, s_src, tile=128,
+                    mxu_bf16=False, interpret=True),
+                jpk.stage_reference(*jargs, jws, jbs, (3, 7, 11), (1, 3, 5),
+                                    u, p, s_src)):
+        np.testing.assert_allclose(got, np.asarray(ref), atol=2e-4, rtol=2e-4)
+
+
 @pytest.mark.parametrize("n_fft", [375, 1092])
 def test_dft_magnitude_plain_matches_jax(n_fft):
     """Against dft_magnitude_pallas in interpret mode at two of the RSS
@@ -291,3 +343,31 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     w = [torch.empty((3, 2, 24, 24, k), device="meta") for k in (3, 7, 11)]
     with pytest.raises(ValueError, match="C in"):
         K.fused_resblocks_inject(x, None, None, None, w, w, 1)
+    with pytest.raises(ValueError, match="C in"):
+        K.fused_resblock_chain(torch.empty((1, 50, 128), device="meta"),
+                               torch.empty((3, 2, 128, 128, 3), device="meta"),
+                               torch.empty((3, 2, 128), device="meta"), 3)
+    x = torch.empty((1, 50, 16), device="meta")
+    with pytest.raises(ValueError, match="k in"):
+        K.fused_resblock_chain(x, torch.empty((3, 2, 16, 16, 5), device="meta"),
+                               torch.empty((3, 2, 16), device="meta"), 5)
+    with pytest.raises(ValueError, match="dilations"):
+        K.fused_resblock_chain(x, torch.empty((3, 2, 16, 16, 3), device="meta"),
+                               torch.empty((3, 2, 16), device="meta"), 3,
+                               (1, 3, 9))
+    ws = [torch.empty((3, 2, 8, 8, k), device="meta") for k in (3, 7, 11)]
+    bs = [torch.empty((3, 2, 8), device="meta")] * 3
+    har = torch.empty((1, 600, 1), device="meta")
+    nc = torch.empty((8, 1, 1), device="meta")
+    b8 = torch.empty((8,), device="meta")
+    with pytest.raises(ValueError, match="u in"):  # u = 3
+        K.fused_stage(x, har, torch.empty((16, 8, 6), device="meta"), b8, nc,
+                      b8, ws, bs, 3, 1)
+    with pytest.raises(ValueError, match="u in"):  # C = 128
+        K.fused_stage(torch.empty((1, 50, 256), device="meta"), har,
+                      torch.empty((256, 128, 4), device="meta"),
+                      torch.empty((128,), device="meta"), nc, b8, ws, bs, 2, 1)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="kernel sizes"):
+            K.fused_stage(x, har, torch.empty((16, 8, 4), device="meta"), b8,
+                          nc, b8, ws[:2] + ws[:1], bs, 2, 1)

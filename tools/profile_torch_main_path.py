@@ -15,10 +15,13 @@ Run from the root of a checkout on a machine with an NVIDIA GPU:
 
     python3 tools/profile_torch_main_path.py [--config configs/sins.yaml]
                                              [--batch-frames 0] [--train]
-                                             [--top 25]
+                                             [--enhancer] [--top 25]
 
 --batch-frames N additionally profiles one batched forward of 16 items of N
-frames (bench.py's shapes are 512). TF32 is off, as in chip_smoke.py.
+frames (bench.py's shapes are 512). --enhancer profiles the enhancer alone:
+`enhance` on the three segments in each of its forms (default,
+fused_inject=False, fused_stage=True) and `enhance_batch` at chip_smoke.py's
+16 mixed lengths in one 512-frame bucket. TF32 is off, as in chip_smoke.py.
 """
 import argparse
 import os
@@ -31,7 +34,8 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from chip_smoke import H_NSF, SEGMENT_FRAMES  # noqa: E402  (the main path's shapes)
+from chip_smoke import (BATCH_FRAMES, ENHANCER_FORMS, H_NSF,  # noqa: E402
+                        SEGMENT_FRAMES)  # (the main path's shapes)
 
 GROUPS = (
     ("kernel: performer_attention", ("favor_",)),
@@ -40,6 +44,8 @@ GROUPS = (
     ("kernel: dft_magnitude", ("dft_magnitude",)),
     ("kernel: harmonic_source", ("harmonic_source",)),
     ("kernel: fused_resblocks_inject", ("resblocks_kernel",)),
+    ("kernel: fused_resblock_chain", ("resblock_chain_kernel",)),
+    ("kernel: fused_stage", ("fused_stage_kernel",)),
     ("kernel: oscillator_bank", ("oscillator_bank",)),
     ("kernel: ltv_fir_convolve", ("ltv_fir_convolve",)),
     ("convolutions (cuDNN)", ("conv", "cudnn", "implicit", "winograd",
@@ -101,6 +107,7 @@ def main() -> None:
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--batch-frames", type=int, default=0)
     ap.add_argument("--train", action="store_true")
+    ap.add_argument("--enhancer", action="store_true")
     a = ap.parse_args()
     import torch
 
@@ -152,6 +159,41 @@ def main() -> None:
         profile(torch, batched, a.top, f"batched B={b} x {n}")
     if a.train:
         profile_training(torch, args, a.top)
+    if a.enhancer:
+        profile_enhancer(torch, a.top)
+
+
+def profile_enhancer(torch, top: int) -> None:
+    """The enhancer alone at H_NSF: enhance B=1 on three segments of
+    random audio (200, 384, 512 frames) in each form, and enhance_batch of
+    16 items in one 512-frame bucket in the two forms it can run."""
+    from ddsp_svc_tpu_torch.infer.enhancer import Enhancer
+
+    hop, sr = H_NSF["hop_size"], H_NSF["sampling_rate"]
+    rng = np.random.default_rng(2)
+    segs = [(0.1 * rng.standard_normal(n * hop)).astype(np.float32)
+            for n in SEGMENT_FRAMES]
+    items = [(0.1 * rng.standard_normal(n * hop)).astype(np.float32)
+             for n in BATCH_FRAMES]
+    ri = np.zeros((len(BATCH_FRAMES), 9), np.float32)
+    for label, forms, _ in ENHANCER_FORMS:
+        enh = Enhancer("nsf-hifigan", None, h=H_NSF, seed=1, device="cuda",
+                       generator_overrides=forms)
+        audio = [torch.as_tensor(x, device="cuda")[None] for x in segs]
+
+        def run():
+            for x in audio:
+                n = x.shape[-1] // hop
+                enh.enhance(x, sr, np.full((1, n, 1), 220.0, np.float32), hop,
+                            rand_ini=ri[:1])
+
+        profile(torch, run, top, f"enhancer {label} B=1")
+        if not forms.get("fused_stage"):
+            profile(torch, lambda: enh.enhance_batch(
+                items, sr, [np.full((1, n, 1), 220.0, np.float32)
+                            for n in BATCH_FRAMES], hop, rand_ini=ri,
+                pad_to=max(BATCH_FRAMES) * hop), top,
+                f"enhance_batch {label} B={len(BATCH_FRAMES)}")
 
 
 def profile_training(torch, args, top: int) -> None:
