@@ -10,7 +10,8 @@ Phases, each printing its own lines:
      comparisons below;
   2. build: every CUDA kernel from the checkout's sources (nvcc, sm_90a);
   3. kernels: each hand-written kernel against its plain PyTorch version at
-     the main path's shapes, with error, time, plain time and bound;
+     the main path's shapes, with error, time, plain time and bound (#6
+     and #9 also per row, on rows of unequal scale, against float64);
   4. offline paths: conversion (`convert_features`) with each synthesizer
      at the full width of its config (CombSubFast from configs/combsub.yaml,
      Sins from configs/sins.yaml, CombSub from configs/combsub-old.yaml) and
@@ -295,9 +296,10 @@ def kernel_phase(torch, K, gen):
                     "the C = 64 stage without the injection")
 
     # 6. DFT magnitude of the RSS loss at every bucket size, at the frame rows
-    # of one training batch (24 crops of 88064 samples, hop = n_fft); the
-    # bound counts an FFT of the same size (2.5 n log2 n per real row), not
-    # the direct DFT's n^2
+    # of one training batch (24 crops of 88064 samples, hop = n_fft), with
+    # the route the kernel takes (a power-of-two FFT, or Bluestein at FFT
+    # length M, around the half-length split for even n); the bound counts
+    # an FFT of the same size (2.5 n log2 n per real row)
     from ddsp_svc_tpu_torch.models.losses import default_buckets
 
     err = ms_sum = pms_sum = lms_sum = flops = nbytes = 0.0
@@ -315,13 +317,35 @@ def kernel_phase(torch, K, gen):
         bins = n // 2 + 1
         f_n = rows_n * (2.5 * n * math.log2(n) + 4 * bins)
         b_n = 4 * rows_n * (n + bins)
-        say(f"kernel dft_magnitude n={n} rows={rows_n}: max|err| {e:.3e}, "
-            f"{ms:.4f} ms, plain {pms:.4f} ms, library {lms:.4f} ms, bound "
-            f"{bound(b_n, f_n)[0]:.4f} ms")
+        l, m = K.dft_plan(n)
+        route = (f"power of two, {l}-point FFT" if m == l else
+                 f"Bluestein of {l} at M={m}"
+                 + (", split" if 2 * l == n else ""))
+        say(f"kernel dft_magnitude n={n} rows={rows_n} ({route}): max|err| "
+            f"{e:.3e}, {ms:.4f} ms, plain {pms:.4f} ms, library {lms:.4f} ms,"
+            f" bound {bound(b_n, f_n)[0]:.4f} ms")
         err, ms_sum, pms_sum, lms_sum = (max(err, e), ms_sum + ms,
                                          pms_sum + pms, lms_sum + lms)
         flops += f_n
         nbytes += b_n
+    # rows of unequal scale (10^u, u uniform in [-4, 0]), as silent frames
+    # sit beside loud ones in the loss: each row against the plain version
+    # in float64 on the CPU, within 1e-4 of its own max; the plain version
+    # on the card (cuFFT) beside it
+    for n in (853, 2047):
+        scale = 10.0 ** (-4 * torch.rand((301, 1), generator=gen, device=dev))
+        x = randn(301, n) * scale
+        ref = K.dft_magnitude_plain(x.double().cpu(), n)
+        worst = {label: ((fn(x, n).double().cpu() - ref).abs().amax(1)
+                         / ref.amax(1)).max().item()
+                 for label, fn in (("kernel", K.dft_magnitude),
+                                   ("plain (cuFFT)", K.dft_magnitude_plain))}
+        say(f"kernel dft_magnitude n={n}, 301 rows scaled by 10^[-4, 0], "
+            f"worst row vs float64 / its own max: kernel "
+            f"{worst['kernel']:.3e} (tolerance 1e-4), plain (cuFFT) "
+            f"{worst['plain (cuFFT)']:.3e}")
+        if not worst["kernel"] <= 1e-4:
+            fail(f"dft_magnitude n={n}: a row of small scale disagrees")
     rows["dft_magnitude"] = dict(
         route="cuda", source="ddsp_svc_tpu_torch/csrc/dft_magnitude.cu",
         replaces=f"{TPU_KERNELS}:241", max_abs_err=err, ms=ms_sum,
@@ -426,6 +450,23 @@ def kernel_phase(torch, K, gen):
             f"{e:.3e} x max|ref| (tolerance 2e-4)")
         if not e <= 2e-4:
             fail(f"ltv_fir_convolve: gradient of {name} disagrees")
+    # a and h rows scaled independently by 10^[-3, 0] at the training rows:
+    # each row against float64 on the CPU within 2e-4 of its own max
+    def scaled(*shape):
+        return randn(*shape) * 10.0 ** (-3 * torch.rand(
+            (shape[0], 1), generator=gen, device=dev))
+
+    a, h = scaled(4152, frame), scaled(4152, 1022)
+    ref = K.ltv_fir_convolve_plain(a.double().cpu(), h.double().cpu(), n_fft)
+    worst = {label: ((fn(a, h, n_fft).double().cpu() - ref).abs().amax(1)
+                     / ref.abs().amax(1)).max().item()
+             for label, fn in (("kernel", K.ltv_fir_convolve),
+                               ("plain (cuFFT)", K.ltv_fir_convolve_plain))}
+    say(f"kernel ltv_fir_convolve 4152 rows, a and h scaled by 10^[-3, 0], "
+        f"worst row vs float64 / its own max: kernel {worst['kernel']:.3e} "
+        f"(tolerance 2e-4), plain (cuFFT) {worst['plain (cuFFT)']:.3e}")
+    if not worst["kernel"] <= 2e-4:
+        fail("ltv_fir_convolve: a row of small scale disagrees")
     rows["ltv_fir_convolve"] = dict(
         route="cuda", source="ddsp_svc_tpu_torch/csrc/ltv_fir_convolve.cu",
         replaces=f"{TPU_KERNELS}:399", max_abs_err=err, ms=ms_sum,

@@ -1,132 +1,157 @@
-// Magnitude of the real DFT of each frame row, for any n.
+// Magnitude of the real DFT of each frame row, for any n, as an FFT.
 //
 // Replaces: ddsp_svc_tpu/ops/pallas_kernels.py::dft_magnitude_pallas
 // (body _dft_mag_kernel, forward _dft_mag_fwd_impl).
 //
-//   out[r, k] = sqrt(re^2 + im^2 + 1e-12),  re - j*im = sum_t x[r, t] e^{-2 pi j k t / n}
+//   out[r, k] = sqrt(re^2 + im^2 + 1e-12),  re + j im = sum_t x[r, t] e^{-2 pi j k t / n}
 //   for k = 0 .. n/2.
 //
 // The multi-resolution spectral loss of training draws its FFT sizes from a
-// linear set (256, 375, ..., 2047): all but one are not powers of two, so
-// the radix-2 FFT of combsub_spectral.cu does not apply. The TPU computed
-// the transform as a (rows x n) @ (n x bins) matmul on its matrix unit with
-// cos/sin weight blocks streamed through VMEM.
+// linear set (256, 375, ..., 2047): all but one are not powers of two, and
+// most have a large prime factor (853 is prime, 2047 = 23 * 89), so a
+// mixed-radix FFT does not cover them. The TPU computed the transform as a
+// (rows x n) @ (n x bins) matmul on its matrix unit.
 //
-// Bound on the H100: operations. This is a direct DFT, 4 n flops per
-// (row, bin) against 4 (n + bins) bytes moved per row: ~n/2 flops per byte,
-// far above the fp32 ridge (~20). The least work for the same function is an
-// FFT of the same size (~5 n log2 n / 2 flops per real row), which is what
-// the bound in chip_smoke.py counts; this kernel does ~n / (1.25 log2 n)
-// times that (~150x at n = 2047), so it is slow by design: a right first
-// version, with cuFFT's time recorded beside it for the redesign.
+// Each row is a complex transform of length l through fft_pow2.cuh:
+//   - even n: z[i] = x[2i] + j x[2i+1], l = n/2, and X follows from Z =
+//     DFT_l(z) by the real split (X[k] and X[l-k] from Z[k], Z[l-k]);
+//   - odd n: z = x, l = n.
+// l a power of two (n = 256 on the loss's path): one l-point FFT. Any other
+// l: Bluestein's chirp-z transform, with c[t] = exp(-j pi t^2 / l),
+//   Z[k] = c[k] sum_t (z[t] c[t]) conj(c[k - t]),
+// a cyclic convolution of length m, the least power of two >= 2l - 1: one
+// forward m-point FFT of z c (zero past l; the first pass loads no zero),
+// the product with FFT_m(conj c) / m, one inverse m-point FFT, and c[k] on
+// the way out (the product rides on the forward's last store, c[k] on the
+// inverse's). c and FFT_m(conj c) / m are per-n tables that the wrapper
+// builds once in float64 (t^2 mod 2l in integers, so no angle comes from a
+// large fp32 product) and caches per (n, device) in fp32. For odd n the
+// magnitude is written from the inverse's last pass (|c[k]| = 1); for even n
+// the split runs on Z c in shared memory and writes the magnitudes of bins
+// 0 .. l. m is 1024 to 4096 on the loss's 15 other sizes (614 = 2 * 307
+// runs a Bluestein of 307 at m = 1024), 16384 at n = 8191.
 //
-// Design: one block holds a tile of kRows frame rows and one thread per
-// output bin of its bin tile. Frame samples stream through shared memory in
-// chunks of kChunk samples stored sample-major ([t][row]), so each thread
-// reads the kRows samples of one t as broadcast float4 loads and feeds
-// 2 * kRows FMAs per twiddle. The twiddles come from a length-n cos/sin table
-// in shared memory (built in double precision), indexed by the exact integer
-// (k * t) mod n and advanced by k each step, so the angle never drifts. Each
-// chunk is summed in fp32 on its own and then added to the row totals, which
-// keeps the rounding of the long sums near that of a pairwise sum. The
-// magnitude is fused: only (rows, bins) leaves the block. No padding of n or
-// of the bins to the TPU's (128, 128) tiles.
+// Rows are never packed into one complex transform: silent frames sit beside
+// loud ones, the loss takes log(|X| + 1e-7), and a shared transform would
+// round a quiet row at its loud neighbour's scale.
+//
+// Bound on the H100: bytes. Per row it reads n floats and writes n/2 + 1;
+// an FFT of the same size needs ~2.5 n log2 n flops per row (what
+// chip_smoke.py's bound counts), ~4.5 flops per byte at n = 2047 against
+// the fp32 ridge of ~20. Bluestein does 4-8x that work (two m-point complex
+// FFTs), which brings it to the ridge; what the design does about it: the
+// row stays in shared memory from its load to its magnitudes, the filter
+// product and the chirps ride on the passes' loads and stores, and rows
+// too short to fill 256 threads share a block (256 / (m / 16) rows), so
+// that the 1032-8256 rows of a training batch fill the card's 132 SMs.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "fft_pow2.cuh"
+
 namespace {
 
-constexpr int kRows = 16;     // frame rows per block
-constexpr int kChunk = 128;   // samples per shared-memory chunk
-constexpr int kMaxBinThreads = 128;
+constexpr int kThreads = 256;
 
-__global__ void __launch_bounds__(kMaxBinThreads)
+__device__ __forceinline__ float magnitude(float2 v) {
+  return sqrtf(v.x * v.x + v.y * v.y + 1e-12f);
+}
+
+// threads for one row: M / 16 (M / R for M < 16); rows too short to fill
+// 256 threads share a block; M > 4096 (n > 4096, or Bluestein above n =
+// 2048) takes 512 or 1024 threads for one row
+__host__ __device__ constexpr int row_threads(int m) { return m < 16 ? 1 : m / 16; }
+__host__ __device__ constexpr int block_threads(int m) {
+  return row_threads(m) > kThreads ? row_threads(m) : kThreads;
+}
+
+template <int M>
+__global__ void __launch_bounds__(block_threads(M))
 dft_magnitude_kernel(const float* __restrict__ frames, float* __restrict__ out,
-                     int rows, int n, int bins) {
-  extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);              // [kChunk][kRows]
-  float2* tw = reinterpret_cast<float2*>(xs + kChunk * kRows);  // [n]
+                     const float2* __restrict__ chirp,
+                     const float2* __restrict__ bhat, int rows, int n, int l) {
+  extern __shared__ float2 smem[];
+  constexpr int tpr = row_threads(M);
+  const int slot = threadIdx.x / tpr;
+  const int t = threadIdx.x - slot * tpr;
+  const int row = blockIdx.x * (blockDim.x / tpr) + slot;
+  const bool live = row < rows;  // a spare slot still takes part in the syncs
+  const float* x = frames + (size_t)(live ? row : 0) * n;
+  const int bins = n / 2 + 1;
+  float* o = out + (size_t)row * bins;
+  float2* s = smem + slot * padded(M);
+  const bool split = 2 * l == n;
 
-  const int r0 = blockIdx.x * kRows;
-  const int k = blockIdx.y * blockDim.x + threadIdx.x;
-  const bool active = k < bins;
-
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    double s, c;
-    sincospi(2.0 * (double)i / (double)n, &s, &c);
-    tw[i] = make_float2((float)c, (float)s);
-  }
-
-  float re[kRows], im[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) { re[r] = 0.f; im[r] = 0.f; }
-
-  for (int t0 = 0; t0 < n; t0 += kChunk) {
-    const int len = min(kChunk, n - t0);
-    __syncthreads();  // the previous chunk is consumed (and tw is built)
-    for (int i = threadIdx.x; i < kChunk * kRows; i += blockDim.x) {
-      const int r = i / kChunk;
-      const int tt = i - r * kChunk;
-      const int row = r0 + r;
-      float v = 0.f;
-      if (tt < len && row < rows) v = frames[(size_t)row * n + t0 + tt];
-      xs[tt * kRows + r] = v;
-    }
+  auto sample = [&](int i) {
+    return split ? make_float2(x[2 * i], x[2 * i + 1]) : make_float2(x[i], 0.f);
+  };
+  if (M == l) {
+    fft_pow2<M, false>(s, t, sample, [s](int i, float2 v) { s[pad(i)] = v; });
+  } else {
+    auto load = [&](int i) {
+      return i < l ? cmul(sample(i), chirp[i]) : make_float2(0.f, 0.f);
+    };
+    fft_pow2<M, false>(s, t, load, [&](int i, float2 v) { s[pad(i)] = cmul(v, bhat[i]); });
     __syncthreads();
-    if (active) {
-      float cre[kRows], cim[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) { cre[r] = 0.f; cim[r] = 0.f; }
-      int idx = (int)(((long long)k * t0) % n);
-      for (int tt = 0; tt < len; ++tt) {
-        const float2 w = tw[idx];
-        const float4* x4 = reinterpret_cast<const float4*>(xs + tt * kRows);
-#pragma unroll
-        for (int q = 0; q < kRows / 4; ++q) {
-          const float4 x = x4[q];
-          cre[4 * q + 0] = fmaf(x.x, w.x, cre[4 * q + 0]);
-          cim[4 * q + 0] = fmaf(x.x, w.y, cim[4 * q + 0]);
-          cre[4 * q + 1] = fmaf(x.y, w.x, cre[4 * q + 1]);
-          cim[4 * q + 1] = fmaf(x.y, w.y, cim[4 * q + 1]);
-          cre[4 * q + 2] = fmaf(x.z, w.x, cre[4 * q + 2]);
-          cim[4 * q + 2] = fmaf(x.z, w.y, cim[4 * q + 2]);
-          cre[4 * q + 3] = fmaf(x.w, w.x, cre[4 * q + 3]);
-          cim[4 * q + 3] = fmaf(x.w, w.y, cim[4 * q + 3]);
-        }
-        idx += k;
-        if (idx >= n) idx -= n;
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) { re[r] += cre[r]; im[r] += cim[r]; }
+    auto from_smem = [s](int i) { return s[pad(i)]; };
+    if (!split) {
+      fft_pow2<M, true>(s, t, from_smem, [&](int i, float2 v) {
+        if (live && i < bins) o[i] = magnitude(v);
+      });
+      return;
     }
+    fft_pow2<M, true>(s, t, from_smem, [&](int i, float2 v) {
+      if (i < l) s[pad(i)] = cmul(v, chirp[i]);
+    });
   }
+  __syncthreads();
+  if (!live) return;
+  const float inv_n = 1.0f / (float)n;
+  for (int k = t; k <= l / 2; k += tpr) {
+    float sn, cs;
+    sincospif(2.0f * (float)k * inv_n, &sn, &cs);
+    float2 xk, xj;
+    real_split(s[pad(k)], s[pad(k == 0 ? 0 : l - k)], make_float2(cs, -sn), xk, xj);
+    o[k] = magnitude(xk);
+    o[l - k] = magnitude(xj);
+  }
+}
 
-  if (!active) return;
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int row = r0 + r;
-    if (row < rows) {
-      out[(size_t)row * bins + k] = sqrtf(re[r] * re[r] + im[r] * im[r] + 1e-12f);
-    }
+template <int M>
+int launch(const float* frames, float* out, const float2* chirp,
+           const float2* bhat, int rows, int n, int l, cudaStream_t stream) {
+  constexpr int per_block = block_threads(M) / row_threads(M);
+  constexpr size_t smem = (size_t)per_block * padded(M) * sizeof(float2);
+  cudaError_t err = cudaFuncSetAttribute(
+      dft_magnitude_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (rows + per_block - 1) / per_block;
+  dft_magnitude_kernel<M><<<blocks, block_threads(M), smem, stream>>>(
+      frames, out, chirp, bhat, rows, n, l);
+  return (int)cudaGetLastError();
+}
+
+template <int M>
+int launch_m(int m, const float* frames, float* out, const float2* chirp,
+             const float2* bhat, int rows, int n, int l, cudaStream_t stream) {
+  if (m == M) return launch<M>(frames, out, chirp, bhat, rows, n, l, stream);
+  if constexpr (M < 16384) {
+    return launch_m<2 * M>(m, frames, out, chirp, bhat, rows, n, l, stream);
   }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// frames: (rows, n) fp32; out: (rows, n/2+1) fp32. 2 <= n <= 8192.
-extern "C" int dft_magnitude_launch(const float* frames, float* out, int rows,
-                                    int n, void* stream) {
-  const int bins = n / 2 + 1;
-  const int tiles = (bins + kMaxBinThreads - 1) / kMaxBinThreads;
-  int threads = (bins + tiles - 1) / tiles;
-  threads = (threads + 31) / 32 * 32;
-  const size_t smem = (size_t)kChunk * kRows * sizeof(float) + (size_t)n * sizeof(float2);
-  cudaError_t err = cudaFuncSetAttribute(
-      dft_magnitude_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((rows + kRows - 1) / kRows, tiles);
-  dft_magnitude_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      frames, out, rows, n, bins);
-  return (int)cudaGetLastError();
+// frames: (rows, n) fp32; out: (rows, n/2+1) fp32; 2 <= n <= 8192. l, m:
+// the transform's complex length and FFT length (ops/kernels.py::dft_plan);
+// chirp (l) and bhat (m) complex fp32 tables when m != l, else null.
+extern "C" int dft_magnitude_launch(const float* frames, float* out,
+                                    const void* chirp, const void* bhat,
+                                    int rows, int n, int l, int m, void* stream) {
+  if (rows == 0) return 0;
+  return launch_m<1>(m, frames, out, static_cast<const float2*>(chirp),
+                     static_cast<const float2*>(bhat), rows, n, l,
+                     (cudaStream_t)stream);
 }

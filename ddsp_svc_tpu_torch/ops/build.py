@@ -6,11 +6,12 @@ into a shared library with a plain C interface, loaded with ctypes:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o build/ddsp_svc_tpu_torch/<name>-<hash>.so <name>.cu
 
-The library name carries a hash of the source, of the headers it includes
-from csrc/ and of the flags, so an edited source or header rebuilds and an
-unchanged one loads from the build directory. All
-missing libraries build at first use, one nvcc process per source, started
-together. Nothing here runs at import time.
+The library name carries a hash of the source, of the csrc/ headers it
+includes (directly or through another header) and of the flags, so an
+edited source or header rebuilds every library that depends on it and an
+unchanged one loads from the build directory. All missing libraries build
+at first use, one nvcc process per source, started together. Nothing here
+runs at import time.
 """
 from __future__ import annotations
 
@@ -49,11 +50,22 @@ def nvcc_path() -> str:
     return path
 
 
+def _local_sources(name: str) -> Iterable[bytes]:
+    """csrc/<name>.cu and every csrc header it includes with quotes, directly
+    or through another header, each once, in the order first included."""
+    seen, todo = set(), [f"{name}.cu"]
+    while todo:
+        file = todo.pop(0)
+        if file in seen:
+            continue
+        seen.add(file)
+        text = (CSRC / file).read_bytes()
+        yield text
+        todo.extend(h.decode() for h in _LOCAL_INCLUDE.findall(text))
+
+
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    headers = b"".join((CSRC / h.decode()).read_bytes()
-                       for h in _LOCAL_INCLUDE.findall(src))
-    digest = hashlib.sha256(src + headers
+    digest = hashlib.sha256(b"".join(_local_sources(name))
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

@@ -53,7 +53,7 @@ _SIGNATURES = {
     "performer_attention_launch": [_P] * 8 + [_I] * 3 + [_F, _F, _P],
     "combsub_spectral_launch": [_P] * 7 + [_I, _I, _P],
     "combsub_spectral_bwd_launch": [_P] * 12 + [_I, _I, _P],
-    "dft_magnitude_launch": [_P] * 2 + [_I, _I, _P],
+    "dft_magnitude_launch": [_P] * 4 + [_I] * 4 + [_P],
     "harmonic_source_launch": [_P] * 5 + [_I, _I, _I, _F, _P],
     "resblocks_launch": [_P] * 12 + [_I] * 9 + [_P],
     "oscillator_bank_launch": [_P] * 3 + [_I] * 4 + [_P],
@@ -299,16 +299,61 @@ def dft_magnitude_plain(frames, n_fft: int):
     return torch.sqrt(spec.real ** 2 + spec.imag ** 2 + 1e-12)
 
 
+def dft_plan(n: int):
+    """(l, m) of the kernel's transform for rfft of size n: l the complex
+    length (n/2 for even n, the even and odd samples as one complex signal;
+    n for odd n), m its FFT length: l when l is a power of two, else the
+    least power of two >= 2l - 1 (Bluestein)."""
+    l = n // 2 if n % 2 == 0 else n
+    if l & (l - 1) == 0:
+        return l, l
+    return l, 1 << (2 * l - 2).bit_length()
+
+
+def dft_tables64(n: int):
+    """The Bluestein tables of size n in complex128, or None when l is a
+    power of two: the chirp c[t] = exp(-j pi t^2 / l), t < l, with t^2 mod
+    2l taken in integers, and FFT_m(b) / m of the conj-chirp b (b[t] =
+    conj c[|t|] for |t| < l, cyclic in m, zero elsewhere)."""
+    l, m = dft_plan(n)
+    if m == l:
+        return None
+    t = np.arange(l, dtype=np.int64)
+    chirp = np.exp(-1j * np.pi * ((t * t) % (2 * l)) / l)
+    b = np.zeros(m, np.complex128)
+    b[:l] = chirp.conj()
+    b[m - l + 1:] = chirp[1:][::-1].conj()
+    return chirp, np.fft.fft(b) / m
+
+
+_DFT_TABLES: dict = {}
+
+
+def dft_tables(n: int, device):
+    """dft_tables64 cast to complex64, as (l, 2) and (m, 2) fp32 tensors on
+    `device`, built once per (n, device); None for a power-of-two l."""
+    key = (n, str(device))
+    if key not in _DFT_TABLES:
+        tables = dft_tables64(n)
+        _DFT_TABLES[key] = None if tables is None else tuple(
+            torch.view_as_real(torch.from_numpy(x.astype(np.complex64)))
+            .to(device) for x in tables)
+    return _DFT_TABLES[key]
+
+
 def _dft_magnitude_launch(frames, n_fft: int):
     rows = frames.shape[0]
     if not 2 <= n_fft <= DFT_MAX_N:
         raise ValueError(f"dft_magnitude takes n_fft in [2, {DFT_MAX_N}], "
                          f"got {n_fft}")
     _check(frames, "frames", (rows, n_fft), frames.device)
+    l, m = dft_plan(n_fft)
+    chirp, bhat = dft_tables(n_fft, frames.device) or (None, None)
     out = torch.empty((rows, n_fft // 2 + 1), dtype=torch.float32,
                       device=frames.device)
     _launch("dft_magnitude", "dft_magnitude_launch", frames.data_ptr(),
-            out.data_ptr(), rows, n_fft, _stream(out))
+            out.data_ptr(), _ptr(chirp), _ptr(bhat), rows, n_fft, l, m,
+            _stream(out))
     dft_magnitude.launches += 1
     return out
 
@@ -336,8 +381,9 @@ class _DftMagnitudeFn(torch.autograd.Function):
 
 def dft_magnitude(frames, n_fft: int):
     """|rfft(frames, n_fft)| with the 1e-12 floor inside the root, for any
-    n_fft up to 8192: frames (R, n_fft) fp32 -> (R, n_fft//2+1). One block
-    per tile of 16 rows and up to 128 bins; differentiable."""
+    n_fft up to 8192: frames (R, n_fft) fp32 -> (R, n_fft//2+1). Per row an
+    FFT in shared memory (Bluestein where dft_plan's l is not a power of
+    two); differentiable."""
     if frames.device.type == "cpu":
         return dft_magnitude_plain(frames, n_fft)
     return _DftMagnitudeFn.apply(frames, n_fft)
@@ -815,7 +861,7 @@ class _LtvFirConvolveFn(torch.autograd.Function):
 
 def ltv_fir_convolve(a_frames, ir_frames, n_fft: int):
     """The framed spectral convolution of `frequency_filter` in one kernel
-    (a block per row, radix-2 FFTs in shared memory): a_frames (R, frame),
+    (per row three n/2-point FFTs in shared memory): a_frames (R, frame),
     ir_frames (R, ir) fp32, n_fft a power of two >= frame + ir - 1 ->
     (R, n_fft). Differentiable in both inputs."""
     if a_frames.device.type == "cpu":

@@ -98,12 +98,22 @@ def test_resblocks_inject_kernel(cuda, c, t, s_src, valid, inject):
     torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
 
 
+# the RSS loss's 16 sizes (models/losses.py::default_buckets(256, 2048)), the
+# ends of the kernel's range and a few small ones, at ragged row counts
+DFT_SIZES = (256, 375, 495, 614, 734, 853, 972, 1092, 1211, 1331, 1450, 1569,
+             1689, 1808, 1928, 2047, 2, 3, 8, 13, 8191, 8192)
+
+
 @pytest.mark.parametrize("n_fft,rows", [(256, 100), (375, 33), (1092, 17),
-                                        (2047, 40), (8, 3)])
+                                        (2047, 40), (8, 3)] + [
+    (n, 5 + (7 * n) % 61) for n in DFT_SIZES
+    if n not in (256, 375, 1092, 2047, 8)])
 def test_dft_magnitude_kernel(cuda, n_fft, rows):
     """atol 2e-3 (the JAX package's kernel test) on the magnitude, and the
     gradient through the autograd Function against autograd of the plain
-    version at atol 2e-3."""
+    version at atol 2e-3, at every size of the RSS loss (powers of two, the
+    half-length split around a Bluestein for even n, Bluestein for odd n)
+    and at n = 2, 3, 8191, 8192."""
     g = torch.Generator(device=cuda).manual_seed(n_fft)
     x = _randn(g, rows, n_fft)
     gm = _randn(g, rows, n_fft // 2 + 1)
@@ -113,6 +123,24 @@ def test_dft_magnitude_kernel(cuda, n_fft, rows):
     (mk * gm).sum().backward()
     (mp * gm).sum().backward()
     torch.testing.assert_close(xk.grad, xp.grad, atol=2e-3, rtol=0)
+
+
+@pytest.mark.parametrize("n_fft", [256, 614, 853, 2047, 8191])
+def test_dft_magnitude_kernel_mixed_scale(cuda, n_fft):
+    """Rows scaled by 10^u, u uniform in [-4, 0], as silent frames sit beside
+    loud ones in the loss: each row within 1e-4 of its own max |ref|, the
+    reference the plain version in float64 on the CPU. A design that put
+    two rows into one complex transform would round a quiet row at its
+    neighbour's scale (~1e-6 of the loud row's max, up to ~1e-2 of the
+    quiet row's) and fail."""
+    g = torch.Generator(device=cuda).manual_seed(n_fft + 1)
+    rows = 301
+    scale = 10.0 ** (-4 * torch.rand((rows, 1), generator=g, device=cuda))
+    x = _randn(g, rows, n_fft) * scale
+    ref = K.dft_magnitude_plain(x.double().cpu(), n_fft)
+    got = K.dft_magnitude(x, n_fft).double().cpu()
+    err = (got - ref).abs().amax(1) / ref.abs().amax(1)
+    assert err.max().item() <= 1e-4, err.max().item()
 
 
 @pytest.mark.parametrize("n_fft,rows", [(64, 3), (1024, 9), (1024, 4152),
@@ -223,7 +251,9 @@ def test_oscillator_bank_kernel(cuda, b, f, h, block):
 @pytest.mark.parametrize("rows,frame,ir,n", [(513, 1024, 510, 2048),
                                             (4152, 1024, 1022, 2048),
                                             (5, 128, 126, 256),
-                                            (3, 1000, 77, 2048)])
+                                            (3, 1000, 77, 2048),
+                                            (7, 33, 32, 64),
+                                            (2, 2049, 2000, 4096)])
 def test_ltv_fir_convolve_kernel(cuda, rows, frame, ir, n):
     """The output and both gradients within 2e-4 of their max |ref| (the
     JAX package's kernel test), against the plain version and autograd
@@ -242,6 +272,28 @@ def test_ltv_fir_convolve_kernel(cuda, rows, frame, ir, n):
     (ref * up).sum().backward()
     for x, y in ((ak.grad, ap.grad), (hk.grad, hp.grad)):
         assert ((x - y).abs().max() <= 2e-4 * y.abs().max()).item()
+
+
+@pytest.mark.parametrize("rows,frame,ir,n", [(513, 1024, 510, 2048),
+                                            (4152, 1024, 1022, 2048),
+                                            (77, 100, 29, 128)])
+def test_ltv_fir_convolve_kernel_mixed_scale(cuda, rows, frame, ir, n):
+    """a and h rows scaled independently by 10^u, u uniform in [-3, 0]: each
+    output row within 2e-4 of its own max |ref| (the JAX package's kernel
+    tolerance, per row), the reference the plain version in float64 on the
+    CPU. A design that put two signals into one complex transform would
+    round the smaller at the larger's scale and fail."""
+    g = torch.Generator(device=cuda).manual_seed(rows + frame)
+
+    def scales():
+        return 10.0 ** (-3 * torch.rand((rows, 1), generator=g, device=cuda))
+
+    a = _randn(g, rows, frame) * scales()
+    h = _randn(g, rows, ir) * scales()
+    ref = K.ltv_fir_convolve_plain(a.double().cpu(), h.double().cpu(), n)
+    got = K.ltv_fir_convolve(a, h, n).double().cpu()
+    err = (got - ref).abs().amax(1) / ref.abs().amax(1)
+    assert err.max().item() <= 2e-4, err.max().item()
 
 
 def test_ltv_fir_convolve_plain_at_training_rows(cuda):

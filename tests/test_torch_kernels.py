@@ -298,6 +298,85 @@ def test_dft_magnitude_plain_matches_jax(n_fft):
     np.testing.assert_allclose(x.grad.numpy(), ref_g, atol=2e-3, rtol=0)
 
 
+RSS_SIZES = (256, 375, 495, 614, 734, 853, 972, 1092, 1211, 1331, 1450, 1569,
+             1689, 1808, 1928, 2047)
+
+
+def _bluestein_rfft(x, n_fft, chirp, bhat):
+    """rfft(x, n_fft) as the dft_magnitude kernel computes it where
+    dft_plan's l is not a power of two, from the tables it reads (chirp,
+    bhat complex), with torch.fft.fft standing in for its power-of-two FFT
+    core: Bluestein over z (for even n the even and odd samples as one
+    complex signal), then the real split."""
+    l, m = K.dft_plan(n_fft)
+    split = 2 * l == n_fft
+    z = torch.complex(x[:, 0::2], x[:, 1::2]) if split else x.to(chirp.dtype)
+    u = torch.zeros((x.shape[0], m), dtype=chirp.dtype)
+    u[:, :l] = z * chirp
+    zc = (torch.fft.ifft(torch.fft.fft(u) * bhat) * m)[:, :l] * chirp
+    if not split:
+        return zc[:, :n_fft // 2 + 1]
+    k = torch.arange(l + 1)
+    zk, zj = zc[:, k % l], zc[:, (l - k) % l].conj()
+    w = torch.polar(torch.ones(l + 1, dtype=x.dtype),
+                    -2 * np.pi * k.to(x.dtype) / n_fft)
+    return 0.5 * (zk + zj) - 0.5j * w * (zk - zj)
+
+
+@pytest.mark.parametrize("n_fft", RSS_SIZES + (8191,))
+def test_dft_tables_give_rfft(n_fft):
+    """The per-n tables that the dft_magnitude wrapper builds and the kernel
+    reads (the chirp and FFT_m of the conj-chirp; the FFT core computes its
+    twiddles, no table): a Bluestein over exactly those tables equals
+    torch.fft.rfft to 1e-9 of max |ref| in float64 (dft_tables64), and
+    within 2e-3 absolute (the kernel's tolerance) in fp32 (dft_tables, the
+    complex64 casts the kernel reads) on unit-variance frames. This is the
+    CPU check of what the kernel reads; the kernel itself runs on the card
+    (tests/test_torch_cuda.py)."""
+    l, m = K.dft_plan(n_fft)
+    if n_fft == 256:  # the one power of two: no tables
+        assert (l, m) == (128, 128) and K.dft_tables(256, "cpu") is None
+        return
+    assert m & (m - 1) == 0 and 2 * l - 1 <= m < 4 * l - 2
+    assert l == (n_fft // 2 if n_fft % 2 == 0 else n_fft)
+    rng = np.random.default_rng(n_fft)
+    x = torch.from_numpy(rng.standard_normal((4, n_fft)))
+    ref = torch.fft.rfft(x)
+    chirp, bhat = (torch.from_numpy(t) for t in K.dft_tables64(n_fft))
+    got = _bluestein_rfft(x, n_fft, chirp, bhat)
+    assert ((got - ref).abs().max() / ref.abs().max()).item() < 1e-9
+    c32, b32 = K.dft_tables(n_fft, "cpu")
+    assert c32.dtype == torch.float32 and c32.shape == (l, 2)
+    assert b32.shape == (m, 2)
+    got32 = _bluestein_rfft(x.float(), n_fft, torch.view_as_complex(c32),
+                            torch.view_as_complex(b32))
+    assert (got32.abs() - ref.abs()).abs().max().item() < 2e-3
+
+
+def test_kernel_build_hash_follows_header_chain(tmp_path, monkeypatch):
+    """A library's name hashes its source and every csrc header it reaches
+    through quoted includes, so an edit to a header included by another
+    header rebuilds every library that depends on it, and only those."""
+    from ddsp_svc_tpu_torch.ops import build
+
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    (tmp_path / "a.cu").write_text('#include <math.h>\n#include "b.cuh"\n')
+    (tmp_path / "other.cu").write_text('#include "c.cuh"\n')
+    (tmp_path / "b.cuh").write_text('#pragma once\n  # include "c.cuh"\n')
+    (tmp_path / "c.cuh").write_text('#pragma once\n#include "b.cuh"\n// v1\n')
+    before = build._lib_path("a"), build._lib_path("other")
+    assert build._lib_path("a") == before[0]  # stable
+    (tmp_path / "c.cuh").write_text('#pragma once\n#include "b.cuh"\n// v2\n')
+    after = build._lib_path("a"), build._lib_path("other")
+    assert after[0] != before[0] and after[1] != before[1]
+    (tmp_path / "b.cuh").write_text('#pragma once\n#include "c.cuh"\n// b2\n')
+    assert build._lib_path("a") != after[0]
+    assert build._lib_path("other") != after[1]  # c.cuh includes b.cuh
+    unrelated = build._lib_path("a")
+    (tmp_path / "d.cuh").write_text("// included by no source\n")
+    assert build._lib_path("a") == unrelated
+
+
 @pytest.mark.parametrize("n_fft,rows", [(256, 37), (1024, 5)])
 def test_combsub_spectral_bwd_plain_matches_jax(n_fft, rows):
     """The plain adjoint, and autograd through combsub_spectral on the CPU,
