@@ -11,7 +11,9 @@ Phases, each printing its own lines:
   2. build: every CUDA kernel from the checkout's sources (nvcc, sm_90a);
   3. kernels: each hand-written kernel against its plain PyTorch version at
      the main path's shapes, with error, time, plain time and bound (#6
-     and #9 also per row, on rows of unequal scale, against float64);
+     and #9 also per row, on rows of unequal scale, against float64; #4 and
+     #5 with their route, registers and shared memory, beside #10's
+     CUDA-core conv core at C = 64);
   4. offline paths: conversion (`convert_features`) with each synthesizer
      at the full width of its config (CombSubFast from configs/combsub.yaml,
      Sins from configs/sins.yaml, CombSub from configs/combsub-old.yaml) and
@@ -52,6 +54,7 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_FP32_FLOPS = 67e12   # H100 SXM, fp32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12  # H100 SXM, TF32 on the tensor cores, dense
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 
 # the 44.1 kHz community NSF-HiFiGAN geometry (bench.py's H_NSF)
@@ -79,6 +82,7 @@ TRAIN_CROP_SAMPLES = 172 * 512  # 2 s at 44.1 kHz, block 512
 TRIO_STAGES = ((64, 4), (32, 2), (16, 1))  # (C, source-conv stride)
 TRIO_K = (3, 7, 11)
 TPU_KERNELS = "ddsp_svc_tpu/ops/pallas_kernels.py"
+TRIO_ROUTE = "tensor cores: mma.sync tf32, 3xTF32, fp32 re-accumulation"
 # each synthesizer's config and the kernels its offline path runs (the
 # enhancer's harmonic source and trio included); its training path runs the
 # same synth kernels, dft_magnitude in the loss, and the attention kernel in
@@ -132,10 +136,16 @@ def time_ms(torch, fn, inputs, iters: int = 20) -> float:
     return float(np.median(times))
 
 
-def bound(n_bytes: float, n_ops: float):
+def bound(n_bytes: float, n_ops: float, peak: float = PEAK_FP32_FLOPS):
     t_bytes = n_bytes / PEAK_BYTES * 1e3
-    t_ops = n_ops / PEAK_FP32_FLOPS * 1e3
+    t_ops = n_ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound_3xtf32(n_bytes: float, fp32_flops: float):
+    """The bound of fp32 products run in 3xTF32 on the tensor cores: three
+    TF32 products for each fp32 one, at the TF32 peak."""
+    return bound(n_bytes, 3 * fp32_flops, PEAK_TF32_FLOPS)
 
 
 def compare(torch, name, kern, plain, inputs, tol_abs, tol_rel_max,
@@ -231,7 +241,10 @@ def kernel_phase(torch, K, gen):
 
     # 4. resblock trio with the source injection, the three narrow stages
     # of a 512-frame segment; then the trio alone (fused_resblocks form)
-    # and the per-row valid form at the C = 64 stage
+    # and the per-row valid form at the C = 64 stage. The kernel runs every
+    # conv on the tensor cores; its bound counts the three TF32 products of
+    # each fp32 one at the TF32 peak (the fp32 CUDA-core bound beside it).
+    # The library time is the plain version: the fp32 cuDNN conv chain
     t_final = f_mel * upp
     errs, ms_sum, pms_sum, flops, nbytes = [], 0.0, 0.0, 0.0, 0.0
 
@@ -245,14 +258,23 @@ def kernel_phase(torch, K, gen):
         return (randn(1, t_s, c), har, randn(c, 1, ksrc, scale=0.2),
                 randn(c, scale=0.05), ws, bs, s, (1, 3, 5), valid)
 
+    def trio_build(c):
+        info = K.trio_kernel_info(c)
+        return (f"{info['registers']} registers, {info['spill_bytes']} bytes "
+                f"spilled, {info['smem_bytes']} bytes of shared memory")
+
     for c, s in TRIO_STAGES:
         inputs = [trio_inputs(c, s) for _ in range(2)]
         e, ms, pms = compare(torch, f"fused_resblocks_inject C={c}",
                              K.fused_resblocks_inject,
                              K.resblocks_inject_plain, inputs, 1e-4, 0.0,
                              tol_rtol=1e-4)
-        say(f"kernel fused_resblocks_inject C={c} T={t_final // s}: max|err| "
-            f"{e:.3e} (atol 1e-4, rtol 1e-4), {ms:.3f} ms, plain {pms:.3f} ms")
+        if not e <= 2e-5:
+            fail(f"fused_resblocks_inject C={c}: max|err| {e:.3e} over 2e-5")
+        say(f"kernel fused_resblocks_inject C={c} T={t_final // s} "
+            f"({TRIO_ROUTE}; {trio_build(c)}): max|err| {e:.3e} (atol 1e-4, "
+            f"rtol 1e-4; at most 2e-5), {ms:.3f} ms, plain (fp32 cuDNN "
+            f"chain) {pms:.3f} ms")
         errs.append(e)
         ms_sum += ms
         pms_sum += pms
@@ -260,11 +282,26 @@ def kernel_phase(torch, K, gen):
         ksrc = 2 * s if s > 1 else 1
         flops += 2 * c * c * 6 * (3 + 7 + 11) * t_s + 2 * c * ksrc * t_s
         nbytes += 4 * (2 * c * t_s + t_final + 6 * c * c * 21 + 18 * c)
+    say(f"kernel fused_resblocks_inject: bound "
+        f"{bound_3xtf32(nbytes, flops)[0]:.4f} ms in 3xTF32, {bound(nbytes, flops)[0]:.4f} ms in fp32 on the CUDA "
+        "cores")
     rows["fused_resblocks_inject"] = dict(
         route="cuda", source="ddsp_svc_tpu_torch/csrc/resblocks.cu",
         replaces=f"{TPU_KERNELS}:1373", max_abs_err=max(errs), ms=ms_sum,
-        plain_ms=pms_sum, bound=bound(nbytes, flops), library_ms=None,
-        tol="atol 1e-4 + rtol 1e-4 (the JAX package's kernel test)")
+        plain_ms=pms_sum, bound=bound_3xtf32(nbytes, flops),
+        library_ms=pms_sum,
+        tol="atol 1e-4 + rtol 1e-4 (the JAX package's kernel test), max|err| "
+            "at most 2e-5; library: the fp32 cuDNN conv chain (the plain "
+            "version)")
+    try:  # a width the kernel has no instance for raises, never falls back
+        K.fused_resblocks(randn(1, 100, 24), [randn(3, 2, 24, 24, k)
+                                              for k in TRIO_K],
+                          [randn(3, 2, 24)] * 3)
+    except ValueError as exc:
+        say(f"kernel fused_resblocks at C=24 on the card raises: {exc}")
+    else:
+        fail("fused_resblocks took C = 24")
+    trio_c64 = {}
     for label, kw in (("fused_resblocks (no injection)", dict(inject=False)),
                       ("fused_resblocks_inject valid=40000",
                        dict(valid=40000))):
@@ -276,6 +313,12 @@ def kernel_phase(torch, K, gen):
             kern = K.fused_resblocks_inject
         e, ms, pms = compare(torch, label, kern, K.resblocks_inject_plain,
                              inputs, 1e-4, 0.0, tol_rtol=1e-4)
+        if not e <= 2e-5:
+            fail(f"{label}: max|err| {e:.3e} over 2e-5")
+        if "valid" in kw:
+            tail = kern(*inputs[0])[:, 40000:]
+            if tail.any():
+                fail(f"{label}: output past the valid length is not 0")
         # counted as #4's stage at C = 64, without the injection conv's input
         # (or, for the valid form, as the full stage)
         c, t_s = 64, t_final // 4
@@ -284,16 +327,22 @@ def kernel_phase(torch, K, gen):
         if "inject" not in kw:
             flops += 2 * c * 8 * t_s
             nbytes += 4 * t_final
-        t_b, by = bound(nbytes, flops)
-        say(f"kernel {label} C=64: max|err| {e:.3e} (atol 1e-4, rtol 1e-4), "
-            f"{ms:.3f} ms, plain {pms:.3f} ms, bound {t_b:.4f} ms ({by})")
+        t_b, by = bound_3xtf32(nbytes, flops)
+        say(f"kernel {label} C=64 ({TRIO_ROUTE}): max|err| {e:.3e} (atol "
+            f"1e-4, rtol 1e-4; at most 2e-5), {ms:.3f} ms, plain (fp32 cuDNN "
+            f"chain) {pms:.3f} ms, bound {t_b:.4f} ms ({by}) in 3xTF32, "
+            f"{bound(nbytes, flops)[0]:.4f} ms in fp32"
+            + ("; tail past 40000 exactly 0" if "valid" in kw else ""))
         if "inject" in kw:
+            trio_c64 = dict(ms=ms, err=e, plain_ms=pms)
             rows["fused_resblocks"] = dict(
                 route="cuda", source="ddsp_svc_tpu_torch/csrc/resblocks.cu",
                 replaces=f"{TPU_KERNELS}:1315", max_abs_err=e, ms=ms,
-                plain_ms=pms, bound=(t_b, by), library_ms=None,
-                tol="atol 1e-4 + rtol 1e-4 (the JAX package's kernel test); "
-                    "the C = 64 stage without the injection")
+                plain_ms=pms, bound=(t_b, by), library_ms=pms,
+                tol="atol 1e-4 + rtol 1e-4 (the JAX package's kernel test), "
+                    "max|err| at most 2e-5; the C = 64 stage without the "
+                    "injection; library: the fp32 cuDNN conv chain (the "
+                    "plain version)")
 
     # 6. DFT magnitude of the RSS loss at every bucket size, at the frame rows
     # of one training batch (24 crops of 88064 samples, hop = n_fft), with
@@ -476,7 +525,10 @@ def kernel_phase(torch, K, gen):
             "library: the three-call cuFFT chain")
 
     # 10. one resblock chain (no path runs it; the JAX package's neither):
-    # the C = 64 stage of a 512-frame segment, T = 65536, at each k
+    # the C = 64 stage of a 512-frame segment, T = 65536, at each k. Its
+    # conv core is the fp32 CUDA-core one (resblock_conv.cuh), so the sum of
+    # its three chains is the trio's work on the CUDA cores, beside #5's
+    # tensor-core time from this call
     c, t_s = 64, t_final // 4
     err = ms_sum = pms_sum = flops = nbytes = 0.0
     for k in TRIO_K:
@@ -488,18 +540,26 @@ def kernel_phase(torch, K, gen):
                              inputs, 1e-4, 0.0, tol_rtol=1e-4)
         f_k = 2 * c * c * 6 * k * t_s
         b_k = 4 * (2 * c * t_s + 6 * c * c * k + 6 * c)
-        say(f"kernel fused_resblock_chain C={c} T={t_s} k={k}: max|err| "
-            f"{e:.3e} (atol 1e-4, rtol 1e-4), {ms:.3f} ms, plain {pms:.3f} "
-            f"ms, bound {bound(b_k, f_k)[0]:.4f} ms")
+        say(f"kernel fused_resblock_chain C={c} T={t_s} k={k} (CUDA-core conv "
+            f"core, fp32 FMAs): max|err| {e:.3e} (atol 1e-4, rtol 1e-4), "
+            f"{ms:.3f} ms, plain (fp32 cuDNN chain) {pms:.3f} ms, bound "
+            f"{bound(b_k, f_k)[0]:.4f} ms")
         err, ms_sum, pms_sum = max(err, e), ms_sum + ms, pms_sum + pms
         flops += f_k
         nbytes += b_k
+    say(f"conv cores at C=64 T={t_s}, this call: tensor cores (#5, the trio) "
+        f"{trio_c64['ms']:.3f} ms, max|err| {trio_c64['err']:.3e}; CUDA cores "
+        f"(#10, k = 3 + 7 + 11) {ms_sum:.3f} ms, max|err| {err:.3e}; "
+        f"CUDA-core / tensor-core time {ms_sum / trio_c64['ms']:.3f}; fp32 "
+        f"cuDNN chain {trio_c64['plain_ms']:.3f} ms (#5's plain)")
     rows["fused_resblock_chain"] = dict(
         route="cuda", source="ddsp_svc_tpu_torch/csrc/resblock_chain.cu",
         replaces=f"{TPU_KERNELS}:1415", max_abs_err=err, ms=ms_sum,
-        plain_ms=pms_sum, bound=bound(nbytes, flops), library_ms=None,
+        plain_ms=pms_sum, bound=bound(nbytes, flops), library_ms=pms_sum,
         tol="atol 1e-4 + rtol 1e-4 (the JAX package's kernel test); times "
-            "are the sum of k = 3, 7, 11 at C = 64, T = 65536")
+            "are the sum of k = 3, 7, 11 at C = 64, T = 65536; the CUDA-core "
+            "conv core; library: the fp32 cuDNN conv chain (the plain "
+            "version)")
 
     # 11. the fused stage: H_NSF's three narrow stages (u = 2) of a 512-frame
     # segment, from x_pre (1, T / 2, 2C); beside it the same stage as the

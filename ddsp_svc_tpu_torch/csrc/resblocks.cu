@@ -12,33 +12,27 @@
 //   every conv zero-pads at the sequence end (or at a row's valid length).
 //
 // Bound on the H100: operations. A stage does 2 C^2 * 6 * (3 + 7 + 11)
-// flops per sample (1.03 MFLOP at C = 64) on 8 C bytes of input and output:
-// fp32 CUDA-core work far above the ridge. The TPU kernel's point was to
-// keep the 18 conv intermediates out of HBM; so is this one's.
-//
-// Design: csrc/resblock_conv.cuh (the tile geometry and the conv chain,
-// shared with resblock_chain.cu and fused_stage.cu). A 3xTF32 tensor-core
-// version measured 13% faster but 20x less accurate (9.4e-5 against the
-// 1e-4 tolerance at C = 64; the tensor cores' accumulation truncates), see
-// PERF.md. Staging the weights through shared memory with cp.async is
-// 8-14% faster than reading them through L1, bit-identical. The trio mean
-// is kept in registers. Halo columns are recomputed by neighbouring tiles
-// (W / TILE = 1.67 at C = 64); skipping each conv's unneeded columns with
-// branches in the FMA loop measured 2.2x slower, so that wants
-// compile-time column ranges.
+// flops per sample (1.03 MFLOP at C = 64) on 8 C bytes of input and output.
+// The TPU kernel's point was to keep the 18 conv intermediates out of HBM;
+// so is this one's. Each conv runs as the TPU kernel's one
+// (C_out, k C_in) @ (k C_in, W) product, here an implicit GEMM on the
+// tensor cores in 3xTF32 with fp32 re-accumulation (csrc/resblock_mma.cuh,
+// which says why mma.sync and not wgmma). The trio mean is summed in the
+// output. Halo columns are recomputed by neighbouring tiles (W / TILE =
+// 1.67 at C = 64).
 
-#include "resblock_conv.cuh"
+#include "resblock_mma.cuh"
 
 namespace {
 
-using namespace rbconv;
+using namespace rbmma;
 
 struct Args {
   const float* x;     // (B, C, T)
   const float* har;   // (B, T_final) or nullptr
   const float* wnc;   // (C, ksrc)
   const float* bnc;   // (C,)
-  const float* w[3];  // (n_dil, 2, C_in, k, C_out)
+  const float* w[3];  // (n_dil, 2, k, C_in / 8, M / 16, 2, 32, 4): fragment order
   const float* b[3];  // (n_dil, 2, C)
   const int* valid;   // (B,) or nullptr
   float* out;         // (B, C, T)
@@ -60,35 +54,35 @@ __global__ void __launch_bounds__(kThreads, 1) resblocks_kernel(Args a) {
   const float* har = a.har != nullptr ? a.har + (size_t)bi * a.t_final : nullptr;
   zero_buffers<C>(h, t);
 
-  float mean[kCoT][kTT];
-  fill_regs(mean, 0.f);
   for (int r = 0; r < 3; ++r) {
     __syncthreads();  // the previous chain is done with h and t
-    // h = x0, zero outside [0, limit)
-    for (int i = threadIdx.x; i < C * G::W; i += kThreads) {
-      const int c = i / G::W, col = i % G::W;
-      const int g = g0 + col;
-      float v = 0.f;
-      if (g >= 0 && g < limit) {
-        v = x[(size_t)c * a.T + g];
-        if (har != nullptr)
-          v += noise_conv_at(har, a.wnc + c * a.ksrc, a.bnc[c], g, a.s_src, a.ksrc, a.t_final);
-      }
-      h[c * G::S + kPad + col] = v;
-    }
+    fill_x0<C>(h, x, har, a.wnc, a.bnc, a.T, a.t_final, a.s_src, a.ksrc, g0, limit);
     __syncthreads();
-    run_chain_k<C>(trio_k(r), h, t, s_w, a.w[r], a.b[r], a.dil[0], a.dil[1], a.dil[2], g0,
-                   limit);
-    add_own_h<C>(h, mean);
+    const int d0 = a.dil[0], d1 = a.dil[1], d2 = a.dil[2];
+    if (r == 0) run_chain<C, 3>(h, t, s_w, a.w[0], a.b[0], d0, d1, d2, g0, limit);
+    else if (r == 1) run_chain<C, 7>(h, t, s_w, a.w[1], a.b[1], d0, d1, d2, g0, limit);
+    else run_chain<C, 11>(h, t, s_w, a.w[2], a.b[2], d0, d1, d2, g0, limit);
+    accumulate_mean<C>(h, a.out + (size_t)bi * C * a.T, r, g0, a.T);
   }
-  store_interior<C>(a.out + (size_t)bi * C * a.T, mean, 1.0f / 3.0f, g0, a.T);
+}
+
+template <int C>
+int info(int* out) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, resblocks_kernel<C>);
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = (int)Geometry<C>::kSmem;
+  return (int)err;
 }
 
 }  // namespace
 
 // x, out: (B, C, T) fp32; har: (B, T_final) or null (no injection), with
-// wnc (C, ksrc) and bnc (C,); w_r: (3, 2, C, k_r, C) for k_r = 3, 7, 11;
-// b_r: (3, 2, C); valid: (B,) int32 sample counts or null. C in 8/16/32/64.
+// wnc (C, ksrc) and bnc (C,); w_r: chain r's (3, 2) convs of kernel size
+// k_r = 3, 7, 11, each in fragment order (k_r, C / 8, M / 16, 2, 32, 4),
+// M = max(C, 16) (ops/kernels.py::mma_fragments); b_r: (3, 2, C); valid: (B,)
+// int32 sample counts or null. C in 8/16/32/64.
 extern "C" int resblocks_launch(const float* x, const float* har, const float* wnc,
                                 const float* bnc, const float* w0, const float* w1,
                                 const float* w2, const float* b0, const float* b1,
@@ -106,3 +100,17 @@ extern "C" int resblocks_launch(const float* x, const float* har, const float* w
     default: return (int)cudaErrorInvalidValue;
   }
 }
+
+// The compiled kernel at width C: out[0] registers per thread, out[1]
+// local-memory bytes per thread (spills), out[2] dynamic shared memory per
+// block.
+extern "C" int resblocks_info(int C, int* out) {
+  switch (C) {
+    case 8: return info<8>(out);
+    case 16: return info<16>(out);
+    case 32: return info<32>(out);
+    case 64: return info<64>(out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+

@@ -56,6 +56,7 @@ _SIGNATURES = {
     "dft_magnitude_launch": [_P] * 4 + [_I] * 4 + [_P],
     "harmonic_source_launch": [_P] * 5 + [_I, _I, _I, _F, _P],
     "resblocks_launch": [_P] * 12 + [_I] * 9 + [_P],
+    "resblocks_info": [_I, ctypes.POINTER(_I)],
     "oscillator_bank_launch": [_P] * 3 + [_I] * 4 + [_P],
     "ltv_fir_convolve_launch": [_P] * 3 + [_I] * 4 + [_P],
     "resblock_chain_launch": [_P] * 4 + [_I] * 7 + [_P],
@@ -361,22 +362,30 @@ def _dft_magnitude_launch(frames, n_fft: int):
 class _DftMagnitudeFn(torch.autograd.Function):
     """The magnitude kernel forward; the backward is plain PyTorch, as the
     JAX package's custom VJP is plain XLA: with X = rfft(frames) and
-    inv = g / max(|X|, 1e-12), d frames = Re sum_k inv X[k] e^{+2 pi j k t/n}
-    (= (inv re) C^T - (inv im) S^T in the JAX package's DFT-matrix form)."""
+    inv = g / sqrt(|X|^2 + 1e-12), d frames = Re sum_k inv X[k]
+    e^{+2 pi j k t/n} (= (inv re) C^T - (inv im) S^T in the JAX package's
+    DFT-matrix form). It runs in float64: the loss's log term weights each
+    bin by ~1/|X|^2, so the gradient of a row is led by its quietest bins,
+    whose fp32 spectrum is off by ~1e-7 of the row's loudest, and the
+    batched fp32 cuFFT also rounds quiet rows at a louder neighbour's
+    scale. On rows scaled by 10^[-4, 0] (tools/dft_grad_rows.py) fp32 reads
+    up to ~1e-4 of a row's max even on the CPU or with each row scaled to
+    unit max, batched fp32 cuFFT up to 0.13, float64 ~7e-8."""
 
     @staticmethod
     def forward(ctx, frames, n_fft):
-        mag = _dft_magnitude_launch(frames, n_fft)
         ctx.n_fft = n_fft
-        ctx.save_for_backward(frames, mag)
-        return mag
+        ctx.save_for_backward(frames)
+        return _dft_magnitude_launch(frames, n_fft)
 
     @staticmethod
     def backward(ctx, g):
-        frames, mag = ctx.saved_tensors
+        frames, = ctx.saved_tensors
         n = ctx.n_fft
-        spec = torch.fft.rfft(frames, n) * (g / mag.clamp_min(1e-12))
-        return torch.fft.ifft(spec, n).real * n, None
+        spec = torch.fft.rfft(frames.double(), n)
+        mag = torch.sqrt(spec.real ** 2 + spec.imag ** 2 + 1e-12)
+        spec = spec * (g.double() / mag)
+        return (torch.fft.ifft(spec, n).real * n).to(frames.dtype), None
 
 
 def dft_magnitude(frames, n_fft: int):
@@ -526,28 +535,83 @@ def resblocks_inject_plain(x_up, har, nc_weight, nc_bias, weights, biases,
     return out.transpose(1, 2)
 
 
-def _check_dilations(dilations) -> tuple:
+def _check_dilations(dilations, pad: int = 32) -> tuple:
     dils = tuple(int(d) for d in dilations)
     # the receptive margin of the widest chain must fit the kernels' 64-sample
-    # tile halo, and each tap offset its 32-column row padding
-    if len(dils) != 3 or 5 * sum(dils) + 15 > 64 or 5 * max(dils) > 32:
+    # tile halo, and each tap offset the row padding (`pad` columns)
+    if len(dils) != 3 or 5 * sum(dils) + 15 > 64 or 5 * max(dils) > pad:
         raise ValueError(f"unsupported dilations {dils}")
     return dils
 
 
-def _trio_weights(weights, biases, c: int, dev):
-    """The trio's weights in the kernels' layout (dilation, conv, C_in, tap,
-    C_out), after checking kernel sizes and shapes."""
+_FRAGMENT_INDEX: dict = {}
+
+
+def _fragment_index(c: int, ks, device):
+    """For mma_fragments: the flat index into cat(w.reshape(-1) for w in
+    the chains' weights, [0]) of each slot of the fragment order, and
+    whether the slot holds lo; built once per (C, ks, device)."""
+    key = (c, tuple(ks), str(device))
+    if key not in _FRAGMENT_INDEX:
+        m = max(c, 16)
+        lane = torch.arange(32)[:, None]
+        v = torch.arange(4)
+        # (m16 tile, lane, element) -> C_out row; (k8 group, ...) -> C_in col
+        rows = (torch.arange(m // 16)[:, None, None] * 16 + lane // 4
+                + 8 * (v % 2))
+        cols = (torch.arange(c // 8)[:, None, None] * 8 + lane % 4
+                + 4 * (v // 2))
+        zero_slot = 6 * c * c * sum(ks)
+        idx, base = [], 0
+        for k in ks:
+            conv = torch.arange(6)[:, None, None, None, None, None]
+            tap = torch.arange(k)[None, :, None, None, None, None]
+            co, ci = rows[None, None, None], cols[None, None, :, None]
+            flat = base + ((conv * c + co) * c + ci) * k + tap
+            flat = torch.where(co < c, flat, zero_slot)  # (6, k, G, Mt, 32, 4)
+            idx.append(flat[..., None, :, :].expand(
+                *flat.shape[:-2], 2, 32, 4).reshape(-1))
+            base += 6 * c * c * k
+        idx = torch.cat(idx)
+        is_lo = (torch.arange(idx.numel()) // 128) % 2 == 1
+        _FRAGMENT_INDEX[key] = (idx.to(device), is_lo.to(device))
+    return _FRAGMENT_INDEX[key]
+
+
+def mma_fragments(weights):
+    """The trio's fp32 conv weights, weights[r] (3, 2, C_out, C_in, k_r), in
+    the order the tensor-core trio (resblock_mma.cuh) stages them: each
+    chain (3, 2, k, C_in / 8, M / 16, 2, 32, 4), M = max(C_out, 16). Per
+    k-step (tap, 8 input channels) and m16 tile, the hi and then the lo of
+    lane l's A fragment of mma.m16n8k8: rows g, g + 8, g, g + 8 and
+    columns q, q, q + 4, q + 4 of the (16, 8) tile, g = l // 4, q = l % 4.
+    Rows past C_out (C = 8) are zero. w = hi + lo exactly: hi is w rounded
+    to tf32 (to nearest, ties away from zero, as cvt.rna.tf32.f32), lo the
+    rest. Returns one flat view a chain, from six launches on the card."""
+    c, m = weights[0].shape[2], max(weights[0].shape[2], 16)
+    ks = [w.shape[-1] for w in weights]
+    idx, is_lo = _fragment_index(c, ks, weights[0].device)
+    flat = torch.cat([*(w.reshape(-1) for w in weights),
+                      weights[0].new_zeros(1)])[idx]
+    hi = ((flat.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(is_lo, flat - hi, hi).split([12 * c * m * k for k in ks])
+
+
+def _check_trio(weights, biases, c: int, dev) -> None:
     ks = tuple(int(w.shape[-1]) for w in weights)
     if ks != TRIO_KERNEL_SIZES:
         raise ValueError(f"the trio kernels take kernel sizes "
                          f"{TRIO_KERNEL_SIZES}, got {ks}")
-    w_k = []
     for w, bias, k in zip(weights, biases, ks):
         _check(w, "weight", (3, 2, c, c, k), dev)
         _check(bias, "bias", (3, 2, c), dev)
-        w_k.append(w.permute(0, 1, 3, 4, 2).contiguous())
-    return w_k
+
+
+def _trio_weights(weights, biases, c: int, dev):
+    """The trio's weights in resblock_conv.cuh's layout (dilation, conv,
+    C_in, tap, C_out), after checking kernel sizes and shapes."""
+    _check_trio(weights, biases, c, dev)
+    return [w.permute(0, 1, 3, 4, 2).contiguous() for w in weights]
 
 
 def _injection(har, nc_weight, nc_bias, bsz: int, c: int, dev):
@@ -568,16 +632,17 @@ def _trio_launch(x_up, har, nc_weight, nc_bias, weights, biases, s_src: int,
     if c not in TRIO_CHANNELS:
         raise ValueError(f"fused_resblocks_inject takes C in {TRIO_CHANNELS}, "
                          f"got C={c}")
-    dils = _check_dilations(dilations)
+    dils = _check_dilations(dilations, pad=28)  # resblock_mma.cuh's kPad
     x_cf = x_up.transpose(1, 2).contiguous()
     _check(x_cf, "x_up", (bsz, c, t), dev)
-    w_k = _trio_weights(weights, biases, c, dev)
+    _check_trio(weights, biases, c, dev)
     har2 = wnc = bnc = None
     t_final = ksrc = 0
     if har is not None:
         har2, wnc, bnc, t_final, ksrc = _injection(har, nc_weight, nc_bias,
                                                    bsz, c, dev)
     vl = None if valid is None else _lengths(valid, bsz, t, dev)
+    w_k = mma_fragments(weights)
     out = torch.empty_like(x_cf)
     _launch("resblocks", "resblocks_launch",
             x_cf.data_ptr(), _ptr(har2), _ptr(wnc), _ptr(bnc),
@@ -618,6 +683,17 @@ def fused_resblocks(x, weights, biases, dilations=(1, 3, 5), valid=None):
     har=None, whose launches are counted here."""
     return fused_resblocks_inject(x, None, None, None, weights, biases, 1,
                                   dilations, valid)
+
+
+def trio_kernel_info(c: int) -> dict:
+    """The compiled trio kernel at width C on the current card: registers
+    per thread, local-memory (spilled) bytes per thread and dynamic shared
+    memory per block."""
+    out = (_I * 3)()
+    err = _c_function("resblocks", "resblocks_info")(c, out)
+    if err != 0:
+        raise RuntimeError(f"resblocks_info failed: CUDA error {err}")
+    return dict(registers=out[0], spill_bytes=out[1], smem_bytes=out[2])
 
 
 # ---------------------------- one resblock chain ----------------------------

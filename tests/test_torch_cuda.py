@@ -98,6 +98,54 @@ def test_resblocks_inject_kernel(cuda, c, t, s_src, valid, inject):
     torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("valid", [None, [40000, 65536]])
+def test_resblocks_kernel_at_path_shape(cuda, valid):
+    """The trio without injection (#5) at the enhancer's C = 64 stage of a
+    512-frame segment, T = 65536, and with per-row lengths: atol 1e-4, rtol
+    1e-4, max |err| at most 2e-5 (it reads ~1e-5; summing each conv in the
+    tensor cores' own accumulators, without the fp32 re-accumulation, reads
+    ~9e-5, tools/ab_torch_trio.py), and every output past a row's length
+    exactly 0."""
+    g = torch.Generator(device=cuda).manual_seed(65)
+    ws, bs = _trio(g, 64)
+    x = _randn(g, 2, 65536, 64)
+    ref = K.resblocks_inject_plain(x, None, None, None, ws, bs, 1, valid=valid)
+    got = K.fused_resblocks(x, ws, bs, valid=valid)
+    torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+    assert (got - ref).abs().max().item() <= 2e-5
+    if valid is not None:
+        assert not got[0, valid[0]:].any()
+
+
+@pytest.mark.parametrize("c", [64, 16])
+def test_resblocks_kernel_wide_range(cuda, c):
+    """Inputs and weights of magnitude 10^u, u uniform in [-3, 3], random
+    signs, against the plain version in float64: within 4e-6 of max |ref|
+    (the kernel reads ~1.2e-6, the fp32 cuDNN chain 0.6-1.4e-6; these and
+    the figures below from tools/ab_torch_trio.py). Summing in the tensor
+    cores' own accumulators, which truncate, without the fp32
+    re-accumulation, reads 6.7e-6 (C = 16) and 2.6e-5 (C = 64), which 1e-4
+    against the fp32 chain would pass. A tf32 operand without its lo part
+    reads ~5e-4 here and fails every trio test (~3e-3 at unit scale)."""
+    g = torch.Generator(device=cuda).manual_seed(c + 3)
+
+    def wide(*shape):
+        u = torch.rand(shape, generator=g, device=cuda)
+        sign = torch.randint(0, 2, shape, generator=g, device=cuda) * 2 - 1
+        return sign * 10.0 ** (6 * u - 3)
+
+    ws = [wide(3, 2, c, c, k) for k in (3, 7, 11)]
+    bs = [_randn(g, 3, 2, c, scale=0.01) for _ in range(3)]
+    x = wide(1, 1000, c)
+    ref = K.resblocks_inject_plain(x.double(), None, None, None,
+                                   [w.double() for w in ws],
+                                   [b.double() for b in bs], 1)
+    got = K.fused_resblocks(x, ws, bs).double()
+    assert torch.isfinite(ref).all()
+    err = ((got - ref).abs().max() / ref.abs().max()).item()
+    assert err <= 4e-6, err
+
+
 # the RSS loss's 16 sizes (models/losses.py::default_buckets(256, 2048)), the
 # ends of the kernel's range and a few small ones, at ragged row counts
 DFT_SIZES = (256, 375, 495, 614, 734, 853, 972, 1092, 1211, 1331, 1450, 1569,
@@ -140,6 +188,29 @@ def test_dft_magnitude_kernel_mixed_scale(cuda, n_fft):
     ref = K.dft_magnitude_plain(x.double().cpu(), n_fft)
     got = K.dft_magnitude(x, n_fft).double().cpu()
     err = (got - ref).abs().amax(1) / ref.abs().amax(1)
+    assert err.max().item() <= 1e-4, err.max().item()
+
+
+@pytest.mark.parametrize("n_fft", [614, 853, 2047, 8191])
+def test_dft_magnitude_grad_mixed_scale(cuda, n_fft):
+    """The backward on rows scaled by 10^u, u uniform in [-4, 0], with the
+    upstream gradient 1 / (|X| + 1e-7) that the log term of the RSS loss
+    gives: each row's gradient within 1e-4 of its own max |ref|, the
+    reference autograd of the plain version in float64 on the CPU. The
+    quiet rows carry the largest spectrum after the 1/|X|^2 weighting, so
+    a batched transform that rounds rows at a neighbour's scale fails."""
+    g = torch.Generator(device=cuda).manual_seed(n_fft + 2)
+    rows = 301
+    scale = 10.0 ** (-4 * torch.rand((rows, 1), generator=g, device=cuda))
+    x = _randn(g, rows, n_fft) * scale
+    x64 = x.double().cpu().requires_grad_()
+    m64 = K.dft_magnitude_plain(x64, n_fft)
+    up = 1.0 / (m64.detach() + 1e-7)
+    (m64 * up).sum().backward()
+    xk = x.clone().requires_grad_()
+    (K.dft_magnitude(xk, n_fft) * up.float().to(cuda)).sum().backward()
+    ref = x64.grad
+    err = (xk.grad.double().cpu() - ref).abs().amax(1) / ref.abs().amax(1)
     assert err.max().item() <= 1e-4, err.max().item()
 
 

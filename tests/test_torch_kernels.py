@@ -246,6 +246,48 @@ def test_resblock_chain_plain_matches_jax(k):
         np.testing.assert_allclose(got, np.asarray(ref), atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("c,k,d", [(64, 11, 5), (32, 7, 3), (16, 3, 1),
+                                   (8, 7, 5)])
+def test_mma_fragments_give_the_conv(c, k, d):
+    """The tensor-core trio's weight layout (kernels.mma_fragments): one
+    dilated conv recomputed as the kernel forms it, a sum over k-steps (tap,
+    8 input channels) and m16 tiles of each lane's A fragment (a0..a3 at
+    rows g, g+8, g, g+8 and columns q, q, q+4, q+4 of the tile, g = lane
+    // 4, q = lane % 4), hi plus lo, times the input shifted by the tap,
+    against F.conv1d at 1e-6, in float64. hi is tf32 (13 low mantissa bits
+    zero) and hi + lo is the fp32 weight exactly."""
+    rng = np.random.default_rng(c + k)
+    t = 90
+    ws = [torch.from_numpy(rng.standard_normal((3, 2, c, c, kk))
+                           .astype(np.float32)) for kk in (3, k, 11)]
+    w = ws[1][2:]  # the conv2 of the third dilation
+    x = torch.from_numpy(rng.standard_normal((c, t)))
+    m = max(c, 16)
+    frags = K.mma_fragments(ws)[1].reshape(3, 2, k, c // 8, m // 16, 2, 32, 4)
+    frags = frags[2, 1]  # (k, C/8, M/16, 2, 32, 4)
+    assert frags.shape == (k, c // 8, m // 16, 2, 32, 4)
+    hi, lo = frags[:, :, :, 0], frags[:, :, :, 1]
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    assert (lo.abs() <= 2.0 ** -11 * hi.abs()).all()
+    rows = np.zeros((m // 16, 32, 4, m))
+    cols = np.zeros((c // 8, 32, 4, c))
+    for lane in range(32):
+        for v in range(4):
+            for mt in range(m // 16):
+                rows[mt, lane, v, mt * 16 + lane // 4 + 8 * (v % 2)] = 1
+            for grp in range(c // 8):
+                cols[grp, lane, v, grp * 8 + lane % 4 + 4 * (v // 2)] = 1
+    pad = (k - 1) // 2 * d
+    xp = torch.nn.functional.pad(x, (pad, pad))
+    taps = torch.stack([xp[:, tap * d:tap * d + t] for tap in range(k)])
+    got = torch.einsum("kgmlv,mlvo,glvi,kit->ot", frags.double().sum(3),
+                       torch.from_numpy(rows), torch.from_numpy(cols), taps)
+    ref = torch.nn.functional.conv1d(x[None], w[0, 1].double(), padding=pad,
+                                     dilation=d)[0]
+    assert not got[c:].any()  # the rows that pad M to 16
+    torch.testing.assert_close(got[:c], ref, atol=1e-6, rtol=1e-6)
+
+
 @pytest.mark.parametrize("b,t_in,s_src,ksrc", [(2, 96, 4, 8), (1, 70, 1, 1)])
 def test_stage_plain_matches_jax(b, t_in, s_src, ksrc):
     """stage_plain on the JAX kernel tests' two geometries (C = 8, u = 2;
