@@ -11,9 +11,11 @@ Phases, each printing its own lines:
   2. build: every CUDA kernel from the checkout's sources (nvcc, sm_90a);
   3. kernels: each hand-written kernel against its plain PyTorch version at
      the main path's shapes, with error, time, plain time and bound (#6
-     and #9 also per row, on rows of unequal scale, against float64; #4 and
-     #5 with their route, registers and shared memory, beside #10's
-     CUDA-core conv core at C = 64);
+     and #9 also per row, on rows of unequal scale, against float64; #4,
+     #5, #10 and #11, all on the tensor-core conv core, with their
+     registers, spills and shared memory; #10's three chains beside #5
+     and the cuDNN chain, #11 beside the cuDNN ConvTranspose followed by
+     #4);
   4. offline paths: conversion (`convert_features`) with each synthesizer
      at the full width of its config (CombSubFast from configs/combsub.yaml,
      Sins from configs/sins.yaml, CombSub from configs/combsub-old.yaml) and
@@ -174,6 +176,16 @@ def compare(torch, name, kern, plain, inputs, tol_abs, tol_rel_max,
     return err, time_ms(torch, kern, inputs), time_ms(torch, plain, inputs)
 
 
+def errors_vs_float64(torch, kern, plain, args):
+    """max |out - ref| / max |ref| of the kernel and of the fp32 plain
+    version, ref the plain version in float64 on the card."""
+    ref = plain(*[[a.double() for a in v] if isinstance(v, list)
+                  else v.double() if torch.is_tensor(v) else v for v in args])
+    scale = ref.abs().max()
+    return tuple(((fn(*args).double() - ref).abs().max() / scale).item()
+                 for fn in (kern, plain))
+
+
 def kernel_phase(torch, K, gen):
     """Each kernel against its plain version at the main path's shapes.
     Returns {name: row} for the kernels JSON line (launches filled later)."""
@@ -258,8 +270,7 @@ def kernel_phase(torch, K, gen):
         return (randn(1, t_s, c), har, randn(c, 1, ksrc, scale=0.2),
                 randn(c, scale=0.05), ws, bs, s, (1, 3, 5), valid)
 
-    def trio_build(c):
-        info = K.trio_kernel_info(c)
+    def build_info(info):
         return (f"{info['registers']} registers, {info['spill_bytes']} bytes "
                 f"spilled, {info['smem_bytes']} bytes of shared memory")
 
@@ -272,7 +283,8 @@ def kernel_phase(torch, K, gen):
         if not e <= 2e-5:
             fail(f"fused_resblocks_inject C={c}: max|err| {e:.3e} over 2e-5")
         say(f"kernel fused_resblocks_inject C={c} T={t_final // s} "
-            f"({TRIO_ROUTE}; {trio_build(c)}): max|err| {e:.3e} (atol 1e-4, "
+            f"({TRIO_ROUTE}; {build_info(K.trio_kernel_info(c))}): max|err| "
+            f"{e:.3e} (atol 1e-4, "
             f"rtol 1e-4; at most 2e-5), {ms:.3f} ms, plain (fp32 cuDNN "
             f"chain) {pms:.3f} ms")
         errs.append(e)
@@ -525,10 +537,10 @@ def kernel_phase(torch, K, gen):
             "library: the three-call cuFFT chain")
 
     # 10. one resblock chain (no path runs it; the JAX package's neither):
-    # the C = 64 stage of a 512-frame segment, T = 65536, at each k. Its
-    # conv core is the fp32 CUDA-core one (resblock_conv.cuh), so the sum of
-    # its three chains is the trio's work on the CUDA cores, beside #5's
-    # tensor-core time from this call
+    # the C = 64 stage of a 512-frame segment, T = 65536, at each k, on the
+    # trio's tensor-core conv core (resblock_mma.cuh), bound as #4. The sum
+    # of its three chains is the trio's conv work without the mean, beside
+    # #5 and the fp32 cuDNN chains from this call
     c, t_s = 64, t_final // 4
     err = ms_sum = pms_sum = flops = nbytes = 0.0
     for k in TRIO_K:
@@ -538,32 +550,43 @@ def kernel_phase(torch, K, gen):
         e, ms, pms = compare(torch, f"fused_resblock_chain k={k}",
                              K.fused_resblock_chain, K.resblock_chain_plain,
                              inputs, 1e-4, 0.0, tol_rtol=1e-4)
+        e64, p64 = errors_vs_float64(torch, K.fused_resblock_chain,
+                                     K.resblock_chain_plain, inputs[0])
+        if not e64 <= 4e-6:
+            fail(f"fused_resblock_chain k={k}: {e64:.3e} x max|ref| against "
+                 "float64, over 4e-6")
         f_k = 2 * c * c * 6 * k * t_s
         b_k = 4 * (2 * c * t_s + 6 * c * c * k + 6 * c)
-        say(f"kernel fused_resblock_chain C={c} T={t_s} k={k} (CUDA-core conv "
-            f"core, fp32 FMAs): max|err| {e:.3e} (atol 1e-4, rtol 1e-4), "
-            f"{ms:.3f} ms, plain (fp32 cuDNN chain) {pms:.3f} ms, bound "
-            f"{bound(b_k, f_k)[0]:.4f} ms")
+        say(f"kernel fused_resblock_chain C={c} T={t_s} k={k} ({TRIO_ROUTE}; "
+            f"{build_info(K.chain_kernel_info(c, k))}): max|err| {e:.3e} "
+            f"(atol 1e-4, rtol 1e-4; the trio's 2e-5 as a target); against "
+            f"float64 {e64:.3e} x max|ref| (at most 4e-6), the fp32 cuDNN "
+            f"chain {p64:.3e}; {ms:.3f} ms, plain (fp32 "
+            f"cuDNN chain) {pms:.3f} ms, bound "
+            f"{bound_3xtf32(b_k, f_k)[0]:.4f} ms in 3xTF32, "
+            f"{bound(b_k, f_k)[0]:.4f} ms in fp32")
         err, ms_sum, pms_sum = max(err, e), ms_sum + ms, pms_sum + pms
         flops += f_k
         nbytes += b_k
-    say(f"conv cores at C=64 T={t_s}, this call: tensor cores (#5, the trio) "
-        f"{trio_c64['ms']:.3f} ms, max|err| {trio_c64['err']:.3e}; CUDA cores "
-        f"(#10, k = 3 + 7 + 11) {ms_sum:.3f} ms, max|err| {err:.3e}; "
-        f"CUDA-core / tensor-core time {ms_sum / trio_c64['ms']:.3f}; fp32 "
-        f"cuDNN chain {trio_c64['plain_ms']:.3f} ms (#5's plain)")
+    say(f"fused_resblock_chain at C=64 T={t_s}, this call: k = 3 + 7 + 11 "
+        f"{ms_sum:.3f} ms, max|err| {err:.3e}; / #5 (the trio, "
+        f"{trio_c64['ms']:.3f} ms) {ms_sum / trio_c64['ms']:.3f}; / its fp32 "
+        f"cuDNN chains ({pms_sum:.3f} ms) {ms_sum / pms_sum:.3f}; #5's fp32 "
+        f"cuDNN chain {trio_c64['plain_ms']:.3f} ms")
     rows["fused_resblock_chain"] = dict(
         route="cuda", source="ddsp_svc_tpu_torch/csrc/resblock_chain.cu",
         replaces=f"{TPU_KERNELS}:1415", max_abs_err=err, ms=ms_sum,
-        plain_ms=pms_sum, bound=bound(nbytes, flops), library_ms=pms_sum,
-        tol="atol 1e-4 + rtol 1e-4 (the JAX package's kernel test); times "
-            "are the sum of k = 3, 7, 11 at C = 64, T = 65536; the CUDA-core "
-            "conv core; library: the fp32 cuDNN conv chain (the plain "
-            "version)")
+        plain_ms=pms_sum, bound=bound_3xtf32(nbytes, flops),
+        library_ms=pms_sum,
+        tol="atol 1e-4 + rtol 1e-4 (the JAX package's kernel test), max|err| "
+            "at most 2e-5; times are the sum of k = 3, 7, 11 at C = 64, T = "
+            "65536; conv core ddsp_svc_tpu_torch/csrc/resblock_mma.cuh; "
+            "library: the fp32 cuDNN conv chain (the plain version)")
 
     # 11. the fused stage: H_NSF's three narrow stages (u = 2) of a 512-frame
-    # segment, from x_pre (1, T / 2, 2C); beside it the same stage as the
-    # cuDNN ConvTranspose followed by #4
+    # segment, from x_pre (1, T / 2, 2C), on the tensor-core conv core, bound
+    # as #4; its library time is the same stage as the cuDNN ConvTranspose
+    # followed by #4
     def stage_inputs(c, s):
         t_out = t_final // s
         ws = [randn(3, 2, c, c, k, scale=(2.0 / (k * c)) ** 0.5)
@@ -581,30 +604,45 @@ def kernel_phase(torch, K, gen):
             stride=u, padding=u // 2).transpose(1, 2)
         return K.fused_resblocks_inject(x_up, har, nw, nb, ws, bs, s)
 
-    err = ms_sum = pms_sum = flops = nbytes = 0.0
+    err = ms_sum = pms_sum = ums_sum = flops = nbytes = 0.0
     for c, s in TRIO_STAGES:
         inputs = [stage_inputs(c, s) for _ in range(2)]
         e, ms, pms = compare(torch, f"fused_stage C={c}", K.fused_stage,
                              K.stage_plain, inputs, 2e-4, 0.0, tol_rtol=2e-4)
+        if not e <= 2e-5:
+            fail(f"fused_stage C={c}: max|err| {e:.3e} over 2e-5")
+        e64, p64 = errors_vs_float64(torch, K.fused_stage, K.stage_plain,
+                                     inputs[0])
+        if not e64 <= 4e-6:
+            fail(f"fused_stage C={c}: {e64:.3e} x max|ref| against float64, "
+                 "over 4e-6")
         ums = time_ms(torch, unfused_stage, inputs)
         t_out, ksrc = t_final // s, (2 * s if s > 1 else 1)
         f_c = (2 * c * c * 6 * 21 * t_out + 2 * 2 * c * c * 2 * t_out
                + 2 * c * ksrc * t_out)
         b_c = 4 * (2 * c * t_out // 2 + t_final + c * t_out
                    + 6 * c * c * 21 + 8 * c * c + 20 * c + c * ksrc)
-        say(f"kernel fused_stage C={c} T_out={t_out}: max|err| {e:.3e} (atol "
-            f"2e-4, rtol 2e-4), {ms:.3f} ms, plain {pms:.3f} ms, cuDNN "
-            f"ConvTranspose + fused_resblocks_inject {ums:.3f} ms, bound "
-            f"{bound(b_c, f_c)[0]:.4f} ms")
+        say(f"kernel fused_stage C={c} T_out={t_out} ({TRIO_ROUTE}; "
+            f"{build_info(K.stage_kernel_info(c))}): max|err| {e:.3e} (atol "
+            f"2e-4, rtol 2e-4; at most 2e-5); against float64 {e64:.3e} x "
+            f"max|ref| (at most 4e-6), the fp32 plain {p64:.3e}; {ms:.3f} ms, "
+            f"plain {pms:.3f} ms,"
+            f" library (cuDNN ConvTranspose + fused_resblocks_inject) "
+            f"{ums:.3f} ms, bound {bound_3xtf32(b_c, f_c)[0]:.4f} ms in "
+            f"3xTF32, {bound(b_c, f_c)[0]:.4f} ms in fp32")
         err, ms_sum, pms_sum = max(err, e), ms_sum + ms, pms_sum + pms
+        ums_sum += ums
         flops += f_c
         nbytes += b_c
     rows["fused_stage"] = dict(
         route="cuda", source="ddsp_svc_tpu_torch/csrc/fused_stage.cu",
         replaces=f"{TPU_KERNELS}:1694", max_abs_err=err, ms=ms_sum,
-        plain_ms=pms_sum, bound=bound(nbytes, flops), library_ms=None,
-        tol="atol 2e-4 + rtol 2e-4 (the JAX package's kernel test); times "
-            "are the sum of the three narrow stages (C = 64, 32, 16)")
+        plain_ms=pms_sum, bound=bound_3xtf32(nbytes, flops),
+        library_ms=ums_sum,
+        tol="atol 2e-4 + rtol 2e-4 (the JAX package's kernel test), max|err| "
+            "at most 2e-5; times are the sum of the three narrow stages (C = "
+            "64, 32, 16); conv core ddsp_svc_tpu_torch/csrc/resblock_mma.cuh; "
+            "library: the cuDNN ConvTranspose followed by #4")
 
     # the backward of #4, #10 and #11 (autograd Functions re-running the
     # plain versions) at the C = 64 stage against autograd of the plain

@@ -19,38 +19,43 @@
 // and the upsampled activation is neither written nor read apart from the
 // x0 scratch below.
 //
-// Design: csrc/resblock_conv.cuh, the trio kernel's tile and conv chain,
-// with another fill of h. For output column g with phase r = (g + p) mod u
-// and m0 = (g + p - r) / u, the transposed conv reads exactly two
-// pre-upsample columns per input channel: x_pre[m0] with tap r and
-// x_pre[m0 - 1] with tap r + u. Since u divides 32 and the tile start, each
-// thread's ten columns (32 apart) share one phase, so it loads 2 x 8 weights
-// per input channel (through L1; 2C * k * C floats, 131 KB at C = 64, k = 4)
-// and reads the x_pre window, leaky'd and staged into the t buffer (which
-// the chain only needs after the fill) as C input channels x (W / u + 2)
-// columns at a time. x0 is computed once per tile and kept for the second
-// and third chains in a per-tile scratch in device memory (each thread
-// writes and reads back its own entries, 1.67x the output's bytes at C =
-// 64, mostly in L2). Computing it again before each chain costs two more
-// fills (~6 % of the stage's FMAs, at a lower rate than the chain's), and
-// keeping it in registers beside the trio mean would add 80 to a thread's
-// 160 (the mean and a conv's accumulators) out of 255: a version that
-// redid the fill, with the mean live across it, already spilled at 255.
+// Design: the trio kernel (resblocks.cu) on csrc/resblock_mma.cuh, with
+// another fill of h. As in the TPU kernel (_upconv_phase_taps), the
+// transposed conv splits by phase: output column g with phase r = (g + p)
+// mod u and m0 = (g + p - r) / u reads two pre-upsample columns per input
+// channel, x_pre[m0] with tap r and x_pre[m0 - 1] with tap r + u. Since u
+// divides the tile start, the tile's columns u j + rho (rho < u) share one
+// phase, and over them the transposed conv is one GEMM, M = C, K = 2 taps x
+// 2C input channels, N = W / u columns, whose B operand reads the leaky'd
+// x_pre window at consecutive columns: one more implicit GEMM in 3xTF32 on
+// the tensor cores (mma_k_step), with its own fragment-ordered weights
+// (the convs of ops/kernels.py::stage_up_convs, laid out by mma_fragments
+// in the chains' gather). Taking the columns phase by phase,
+// each warp's run of n8 tiles (W / 8 columns) lies in one phase, since u
+// divides 8, and reads its phase's A fragments straight from global memory
+// (they differ between warps, so they are not staged). The window, C input
+// channels at a time by W / u + 2 columns, is staged in t (the chains only
+// need t afterwards, and conv_pass needs its pads zero, so t is zeroed
+// again). The transposed conv is 3.2 % of the stage's flops; x0 is computed
+// once per tile and kept for the second and third chains in a per-tile
+// scratch in device memory (C x W floats a tile, 1.67x the output's bytes
+// at C = 64, mostly in L2), copied back into h before each. The trio mean
+// is summed in the output.
 
-#include "resblock_conv.cuh"
+#include "resblock_mma.cuh"
 
 namespace {
 
-using namespace rbconv;
+using namespace rbmma;
 
 struct Args {
-  const float* x;    // (B, 2C, T_in), the stage's input before the leaky
-  const float* har;  // (B, T_final)
-  const float* wup;  // (2C, k, C): (C_in, tap, C_out), k = 2u
-  const float* bup;  // (C,)
-  const float* wnc;  // (C, ksrc)
-  const float* bnc;  // (C,)
-  const float* w[3];  // (3, 2, C_in, k_r, C_out)
+  const float* x;     // (B, 2C, T_in), the stage's input before the leaky
+  const float* har;   // (B, T_final)
+  const float* wup;   // (u, 2, 2, C / 8, M / 16, 2, 32, 4): fragment order
+  const float* bup;   // (C,)
+  const float* wnc;   // (C, ksrc)
+  const float* bnc;   // (C,)
+  const float* w[3];  // (3, 2, k_r, C / 8, M / 16, 2, 32, 4): fragment order
   const float* b[3];  // (3, 2, C)
   float* out;         // (B, C, T_out)
   float* x0;          // (B, n_tiles, C, W): each tile's x0
@@ -58,72 +63,121 @@ struct Args {
   int dil[3];
 };
 
-__device__ __forceinline__ int floor_div(int a, int b) {
-  return a >= 0 ? a / b : -((-a + b - 1) / b);
-}
-
-// h = x0 on all W columns of the tile, zero outside [0, T), and each
-// thread's own entries also into x0s (C, W). Uses t as the staging buffer
-// of the x_pre window; leaves t zero.
+// h = x0 on all W columns of the tile, zero outside [0, T), and the same
+// into x0s (C, W). Uses all of t for the x_pre window. x: (2C, T_in) and
+// har: (T_final,) of this batch row. wup: for each phase r, a conv of two
+// taps (r and r + u) over each half of the input channels, in fragment
+// order (half, tap, C / 8, M / 16, 2, 32, 4).
 template <int C>
 __device__ void fill_stage(const Args& a, const float* x, const float* har, float* h,
                            float* t, float* x0s, int g0) {
   using G = Geometry<C>;
-  const int co0 = thread_co0<C>(), col0 = thread_col0<C>();
-  const int u = a.u, k = 2 * a.u;
-  const int nx = G::W / u + 2;
-  const int mbase = floor_div(g0 + a.p, u) - 1;  // x_pre index of window column 0
-  const int r = ((g0 + col0 + a.p) % u + u) % u;  // this thread's phase
-  int ml[kTT];  // window column of m0 for each of this thread's columns
-#pragma unroll
-  for (int j = 0; j < kTT; ++j) ml[j] = (g0 + col0 + 32 * j + a.p - r) / u - mbase;
+  constexpr int kMT = G::kMTiles, kNT = G::kNTiles;
+  constexpr int kSteps = 2 * G::kGroups;  // k-steps of one half: 2 taps x C / 8
+  constexpr int kRows = C < 16 ? 1 : 2;   // rows of an m tile a thread holds
+  const int u = a.u, lane = threadIdx.x & 31;
+  const int per_phase = G::W / u;
+  const int q0 = (threadIdx.x >> 5) * kNT * 8;  // the warp's first column, phase by phase
+  const int rho = q0 / per_phase;  // its columns are u j + rho of the tile
+  const int j0 = q0 % per_phase;   // the j of its first column
+  const int nx = per_phase + 2;    // window column i holds x_pre[g0 / u - 1 + i]
+  // B fragment (row lane % 4 of a k8 group, column lane / 4 of an n8 tile):
+  // tap 0 reads x_pre[m0], window column j + 1 + (rho + p) / u; tap 1 the
+  // column before
+  const float* b_lane = t + (lane & 3) * G::S + j0 + (lane >> 2) + 1 + (rho + a.p) / u;
+  const float* w_lane =
+      a.wup + (size_t)((rho + a.p) % u) * 2 * conv_floats<C>(2) + lane * 4;
 
-  float acc[kCoT][kTT];
-  fill_regs(acc, 0.f);
+  Frags<C> acc, part;
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
   for (int half = 0; half < 2; ++half) {
-    __syncthreads();  // t is free (the chain before, or the first half, is done)
-    for (int i = threadIdx.x; i < C * nx; i += kThreads) {
-      const int c = i / nx, m = mbase + i % nx;
-      t[i] = (m >= 0 && m < a.t_in) ? leaky(x[(size_t)(half * C + c) * a.t_in + m]) : 0.f;
+    __syncthreads();  // every warp is done with the previous half's window
+    for (int col = threadIdx.x; col < nx; col += kThreads) {
+      const int m = g0 / u - 1 + col;
+      const bool in = m >= 0 && m < a.t_in;
+      const float* xm = x + (size_t)half * C * a.t_in + m;
+      float v[C];  // every load in flight before the first store
+#pragma unroll
+      for (int c = 0; c < C; ++c) v[c] = in ? xm[(size_t)c * a.t_in] : 0.f;
+#pragma unroll
+      for (int c = 0; c < C; ++c) t[c * G::S + col] = leaky(v[c]);
     }
     __syncthreads();
-#pragma unroll 2
-    for (int c = 0; c < C; ++c) {
-      const float* wr = a.wup + ((size_t)(half * C + c) * k + r) * C + co0;
-      const float4 a0 = __ldg(reinterpret_cast<const float4*>(wr));
-      const float4 a1 = __ldg(reinterpret_cast<const float4*>(wr + 4));
-      const float4 b0 = __ldg(reinterpret_cast<const float4*>(wr + u * C));
-      const float4 b1 = __ldg(reinterpret_cast<const float4*>(wr + u * C + 4));
-      const float wa[kCoT] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float wb[kCoT] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-      const float* xr = t + c * nx;
+    const float* w_half = w_lane + half * conv_floats<C>(2);
+    auto k_step = [&](int s, auto zero_start) {
+      const int tap = s / G::kGroups, grp = s % G::kGroups;
+      mma_k_step<C, false, decltype(zero_start)::value>(
+          part, w_half + s * G::kStepFloats, b_lane + grp * 8 * G::S - tap);
+    };
+#pragma unroll 1
+    for (int s0 = 0; s0 < kSteps; s0 += kChunk) {
+      k_step(s0, std::true_type{});
+#pragma unroll 1
+      for (int s = s0 + 1; s < min(s0 + kChunk, kSteps); ++s) k_step(s, std::false_type{});
+      add_frags<C>(acc, part);
+    }
+  }
+
+  // + b_up + noise_conv(har) (kernel ksrc, stride s_src, padding s_src / 2),
+  // tap by tap, each tap's loads of har for all this thread's columns in
+  // flight at once. Output (mt, nt, 2 hf + e) is channel 16 mt + row0 + 8 hf
+  // at column u (jt + 8 nt + e) + rho.
+  const int row0 = frag_row0(), jt = j0 + 2 * (lane & 3);
 #pragma unroll
-      for (int j = 0; j < kTT; ++j) {
-        const float va = xr[ml[j]], vb = xr[ml[j] - 1];
+  for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-        for (int o = 0; o < kCoT; ++o) acc[o][j] = fmaf(wb[o], vb, fmaf(wa[o], va, acc[o][j]));
+    for (int hf = 0; hf < kRows; ++hf) {
+      const int c = mt * 16 + row0 + 8 * hf;
+      const float b = a.bup[c] + a.bnc[c];
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) acc[mt][nt][2 * hf + e] += b;
+    }
+  for (int tau = 0; tau < a.ksrc; ++tau) {
+    float w[kMT][kRows], hv[kNT][2];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int hf = 0; hf < kRows; ++hf) w[mt][hf] = a.wnc[(mt * 16 + row0 + 8 * hf) * a.ksrc + tau];
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int hi = (g0 + u * (jt + nt * 8 + e) + rho) * a.s_src - a.s_src / 2 + tau;
+        hv[nt][e] = hi >= 0 && hi < a.t_final ? har[hi] : 0.f;
       }
-    }
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int hf = 0; hf < kRows; ++hf)
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            acc[mt][nt][2 * hf + e] = fmaf(w[mt][hf], hv[nt][e], acc[mt][nt][2 * hf + e]);
   }
 #pragma unroll
-  for (int j = 0; j < kTT; ++j) {
-    const int col = col0 + 32 * j;
-    const int g = g0 + col;
-    const bool in = g >= 0 && g < a.T;
+  for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
-    for (int o = 0; o < kCoT; ++o) {
-      const int c = co0 + o;
-      const float v = in ? acc[o][j] + a.bup[c] +
-                               noise_conv_at(har, a.wnc + c * a.ksrc, a.bnc[c], g, a.s_src,
-                                             a.ksrc, a.t_final)
-                         : 0.f;
-      h[c * G::S + kPad + col] = v;
-      x0s[c * G::W + col] = v;
+    for (int e = 0; e < 2; ++e) {
+      const int col = u * (jt + nt * 8 + e) + rho;
+      const bool in = g0 + col >= 0 && g0 + col < a.T;
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int hf = 0; hf < kRows; ++hf) {
+          const int c = mt * 16 + row0 + 8 * hf;
+          const float o = in ? acc[mt][nt][2 * hf + e] : 0.f;
+          h[c * G::S + kPad + col] = o;
+          x0s[c * G::W + col] = o;
+        }
     }
-  }
-  __syncthreads();  // every thread is done reading the staged window
-  for (int i = threadIdx.x; i < C * G::S; i += kThreads) t[i] = 0.f;
-  __syncthreads();
 }
 
 template <int C>
@@ -135,32 +189,34 @@ __global__ void __launch_bounds__(kThreads, 1) fused_stage_kernel(Args a) {
   float* s_w = sm + 2 * C * G::S;
   const int bi = blockIdx.y;
   const int g0 = blockIdx.x * G::kTile - kHalo;  // sequence index of column 0
-  const float* x = a.x + (size_t)bi * 2 * C * a.t_in;
-  const float* har = a.har + (size_t)bi * a.t_final;
   float* x0s = a.x0 + ((size_t)bi * gridDim.x + blockIdx.x) * C * G::W;
+  float* out = a.out + (size_t)bi * C * a.T;
+  fill_stage<C>(a, a.x + (size_t)bi * 2 * C * a.t_in, a.har + (size_t)bi * a.t_final, h, t,
+                x0s, g0);
+  __syncthreads();  // every warp is done with the window in t
   zero_buffers<C>(h, t);
-  fill_stage<C>(a, x, har, h, t, x0s, g0);
-  run_chain<C, 3>(h, t, s_w, a.w[0], a.b[0], a.dil[0], a.dil[1], a.dil[2], g0, a.T);
-  // the mean starts after the fill, so it holds no registers there
-  float mean[kCoT][kTT];
-  fill_regs(mean, 0.f);
-  add_own_h<C>(h, mean);
-  const int co0 = thread_co0<C>(), col0 = thread_col0<C>();
-  for (int r = 1; r < 3; ++r) {
-    // h = x0 again: each thread its own entries, as it wrote them
+  const int d0 = a.dil[0], d1 = a.dil[1], d2 = a.dil[2];
+  for (int r = 0; r < 3; ++r) {
+    if (r > 0) {  // h = x0 again, all loads in flight at once
+      constexpr int kRow4 = G::W / 4, kLoads = C * kRow4 / kThreads;
+      static_assert(C * kRow4 % kThreads == 0, "copy split");
+      __syncthreads();  // the previous chain is done with h
+      float4 v[kLoads];
 #pragma unroll
-    for (int o = 0; o < kCoT; ++o)
+      for (int n = 0; n < kLoads; ++n)
+        v[n] = reinterpret_cast<const float4*>(x0s)[n * kThreads + threadIdx.x];
 #pragma unroll
-      for (int j = 0; j < kTT; ++j) {
-        const int col = col0 + 32 * j;
-        h[(co0 + o) * G::S + kPad + col] = x0s[(co0 + o) * G::W + col];
+      for (int n = 0; n < kLoads; ++n) {
+        const int i = n * kThreads + threadIdx.x;
+        *reinterpret_cast<float4*>(h + (i / kRow4) * G::S + kPad + 4 * (i % kRow4)) = v[n];
       }
-    __syncthreads();
-    run_chain_k<C>(trio_k(r), h, t, s_w, a.w[r], a.b[r], a.dil[0], a.dil[1], a.dil[2], g0,
-                   a.T);
-    add_own_h<C>(h, mean);
+      __syncthreads();
+    }
+    if (r == 0) run_chain<C, 3>(h, t, s_w, a.w[0], a.b[0], d0, d1, d2, g0, a.T);
+    else if (r == 1) run_chain<C, 7>(h, t, s_w, a.w[1], a.b[1], d0, d1, d2, g0, a.T);
+    else run_chain<C, 11>(h, t, s_w, a.w[2], a.b[2], d0, d1, d2, g0, a.T);
+    accumulate_mean<C>(h, out, r, g0, a.T);
   }
-  store_interior<C>(a.out + (size_t)bi * C * a.T, mean, 1.0f / 3.0f, g0, a.T);
 }
 
 template <int C>
@@ -171,18 +227,21 @@ long long scratch_floats(int B, int T) {
 
 }  // namespace
 
-// x: (B, 2C, T_in) fp32; har: (B, T_final); wup: (2C, 2u, C); bup: (C,);
-// wnc: (C, ksrc); bnc: (C,); w_r: (3, 2, C, k_r, C) for k_r = 3, 7, 11; b_r:
-// (3, 2, C); out: (B, C, T_out), T_out = (T_in - 1) u - 2p + 2u; x0: scratch
-// of fused_stage_scratch_floats(B, C, T_out) floats. C in 8/16/32/64, u in
-// 1/2/4/8 (a divisor of 32 and of every tile start).
+// x: (B, 2C, T_in) fp32; har: (B, T_final); wup: the transposed conv's
+// (2C, C, 2u) weights in fragment order (u, 2, 2, C / 8, M / 16, 2, 32, 4)
+// (ops/kernels.py::mma_fragments of stage_up_convs); bup: (C,); wnc: (C, ksrc); bnc:
+// (C,); w_r: chain r's (3, 2) convs of kernel size k_r = 3, 7, 11 in
+// fragment order (ops/kernels.py::mma_fragments); b_r: (3, 2, C); out: (B,
+// C, T_out), T_out = (T_in - 1) u - 2p + 2u; x0: scratch of
+// fused_stage_scratch_floats(B, C, T_out) floats. C in 8/16/32/64, u in
+// 1/2/4/8 (a divisor of 8, and of every tile start).
 extern "C" int fused_stage_launch(const float* x, const float* har, const float* wup,
                                   const float* bup, const float* wnc, const float* bnc,
                                   const float* w0, const float* w1, const float* w2,
                                   const float* b0, const float* b1, const float* b2,
-                                  float* out, float* x0, int B, int C, int t_in, int T, int u, int p,
-                                  int t_final, int s_src, int ksrc, int d0, int d1, int d2,
-                                  void* stream) {
+                                  float* out, float* x0, int B, int C, int t_in, int T, int u,
+                                  int p, int t_final, int s_src, int ksrc, int d0, int d1,
+                                  int d2, void* stream) {
   if (u != 1 && u != 2 && u != 4 && u != 8) return (int)cudaErrorInvalidValue;
   Args a{x, har, wup, bup, wnc, bnc, {w0, w1, w2}, {b0, b1, b2}, out, x0,
          t_in, T, u, p, t_final, s_src, ksrc, {d0, d1, d2}};
@@ -203,5 +262,18 @@ extern "C" long long fused_stage_scratch_floats(int B, int C, int T) {
     case 32: return scratch_floats<32>(B, T);
     case 64: return scratch_floats<64>(B, T);
     default: return -1;
+  }
+}
+
+// The compiled kernel at width C: out[0] registers per thread, out[1]
+// local-memory bytes per thread (spills), out[2] dynamic shared memory per
+// block.
+extern "C" int fused_stage_info(int C, int* out) {
+  switch (C) {
+    case 8: return kernel_info<8>(fused_stage_kernel<8>, out);
+    case 16: return kernel_info<16>(fused_stage_kernel<16>, out);
+    case 32: return kernel_info<32>(fused_stage_kernel<32>, out);
+    case 64: return kernel_info<64>(fused_stage_kernel<64>, out);
+    default: return (int)cudaErrorInvalidValue;
   }
 }

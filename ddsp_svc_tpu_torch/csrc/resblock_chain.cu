@@ -8,23 +8,26 @@
 //
 // Bound on the H100: operations. The chain does 2 C^2 * 6 * k flops per
 // sample on 8 C bytes of input and output (0.34 MFLOP per sample at C = 64,
-// k = 7): fp32 CUDA-core work far above the ridge. Like the TPU kernel it
-// keeps the six conv intermediates out of device memory.
+// k = 7), far above the ridge. Like the TPU kernel it keeps the six conv
+// intermediates out of device memory.
 //
-// Design: csrc/resblock_conv.cuh, the trio kernel's tile and conv chain
-// with one chain per tile and no mean; K is a template parameter. Widths C
-// = 8, 16, 32, 64 only: at C = 256 the two activation tiles alone would need
-// more shared memory than a block has (ROADMAP.md lists the wide form).
+// Design: the trio kernel (resblocks.cu) with one chain and no mean, on
+// csrc/resblock_mma.cuh: each conv an implicit GEMM on the tensor cores in
+// 3xTF32 with fp32 re-accumulation, the weights in fragment order
+// (ops/kernels.py::mma_fragments of the one chain); K is a template
+// parameter. Widths C = 8, 16, 32, 64 only: at C = 256 the two activation
+// tiles alone would need more shared memory than a block has (ROADMAP.md
+// lists the wide form).
 
-#include "resblock_conv.cuh"
+#include "resblock_mma.cuh"
 
 namespace {
 
-using namespace rbconv;
+using namespace rbmma;
 
 struct Args {
   const float* x;  // (B, C, T)
-  const float* w;  // (3, 2, C_in, K, C_out)
+  const float* w;  // (3, 2, K, C_in / 8, M / 16, 2, 32, 4): fragment order
   const float* b;  // (3, 2, C)
   float* out;      // (B, C, T)
   int T;
@@ -40,19 +43,11 @@ __global__ void __launch_bounds__(kThreads, 1) resblock_chain_kernel(Args a) {
   float* s_w = sm + 2 * C * G::S;
   const int bi = blockIdx.y;
   const int g0 = blockIdx.x * G::kTile - kHalo;  // sequence index of column 0
-  const float* x = a.x + (size_t)bi * C * a.T;
   zero_buffers<C>(h, t);
-  for (int i = threadIdx.x; i < C * G::W; i += kThreads) {
-    const int c = i / G::W, col = i % G::W;
-    const int g = g0 + col;
-    h[c * G::S + kPad + col] = (g >= 0 && g < a.T) ? x[(size_t)c * a.T + g] : 0.f;
-  }
+  fill_x0<C>(h, a.x + (size_t)bi * C * a.T, nullptr, nullptr, nullptr, a.T, 0, 0, 0, g0, a.T);
   __syncthreads();
   run_chain<C, K>(h, t, s_w, a.w, a.b, a.dil[0], a.dil[1], a.dil[2], g0, a.T);
-  float v[kCoT][kTT];
-  fill_regs(v, 0.f);
-  add_own_h<C>(h, v);
-  store_interior<C>(a.out + (size_t)bi * C * a.T, v, 1.0f, g0, a.T);
+  store_interior<C>(h, a.out + (size_t)bi * C * a.T, g0, a.T);
 }
 
 template <int C>
@@ -65,10 +60,22 @@ int launch_c(const Args& a, int K, int B, cudaStream_t s) {
   }
 }
 
+template <int C>
+int info_c(int K, int* out) {
+  switch (K) {
+    case 3: return kernel_info<C>(resblock_chain_kernel<C, 3>, out);
+    case 7: return kernel_info<C>(resblock_chain_kernel<C, 7>, out);
+    case 11: return kernel_info<C>(resblock_chain_kernel<C, 11>, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
-// x, out: (B, C, T) fp32; w: (3, 2, C, K, C) (dilation, conv, C_in, tap,
-// C_out); b: (3, 2, C). C in 8/16/32/64, K in 3/7/11.
+// x, out: (B, C, T) fp32; w: the chain's (3, 2) convs of kernel size K in
+// fragment order (K, C / 8, M / 16, 2, 32, 4), M = max(C, 16)
+// (ops/kernels.py::mma_fragments); b: (3, 2, C). C in 8/16/32/64, K in
+// 3/7/11.
 extern "C" int resblock_chain_launch(const float* x, const float* w, const float* b,
                                      float* out, int B, int C, int T, int K, int d0,
                                      int d1, int d2, void* stream) {
@@ -79,6 +86,19 @@ extern "C" int resblock_chain_launch(const float* x, const float* w, const float
     case 16: return launch_c<16>(a, K, B, s);
     case 32: return launch_c<32>(a, K, B, s);
     case 64: return launch_c<64>(a, K, B, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The compiled kernel at width C and kernel size K: out[0] registers per
+// thread, out[1] local-memory bytes per thread (spills), out[2] dynamic
+// shared memory per block.
+extern "C" int resblock_chain_info(int C, int K, int* out) {
+  switch (C) {
+    case 8: return info_c<8>(K, out);
+    case 16: return info_c<16>(K, out);
+    case 32: return info_c<32>(K, out);
+    case 64: return info_c<64>(K, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

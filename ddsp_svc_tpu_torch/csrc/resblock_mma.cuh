@@ -2,8 +2,8 @@
 // the tensor cores: each conv is one implicit GEMM, M = C_out, K = k C_in,
 // N = the tile's W columns, in mma.sync.m16n8k8 tf32 products with fp32
 // accuracy (3xTF32, the sum re-accumulated in fp32). Used by the trio
-// (resblocks.cu); resblock_conv.cuh holds the CUDA-core chain of
-// resblock_chain.cu and fused_stage.cu.
+// (resblocks.cu), one chain (resblock_chain.cu) and the whole stage
+// (fused_stage.cu, whose transposed-conv fill runs on mma_k_step too).
 //
 // A block owns one (time tile, batch row) and holds two (C, S) fp32
 // activation buffers in shared memory, the chain state h and the temporary
@@ -138,6 +138,57 @@ __device__ __forceinline__ int frag_col0() {
 
 __device__ __forceinline__ int frag_row0() { return (threadIdx.x & 31) >> 2; }
 
+// One k-step (a tap and 8 input channels) of 3xTF32 products into part,
+// which starts at zero if kZero. a: this lane's A fragments of the k-step
+// (m tile mt: hi at a + 256 mt, lo at + 128); b: this lane's B values of n
+// tile nt at b[8 nt] and b[4 S + 8 nt], leaky'd first if kLeaky.
+template <int C, bool kLeaky, bool kZero>
+__device__ __forceinline__ void mma_k_step(Frags<C>& part, const float* a, const float* b) {
+  using G = Geometry<C>;
+  constexpr int kMT = G::kMTiles, kNT = G::kNTiles;
+  uint32_t a_hi[kMT][4], a_lo[kMT][4];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt) {
+    const uint4 hi = *reinterpret_cast<const uint4*>(a + mt * 256);
+    const uint4 lo = *reinterpret_cast<const uint4*>(a + mt * 256 + 128);
+    a_hi[mt][0] = hi.x, a_hi[mt][1] = hi.y, a_hi[mt][2] = hi.z, a_hi[mt][3] = hi.w;
+    a_lo[mt][0] = lo.x, a_lo[mt][1] = lo.y, a_lo[mt][2] = lo.z, a_lo[mt][3] = lo.w;
+  }
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt) {
+    float v0 = b[nt * 8], v1 = b[4 * G::S + nt * 8];
+    if (kLeaky) {
+      v0 = leaky(v0);
+      v1 = leaky(v1);
+    }
+    uint32_t b_hi[2], b_lo[2];
+    split_tf32(v0, b_hi[0], b_lo[0]);
+    split_tf32(v1, b_hi[1], b_lo[1]);
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+      if (kZero) {
+        const float zero[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_tf32(part[mt][nt], a_lo[mt], b_hi, zero);
+      } else {
+        mma_tf32(part[mt][nt], a_lo[mt], b_hi, part[mt][nt]);
+      }
+      mma_tf32(part[mt][nt], a_hi[mt], b_lo, part[mt][nt]);
+      mma_tf32(part[mt][nt], a_hi[mt], b_hi, part[mt][nt]);
+    }
+  }
+}
+
+// The fp32 re-accumulation of a chunk: acc += part.
+template <int C>
+__device__ __forceinline__ void add_frags(Frags<C>& acc, const Frags<C>& part) {
+#pragma unroll
+  for (int mt = 0; mt < Geometry<C>::kMTiles; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < Geometry<C>::kNTiles; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] += part[mt][nt][i];
+}
+
 // Zero all of t, pads included, and the pads of h: no conv writes a pad
 // column.
 template <int C>
@@ -194,39 +245,9 @@ __device__ __forceinline__ void conv_pass(const float* src, float* dst,
   // k-step `step` (its A fragments at sw_step) into part; the first of a
   // chunk starts part at zero
   auto k_step = [&](int step, const float* sw_step, auto zero_start) {
-    constexpr bool kZero = decltype(zero_start)::value;
     const int tap = step / G::kGroups, grp = step % G::kGroups;
-    uint32_t a_hi[kMT][4], a_lo[kMT][4];
-#pragma unroll
-    for (int mt = 0; mt < kMT; ++mt) {
-      const uint4 hi = *reinterpret_cast<const uint4*>(sw_step + mt * 256);
-      const uint4 lo = *reinterpret_cast<const uint4*>(sw_step + mt * 256 + 128);
-      a_hi[mt][0] = hi.x, a_hi[mt][1] = hi.y, a_hi[mt][2] = hi.z, a_hi[mt][3] = hi.w;
-      a_lo[mt][0] = lo.x, a_lo[mt][1] = lo.y, a_lo[mt][2] = lo.z, a_lo[mt][3] = lo.w;
-    }
-    const float* b_row = src_lane + grp * 8 * G::S + (tap - (K - 1) / 2) * d;
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      float v0 = b_row[nt * 8], v1 = b_row[4 * G::S + nt * 8];
-      if (kFirst) {
-        v0 = leaky(v0);
-        v1 = leaky(v1);
-      }
-      uint32_t b_hi[2], b_lo[2];
-      split_tf32(v0, b_hi[0], b_lo[0]);
-      split_tf32(v1, b_hi[1], b_lo[1]);
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) {
-        if (kZero) {
-          const float zero[4] = {0.f, 0.f, 0.f, 0.f};
-          mma_tf32(part[mt][nt], a_lo[mt], b_hi, zero);
-        } else {
-          mma_tf32(part[mt][nt], a_lo[mt], b_hi, part[mt][nt]);
-        }
-        mma_tf32(part[mt][nt], a_hi[mt], b_lo, part[mt][nt]);
-        mma_tf32(part[mt][nt], a_hi[mt], b_hi, part[mt][nt]);
-      }
-    }
+    mma_k_step<C, kFirst, decltype(zero_start)::value>(
+        part, sw_step, src_lane + grp * 8 * G::S + (tap - (K - 1) / 2) * d);
   };
 
   stage(0);
@@ -246,12 +267,7 @@ __device__ __forceinline__ void conv_pass(const float* src, float* dst,
 #pragma unroll 1
       for (int j = j0 + 1; j < min(j0 + kChunk, steps); ++j)
         k_step(step0 + j - j0, sw + j * G::kStepFloats, std::false_type{});
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[mt][nt][i] += part[mt][nt][i];
+      add_frags<C>(acc, part);
     }
   }
 
@@ -297,14 +313,13 @@ __device__ void run_chain(float* h, float* t, float* s_w, const float* w, const 
   }
 }
 
-// The trio mean in the output: out[c, g] = h after chain 0, += h after
-// chain 1, = (out + h) / 3 after chain 2, at this thread's interior
-// columns (not halo) inside [0, T). Each thread reads the h entries its own
-// conv2 epilogue wrote, so no barrier is needed after the chain, and the
+// op(&out[c, g], h[c, col]) at this thread's interior columns (not halo)
+// inside [0, T), in the fragment map. Each thread reads the h entries its
+// own conv2 epilogue wrote, so no barrier is needed after the chain, and the
 // out entries it wrote itself. out: (C, T) of this batch row.
-template <int C>
-__device__ __forceinline__ void accumulate_mean(const float* h, float* out, int chain, int g0,
-                                                int T) {
+template <int C, typename Op>
+__device__ __forceinline__ void for_own_interior(const float* h, float* out, int g0, int T,
+                                                 Op op) {
   using G = Geometry<C>;
   const int row0 = frag_row0(), col0 = frag_col0<C>();
 #pragma unroll
@@ -319,11 +334,25 @@ __device__ __forceinline__ void accumulate_mean(const float* h, float* out, int 
 #pragma unroll
         for (int half = 0; half < (C < 16 ? 1 : 2); ++half) {
           const int c = mt * 16 + row0 + 8 * half;
-          const float v = h[c * G::S + kPad + col];
-          float* o = out + (size_t)c * T + g;
-          *o = chain == 0 ? v : chain == 1 ? *o + v : (*o + v) * (1.0f / 3.0f);
+          op(out + (size_t)c * T + g, h[c * G::S + kPad + col]);
         }
     }
+}
+
+// The chain's result: out = h on the tile's interior.
+template <int C>
+__device__ __forceinline__ void store_interior(const float* h, float* out, int g0, int T) {
+  for_own_interior<C>(h, out, g0, T, [](float* o, float v) { *o = v; });
+}
+
+// The trio mean in the output: out = h after chain 0, += h after chain 1,
+// = (out + h) / 3 after chain 2.
+template <int C>
+__device__ __forceinline__ void accumulate_mean(const float* h, float* out, int chain, int g0,
+                                                int T) {
+  for_own_interior<C>(h, out, g0, T, [chain](float* o, float v) {
+    *o = chain == 0 ? v : chain == 1 ? *o + v : (*o + v) * (1.0f / 3.0f);
+  });
 }
 
 // h = x0 = x + noise_conv(har) over the tile (har == nullptr: x alone), zero
@@ -388,6 +417,19 @@ int launch_tiles(Kernel kernel, const Args& a, int T, int B, cudaStream_t stream
   const dim3 grid((T + G::kTile - 1) / G::kTile, B);
   kernel<<<grid, kThreads, G::kSmem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// The compiled kernel at width C: out[0] registers per thread, out[1]
+// local-memory bytes per thread (spills), out[2] dynamic shared memory per
+// block.
+template <int C, typename Kernel>
+int kernel_info(Kernel kernel, int* out) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = (int)Geometry<C>::kSmem;
+  return (int)err;
 }
 
 }  // namespace rbmma

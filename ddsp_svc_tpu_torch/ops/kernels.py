@@ -60,8 +60,10 @@ _SIGNATURES = {
     "oscillator_bank_launch": [_P] * 3 + [_I] * 4 + [_P],
     "ltv_fir_convolve_launch": [_P] * 3 + [_I] * 4 + [_P],
     "resblock_chain_launch": [_P] * 4 + [_I] * 7 + [_P],
+    "resblock_chain_info": [_I, _I, ctypes.POINTER(_I)],
     "fused_stage_launch": [_P] * 14 + [_I] * 12 + [_P],
     "fused_stage_scratch_floats": [_I] * 3,
+    "fused_stage_info": [_I, ctypes.POINTER(_I)],
 }
 _RESTYPES = {"fused_stage_scratch_floats": ctypes.c_longlong}
 
@@ -535,11 +537,12 @@ def resblocks_inject_plain(x_up, har, nc_weight, nc_bias, weights, biases,
     return out.transpose(1, 2)
 
 
-def _check_dilations(dilations, pad: int = 32) -> tuple:
+def _check_dilations(dilations) -> tuple:
     dils = tuple(int(d) for d in dilations)
     # the receptive margin of the widest chain must fit the kernels' 64-sample
-    # tile halo, and each tap offset the row padding (`pad` columns)
-    if len(dils) != 3 or 5 * sum(dils) + 15 > 64 or 5 * max(dils) > pad:
+    # tile halo, and each tap offset the row padding (resblock_mma.cuh's kPad,
+    # 28 columns)
+    if len(dils) != 3 or 5 * sum(dils) + 15 > 64 or 5 * max(dils) > 28:
         raise ValueError(f"unsupported dilations {dils}")
     return dils
 
@@ -547,11 +550,11 @@ def _check_dilations(dilations, pad: int = 32) -> tuple:
 _FRAGMENT_INDEX: dict = {}
 
 
-def _fragment_index(c: int, ks, device):
+def _fragment_index(c: int, shapes, device):
     """For mma_fragments: the flat index into cat(w.reshape(-1) for w in
-    the chains' weights, [0]) of each slot of the fragment order, and
-    whether the slot holds lo; built once per (C, ks, device)."""
-    key = (c, tuple(ks), str(device))
+    the weights, [0]) of each slot of the fragment order, and whether the
+    slot holds lo; built once per (C, ((convs, k) of each weight), device)."""
+    key = (c, tuple(shapes), str(device))
     if key not in _FRAGMENT_INDEX:
         m = max(c, 16)
         lane = torch.arange(32)[:, None]
@@ -561,17 +564,17 @@ def _fragment_index(c: int, ks, device):
                 + 8 * (v % 2))
         cols = (torch.arange(c // 8)[:, None, None] * 8 + lane % 4
                 + 4 * (v // 2))
-        zero_slot = 6 * c * c * sum(ks)
+        zero_slot = c * c * sum(n * k for n, k in shapes)
         idx, base = [], 0
-        for k in ks:
-            conv = torch.arange(6)[:, None, None, None, None, None]
+        for n, k in shapes:
+            conv = torch.arange(n)[:, None, None, None, None, None]
             tap = torch.arange(k)[None, :, None, None, None, None]
             co, ci = rows[None, None, None], cols[None, None, :, None]
             flat = base + ((conv * c + co) * c + ci) * k + tap
-            flat = torch.where(co < c, flat, zero_slot)  # (6, k, G, Mt, 32, 4)
+            flat = torch.where(co < c, flat, zero_slot)  # (n, k, G, Mt, 32, 4)
             idx.append(flat[..., None, :, :].expand(
                 *flat.shape[:-2], 2, 32, 4).reshape(-1))
-            base += 6 * c * c * k
+            base += n * c * c * k
         idx = torch.cat(idx)
         is_lo = (torch.arange(idx.numel()) // 128) % 2 == 1
         _FRAGMENT_INDEX[key] = (idx.to(device), is_lo.to(device))
@@ -579,22 +582,36 @@ def _fragment_index(c: int, ks, device):
 
 
 def mma_fragments(weights):
-    """The trio's fp32 conv weights, weights[r] (3, 2, C_out, C_in, k_r), in
-    the order the tensor-core trio (resblock_mma.cuh) stages them: each
-    chain (3, 2, k, C_in / 8, M / 16, 2, 32, 4), M = max(C_out, 16). Per
-    k-step (tap, 8 input channels) and m16 tile, the hi and then the lo of
-    lane l's A fragment of mma.m16n8k8: rows g, g + 8, g, g + 8 and
-    columns q, q, q + 4, q + 4 of the (16, 8) tile, g = l // 4, q = l % 4.
-    Rows past C_out (C = 8) are zero. w = hi + lo exactly: hi is w rounded
-    to tf32 (to nearest, ties away from zero, as cvt.rna.tf32.f32), lo the
-    rest. Returns one flat view a chain, from six launches on the card."""
-    c, m = weights[0].shape[2], max(weights[0].shape[2], 16)
-    ks = [w.shape[-1] for w in weights]
-    idx, is_lo = _fragment_index(c, ks, weights[0].device)
+    """fp32 conv weights, weights[i] (..., C_out, C_in, k_i) with C_out =
+    C_in (a chain's (3, 2, C, C, k)), in the order the tensor-core conv core
+    (resblock_mma.cuh) reads them: each conv of weights[i] (k_i, C_in / 8,
+    M / 16, 2, 32, 4), M = max(C_out, 16). Per k-step (tap, 8 input
+    channels) and m16 tile, the hi and then the lo of lane l's A fragment
+    of mma.m16n8k8: rows g, g + 8, g, g + 8 and columns q, q, q + 4, q + 4
+    of the (16, 8) tile, g = l // 4, q = l % 4. Rows past C_out (C = 8) are
+    zero. w = hi + lo exactly: hi is w rounded to tf32 (to nearest, ties
+    away from zero, as cvt.rna.tf32.f32), lo the rest. Returns one flat
+    view per weight, from six launches on the card."""
+    c, m = weights[0].shape[-3], max(weights[0].shape[-3], 16)
+    shapes = [(w.numel() // (c * c * w.shape[-1]), w.shape[-1])
+              for w in weights]
+    idx, is_lo = _fragment_index(c, shapes, weights[0].device)
     flat = torch.cat([*(w.reshape(-1) for w in weights),
                       weights[0].new_zeros(1)])[idx]
     hi = ((flat.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
-    return torch.where(is_lo, flat - hi, hi).split([12 * c * m * k for k in ks])
+    return torch.where(is_lo, flat - hi, hi).split(
+        [2 * n * c * m * k for n, k in shapes])
+
+
+def stage_up_convs(up_weight, u: int):
+    """The transposed conv's weights, up_weight (2C, C, 2u) (ConvTranspose1d
+    layout, stride u), as the convs fused_stage.cu's fill runs, (u, 2, C,
+    C, 2): for each phase r < u and each half of the input channels, a conv
+    of two taps, r and r + u, which read x_pre[m0] and x_pre[m0 - 1] for an
+    output of phase r. mma_fragments lays them out (a view)."""
+    c = up_weight.shape[1]
+    # (half, C_in, C_out, tap, r) -> (r, half, C_out, C_in, tap)
+    return up_weight.reshape(2, c, c, 2, u).permute(4, 0, 2, 1, 3)
 
 
 def _check_trio(weights, biases, c: int, dev) -> None:
@@ -605,13 +622,6 @@ def _check_trio(weights, biases, c: int, dev) -> None:
     for w, bias, k in zip(weights, biases, ks):
         _check(w, "weight", (3, 2, c, c, k), dev)
         _check(bias, "bias", (3, 2, c), dev)
-
-
-def _trio_weights(weights, biases, c: int, dev):
-    """The trio's weights in resblock_conv.cuh's layout (dilation, conv,
-    C_in, tap, C_out), after checking kernel sizes and shapes."""
-    _check_trio(weights, biases, c, dev)
-    return [w.permute(0, 1, 3, 4, 2).contiguous() for w in weights]
 
 
 def _injection(har, nc_weight, nc_bias, bsz: int, c: int, dev):
@@ -632,7 +642,7 @@ def _trio_launch(x_up, har, nc_weight, nc_bias, weights, biases, s_src: int,
     if c not in TRIO_CHANNELS:
         raise ValueError(f"fused_resblocks_inject takes C in {TRIO_CHANNELS}, "
                          f"got C={c}")
-    dils = _check_dilations(dilations, pad=28)  # resblock_mma.cuh's kPad
+    dils = _check_dilations(dilations)
     x_cf = x_up.transpose(1, 2).contiguous()
     _check(x_cf, "x_up", (bsz, c, t), dev)
     _check_trio(weights, biases, c, dev)
@@ -685,15 +695,19 @@ def fused_resblocks(x, weights, biases, dilations=(1, 3, 5), valid=None):
                                   dilations, valid)
 
 
+def _kernel_info(lib_name: str, symbol: str, *args) -> dict:
+    out = (_I * 3)()
+    err = _c_function(lib_name, symbol)(*args, out)
+    if err != 0:
+        raise RuntimeError(f"{symbol} failed: CUDA error {err}")
+    return dict(registers=out[0], spill_bytes=out[1], smem_bytes=out[2])
+
+
 def trio_kernel_info(c: int) -> dict:
     """The compiled trio kernel at width C on the current card: registers
     per thread, local-memory (spilled) bytes per thread and dynamic shared
     memory per block."""
-    out = (_I * 3)()
-    err = _c_function("resblocks", "resblocks_info")(c, out)
-    if err != 0:
-        raise RuntimeError(f"resblocks_info failed: CUDA error {err}")
-    return dict(registers=out[0], spill_bytes=out[1], smem_bytes=out[2])
+    return _kernel_info("resblocks", "resblocks_info", c)
 
 
 # ---------------------------- one resblock chain ----------------------------
@@ -719,7 +733,7 @@ def _chain_launch(x, weight, bias, kernel_size: int, dilations):
     _check(x_cf, "x", (bsz, c, t), dev)
     _check(weight, "weight", (3, 2, c, c, k), dev)
     _check(bias, "bias", (3, 2, c), dev)
-    w_k = weight.permute(0, 1, 3, 4, 2).contiguous()
+    w_k = mma_fragments([weight])[0]
     out = torch.empty_like(x_cf)
     _launch("resblock_chain", "resblock_chain_launch", x_cf.data_ptr(),
             w_k.data_ptr(), bias.data_ptr(), out.data_ptr(), bsz, c, t, k,
@@ -728,12 +742,17 @@ def _chain_launch(x, weight, bias, kernel_size: int, dilations):
     return out.transpose(1, 2)
 
 
+def chain_kernel_info(c: int, k: int) -> dict:
+    """As trio_kernel_info, for the one-chain kernel of kernel size k."""
+    return _kernel_info("resblock_chain", "resblock_chain_info", c, k)
+
+
 def fused_resblock_chain(x, weight, bias, kernel_size: int,
                          dilations=(1, 3, 5)):
     """One ResBlock1 chain (no trio mean) in one kernel, the trio kernel's
-    tiles with one chain: x (B, T, C) fp32, C in 8..64, k in 3/7/11; same
-    arguments and result as resblock_chain_plain. Differentiable (the
-    backward re-runs the plain version)."""
+    tensor-core tiles with one chain: x (B, T, C) fp32, C in 8..64, k in
+    3/7/11; same arguments and result as resblock_chain_plain.
+    Differentiable (the backward re-runs the plain version)."""
     if x.device.type == "cpu":
         return resblock_chain_plain(x, weight, bias, kernel_size, dilations)
     return _PlainBackwardFn.apply(
@@ -776,8 +795,8 @@ def _stage_launch(x_pre, har, up_weight, up_bias, nc_weight, nc_bias,
     _check(x_cf, "x_pre", (bsz, c_in, t_in), dev)
     _check(up_weight, "up_weight", (c_in, c, k), dev)
     _check(up_bias, "up_bias", (c,), dev)
-    w_up = up_weight.permute(0, 2, 1).contiguous()  # (C_in, tap, C_out)
-    w_k = _trio_weights(weights, biases, c, dev)
+    _check_trio(weights, biases, c, dev)
+    w_up, *w_k = mma_fragments([stage_up_convs(up_weight, u), *weights])
     har2, wnc, bnc, t_final, ksrc = _injection(har, nc_weight, nc_bias, bsz,
                                                c, dev)
     out = torch.empty((bsz, c, t_out), dtype=torch.float32, device=dev)
@@ -792,6 +811,11 @@ def _stage_launch(x_pre, har, up_weight, up_bias, nc_weight, nc_bias,
             t_out, u, p, t_final, s_src, ksrc, *dils, _stream(out))
     fused_stage.launches += 1
     return out.transpose(1, 2)
+
+
+def stage_kernel_info(c: int) -> dict:
+    """As trio_kernel_info, for the fused-stage kernel."""
+    return _kernel_info("fused_stage", "fused_stage_info", c)
 
 
 def fused_stage(x_pre, har, up_weight, up_bias, nc_weight, nc_bias, weights,

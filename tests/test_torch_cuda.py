@@ -117,16 +117,19 @@ def test_resblocks_kernel_at_path_shape(cuda, valid):
         assert not got[0, valid[0]:].any()
 
 
+@pytest.mark.parametrize("kernel", ["trio", "chain", "stage"])
 @pytest.mark.parametrize("c", [64, 16])
-def test_resblocks_kernel_wide_range(cuda, c):
-    """Inputs and weights of magnitude 10^u, u uniform in [-3, 3], random
-    signs, against the plain version in float64: within 4e-6 of max |ref|
-    (the kernel reads ~1.2e-6, the fp32 cuDNN chain 0.6-1.4e-6; these and
-    the figures below from tools/ab_torch_trio.py). Summing in the tensor
-    cores' own accumulators, which truncate, without the fp32
-    re-accumulation, reads 6.7e-6 (C = 16) and 2.6e-5 (C = 64), which 1e-4
-    against the fp32 chain would pass. A tf32 operand without its lo part
-    reads ~5e-4 here and fails every trio test (~3e-3 at unit scale)."""
+def test_resblocks_kernel_wide_range(cuda, c, kernel):
+    """The three kernels on the tensor-core conv core (the trio #5, one
+    chain #10 at each k, the fused stage #11 at u = 2) on inputs and
+    weights of magnitude 10^u, u uniform in [-3, 3], random signs, against
+    the plain version in float64: within 4e-6 of max |ref| (the trio reads
+    ~1.2e-6, the fp32 cuDNN chain 0.6-1.4e-6; these and the figures below
+    from tools/ab_torch_trio.py). Summing in the tensor cores' own
+    accumulators, which truncate, without the fp32 re-accumulation, reads
+    6.7e-6 (C = 16) and 2.6e-5 (C = 64) on the trio, which 1e-4 against the
+    fp32 chain would pass. A tf32 operand without its lo part reads ~5e-4
+    here and fails every trio test (~3e-3 at unit scale)."""
     g = torch.Generator(device=cuda).manual_seed(c + 3)
 
     def wide(*shape):
@@ -134,16 +137,31 @@ def test_resblocks_kernel_wide_range(cuda, c):
         sign = torch.randint(0, 2, shape, generator=g, device=cuda) * 2 - 1
         return sign * 10.0 ** (6 * u - 3)
 
+    def f64(args):
+        return [[a.double() for a in x] if isinstance(x, list)
+                else x.double() if torch.is_tensor(x) else x for x in args]
+
     ws = [wide(3, 2, c, c, k) for k in (3, 7, 11)]
     bs = [_randn(g, 3, 2, c, scale=0.01) for _ in range(3)]
-    x = wide(1, 1000, c)
-    ref = K.resblocks_inject_plain(x.double(), None, None, None,
-                                   [w.double() for w in ws],
-                                   [b.double() for b in bs], 1)
-    got = K.fused_resblocks(x, ws, bs).double()
-    assert torch.isfinite(ref).all()
-    err = ((got - ref).abs().max() / ref.abs().max()).item()
-    assert err <= 4e-6, err
+    if kernel == "trio":
+        runs = [(lambda x_, w_, b_: K.resblocks_inject_plain(
+                    x_, None, None, None, w_, b_, 1), K.fused_resblocks,
+                 [wide(1, 1000, c), ws, bs])]
+    elif kernel == "chain":
+        runs = [(K.resblock_chain_plain, K.fused_resblock_chain,
+                 [wide(1, 1000, c), w, b, w.shape[-1]])
+                for w, b in zip(ws, bs)]
+    else:
+        runs = [(K.stage_plain, K.fused_stage,
+                 [wide(1, 500, 2 * c), wide(1, 2000, 1), wide(2 * c, c, 4),
+                  _randn(g, c, scale=0.05), wide(c, 1, 4),
+                  _randn(g, c, scale=0.05), ws, bs, 2, 2])]
+    for plain, kern, args in runs:
+        ref = plain(*f64(args))
+        got = kern(*args).double()
+        assert torch.isfinite(ref).all()
+        err = ((got - ref).abs().max() / ref.abs().max()).item()
+        assert err <= 4e-6, err
 
 
 # the RSS loss's 16 sizes (models/losses.py::default_buckets(256, 2048)), the
@@ -433,6 +451,28 @@ def test_resblock_chain_kernel(cuda, c, t, k):
                                rtol=1e-4)
 
 
+@pytest.mark.parametrize("k", [3, 7, 11])
+def test_resblock_chain_kernel_at_path_shape(cuda, k):
+    """One chain (#10) at the enhancer's C = 64 stage of a 512-frame
+    segment, T = 65536: atol 1e-4, rtol 1e-4 against the fp32 plain
+    version (the JAX package's chain kernel tolerance), and within 4e-6 of
+    max |ref| against the plain version in float64, as the wide-range test
+    (the kernel reads 6-8e-7, the fp32 cuDNN chain 5-13e-7;
+    tools/ab_torch_trio.py). Against the fp32 chain it reads up to 2.3e-5:
+    one chain's output is ~3x the trio's (max |ref| 14-16), so the trio's
+    absolute 2e-5 does not carry over."""
+    g = torch.Generator(device=cuda).manual_seed(k)
+    args = (_randn(g, 1, 65536, 64), _randn(g, 3, 2, 64, 64, k,
+                                            scale=(2.0 / (k * 64)) ** 0.5),
+            _randn(g, 3, 2, 64, scale=0.01), k)
+    got, ref = K.fused_resblock_chain(*args), K.resblock_chain_plain(*args)
+    torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+    ref64 = K.resblock_chain_plain(*(a.double() if torch.is_tensor(a) else a
+                                     for a in args))
+    err = ((got.double() - ref64).abs().max() / ref64.abs().max()).item()
+    assert err <= 4e-6, err
+
+
 def _stage_args(g, c, t_in, u, s_src, b):
     k = 2 * u
     t_out = (t_in - 1) * u - 2 * ((k - u) // 2) + k
@@ -456,6 +496,20 @@ def test_fused_stage_kernel(cuda, c, t_in, u, s_src, b):
     got, ref = K.fused_stage(*args), K.stage_plain(*args)
     assert got.shape == ref.shape
     torch.testing.assert_close(got, ref, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("c,s_src", [(64, 4), (32, 2), (16, 1)])
+def test_fused_stage_kernel_at_path_shape(cuda, c, s_src):
+    """The fused stage (#11) at the enhancer's three narrow stages of a
+    512-frame segment (u = 2, T_out = 262144 / s_src from x_pre (1, T_out /
+    2, 2C), har of 262144 samples): atol 2e-4, rtol 2e-4 (the JAX package's
+    stage kernel tolerance) and max |err| at most 2e-5."""
+    g = torch.Generator(device=cuda).manual_seed(c)
+    args = _stage_args(g, c, 131072 // s_src, 2, s_src, 1)
+    got, ref = K.fused_stage(*args), K.stage_plain(*args)
+    assert got.shape == ref.shape == (1, 262144 // s_src, c)
+    torch.testing.assert_close(got, ref, atol=2e-4, rtol=2e-4)
+    assert (got - ref).abs().max().item() <= 2e-5
 
 
 def _grads_agree(kern, plain, tensors, statics, up):

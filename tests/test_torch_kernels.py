@@ -246,26 +246,15 @@ def test_resblock_chain_plain_matches_jax(k):
         np.testing.assert_allclose(got, np.asarray(ref), atol=1e-4, rtol=1e-4)
 
 
-@pytest.mark.parametrize("c,k,d", [(64, 11, 5), (32, 7, 3), (16, 3, 1),
-                                   (8, 7, 5)])
-def test_mma_fragments_give_the_conv(c, k, d):
-    """The tensor-core trio's weight layout (kernels.mma_fragments): one
-    dilated conv recomputed as the kernel forms it, a sum over k-steps (tap,
-    8 input channels) and m16 tiles of each lane's A fragment (a0..a3 at
-    rows g, g+8, g, g+8 and columns q, q, q+4, q+4 of the tile, g = lane
-    // 4, q = lane % 4), hi plus lo, times the input shifted by the tap,
-    against F.conv1d at 1e-6, in float64. hi is tf32 (13 low mantissa bits
-    zero) and hi + lo is the fp32 weight exactly."""
-    rng = np.random.default_rng(c + k)
-    t = 90
-    ws = [torch.from_numpy(rng.standard_normal((3, 2, c, c, kk))
-                           .astype(np.float32)) for kk in (3, k, 11)]
-    w = ws[1][2:]  # the conv2 of the third dilation
-    x = torch.from_numpy(rng.standard_normal((c, t)))
+def _dense_from_fragments(frags, c: int):
+    """One conv's weights in fragment order, (k, C / 8, M / 16, 2, 32, 4),
+    back to a dense (k, M, C) float64 weight as the kernel forms its
+    products: each lane's A fragment (a0..a3 at rows g, g+8, g, g+8 and
+    columns q, q, q+4, q+4 of the m16 x k8 tile, g = lane // 4, q = lane %
+    4), hi plus lo. Checks that hi is tf32 (13 low mantissa bits zero) and
+    that lo is the rest."""
     m = max(c, 16)
-    frags = K.mma_fragments(ws)[1].reshape(3, 2, k, c // 8, m // 16, 2, 32, 4)
-    frags = frags[2, 1]  # (k, C/8, M/16, 2, 32, 4)
-    assert frags.shape == (k, c // 8, m // 16, 2, 32, 4)
+    assert frags.shape[1:] == (c // 8, m // 16, 2, 32, 4)
     hi, lo = frags[:, :, :, 0], frags[:, :, :, 1]
     assert not (hi.view(torch.int32) & 0x1FFF).any()
     assert (lo.abs() <= 2.0 ** -11 * hi.abs()).all()
@@ -277,13 +266,73 @@ def test_mma_fragments_give_the_conv(c, k, d):
                 rows[mt, lane, v, mt * 16 + lane // 4 + 8 * (v % 2)] = 1
             for grp in range(c // 8):
                 cols[grp, lane, v, grp * 8 + lane % 4 + 4 * (v // 2)] = 1
+    return torch.einsum("kgmlv,mlvo,glvi->koi", frags.double().sum(3),
+                        torch.from_numpy(rows), torch.from_numpy(cols))
+
+
+@pytest.mark.parametrize("c,k,d", [(64, 11, 5), (32, 7, 3), (16, 3, 1),
+                                   (8, 7, 5)])
+def test_mma_fragments_give_the_conv(c, k, d):
+    """The tensor-core conv core's weight layout (kernels.mma_fragments), as
+    the trio takes it (three chains) and as the one-chain kernel does
+    (mma_fragments([w])): one dilated conv recomputed as the kernel forms
+    it, a sum over k-steps (tap, 8 input channels) of the fragments' dense
+    weight times the input shifted by the tap, against F.conv1d at 1e-6, in
+    float64; hi + lo is the fp32 weight exactly."""
+    rng = np.random.default_rng(c + k)
+    t = 90
+    ws = [torch.from_numpy(rng.standard_normal((3, 2, c, c, kk))
+                           .astype(np.float32)) for kk in (3, k, 11)]
+    w = ws[1][2:]  # the conv2 of the third dilation
+    x = torch.from_numpy(rng.standard_normal((c, t)))
+    m = max(c, 16)
     pad = (k - 1) // 2 * d
     xp = torch.nn.functional.pad(x, (pad, pad))
     taps = torch.stack([xp[:, tap * d:tap * d + t] for tap in range(k)])
-    got = torch.einsum("kgmlv,mlvo,glvi,kit->ot", frags.double().sum(3),
-                       torch.from_numpy(rows), torch.from_numpy(cols), taps)
     ref = torch.nn.functional.conv1d(x[None], w[0, 1].double(), padding=pad,
                                      dilation=d)[0]
+    trio, one = K.mma_fragments(ws)[1], K.mma_fragments([ws[1]])[0]
+    assert torch.equal(trio, one)
+    for frags in (trio, one):
+        frags = frags.reshape(3, 2, k, c // 8, m // 16, 2, 32, 4)[2, 1]
+        got = torch.einsum("koi,kit->ot", _dense_from_fragments(frags, c),
+                           taps)
+        assert not got[c:].any()  # the rows that pad M to 16
+        torch.testing.assert_close(got[:c], ref, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("u,c", [(1, 16), (2, 8), (4, 32), (8, 16)])
+def test_stage_up_fragments_give_the_transposed_conv(u, c):
+    """The fused stage's transposed-conv weights in fragment order
+    (kernels.mma_fragments of kernels.stage_up_convs, as the wrapper lays
+    them out beside the chains'), recomputed phase by phase as the kernel's
+    fill forms them: an output column g of phase r = (g + p) mod u, m0 =
+    (g + p - r) / u, sums over both halves of the input channels tap 0's
+    dense weight times leaky(x_pre)[m0] and tap 1's times [m0 - 1]; against
+    F.conv_transpose1d(leaky(x_pre)) at 1e-6, in float64."""
+    rng = np.random.default_rng(u + c)
+    t_in, k, p = 37, 2 * u, u // 2
+    x = torch.from_numpy(rng.standard_normal((2 * c, t_in)))
+    up = torch.from_numpy(rng.standard_normal((2 * c, c, k)).astype(np.float32))
+    m = max(c, 16)
+    ws = [torch.zeros((3, 2, c, c, k)) for k in (3, 7, 11)]
+    frags = K.mma_fragments([K.stage_up_convs(up, u), *ws])[0].reshape(
+        u, 2, 2, c // 8, m // 16, 2, 32, 4)
+    xl = torch.nn.functional.leaky_relu(x, 0.1)
+    xp = torch.nn.functional.pad(xl, (1, 1))  # column m of x_pre at m + 1
+    ref = torch.nn.functional.conv_transpose1d(xl[None], up.double(),
+                                               stride=u, padding=p)[0]
+    g = torch.arange(ref.shape[-1])
+    r = (g + p) % u
+    m0 = (g + p - r) // u
+    got = torch.zeros((m, ref.shape[-1]), dtype=torch.float64)
+    for ph in range(u):
+        cols = r == ph
+        for half in range(2):
+            dense = _dense_from_fragments(frags[ph, half], c)  # (2, M, C)
+            xs = xp[half * c:(half + 1) * c]
+            got[:, cols] += dense[0] @ xs[:, m0[cols] + 1]
+            got[:, cols] += dense[1] @ xs[:, m0[cols]]
     assert not got[c:].any()  # the rows that pad M to 16
     torch.testing.assert_close(got[:c], ref, atol=1e-6, rtol=1e-6)
 
@@ -472,10 +521,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="k in"):
         K.fused_resblock_chain(x, torch.empty((3, 2, 16, 16, 5), device="meta"),
                                torch.empty((3, 2, 16), device="meta"), 5)
-    with pytest.raises(ValueError, match="dilations"):
-        K.fused_resblock_chain(x, torch.empty((3, 2, 16, 16, 3), device="meta"),
-                               torch.empty((3, 2, 16), device="meta"), 3,
-                               (1, 3, 9))
+    for dils in ((1, 3, 9), (1, 2, 6)):  # the halo; the 28-column row pad
+        with pytest.raises(ValueError, match="dilations"):
+            K.fused_resblock_chain(
+                x, torch.empty((3, 2, 16, 16, 3), device="meta"),
+                torch.empty((3, 2, 16), device="meta"), 3, dils)
     ws = [torch.empty((3, 2, 8, 8, k), device="meta") for k in (3, 7, 11)]
     bs = [torch.empty((3, 2, 8), device="meta")] * 3
     har = torch.empty((1, 600, 1), device="meta")
@@ -492,3 +542,6 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         with pytest.raises(ValueError, match="kernel sizes"):
             K.fused_stage(x, har, torch.empty((16, 8, 4), device="meta"), b8,
                           nc, b8, ws[:2] + ws[:1], bs, 2, 1)
+        with pytest.raises(ValueError, match="dilations"):
+            K.fused_stage(x, har, torch.empty((16, 8, 4), device="meta"), b8,
+                          nc, b8, ws, bs, 2, 1, (1, 2, 6))

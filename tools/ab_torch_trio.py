@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
-"""Accuracy and time of the tensor-core trio kernel (#4/#5) against edited
-copies of its conv core, on the card.
+"""Accuracy and time of the kernels on the tensor-core conv core (the trio
+#4/#5, one chain #10, the fused stage #11) against edited copies of the
+core, on the card.
 
-Builds edited copies of `ddsp_svc_tpu_torch/csrc/resblocks.cu` with its
-`resblock_mma.cuh` into build/ab_torch_trio/ (one nvcc per variant, all at
-once), loads each in turn under the `fused_resblocks` wrapper, and prints
-for each variant:
-  - max |err| against the plain version in float64 on the card, over max
-    |ref|, at the enhancer's C = 64 stage of a 512-frame segment (T = 65536)
-    and on inputs and weights of magnitude 10^[-3, 3] (C = 64 and 16,
-    T = 1000), with max |err| against the fp32 plain version (the cuDNN
-    chain) at the path shape;
-  - its time at the path shape, the median of 20 CUDA-event timings, in
-    turns (A B .., .. B A, A B ..).
+Builds edited copies of `ddsp_svc_tpu_torch/csrc/resblocks.cu`,
+`resblock_chain.cu` and `fused_stage.cu` with their `resblock_mma.cuh` into
+build/ab_torch_trio/ (one nvcc per source and variant, all at once), loads
+each variant in turn under the wrappers, and prints for each variant:
+  - the trio's max |err| against the plain version in float64 on the card,
+    over max |ref|, at the enhancer's C = 64 stage of a 512-frame segment
+    (T = 65536) and on inputs and weights of magnitude 10^[-3, 3] (C = 64
+    and 16, T = 1000), with max |err| against the fp32 plain version (the
+    cuDNN chain) at the path shape;
+  - the same two errors for #10 at that stage at each k, and for #11 at
+    the three narrow stages of the segment (u = 2, from x_pre (1, T / 2,
+    2C));
+  - the trio's time at the path shape, the median of 20 CUDA-event
+    timings, in turns (A B .., .. B A, A B ..).
 Variants:
   - committed: the sources as they are (chunks of 4 k-steps re-accumulated
     in fp32);
@@ -21,7 +25,8 @@ Variants:
     tensor cores' own (truncating) accumulation;
   - no a_lo / no b_lo: 3xTF32 without the weights' or the activations'
     lo part (two MMAs a k-step).
-The fp32 cuDNN chain's own error against float64 is printed beside them.
+The fp32 plain versions' own errors against float64 (cuDNN) are printed
+beside them, with max |ref|.
 Run from the root of a checkout on a machine with the card:
 
     python3 tools/ab_torch_trio.py
@@ -39,9 +44,9 @@ sys.path.insert(0, ROOT)
 CSRC = os.path.join(ROOT, "ddsp_svc_tpu_torch", "csrc")
 WORK = os.path.join(ROOT, "build", "ab_torch_trio")
 HEADER = "resblock_mma.cuh"
+SOURCES = ("resblocks", "resblock_chain", "fused_stage")
 MMA_LO_B_HI = "mma_tf32(part[mt][nt], a_lo[mt], b_hi, {});"
 MMA_HI_LO = "mma_tf32(part[mt][nt], a_hi[mt], b_lo, part[mt][nt]);"
-FLUSH = "acc[mt][nt][i] += part[mt][nt][i];"
 
 
 def replace(*pairs):
@@ -55,9 +60,14 @@ def replace(*pairs):
 
 
 def no_reaccumulation(text: str) -> str:
-    text = replace((FLUSH, "{}"))(text)
-    return text.replace("part[mt][nt]", "acc[mt][nt]").replace(
-        "b_hi, zero);", "b_hi, acc[mt][nt]);")
+    # every k-step of conv_pass accumulates straight into its running sum
+    return replace(
+        ("      add_frags<C>(acc, part);\n    }\n  }\n\n#pragma unroll\n"
+         "  for (int nt = 0; nt < kNT; ++nt) {\n    const int col",
+         "    }\n  }\n\n#pragma unroll\n"
+         "  for (int nt = 0; nt < kNT; ++nt) {\n    const int col"),
+        ("mma_k_step<C, kFirst, decltype(zero_start)::value>(\n        part,",
+         "mma_k_step<C, kFirst, false>(\n        acc,"))(text)
 
 
 VARIANTS = (
@@ -80,21 +90,24 @@ def build_variants():
     for name, edit in VARIANTS:
         d = os.path.join(WORK, name.replace(" ", "_"))
         os.makedirs(d, exist_ok=True)
-        shutil.copy(os.path.join(CSRC, "resblocks.cu"), d)
         with open(os.path.join(CSRC, HEADER)) as f:
             text = edit(f.read())
         with open(os.path.join(d, HEADER), "w") as f:
             f.write(text)
-        lib = os.path.join(d, "resblocks.so")
-        procs.append((name, lib, subprocess.Popen(
-            [nvcc, *build.NVCC_FLAGS, "-o", lib, os.path.join(d, "resblocks.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
-    libs = {}
-    for name, lib, proc in procs:
+        for src in SOURCES:
+            shutil.copy(os.path.join(CSRC, f"{src}.cu"), d)
+            lib = os.path.join(d, f"{src}.so")
+            procs.append((name, src, lib, subprocess.Popen(
+                [nvcc, *build.NVCC_FLAGS, "-o", lib,
+                 os.path.join(d, f"{src}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    libs = {name: {} for name, _ in VARIANTS}
+    for name, src, lib, proc in procs:
         out, _ = proc.communicate()
         if proc.returncode != 0:
-            sys.exit(f"nvcc failed for {name}:\n{out.decode(errors='replace')}")
-        libs[name] = lib
+            sys.exit(f"nvcc failed for {name} {src}.cu:\n"
+                     f"{out.decode(errors='replace')}")
+        libs[name][src] = lib
     return libs
 
 
@@ -146,7 +159,46 @@ def main() -> None:
     print(line, flush=True)
 
     def use(name):
-        build._loaded["resblocks"] = ctypes.CDLL(libs[name])
+        for src, lib in libs[name].items():
+            build._loaded[src] = ctypes.CDLL(lib)
+
+    # #10 at the C = 64 stage at each k, #11 at the three narrow stages:
+    # (label, kernel, plain, args)
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    others = []
+    for k in (3, 7, 11):
+        others.append((f"#10 k={k}", K.fused_resblock_chain,
+                       K.resblock_chain_plain,
+                       [randn(1, 65536, 64),
+                        randn(3, 2, 64, 64, k, scale=(2.0 / (k * 64)) ** 0.5),
+                        randn(3, 2, 64, scale=0.01), k]))
+    for c, s in ((64, 4), (32, 2), (16, 1)):
+        t_out = 262144 // s
+        others.append((f"#11 C={c}", K.fused_stage, K.stage_plain,
+                       [randn(1, t_out // 2, 2 * c),
+                        randn(1, 262144, 1, scale=0.1),
+                        randn(2 * c, c, 4, scale=(1.0 / (8 * c)) ** 0.5),
+                        randn(c, scale=0.05),
+                        randn(c, 1, 2 * s if s > 1 else 1, scale=0.2),
+                        randn(c, scale=0.05),
+                        [randn(3, 2, c, c, k, scale=(2.0 / (k * c)) ** 0.5)
+                         for k in (3, 7, 11)],
+                        [randn(3, 2, c, scale=0.01) for _ in range(3)], 2, s]))
+
+    def f64(args):
+        return [[a.double() for a in v] if isinstance(v, list)
+                else v.double() if torch.is_tensor(v) else v for v in args]
+
+    refs = []
+    for label, _, plain, args in others:
+        r64, r32 = plain(*f64(args)), plain(*args)
+        refs.append((r64, r32))
+        scale = r64.abs().max().item()
+        print(f"{label}: max|ref| {scale:.3f}; fp32 plain (cuDNN) vs float64 "
+              f"{(r32.double() - r64).abs().max().item() / scale:.3e} x "
+              "max|ref|", flush=True)
 
     def time_ms():
         fn = lambda: K.fused_resblocks(x, ws, bs)  # noqa: E731
@@ -173,6 +225,12 @@ def main() -> None:
         err32 = (K.fused_resblocks(x, ws, bs) - ref32).abs().max().item()
         print(line + f" vs fp32 chain at the path shape: max|err| {err32:.3e}",
               flush=True)
+        for (label, kern, _, args), (r64, r32) in zip(others, refs):
+            got = kern(*args)
+            e64 = ((got.double() - r64).abs().max() / r64.abs().max()).item()
+            e32 = (got - r32).abs().max().item()
+            print(f"[{name}] {label}: vs float64 {e64:.3e} x max|ref|; vs fp32 "
+                  f"plain max|err| {e32:.3e}", flush=True)
     times = {n: [] for n in names}
     for order in (names, names[::-1], names):
         for name in order:
