@@ -10,7 +10,10 @@ Phases, each printing its own lines:
      comparisons below;
   2. build: every CUDA kernel from the checkout's sources (nvcc, sm_90a);
   3. kernels: each hand-written kernel against its plain PyTorch version at
-     the main path's shapes, with error, time, plain time and bound (#6
+     the main path's shapes, with error, time (one call at a time, and
+     device_ms: calls back to back), plain time and bound (#1 also at B =
+     16, and #1 and #2 with their host work per call and their kernel's own
+     device time from torch.profiler; #6
      and #9 also per row, on rows of unequal scale, against float64; #4,
      #5, #10 and #11, all on the tensor-core conv core, with their
      registers, spills and shared memory; #10's three chains beside #5
@@ -138,6 +141,26 @@ def time_ms(torch, fn, inputs, iters: int = 20) -> float:
     return float(np.median(times))
 
 
+def device_ms(torch, fn, inputs, calls: int = 20, turns: int = 5) -> float:
+    """Median over `turns` of (`calls` calls back to back between one pair
+    of CUDA events, cycling through the input sets) / `calls`: the device's
+    time per call as long as the host keeps ahead of it (else the host's)."""
+    for args in inputs[:2]:
+        fn(*args)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(turns):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(calls):
+            fn(*inputs[i % len(inputs)])
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return float(np.median(times))
+
+
 def bound(n_bytes: float, n_ops: float, peak: float = PEAK_FP32_FLOPS):
     t_bytes = n_bytes / PEAK_BYTES * 1e3
     t_ops = n_ops / peak * 1e3
@@ -155,7 +178,7 @@ def compare(torch, name, kern, plain, inputs, tol_abs, tol_rel_max,
     """Kernel vs plain on every input set: max |err| <= tol_abs + tol_rtol
     |ref| + tol_rel_max * max|ref|, for each output of a kernel that returns
     several (each against its own max|ref|). Returns (max_abs_err, ms,
-    plain_ms)."""
+    plain_ms, device_ms)."""
     err = 0.0
     for args in inputs:
         refs, gots = plain(*args), kern(*args)
@@ -173,7 +196,8 @@ def compare(torch, name, kern, plain, inputs, tol_abs, tol_rel_max,
                 fail(f"{name}: max |err| {diff.max().item():.3e} over "
                      "tolerance")
             err = max(err, diff.max().item())
-    return err, time_ms(torch, kern, inputs), time_ms(torch, plain, inputs)
+    return (err, time_ms(torch, kern, inputs), time_ms(torch, plain, inputs),
+            device_ms(torch, kern, inputs))
 
 
 def errors_vs_float64(torch, kern, plain, args):
@@ -195,6 +219,10 @@ def kernel_phase(torch, K, gen):
     def randn(*shape, scale=1.0, shift=0.0):
         return (torch.randn(shape, generator=gen, device=dev) * scale + shift)
 
+    def build_info(info):
+        return (f"{info['registers']} registers, {info['spill_bytes']} bytes "
+                f"spilled, {info['smem_bytes']} bytes of shared memory")
+
     # 1. FAVOR+ attention, one PCmer layer at a 512-frame bucket holding a
     # 384-frame segment (the masked form)
     b, h, t, d, m, valid = 1, 8, 512, 64, 266, 384
@@ -202,17 +230,34 @@ def kernel_phase(torch, K, gen):
     proj = torch.from_numpy(gaussian_orthogonal_random_matrix(m, d, 0)).to(dev)
     inputs = [(randn(b, h, t, d), randn(b, h, t, d), randn(b, h, t, d), proj,
                valid) for _ in range(3)]
-    err, ms, pms = compare(
+    err, ms, pms, dms = compare(
         torch, "performer_attention", K.performer_attention,
         K.performer_attention_plain, inputs, 0.0, 2e-5,
         select=lambda y: y[:, :, :valid])
-    flops = b * h * (2 * m * d * (2 * t + 2 * valid) + 4 * m * t)
-    nbytes = 4 * (b * h * d * (t + 2 * valid + t) + m * d)
+
+    def attention_bound(b, t, valid):
+        flops = b * h * (2 * m * d * (2 * t + 2 * valid) + 4 * m * t)
+        nbytes = 4 * (b * h * d * (t + 2 * valid + t) + m * d)
+        return bound(nbytes, flops)
+
+    info = K.attention_kernel_info(t)
+    say(f"kernel performer_attention T={t}: clusters of {info['cluster']} "
+        f"CTAs; {build_info(info)}")
+    # the batched offline forward's shape: 16 items of 512 frames
+    inputs16 = [(randn(16, h, t, d), randn(16, h, t, d), randn(16, h, t, d),
+                 proj, None) for _ in range(2)]
+    e16, ms16, pms16, dms16 = compare(
+        torch, "performer_attention B=16", K.performer_attention,
+        K.performer_attention_plain, inputs16, 0.0, 2e-5)
+    say(f"kernel performer_attention B=16 T={t}: max|err| {e16:.3e}, "
+        f"{ms16:.4f} ms, device_ms {dms16:.4f}, plain {pms16:.4f} ms, bound "
+        f"{attention_bound(16, t, t)[0]:.4f} ms")
     rows["performer_attention"] = dict(
         route="cuda", source="ddsp_svc_tpu_torch/csrc/performer_attention.cu",
         replaces=f"{TPU_KERNELS}:516", max_abs_err=err, ms=ms, plain_ms=pms,
-        bound=bound(nbytes, flops), library_ms=None,
-        tol="2e-5 x max|ref| (the JAX package's kernel test)")
+        device_ms=dms, bound=attention_bound(b, t, valid), library_ms=None,
+        tol="2e-5 x max|ref| (the JAX package's kernel test); B = 1, T = 512 "
+            "with 384 valid frames")
 
     # 2. CombSubFast spectral chain, 513 frame rows of n_fft 1024
     r, n = 513, 1024
@@ -220,14 +265,14 @@ def kernel_phase(torch, K, gen):
     inputs = [(randn(r, n), randn(r, n), randn(r, bins, scale=0.3),
                randn(r, bins), randn(r, bins, scale=0.3, shift=-3.0), n)
               for _ in range(3)]
-    err, ms, pms = compare(torch, "combsub_spectral", K.combsub_spectral,
-                           K.combsub_spectral_plain, inputs, 0.0, 2e-5)
+    err, ms, pms, dms = compare(torch, "combsub_spectral", K.combsub_spectral,
+                                K.combsub_spectral_plain, inputs, 0.0, 2e-5)
     flops = r * (2 * 5 * n * math.log2(n) + 30 * bins)
     nbytes = 4 * (r * (3 * n + 3 * bins) + n)
     rows["combsub_spectral"] = dict(
         route="cuda", source="ddsp_svc_tpu_torch/csrc/combsub_spectral.cu",
         replaces=f"{TPU_KERNELS}:703", max_abs_err=err, ms=ms, plain_ms=pms,
-        bound=bound(nbytes, flops), library_ms=None,
+        device_ms=dms, bound=bound(nbytes, flops), library_ms=None,
         tol="2e-5 x max|ref| (the JAX package's kernel test)")
 
     # 3. harmonic source at 512 mel frames x upp 512
@@ -241,14 +286,14 @@ def kernel_phase(torch, K, gen):
         start, rad = _source_phase(f0, upp, sr, ri, 8)
         inputs.append((start.contiguous(), rad.contiguous(), randn(9, scale=0.3),
                        randn(1, scale=0.05), upp))
-    err, ms, pms = compare(torch, "harmonic_source", K.harmonic_source,
-                           K.harmonic_source_plain, inputs, 2e-5, 0.0)
+    err, ms, pms, dms = compare(torch, "harmonic_source", K.harmonic_source,
+                                K.harmonic_source_plain, inputs, 2e-5, 0.0)
     flops = f_mel * upp * (9 * 8 + 3)
     nbytes = 4 * (f_mel * 18 + 10 + f_mel * upp)
     rows["harmonic_source"] = dict(
         route="cuda", source="ddsp_svc_tpu_torch/csrc/harmonic_source.cu",
         replaces=f"{TPU_KERNELS}:138", max_abs_err=err, ms=ms, plain_ms=pms,
-        bound=bound(nbytes, flops), library_ms=None,
+        device_ms=dms, bound=bound(nbytes, flops), library_ms=None,
         tol="atol 2e-5 (the JAX package's kernel test)")
 
     # 4. resblock trio with the source injection, the three narrow stages
@@ -258,7 +303,7 @@ def kernel_phase(torch, K, gen):
     # each fp32 one at the TF32 peak (the fp32 CUDA-core bound beside it).
     # The library time is the plain version: the fp32 cuDNN conv chain
     t_final = f_mel * upp
-    errs, ms_sum, pms_sum, flops, nbytes = [], 0.0, 0.0, 0.0, 0.0
+    errs, ms_sum, pms_sum, dms_sum, flops, nbytes = [], 0.0, 0.0, 0.0, 0.0, 0.0
 
     def trio_inputs(c, s, inject=True, valid=None):
         t_s = t_final // s
@@ -270,13 +315,9 @@ def kernel_phase(torch, K, gen):
         return (randn(1, t_s, c), har, randn(c, 1, ksrc, scale=0.2),
                 randn(c, scale=0.05), ws, bs, s, (1, 3, 5), valid)
 
-    def build_info(info):
-        return (f"{info['registers']} registers, {info['spill_bytes']} bytes "
-                f"spilled, {info['smem_bytes']} bytes of shared memory")
-
     for c, s in TRIO_STAGES:
         inputs = [trio_inputs(c, s) for _ in range(2)]
-        e, ms, pms = compare(torch, f"fused_resblocks_inject C={c}",
+        e, ms, pms, dms = compare(torch, f"fused_resblocks_inject C={c}",
                              K.fused_resblocks_inject,
                              K.resblocks_inject_plain, inputs, 1e-4, 0.0,
                              tol_rtol=1e-4)
@@ -285,11 +326,12 @@ def kernel_phase(torch, K, gen):
         say(f"kernel fused_resblocks_inject C={c} T={t_final // s} "
             f"({TRIO_ROUTE}; {build_info(K.trio_kernel_info(c))}): max|err| "
             f"{e:.3e} (atol 1e-4, "
-            f"rtol 1e-4; at most 2e-5), {ms:.3f} ms, plain (fp32 cuDNN "
-            f"chain) {pms:.3f} ms")
+            f"rtol 1e-4; at most 2e-5), {ms:.3f} ms, device_ms {dms:.3f}, "
+            f"plain (fp32 cuDNN chain) {pms:.3f} ms")
         errs.append(e)
         ms_sum += ms
         pms_sum += pms
+        dms_sum += dms
         t_s = t_final // s
         ksrc = 2 * s if s > 1 else 1
         flops += 2 * c * c * 6 * (3 + 7 + 11) * t_s + 2 * c * ksrc * t_s
@@ -300,7 +342,7 @@ def kernel_phase(torch, K, gen):
     rows["fused_resblocks_inject"] = dict(
         route="cuda", source="ddsp_svc_tpu_torch/csrc/resblocks.cu",
         replaces=f"{TPU_KERNELS}:1373", max_abs_err=max(errs), ms=ms_sum,
-        plain_ms=pms_sum, bound=bound_3xtf32(nbytes, flops),
+        plain_ms=pms_sum, device_ms=dms_sum, bound=bound_3xtf32(nbytes, flops),
         library_ms=pms_sum,
         tol="atol 1e-4 + rtol 1e-4 (the JAX package's kernel test), max|err| "
             "at most 2e-5; library: the fp32 cuDNN conv chain (the plain "
@@ -323,8 +365,8 @@ def kernel_phase(torch, K, gen):
                 return K.fused_resblocks(x, ws, bs, dils, valid)
         else:
             kern = K.fused_resblocks_inject
-        e, ms, pms = compare(torch, label, kern, K.resblocks_inject_plain,
-                             inputs, 1e-4, 0.0, tol_rtol=1e-4)
+        e, ms, pms, dms = compare(torch, label, kern, K.resblocks_inject_plain,
+                                  inputs, 1e-4, 0.0, tol_rtol=1e-4)
         if not e <= 2e-5:
             fail(f"{label}: max|err| {e:.3e} over 2e-5")
         if "valid" in kw:
@@ -341,7 +383,8 @@ def kernel_phase(torch, K, gen):
             nbytes += 4 * t_final
         t_b, by = bound_3xtf32(nbytes, flops)
         say(f"kernel {label} C=64 ({TRIO_ROUTE}): max|err| {e:.3e} (atol "
-            f"1e-4, rtol 1e-4; at most 2e-5), {ms:.3f} ms, plain (fp32 cuDNN "
+            f"1e-4, rtol 1e-4; at most 2e-5), {ms:.3f} ms, device_ms "
+            f"{dms:.3f}, plain (fp32 cuDNN "
             f"chain) {pms:.3f} ms, bound {t_b:.4f} ms ({by}) in 3xTF32, "
             f"{bound(nbytes, flops)[0]:.4f} ms in fp32"
             + ("; tail past 40000 exactly 0" if "valid" in kw else ""))
@@ -350,7 +393,7 @@ def kernel_phase(torch, K, gen):
             rows["fused_resblocks"] = dict(
                 route="cuda", source="ddsp_svc_tpu_torch/csrc/resblocks.cu",
                 replaces=f"{TPU_KERNELS}:1315", max_abs_err=e, ms=ms,
-                plain_ms=pms, bound=(t_b, by), library_ms=pms,
+                plain_ms=pms, device_ms=dms, bound=(t_b, by), library_ms=pms,
                 tol="atol 1e-4 + rtol 1e-4 (the JAX package's kernel test), "
                     "max|err| at most 2e-5; the C = 64 stage without the "
                     "injection; library: the fp32 cuDNN conv chain (the "
@@ -363,7 +406,7 @@ def kernel_phase(torch, K, gen):
     # an FFT of the same size (2.5 n log2 n per real row)
     from ddsp_svc_tpu_torch.models.losses import default_buckets
 
-    err = ms_sum = pms_sum = lms_sum = flops = nbytes = 0.0
+    err = ms_sum = pms_sum = dms_sum = lms_sum = flops = nbytes = 0.0
 
     def library_mag(x, n):
         return torch.abs(torch.fft.rfft(x, n))
@@ -372,8 +415,9 @@ def kernel_phase(torch, K, gen):
         rows_n = 24 * ((TRAIN_CROP_SAMPLES - n) // n + 1)
         win = torch.hann_window(n, periodic=True, device=dev)
         inputs = [(randn(rows_n, n, scale=0.1) * win, n) for _ in range(2)]
-        e, ms, pms = compare(torch, f"dft_magnitude n={n}", K.dft_magnitude,
-                             K.dft_magnitude_plain, inputs, 2e-3, 0.0)
+        e, ms, pms, dms = compare(torch, f"dft_magnitude n={n}",
+                                  K.dft_magnitude, K.dft_magnitude_plain,
+                                  inputs, 2e-3, 0.0)
         lms = time_ms(torch, library_mag, inputs)
         bins = n // 2 + 1
         f_n = rows_n * (2.5 * n * math.log2(n) + 4 * bins)
@@ -383,10 +427,11 @@ def kernel_phase(torch, K, gen):
                  f"Bluestein of {l} at M={m}"
                  + (", split" if 2 * l == n else ""))
         say(f"kernel dft_magnitude n={n} rows={rows_n} ({route}): max|err| "
-            f"{e:.3e}, {ms:.4f} ms, plain {pms:.4f} ms, library {lms:.4f} ms,"
-            f" bound {bound(b_n, f_n)[0]:.4f} ms")
+            f"{e:.3e}, {ms:.4f} ms, device_ms {dms:.4f}, plain {pms:.4f} ms, "
+            f"library {lms:.4f} ms, bound {bound(b_n, f_n)[0]:.4f} ms")
         err, ms_sum, pms_sum, lms_sum = (max(err, e), ms_sum + ms,
                                          pms_sum + pms, lms_sum + lms)
+        dms_sum += dms
         flops += f_n
         nbytes += b_n
     # rows of unequal scale (10^u, u uniform in [-4, 0]), as silent frames
@@ -410,7 +455,8 @@ def kernel_phase(torch, K, gen):
     rows["dft_magnitude"] = dict(
         route="cuda", source="ddsp_svc_tpu_torch/csrc/dft_magnitude.cu",
         replaces=f"{TPU_KERNELS}:241", max_abs_err=err, ms=ms_sum,
-        plain_ms=pms_sum, bound=bound(nbytes, flops), library_ms=lms_sum,
+        plain_ms=pms_sum, device_ms=dms_sum, bound=bound(nbytes, flops),
+        library_ms=lms_sum,
         tol="atol 2e-3 (the JAX package's kernel test); times are the sum "
             "of one call at each of the 16 bucket sizes")
 
@@ -421,15 +467,15 @@ def kernel_phase(torch, K, gen):
     inputs = [(randn(r, n, scale=1e-3), randn(r, n), randn(r, n),
                randn(r, bins, scale=0.3), randn(r, bins),
                randn(r, bins, scale=0.3, shift=-3.0), n) for _ in range(2)]
-    err, ms, pms = compare(torch, "combsub_spectral_bwd",
-                           K.combsub_spectral_bwd,
-                           K.combsub_spectral_bwd_plain, inputs, 0.0, 2e-5)
+    err, ms, pms, dms = compare(torch, "combsub_spectral_bwd",
+                                K.combsub_spectral_bwd,
+                                K.combsub_spectral_bwd_plain, inputs, 0.0, 2e-5)
     flops = r * (5 * 2.5 * n * math.log2(n) + 40 * bins)
     nbytes = 4 * (r * (5 * n + 6 * bins) + n)
     rows["combsub_spectral_bwd"] = dict(
-        route="cuda", source="ddsp_svc_tpu_torch/csrc/combsub_spectral.cu",
+        route="cuda", source="ddsp_svc_tpu_torch/csrc/combsub_spectral_bwd.cu",
         replaces=f"{TPU_KERNELS}:781", max_abs_err=err, ms=ms, plain_ms=pms,
-        bound=bound(nbytes, flops), library_ms=None,
+        device_ms=dms, bound=bound(nbytes, flops), library_ms=None,
         tol="2e-5 x max|ref| per gradient (the JAX package's kernel test)")
 
     # 8. the Sins oscillator bank, 128 harmonics at block 512, amplitudes
@@ -438,7 +484,7 @@ def kernel_phase(torch, K, gen):
     # counts 9 fp32 operations per (sample, harmonic): the lerp (2), the
     # harmonic multiple (1), the wrap (3), the sine (1), the sum (2)
     bs, n_h = 512, 128
-    err = rel = ms_sum = pms_sum = flops = nbytes = 0.0
+    err = rel = ms_sum = pms_sum = dms_sum = flops = nbytes = 0.0
     for b, f in ((1, 512), (24, 172)):
         inputs = [((torch.rand((b, f * bs), generator=gen, device=dev) * 2
                     - 1) * math.pi,
@@ -446,23 +492,24 @@ def kernel_phase(torch, K, gen):
                    bs) for _ in range(2)]
         scale = max(K.oscillator_bank_plain(*a).abs().max().item()
                     for a in inputs)
-        e, ms, pms = compare(torch, f"oscillator_bank {b}x{f}",
-                             K.oscillator_bank, K.oscillator_bank_plain,
-                             inputs, 2e-3, 0.0)
+        e, ms, pms, dms = compare(torch, f"oscillator_bank {b}x{f}",
+                                  K.oscillator_bank, K.oscillator_bank_plain,
+                                  inputs, 2e-3, 0.0)
         err, rel = max(err, e), max(rel, e / scale)
-        ms_sum, pms_sum = ms_sum + ms, pms_sum + pms
+        ms_sum, pms_sum, dms_sum = ms_sum + ms, pms_sum + pms, dms_sum + dms
         terms = b * f * bs * n_h
         f_n, b_n = 9 * terms, 4 * (2 * b * f * bs + b * f * n_h)
         flops += f_n
         nbytes += b_n
         say(f"kernel oscillator_bank {b} x {f} frames x {n_h} harmonics: "
-            f"max|err| {e:.3e} (rel {e / scale:.2e}), {ms:.4f} ms, plain "
-            f"{pms:.4f} ms, bound {bound(b_n, f_n)[0]:.4f} ms (max|ref| "
+            f"max|err| {e:.3e} (rel {e / scale:.2e}), {ms:.4f} ms, device_ms "
+            f"{dms:.4f}, plain {pms:.4f} ms, bound {bound(b_n, f_n)[0]:.4f} ms (max|ref| "
             f"{scale:.3f})")
     rows["oscillator_bank"] = dict(
         route="cuda", source="ddsp_svc_tpu_torch/csrc/oscillator_bank.cu",
         replaces=f"{TPU_KERNELS}:49", max_abs_err=err, ms=ms_sum,
-        plain_ms=pms_sum, bound=bound(nbytes, flops), library_ms=None,
+        plain_ms=pms_sum, device_ms=dms_sum, bound=bound(nbytes, flops),
+        library_ms=None,
         tol=f"atol 2e-3 at amplitudes <= 0.1 (the JAX package's kernel "
             f"test), relative {rel:.2e}; times are the sum of the offline "
             f"and the training shape")
@@ -477,23 +524,26 @@ def kernel_phase(torch, K, gen):
         return torch.fft.irfft(torch.fft.rfft(a, n) * torch.fft.rfft(h, n), n)
 
     n_fft, frame = 2048, 1024
-    err = ms_sum = pms_sum = lms_sum = flops = nbytes = 0.0
+    err = ms_sum = pms_sum = dms_sum = lms_sum = flops = nbytes = 0.0
     for r in (513, 24 * 173):
         for ir in (510, 1022):
             inputs = [(randn(r, frame), randn(r, ir, scale=0.02), n_fft)
                       for _ in range(2)]
-            e, ms, pms = compare(torch, f"ltv_fir_convolve {r}x{ir}",
-                                 K.ltv_fir_convolve, K.ltv_fir_convolve_plain,
-                                 inputs, 0.0, 2e-4)
+            e, ms, pms, dms = compare(torch, f"ltv_fir_convolve {r}x{ir}",
+                                      K.ltv_fir_convolve,
+                                      K.ltv_fir_convolve_plain, inputs, 0.0,
+                                      2e-4)
             lms = time_ms(torch, library_conv, inputs)
             f_n = r * (3 * 2.5 * n_fft * math.log2(n_fft)
                        + 6 * (n_fft // 2 + 1))
             b_n = 4 * r * (frame + ir + n_fft)
             say(f"kernel ltv_fir_convolve rows={r} ir={ir}: max|err| {e:.3e}, "
-                f"{ms:.4f} ms, plain {pms:.4f} ms, three-call cuFFT chain "
-                f"{lms:.4f} ms, bound {bound(b_n, f_n)[0]:.4f} ms")
+                f"{ms:.4f} ms, device_ms {dms:.4f}, plain {pms:.4f} ms, "
+                f"three-call cuFFT chain {lms:.4f} ms, bound "
+                f"{bound(b_n, f_n)[0]:.4f} ms")
             err, ms_sum, pms_sum, lms_sum = (max(err, e), ms_sum + ms,
                                              pms_sum + pms, lms_sum + lms)
+            dms_sum += dms
             flops += f_n
             nbytes += b_n
     # the gradients through the autograd Function against autograd of the
@@ -531,7 +581,8 @@ def kernel_phase(torch, K, gen):
     rows["ltv_fir_convolve"] = dict(
         route="cuda", source="ddsp_svc_tpu_torch/csrc/ltv_fir_convolve.cu",
         replaces=f"{TPU_KERNELS}:399", max_abs_err=err, ms=ms_sum,
-        plain_ms=pms_sum, bound=bound(nbytes, flops), library_ms=lms_sum,
+        plain_ms=pms_sum, device_ms=dms_sum, bound=bound(nbytes, flops),
+        library_ms=lms_sum,
         tol="2e-4 x max|ref| (the JAX package's kernel test); times are the "
             "sum over the offline and training rows at ir 510 and 1022; "
             "library: the three-call cuFFT chain")
@@ -542,14 +593,15 @@ def kernel_phase(torch, K, gen):
     # of its three chains is the trio's conv work without the mean, beside
     # #5 and the fp32 cuDNN chains from this call
     c, t_s = 64, t_final // 4
-    err = ms_sum = pms_sum = flops = nbytes = 0.0
+    err = ms_sum = pms_sum = dms_sum = flops = nbytes = 0.0
     for k in TRIO_K:
         inputs = [(randn(1, t_s, c), randn(3, 2, c, c, k,
                                            scale=(2.0 / (k * c)) ** 0.5),
                    randn(3, 2, c, scale=0.01), k) for _ in range(2)]
-        e, ms, pms = compare(torch, f"fused_resblock_chain k={k}",
-                             K.fused_resblock_chain, K.resblock_chain_plain,
-                             inputs, 1e-4, 0.0, tol_rtol=1e-4)
+        e, ms, pms, dms = compare(torch, f"fused_resblock_chain k={k}",
+                                  K.fused_resblock_chain,
+                                  K.resblock_chain_plain, inputs, 1e-4, 0.0,
+                                  tol_rtol=1e-4)
         e64, p64 = errors_vs_float64(torch, K.fused_resblock_chain,
                                      K.resblock_chain_plain, inputs[0])
         if not e64 <= 4e-6:
@@ -561,11 +613,12 @@ def kernel_phase(torch, K, gen):
             f"{build_info(K.chain_kernel_info(c, k))}): max|err| {e:.3e} "
             f"(atol 1e-4, rtol 1e-4; the trio's 2e-5 as a target); against "
             f"float64 {e64:.3e} x max|ref| (at most 4e-6), the fp32 cuDNN "
-            f"chain {p64:.3e}; {ms:.3f} ms, plain (fp32 "
-            f"cuDNN chain) {pms:.3f} ms, bound "
+            f"chain {p64:.3e}; {ms:.3f} ms, device_ms {dms:.3f}, plain "
+            f"(fp32 cuDNN chain) {pms:.3f} ms, bound "
             f"{bound_3xtf32(b_k, f_k)[0]:.4f} ms in 3xTF32, "
             f"{bound(b_k, f_k)[0]:.4f} ms in fp32")
         err, ms_sum, pms_sum = max(err, e), ms_sum + ms, pms_sum + pms
+        dms_sum += dms
         flops += f_k
         nbytes += b_k
     say(f"fused_resblock_chain at C=64 T={t_s}, this call: k = 3 + 7 + 11 "
@@ -576,7 +629,7 @@ def kernel_phase(torch, K, gen):
     rows["fused_resblock_chain"] = dict(
         route="cuda", source="ddsp_svc_tpu_torch/csrc/resblock_chain.cu",
         replaces=f"{TPU_KERNELS}:1415", max_abs_err=err, ms=ms_sum,
-        plain_ms=pms_sum, bound=bound_3xtf32(nbytes, flops),
+        plain_ms=pms_sum, device_ms=dms_sum, bound=bound_3xtf32(nbytes, flops),
         library_ms=pms_sum,
         tol="atol 1e-4 + rtol 1e-4 (the JAX package's kernel test), max|err| "
             "at most 2e-5; times are the sum of k = 3, 7, 11 at C = 64, T = "
@@ -604,11 +657,12 @@ def kernel_phase(torch, K, gen):
             stride=u, padding=u // 2).transpose(1, 2)
         return K.fused_resblocks_inject(x_up, har, nw, nb, ws, bs, s)
 
-    err = ms_sum = pms_sum = ums_sum = flops = nbytes = 0.0
+    err = ms_sum = pms_sum = dms_sum = ums_sum = flops = nbytes = 0.0
     for c, s in TRIO_STAGES:
         inputs = [stage_inputs(c, s) for _ in range(2)]
-        e, ms, pms = compare(torch, f"fused_stage C={c}", K.fused_stage,
-                             K.stage_plain, inputs, 2e-4, 0.0, tol_rtol=2e-4)
+        e, ms, pms, dms = compare(torch, f"fused_stage C={c}", K.fused_stage,
+                                  K.stage_plain, inputs, 2e-4, 0.0,
+                                  tol_rtol=2e-4)
         if not e <= 2e-5:
             fail(f"fused_stage C={c}: max|err| {e:.3e} over 2e-5")
         e64, p64 = errors_vs_float64(torch, K.fused_stage, K.stage_plain,
@@ -626,18 +680,19 @@ def kernel_phase(torch, K, gen):
             f"{build_info(K.stage_kernel_info(c))}): max|err| {e:.3e} (atol "
             f"2e-4, rtol 2e-4; at most 2e-5); against float64 {e64:.3e} x "
             f"max|ref| (at most 4e-6), the fp32 plain {p64:.3e}; {ms:.3f} ms, "
-            f"plain {pms:.3f} ms,"
+            f"device_ms {dms:.3f}, plain {pms:.3f} ms,"
             f" library (cuDNN ConvTranspose + fused_resblocks_inject) "
             f"{ums:.3f} ms, bound {bound_3xtf32(b_c, f_c)[0]:.4f} ms in "
             f"3xTF32, {bound(b_c, f_c)[0]:.4f} ms in fp32")
         err, ms_sum, pms_sum = max(err, e), ms_sum + ms, pms_sum + pms
+        dms_sum += dms
         ums_sum += ums
         flops += f_c
         nbytes += b_c
     rows["fused_stage"] = dict(
         route="cuda", source="ddsp_svc_tpu_torch/csrc/fused_stage.cu",
         replaces=f"{TPU_KERNELS}:1694", max_abs_err=err, ms=ms_sum,
-        plain_ms=pms_sum, bound=bound_3xtf32(nbytes, flops),
+        plain_ms=pms_sum, device_ms=dms_sum, bound=bound_3xtf32(nbytes, flops),
         library_ms=ums_sum,
         tol="atol 2e-4 + rtol 2e-4 (the JAX package's kernel test), max|err| "
             "at most 2e-5; times are the sum of the three narrow stages (C = "
@@ -1242,8 +1297,8 @@ def main() -> None:
     for name, row in rows.items():
         t_b, by = row["bound"]
         say(f"kernel {name}: max|err| {row['max_abs_err']:.3e} ({row['tol']}), "
-            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
-            f"{t_b:.4f} ms ({by})")
+            f"{row['ms']:.4f} ms, device_ms {row['device_ms']:.4f}, plain "
+            f"{row['plain_ms']:.4f} ms, bound {t_b:.4f} ms ({by})")
     # launches: the sum over the main paths' runs, each counted from 0 just
     # before it (offline, then training, for each synthesizer)
     launches = {k: 0 for k in K.launch_counts()}
@@ -1267,6 +1322,7 @@ def main() -> None:
             "name": name, "route": row["route"], "source": row["source"],
             "replaces": row["replaces"], "launches": launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "device_ms": row["device_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": t_b, "bound_by": by,
             "library_ms": row["library_ms"],
         })

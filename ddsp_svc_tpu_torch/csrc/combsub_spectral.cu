@@ -1,4 +1,5 @@
-// The CombSubFast STFT-domain filter chain, one frame row per block.
+// The CombSubFast STFT-domain filter chain, forward, as half-length real FFTs
+// on the power-of-two FFT core (fft_pow2.cuh).
 //
 // Replaces: ddsp_svc_tpu/ops/pallas_kernels.py::combsub_spectral_pallas,
 // forward (body _combsub_spectral_kernel).
@@ -7,223 +8,149 @@
 //                  + rfft(noise[r]) * exp(nm[r]) / 128, n) * window
 //
 // Bound on the H100: bytes. Per row the kernel reads 2n + 3(n/2+1) floats
-// and writes n, ~7n floats, for two n-point complex FFTs (~10 n log2 n
-// flops): ~4 flops per byte at n = 1024, below the fp32 ridge of ~20. At the
-// main path's few hundred rows the whole call moves a few MB, so in practice
-// it is bound by the latency of the FFT stages inside each block.
+// and writes n, ~7n floats, for three real n-point FFTs (~7.5 n log2 n
+// flops): ~3 flops per byte at n = 1024, below the fp32 ridge of ~20.
 //
 // Design: the TPU kernel computed the transforms as DFT matmuls for its
-// matrix unit; here each block runs radix-2 FFTs in shared memory. tooth and
-// noise are real, so one complex FFT of z = tooth + i*noise gives both
-// spectra (A = (Z[k] + conj Z[n-k]) / 2, N = (Z[k] - conj Z[n-k]) / 2i).
-// The filters are built in registers from the raw controls, the product is
-// written once as a Hermitian spectrum (imaginary parts of the DC and
-// Nyquist bins dropped, irfft semantics), and a second complex FFT inverts
-// it. The spectra never leave shared memory: 2.5 n complex values, 20 KB at
-// n = 1024. n is a power of two, 64..4096.
+// matrix unit; here each real transform of length n runs as an L = n/2-point
+// complex FFT of the row's even and odd samples, z[i] = x[2i] + j x[2i+1],
+// as ltv_fir_convolve.cu does. The row's threads split in two groups of
+// L/16: one transforms tooth, the other noise, at once (radix 16, each
+// reading its row straight from device memory in the first pass). tooth and
+// noise stay in separate transforms: noise's filtered share is ~exp(nm)/128
+// of tooth's, and a shared transform rounds the smaller at the larger's
+// scale. Then each thread takes bin pairs (k, L-k): the real split of both
+// spectra, the filter of each bin built in registers from the raw controls,
+// S = A e^{hm + j pi hp} + N e^{nm}/128 (the imaginary parts of the DC and
+// Nyquist bins dropped, irfft semantics), and the inverse's packing Z'[k] =
+// Se[k] + j So[k] (the spectra of the even and odd output samples) in place
+// of tooth's spectrum. All the row's threads run the inverse L-point FFT
+// (radix 8) and its last pass writes out[2i], out[2i+1] = z'[i] / L times
+// the window straight to device memory. Shared memory: two padded L-point
+// spectra, 8.5 KB per row at n = 1024, four rows per 256-thread block. n is a
+// power of two, 64..4096.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "fft_radix2.cuh"
+#include "fft_pow2.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 
-__global__ void __launch_bounds__(kThreads)
+// A e^{hm + j pi hp} + N e^{nm} / 128 at one bin
+__device__ __forceinline__ float2 filtered(float2 a, float2 nz, float hm, float hp,
+                                           float nm) {
+  const float mag = expf(hm);
+  float si, co;
+  sincosf(3.14159265358979f * hp, &si, &co);
+  const float2 h = cmul(a, make_float2(mag * co, mag * si));
+  const float q = expf(nm) / 128.0f;
+  return make_float2(h.x + nz.x * q, h.y + nz.y * q);
+}
+
+// L = n / 2 points per transform; L / 8 threads per row
+template <int L>
+__global__ void __launch_bounds__(L / 8 > kThreads ? L / 8 : kThreads)
 combsub_spectral_kernel(const float* __restrict__ tooth, const float* __restrict__ noise,
                         const float* __restrict__ hm, const float* __restrict__ hp,
                         const float* __restrict__ nm, const float* __restrict__ window,
-                        float* __restrict__ out, int n, int log2n) {
-  extern __shared__ float2 sm2[];
-  float2* s = sm2;               // n: z, then the inverse transform
-  float2* p = s + n;             // n/2 + 1: filtered half spectrum
-  float2* tw = p + n / 2 + 1;    // n/2 twiddles
-  const int bins = n / 2 + 1;
-  const size_t row = blockIdx.x;
-  const float* a = tooth + row * n;
-  const float* z = noise + row * n;
-  const int shift = 32 - log2n;
+                        float* __restrict__ out, int rows) {
+  extern __shared__ float2 smem[];
+  constexpr int n = 2 * L, bins = L + 1, tpr = L / 8;  // two groups of L / 16
+  const int slot = threadIdx.x / tpr;
+  const int t = threadIdx.x - slot * tpr;
+  const int row = blockIdx.x * (blockDim.x / tpr) + slot;
+  const bool live = row < rows;  // a spare slot still takes part in the syncs
+  const size_t r = live ? row : 0;
+  float2* sa = smem + 2 * slot * padded(L);
+  float2* sn = sa + padded(L);
 
-  fill_twiddles(tw, n);
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    s[__brev(i) >> shift] = make_float2(a[i], z[i]);
-  }
+  // forward: group 0 transforms tooth, group 1 noise
+  const int group = t / (L / 16);
+  const float2* src = reinterpret_cast<const float2*>((group ? noise : tooth) + r * n);
+  float2* s = group ? sn : sa;
+  fft_pow2<L, false>(
+      s, t - group * (L / 16), [=](int i) { return src[i]; },
+      [s](int i, float2 v) { s[pad(i)] = v; });
   __syncthreads();
-  fft_inplace(s, tw, n, false);
 
-  const size_t cb = row * bins;
-  for (int k = threadIdx.x; k < bins; k += kThreads) {
-    const float2 zk = s[k];
-    const float2 zc = s[(n - k) & (n - 1)];  // Z[n-k], conjugated below
-    const float2 sa = make_float2(0.5f * (zk.x + zc.x), 0.5f * (zk.y - zc.y));
-    const float2 sn = make_float2(0.5f * (zk.y + zc.y), -0.5f * (zk.x - zc.x));
-    const float mag = expf(hm[cb + k]);
-    float si, co;
-    sincosf(3.14159265358979f * hp[cb + k], &si, &co);
-    const float2 flt = make_float2(mag * co, mag * si);
-    const float nf = expf(nm[cb + k]) / 128.0f;
-    const float2 h = cmul(sa, flt);
-    p[k] = make_float2(h.x + sn.x * nf, h.y + sn.y * nf);
-  }
-  __syncthreads();
-  for (int m = threadIdx.x; m < n; m += kThreads) {
-    float2 x;
-    if (m == 0 || m == n / 2) {
-      x = make_float2(p[m].x, 0.f);
-    } else if (m < n / 2) {
-      x = p[m];
-    } else {
-      x = make_float2(p[n - m].x, -p[n - m].y);
+  // the filtered spectrum, packed for the inverse, bin pairs (k, L - k)
+  const float* hmr = hm + r * bins;
+  const float* hpr = hp + r * bins;
+  const float* nmr = nm + r * bins;
+  for (int k = t; k <= L / 2; k += tpr) {
+    const int j = k == 0 ? 0 : L - k;
+    const int bj = k == 0 ? L : j;  // the bin of the pair's second value
+    float sn_k, cs_k;
+    sincospif(2.0f * (float)k / (float)n, &sn_k, &cs_k);
+    const float2 w = make_float2(cs_k, -sn_k);  // exp(-2 pi i k / n)
+    float2 ak, aj, nk, nj;
+    real_split(sa[pad(k)], sa[pad(j)], w, ak, aj);
+    real_split(sn[pad(k)], sn[pad(j)], w, nk, nj);
+    float2 pk = filtered(ak, nk, hmr[k], hpr[k], nmr[k]);   // S[k]
+    float2 pj = filtered(aj, nj, hmr[bj], hpr[bj], nmr[bj]);  // S[L - k]
+    if (k == 0) {  // DC and Nyquist: irfft reads their real parts only
+      pk.y = 0.f;
+      pj.y = 0.f;
     }
-    s[__brev(m) >> shift] = x;
+    // Se = (S[k] + conj S[L-k]) / 2, So = (S[k] - conj S[L-k]) conj(w) / 2
+    const float2 pe = cscale(cadd(pk, conjf2(pj)), 0.5f);
+    const float2 po = cscale(cmul(csub(pk, conjf2(pj)), conjf2(w)), 0.5f);
+    sa[pad(k)] = make_float2(pe.x - po.y, pe.y + po.x);                 // Se + j So
+    if (k != 0) sa[pad(j)] = make_float2(pe.x + po.y, po.x - pe.y);  // conj Se + j conj So
   }
   __syncthreads();
-  fft_inplace(s, tw, n, true);
 
-  const float inv_n = 1.0f / (float)n;
-  float* o = out + row * n;
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    o[i] = s[i].x * inv_n * window[i];
-  }
+  // the inverse on all the row's threads: L / 8 of them, radix 8; 1/L (a
+  // power of two, exact) and the window on the way out
+  float2* o = reinterpret_cast<float2*>(out + r * n);
+  const float2* win = reinterpret_cast<const float2*>(window);
+  fft_pow2<L, true, 8>(sa, t, [sa](int i) { return sa[pad(i)]; },
+                       [=](int i, float2 v) {
+                         if (live) {
+                           const float2 wi = win[i];
+                           o[i] = make_float2(v.x * (1.0f / L) * wi.x,
+                                              v.y * (1.0f / L) * wi.y);
+                         }
+                       });
 }
 
-// The analytic adjoint of the chain above, one frame row per block.
-//
-// Replaces: ddsp_svc_tpu/ops/pallas_kernels.py::_combsub_spectral_bwd_impl
-// (body _combsub_spectral_bwd_kernel). With A = rfft(tooth), N = rfft(noise),
-// H = exp(hm + j*pi*hp), Q = exp(nm)/128 and w_k = (1 at DC and Nyquist,
-// else 2)/n:
-//   dS  = w * rfft(g * window)
-//   dhm = Re(dS conj(A) conj(H)),  dhp = pi * Im(dS conj(A) conj(H)),
-//   dnm = Re(dS conj(N)) * Q
-//   dtooth[t] = Re sum_k dS conj(H)[k] e^{+2 pi j k t / n},
-//   dnoise[t] = Re sum_k dS Q[k]       e^{+2 pi j k t / n}   (k = 0 .. n/2).
-//
-// Bound on the H100: bytes, as the forward (per row 3n + 3(n/2+1) floats in,
-// 2n + 3(n/2+1) out, for four n-point complex FFTs).
-//
-// Design: the TPU kernel ran this as DFT matmuls over bin blocks and summed
-// dtooth/dnoise across them through its sequential grid. Here a block owns a
-// whole row, so nothing is summed across blocks: one complex FFT of
-// tooth + j*noise gives A and N (as in the forward), a second gives
-// rfft(g * window), the five gradients are formed per bin, and each real
-// output comes from an inverse FFT of the Hermitian extension of its half
-// spectrum (interior bins halved, the DC and Nyquist imaginary parts dropped,
-// as their e^{jx} is real). The two outputs are not packed into one inverse
-// FFT: dnoise is ~exp(nm)/128 (~1e-3) of dtooth's scale, and the shared
-// transform's rounding at dtooth's scale would swamp it. The TPU fed its
-// matrix unit bf16 under model.bf16; this kernel stays fp32.
-__global__ void __launch_bounds__(kThreads)
-combsub_spectral_bwd_kernel(const float* __restrict__ g, const float* __restrict__ tooth,
-                            const float* __restrict__ noise, const float* __restrict__ hm,
-                            const float* __restrict__ hp, const float* __restrict__ nm,
-                            const float* __restrict__ window, float* __restrict__ d_tooth,
-                            float* __restrict__ d_noise, float* __restrict__ d_hm,
-                            float* __restrict__ d_hp, float* __restrict__ d_nm, int n,
-                            int log2n) {
-  extern __shared__ float2 sm2[];
-  float2* s = sm2;               // n: tooth + j*noise, transformed
-  float2* gs = s + n;            // n: g * window, transformed
-  float2* p = gs + n;            // n: Hermitian dA, bit-reversed, inverted
-  float2* pn = p + n;            // n: Hermitian dN, bit-reversed, inverted
-  float2* tw = pn + n;           // n/2 twiddles
-  const int bins = n / 2 + 1;
-  const size_t row = blockIdx.x;
-  const float* gr = g + row * n;
-  const float* a = tooth + row * n;
-  const float* z = noise + row * n;
-  const int shift = 32 - log2n;
+template <int L>
+int launch(const float* tooth, const float* noise, const float* hm, const float* hp,
+           const float* nm, const float* window, float* out, int rows,
+           cudaStream_t stream) {
+  constexpr int tpr = L / 8;
+  constexpr int per_block = tpr >= kThreads ? 1 : kThreads / tpr;
+  // at most 34,816 bytes (L = 512..2048): under the default 48 KB
+  constexpr size_t smem = (size_t)per_block * 2 * padded(L) * sizeof(float2);
+  const int blocks = (rows + per_block - 1) / per_block;
+  combsub_spectral_kernel<L><<<blocks, per_block * tpr, smem, stream>>>(
+      tooth, noise, hm, hp, nm, window, out, rows);
+  return (int)cudaGetLastError();
+}
 
-  fill_twiddles(tw, n);
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    const int j = __brev(i) >> shift;
-    s[j] = make_float2(a[i], z[i]);
-    gs[j] = make_float2(gr[i] * window[i], 0.f);
+template <int L>
+int launch_l(int l, const float* tooth, const float* noise, const float* hm,
+             const float* hp, const float* nm, const float* window, float* out,
+             int rows, cudaStream_t stream) {
+  if (l == L) return launch<L>(tooth, noise, hm, hp, nm, window, out, rows, stream);
+  if constexpr (L < 2048) {
+    return launch_l<2 * L>(l, tooth, noise, hm, hp, nm, window, out, rows, stream);
   }
-  __syncthreads();
-  fft_inplace(s, tw, n, false);
-  fft_inplace(gs, tw, n, false);
-
-  const size_t cb = row * bins;
-  const float pi = 3.14159265358979f;
-  for (int k = threadIdx.x; k < bins; k += kThreads) {
-    const float2 zk = s[k];
-    const float2 zc = s[(n - k) & (n - 1)];
-    const float2 sa = make_float2(0.5f * (zk.x + zc.x), 0.5f * (zk.y - zc.y));
-    const float2 sn = make_float2(0.5f * (zk.y + zc.y), -0.5f * (zk.x - zc.x));
-    const float wk = ((k == 0 || k == n / 2) ? 1.0f : 2.0f) / (float)n;
-    const float2 ds = make_float2(wk * gs[k].x, wk * gs[k].y);
-    const float mag = expf(hm[cb + k]);
-    float si, co;
-    sincosf(pi * hp[cb + k], &si, &co);
-    const float hr = mag * co, hi = mag * si;
-    const float q = expf(nm[cb + k]) / 128.0f;
-    // dH = dS conj(A); d(hm) = Re(dH conj(H)), d(hp) = pi Im(dH conj(H))
-    const float dhr = ds.x * sa.x + ds.y * sa.y;
-    const float dhi = -ds.x * sa.y + ds.y * sa.x;
-    d_hm[cb + k] = dhr * hr + dhi * hi;
-    d_hp[cb + k] = pi * (-dhr * hi + dhi * hr);
-    d_nm[cb + k] = (ds.x * sn.x + ds.y * sn.y) * q;
-    // dA = dS conj(H) and dN = dS Q, each extended Hermitian
-    const float2 da = make_float2(ds.x * hr + ds.y * hi, -ds.x * hi + ds.y * hr);
-    const float2 dn = make_float2(ds.x * q, ds.y * q);
-    const int jk = __brev(k) >> shift;
-    if (k == 0 || k == n / 2) {
-      p[jk] = make_float2(da.x, 0.f);
-      pn[jk] = make_float2(dn.x, 0.f);
-    } else {
-      const int jm = __brev(n - k) >> shift;
-      p[jk] = make_float2(0.5f * da.x, 0.5f * da.y);
-      p[jm] = make_float2(0.5f * da.x, -0.5f * da.y);
-      pn[jk] = make_float2(0.5f * dn.x, 0.5f * dn.y);
-      pn[jm] = make_float2(0.5f * dn.x, -0.5f * dn.y);
-    }
-  }
-  __syncthreads();
-  fft_inplace(p, tw, n, true);
-  fft_inplace(pn, tw, n, true);
-
-  float* ot = d_tooth + row * n;
-  float* on = d_noise + row * n;
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    ot[i] = p[i].x;
-    on[i] = pn[i].x;
-  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// g, tooth, noise, d_tooth, d_noise: (rows, n) fp32; hm, hp, nm, d_hm, d_hp,
-// d_nm: (rows, n/2+1); window: (n,).
-extern "C" int combsub_spectral_bwd_launch(const float* g, const float* tooth,
-                                           const float* noise, const float* hm,
-                                           const float* hp, const float* nm,
-                                           const float* window, float* d_tooth,
-                                           float* d_noise, float* d_hm, float* d_hp,
-                                           float* d_nm, int rows, int n, void* stream) {
-  const int log2n = log2_of(n);
-  const size_t smem = (size_t)(4 * n + n / 2) * sizeof(float2);
-  cudaError_t err = cudaFuncSetAttribute(
-      combsub_spectral_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  combsub_spectral_bwd_kernel<<<rows, kThreads, smem, (cudaStream_t)stream>>>(
-      g, tooth, noise, hm, hp, nm, window, d_tooth, d_noise, d_hm, d_hp, d_nm, n, log2n);
-  return (int)cudaGetLastError();
-}
-
-// tooth, noise, out: (rows, n) fp32; hm, hp, nm: (rows, n/2+1); window: (n,).
+// tooth, noise, out: (rows, n) fp32; hm, hp, nm: (rows, n/2+1); window: (n,);
+// n a power of two in [64, 4096].
 extern "C" int combsub_spectral_launch(const float* tooth, const float* noise,
                                        const float* hm, const float* hp,
                                        const float* nm, const float* window,
                                        float* out, int rows, int n, void* stream) {
-  const int log2n = log2_of(n);
-  const size_t smem = (size_t)(n + n / 2 + 1 + n / 2) * sizeof(float2);
-  cudaError_t err = cudaFuncSetAttribute(
-      combsub_spectral_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  combsub_spectral_kernel<<<rows, kThreads, smem, (cudaStream_t)stream>>>(
-      tooth, noise, hm, hp, nm, window, out, n, log2n);
-  return (int)cudaGetLastError();
+  if (rows == 0) return 0;
+  return launch_l<32>(n / 2, tooth, noise, hm, hp, nm, window, out, rows,
+                      (cudaStream_t)stream);
 }

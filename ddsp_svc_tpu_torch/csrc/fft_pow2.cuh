@@ -1,7 +1,7 @@
 // Power-of-two complex FFTs of one row in shared memory, with radix-R
 // butterflies in registers (Stockham autosort, natural order in and out).
 // Shared by dft_magnitude.cu (the loss's |rfft|, Bluestein for the sizes
-// that are not powers of two) and ltv_fir_convolve.cu.
+// that are not powers of two), ltv_fir_convolve.cu and combsub_spectral.cu.
 //
 // A transform of M points (a power of two, a template argument, so that
 // every stride, pad and pass count is a constant) runs on M / R threads of

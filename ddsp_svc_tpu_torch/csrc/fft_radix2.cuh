@@ -1,5 +1,6 @@
-// Radix-2 complex FFTs of one row in shared memory, shared by the kernels
-// that own a frame row per block (combsub_spectral.cu, ltv_fir_convolve.cu).
+// Radix-2 complex FFTs of one row in shared memory, for a kernel that owns a
+// frame row per block (combsub_spectral_bwd.cu). It cannot share a
+// translation unit with fft_pow2.cuh: both define cmul.
 //
 // The caller loads the row in bit-reversed order (s[__brev(i) >> (32 -
 // log2 n)] = x[i]), fills the twiddles, synchronises, and calls

@@ -1,4 +1,4 @@
-// Non-causal FAVOR+ (Performer) attention of the PCmer, one call per layer.
+// Non-causal FAVOR+ (Performer) attention of the PCmer, one launch per call.
 //
 // Replaces: ddsp_svc_tpu/ops/pallas_kernels.py::performer_attention_pallas
 // (body _performer_attn_kernel), including its per-row valid_frames key mask.
@@ -15,273 +15,423 @@
 // ridge (67 TFLOP/s over 3.35 TB/s = 20). The reference numerics are fp32,
 // so the roof is the fp32 CUDA cores, not the tensor cores.
 //
-// Design: the TPU kernel ran one program per batch row with T whole in VMEM;
-// one block per (row, head) would fill 8 of 132 SMs at B = 1. So T is split
-// into 32-row tiles across blocks, in three launches on one stream:
-//   1. context: one block per (key tile, row*head) forms the tile's key
-//      features in shared memory and writes its partial (m, d) context and
-//      m key sum; tiles at or past valid[b] exit at once.
-//   2. reduce: sums the partials of each (row, head) over its valid tiles in
-//      a fixed order (deterministic, no atomics).
-//   3. query: one block per (query tile, row*head) holds the projection and
-//      the reduced context (~135 KB) in shared memory, forms the query
-//      features, the per-row max over the m features, the denominator and
-//      the output rows.
-// The feature products are register-tiled (8 rows x 5 features a thread,
-// 13 shared loads per 40 FMAs); the projection's rows are padded to d+1
-// floats so that lanes on consecutive features hit distinct banks. Any
-// T >= 1 is taken: the TPU kernel's T % 128 and T <= 512 limits were its
+// Design: one thread-block cluster per (batch row, head), one launch, no
+// global scratch. T is cut into 32-row tiles; CTA r of a cluster of cs takes
+// tiles r, r + cs, ... (cs the least power of two >= the tile count, at most
+// 8, the portable cluster size: an H100 holds fewer than eight 16-CTA
+// clusters, one head each of B = 1, and forced 16-CTA clusters ran slower
+// there, tools/ab_torch_attention.py):
+//   1. keys: each CTA forms its key tiles' features in shared memory (tiles
+//      at or past valid[b] are skipped) and accumulates its partial (m, d)
+//      context and m key sums in registers, then stores them to shared
+//      memory;
+//   2. cluster barrier; CTA r sums slice r of the context over the cluster's
+//      CTAs through distributed shared memory, in rank order (deterministic,
+//      no atomics), into its own copy;
+//   3. cluster barrier; each CTA gathers the other slices from their owners,
+//      arrives on the cluster barrier (it reads no peer after that) and waits
+//      on it only before it exits, so that no CTA leaves while a peer still
+//      reads its shared memory;
+//   4. queries: each CTA forms its query tiles' features, row maxima and
+//      denominators in registers and writes the output rows.
+// The projection (rows padded to 68 floats: float4 reads of 8 consecutive
+// rows hit distinct banks) and the first key, value and query tiles are
+// staged with cp.async, all in flight before the first use. Every product is
+// register-tiled over float4 reads: the projection 2 rows x 17 features a
+// thread (19 shared loads per 136 FMAs), the context 17 features x 4
+// columns (18 per 68), the output 4 rows x 4 columns over half the features
+// (8 per 64; the two halves are summed through shared memory in a fixed
+// order). The features are padded to 272 = 17 x 16 (zero past 266). On an
+// H100 (tools/ab_torch_attention.py) the projection takes ~4.6 us a tile and
+// each contraction ~4.5, ~85 % of the kernel; the projection in 3xTF32 on
+// mma.sync ran no faster and doubled the error against the plain version.
+// Any T >= 1 is taken: the TPU kernel's T % 128 and T <= 512 limits were its
 // tiling and VMEM.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kD = 64;              // head dim
-constexpr int kM = 266;             // random features, int(64 ln 64)
-constexpr int kLD = kD + 1;         // padded row stride in shared memory
-constexpr int kTT = 32;             // time rows per tile
+constexpr int kD = 64;               // head dim
+constexpr int kM = 266;              // random features, int(64 ln 64)
+constexpr int kMP = 272;             // features padded to 17 x 16
+constexpr int kJQ = kMP / 16;        // features a projection or context thread holds
+constexpr int kPS = kD + 4;          // projection / q / k row stride in shared memory
+constexpr int kFS = kMP;             // feature row stride (272 = 16 mod 32 banks)
+constexpr int kTT = 32;              // time rows per tile
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kS = kM * kD + kM;    // one context: (m, d) then the m key sums
-constexpr int kJQ = (kM + 3) / 4;   // context rows per thread in pass 1
+constexpr int kCtx = kMP * kD + kMP;  // one context: (272, 64), then the 272 key sums
+constexpr int kCtx4 = kCtx / 4;
+constexpr int kGather = (kCtx4 + kThreads - 1) / kThreads;
+constexpr int kMaxCluster = 8;      // the portable cluster size
 constexpr float kStabEps = 1e-4f;
 constexpr float kDenEps = 1e-8f;
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+struct Smem {
+  float proj[kMP * kPS];  // rows kM.. zero
+  float ctx[kCtx];        // this CTA's partial, then the cluster's sum
+  float f[kTT * kFS];     // one tile's features
+  float xk[kTT * kPS];    // key tile
+  float xq[kTT * kPS];    // query tile
+  float v[kTT * kD];      // value tile; in the query phase the second half-sum
+  float inv[kTT];         // 1 / denominator of each query row
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem)
+               : "memory");
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-__device__ void load_proj(const float* __restrict__ proj, float* s_proj) {
-  for (int i = threadIdx.x; i < kM * kD; i += kThreads) {
-    s_proj[(i / kD) * kLD + i % kD] = proj[i];
-  }
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
 }
 
-// Rows [t0, t0 + n) of x (scaled by dn) into s_x and, if v is given, of v
-// into s_v; rows n..kTT are zero.
-__device__ void load_tile(const float* __restrict__ x, const float* __restrict__ v,
-                          float* s_x, float* s_v, int t0, int n, float dn) {
-  for (int i = threadIdx.x; i < kTT * kD; i += kThreads) {
-    const int t = i / kD, c = i % kD;
-    const bool in = t < n;
-    s_x[t * kLD + c] = in ? x[(size_t)(t0 + t) * kD + c] * dn : 0.f;
-    if (v != nullptr) s_v[t * kD + c] = in ? v[(size_t)(t0 + t) * kD + c] : 0.f;
-  }
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// diag[t] = 0.5 * |s_x[t]|^2, one warp per row.
-__device__ void row_diag(const float* s_x, float* s_diag) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int t = warp; t < kTT; t += kWarps) {
-    const float a = s_x[t * kLD + lane], b = s_x[t * kLD + lane + 32];
-    const float s = warp_sum(a * a + b * b);
-    if (lane == 0) s_diag[t] = 0.5f * s;
-  }
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
-// s_f[t][j] = s_x[t] . s_proj[j] for t < kTT, j < kM: each thread owns rows
-// 8*ty .. 8*ty+7 and features tx + 64 q, q < 5.
-__device__ void project_tile(const float* s_x, const float* s_proj, float* s_f) {
-  const int tx = threadIdx.x & 63, ty = threadIdx.x >> 6;
-  float acc[8][5];
-  int jj[5];
-#pragma unroll
-  for (int q = 0; q < 5; ++q) {
-    jj[q] = min(tx + 64 * q, kM - 1);
-#pragma unroll
-    for (int r = 0; r < 8; ++r) acc[r][q] = 0.f;
+__device__ __forceinline__ void fma4(float4& acc, float a, float4 b) {
+  acc.x = fmaf(a, b.x, acc.x);
+  acc.y = fmaf(a, b.y, acc.y);
+  acc.z = fmaf(a, b.z, acc.z);
+  acc.w = fmaf(a, b.w, acc.w);
+}
+
+// The projection's 266 rows into s_proj (row stride kPS), by cp.async.
+__device__ void stage_proj(const float* __restrict__ proj, float* s_proj) {
+  for (int i = threadIdx.x; i < kM * (kD / 4); i += kThreads) {
+    cp_async16(s_proj + (i >> 4) * kPS + 4 * (i & 15), proj + 4 * i);
   }
-#pragma unroll 4
-  for (int c = 0; c < kD; ++c) {
-    float xv[8], pv[5];
-#pragma unroll
-    for (int r = 0; r < 8; ++r) xv[r] = s_x[(ty * 8 + r) * kLD + c];
-#pragma unroll
-    for (int q = 0; q < 5; ++q) pv[q] = s_proj[jj[q] * kLD + c];
-#pragma unroll
-    for (int r = 0; r < 8; ++r)
-#pragma unroll
-      for (int q = 0; q < 5; ++q) acc[r][q] = fmaf(xv[r], pv[q], acc[r][q]);
-  }
-#pragma unroll
-  for (int q = 0; q < 5; ++q) {
-    const int j = tx + 64 * q;
-    if (j < kM) {
-#pragma unroll
-      for (int r = 0; r < 8; ++r) s_f[(ty * 8 + r) * kM + j] = acc[r][q];
+  for (int i = threadIdx.x; i < (kMP - kM) * kPS; i += kThreads) s_proj[kM * kPS + i] = 0.f;
+}
+
+// Rows [t0, t0 + n) of x (row stride st floats) into s (row stride ld) by
+// cp.async; rows n..kTT zero.
+__device__ void stage_rows(const float* __restrict__ x, long long st, int t0, int n,
+                           float* s, int ld) {
+  for (int i = threadIdx.x; i < kTT * (kD / 4); i += kThreads) {
+    const int r = i >> 4, c = 4 * (i & 15);
+    if (r < n) {
+      cp_async16(s + r * ld + c, x + (t0 + r) * st + c);
+    } else {
+      *reinterpret_cast<float4*>(s + r * ld + c) = make_float4(0.f, 0.f, 0.f, 0.f);
     }
   }
 }
 
-constexpr size_t kContextSmem =
-    sizeof(float) * (kM * kLD + kTT * kM + kTT * kLD + kTT * kD + kTT);
-
-__global__ void __launch_bounds__(kThreads)
-favor_context_kernel(const float* __restrict__ k, const float* __restrict__ v,
-                     const float* __restrict__ proj, const int* __restrict__ valid,
-                     float* __restrict__ part, int H, int T, int n_tiles, float dn,
-                     float ratio) {
-  extern __shared__ float sm[];
-  float* s_proj = sm;                  // kM x kLD
-  float* s_f = s_proj + kM * kLD;      // kTT x kM
-  float* s_x = s_f + kTT * kM;         // kTT x kLD
-  float* s_v = s_x + kTT * kLD;        // kTT x kD
-  float* s_diag = s_v + kTT * kD;      // kTT
-  const int tile = blockIdx.x, bh = blockIdx.y;
-  const int limit = min(valid[bh / H], T);
-  const int t0 = tile * kTT;
-  if (t0 >= limit) return;  // past the valid length: no partial needed
-  const int n = min(kTT, limit - t0);
-  const size_t base = (size_t)bh * T * kD;
-
-  load_proj(proj, s_proj);
-  load_tile(k + base, v + base, s_x, s_v, t0, n, dn);
-  __syncthreads();
-  row_diag(s_x, s_diag);
-  project_tile(s_x, s_proj, s_f);
-  __syncthreads();
-  for (int i = threadIdx.x; i < kTT * kM; i += kThreads) {
-    const int t = i / kM;
-    s_f[i] = t < n ? ratio * expf(s_f[i] - s_diag[t] + kStabEps) : 0.f;
-  }
-  __syncthreads();
-
-  float* out = part + ((size_t)bh * n_tiles + tile) * kS;
-  for (int j = threadIdx.x; j < kM; j += kThreads) {
-    float s = 0.f;
-    for (int t = 0; t < n; ++t) s += s_f[t * kM + j];
-    out[kM * kD + j] = s;
-  }
-  // ctx[j][e] for e = tid % 64 and j = tid / 64 + 4 q
-  const int e = threadIdx.x & 63, jg = threadIdx.x >> 6;
-  float acc[kJQ];
+// acc[r][q] = xf[tg + 16 r] . proj[jl + 16 q] and sq[r] = |xf[tg + 16 r]|^2
+// for thread (tg, jl) = (tid / 16, tid % 16), xf = x * dn.
+__device__ __forceinline__ void project(const float* s_x, const float* s_proj, float dn,
+                                        float (&acc)[2][kJQ], float (&sq)[2]) {
+  const int tg = threadIdx.x >> 4, jl = threadIdx.x & 15;
 #pragma unroll
-  for (int q = 0; q < kJQ; ++q) acc[q] = 0.f;
-  for (int t = 0; t < n; ++t) {
-    const float vt = s_v[t * kD + e];
-    const float* fr = s_f + t * kM + jg;
+  for (int r = 0; r < 2; ++r) {
+    sq[r] = 0.f;
+#pragma unroll
+    for (int q = 0; q < kJQ; ++q) acc[r][q] = 0.f;
+  }
+#pragma unroll 2
+  for (int c = 0; c < kD; c += 4) {
+    float4 xv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      xv[r] = *reinterpret_cast<const float4*>(s_x + (tg + 16 * r) * kPS + c);
+      xv[r] = make_float4(xv[r].x * dn, xv[r].y * dn, xv[r].z * dn, xv[r].w * dn);
+      sq[r] = fmaf(xv[r].x, xv[r].x, sq[r]);
+      sq[r] = fmaf(xv[r].y, xv[r].y, sq[r]);
+      sq[r] = fmaf(xv[r].z, xv[r].z, sq[r]);
+      sq[r] = fmaf(xv[r].w, xv[r].w, sq[r]);
+    }
 #pragma unroll
     for (int q = 0; q < kJQ; ++q) {
-      if (jg + 4 * q < kM) acc[q] = fmaf(fr[4 * q], vt, acc[q]);
+      const float4 p = *reinterpret_cast<const float4*>(s_proj + (jl + 16 * q) * kPS + c);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        acc[r][q] = fmaf(xv[r].x, p.x, acc[r][q]);
+        acc[r][q] = fmaf(xv[r].y, p.y, acc[r][q]);
+        acc[r][q] = fmaf(xv[r].z, p.z, acc[r][q]);
+        acc[r][q] = fmaf(xv[r].w, p.w, acc[r][q]);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ float half_warp_max(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float half_warp_sum(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+favor_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, const float* __restrict__ proj,
+             const int* __restrict__ valid, int valid_all, float* __restrict__ out,
+             int H, int T, long long sb, long long sh, long long st, float dn,
+             float ratio) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem& s = *reinterpret_cast<Smem*>(smem_raw);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int cs = (int)cluster.num_blocks();
+  const int bh = blockIdx.y, b = bh / H;
+  const int limit = max(0, min(valid != nullptr ? valid[b] : valid_all, T));
+  const int n_key = (limit + kTT - 1) / kTT, n_tiles = (T + kTT - 1) / kTT;
+  const size_t base = (size_t)b * sb + (size_t)(bh - b * H) * sh;
+  const int tg = threadIdx.x >> 4, jl = threadIdx.x & 15;
+
+  // every copy this CTA needs first, in flight together
+  stage_proj(proj, s.proj);
+  if (rank < n_key) {
+    const int n = min(kTT, limit - rank * kTT);
+    stage_rows(k + base, st, rank * kTT, n, s.xk, kPS);
+    stage_rows(v + base, st, rank * kTT, n, s.v, kD);
+  }
+  if (rank < n_tiles) stage_rows(q + base, st, rank * kTT, min(kTT, T - rank * kTT), s.xq, kPS);
+  cp_async_wait_all();
+  __syncthreads();
+
+  // 1. keys: the context of this CTA's tiles in registers. Context thread
+  // (jc, eq) = (tid / 16, tid % 16) owns features jc + 16 q, columns 4 eq..+3
+  const int jc = threadIdx.x >> 4, eq = threadIdx.x & 15;
+  float4 cacc[kJQ];
+#pragma unroll
+  for (int i = 0; i < kJQ; ++i) cacc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  float ksum[2] = {0.f, 0.f};  // features tid and 256 + tid
+  for (int tile = rank; tile < n_key; tile += cs) {
+    const int t0 = tile * kTT, n = min(kTT, limit - t0);
+    if (tile != rank) {
+      stage_rows(k + base, st, t0, n, s.xk, kPS);
+      stage_rows(v + base, st, t0, n, s.v, kD);
+      cp_async_wait_all();
+      __syncthreads();
+    }
+    float acc[2][kJQ], sq[2];
+    project(s.xk, s.proj, dn, acc, sq);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int t = tg + 16 * r;
+      const float diag = 0.5f * sq[r];
+#pragma unroll
+      for (int i = 0; i < kJQ; ++i) {
+        const int j = jl + 16 * i;
+        s.f[t * kFS + j] = (t < n && j < kM) ? ratio * expf(acc[r][i] - diag + kStabEps) : 0.f;
+      }
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int t = 0; t < n; ++t) {
+      const float4 vv = *reinterpret_cast<const float4*>(s.v + t * kD + 4 * eq);
+#pragma unroll
+      for (int i = 0; i < kJQ; ++i) fma4(cacc[i], s.f[t * kFS + jc + 16 * i], vv);
+    }
+    for (int t = 0; t < n; ++t) {
+      ksum[0] += s.f[t * kFS + threadIdx.x];
+      if (threadIdx.x < kMP - kThreads) ksum[1] += s.f[t * kFS + kThreads + threadIdx.x];
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < kJQ; ++i) {
+    *reinterpret_cast<float4*>(s.ctx + (jc + 16 * i) * kD + 4 * eq) = cacc[i];
+  }
+  s.ctx[kMP * kD + threadIdx.x] = ksum[0];
+  if (threadIdx.x < kMP - kThreads) s.ctx[kMP * kD + kThreads + threadIdx.x] = ksum[1];
+
+  // 2. slice `rank` of the context summed over the cluster, in rank order
+  cluster.sync();
+  float4* own = reinterpret_cast<float4*>(s.ctx);
+  const int per = (kCtx4 + cs - 1) / cs;
+  const int lo = rank * per, hi = min(kCtx4, lo + per);
+  for (int i = lo + threadIdx.x; i < hi; i += kThreads) {
+    float4 part[kMaxCluster];
+#pragma unroll
+    for (int p = 0; p < kMaxCluster; ++p) {
+      if (p < cs) part[p] = reinterpret_cast<const float4*>(cluster.map_shared_rank(s.ctx, p))[i];
+    }
+    float4 sum = part[0];
+#pragma unroll
+    for (int p = 1; p < kMaxCluster; ++p) {
+      if (p < cs) sum = add4(sum, part[p]);
+    }
+    own[i] = sum;
+  }
+
+  // 3. the other slices from their owners
+  cluster.sync();
+  float4 got[kGather];
+#pragma unroll
+  for (int u = 0; u < kGather; ++u) {
+    const int i = threadIdx.x + u * kThreads, owner = i / per;
+    if (i < kCtx4 && owner != rank) {
+      got[u] = reinterpret_cast<const float4*>(cluster.map_shared_rank(s.ctx, owner))[i];
     }
   }
 #pragma unroll
-  for (int q = 0; q < kJQ; ++q) {
-    if (jg + 4 * q < kM) out[(jg + 4 * q) * kD + e] = acc[q];
+  for (int u = 0; u < kGather; ++u) {
+    const int i = threadIdx.x + u * kThreads;
+    if (i < kCtx4 && i / per != rank) own[i] = got[u];
   }
+  cluster_arrive();
+  __syncthreads();
+
+  // 4. queries. Output thread (jh, to, eq) = (tid / 128, tid / 16 % 8,
+  // tid % 16) owns rows to + 8 r, columns 4 eq..+3, over features
+  // [136 jh, 136 jh + 136)
+  const int jh = threadIdx.x >> 7, to = (threadIdx.x >> 4) & 7;
+  const float* ksum_s = s.ctx + kMP * kD;
+  for (int tile = rank; tile < n_tiles; tile += cs) {
+    const int t0 = tile * kTT, n = min(kTT, T - t0);
+    if (tile != rank) {
+      stage_rows(q + base, st, t0, n, s.xq, kPS);
+      cp_async_wait_all();
+      __syncthreads();
+    }
+    float acc[2][kJQ], sq[2];
+    project(s.xq, s.proj, dn, acc, sq);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int t = tg + 16 * r;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < kJQ; ++i) {
+        if (jl + 16 * i < kM) mx = fmaxf(mx, acc[r][i]);
+      }
+      mx = half_warp_max(mx);
+      const float diag = 0.5f * sq[r];
+      float den = 0.f;
+#pragma unroll
+      for (int i = 0; i < kJQ; ++i) {
+        const int j = jl + 16 * i;
+        const float f = j < kM ? ratio * (expf(acc[r][i] - diag - mx) + kStabEps) : 0.f;
+        den = fmaf(f, ksum_s[j], den);
+        s.f[t * kFS + j] = f;
+      }
+      den = half_warp_sum(den);
+      if (jl == 0) s.inv[t] = 1.f / (den + kDenEps);
+    }
+    __syncthreads();
+    float4 o[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) o[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+    const int j0 = jh * (kMP / 2);
+#pragma unroll 2
+    for (int j = j0; j < j0 + kMP / 2; j += 4) {
+      float4 c[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) c[u] = *reinterpret_cast<const float4*>(s.ctx + (j + u) * kD + 4 * eq);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float4 f = *reinterpret_cast<const float4*>(s.f + (to + 8 * r) * kFS + j);
+        fma4(o[r], f.x, c[0]);
+        fma4(o[r], f.y, c[1]);
+        fma4(o[r], f.z, c[2]);
+        fma4(o[r], f.w, c[3]);
+      }
+    }
+    if (jh == 1) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        *reinterpret_cast<float4*>(s.v + (to + 8 * r) * kD + 4 * eq) = o[r];
+      }
+    }
+    __syncthreads();
+    if (jh == 0) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int t = to + 8 * r;
+        if (t < n) {
+          const float4 h = *reinterpret_cast<const float4*>(s.v + t * kD + 4 * eq);
+          const float w = s.inv[t];
+          const float4 y = add4(o[r], h);
+          *reinterpret_cast<float4*>(out + ((size_t)bh * T + t0 + t) * kD + 4 * eq) =
+              make_float4(y.x * w, y.y * w, y.z * w, y.w * w);
+        }
+      }
+    }
+    __syncthreads();
+  }
+  cluster_wait();
 }
 
-__global__ void __launch_bounds__(kThreads)
-favor_reduce_kernel(const float* __restrict__ part, const int* __restrict__ valid,
-                    float* __restrict__ ctx, int H, int T, int n_tiles) {
-  const int bh = blockIdx.y;
-  const int idx = blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= kS) return;
-  const int limit = min(valid[bh / H], T);
-  const int nt = limit > 0 ? (limit + kTT - 1) / kTT : 0;
-  const float* p = part + (size_t)bh * n_tiles * kS + idx;
-  float s = 0.f;
-  for (int tile = 0; tile < nt; ++tile) s += p[(size_t)tile * kS];
-  ctx[(size_t)bh * kS + idx] = s;
+// The dynamic shared memory, set once per process.
+cudaError_t setup() {
+  return cudaFuncSetAttribute(favor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)sizeof(Smem));
 }
 
-constexpr size_t kQuerySmem =
-    sizeof(float) * (kM * kLD + kS + kTT * kM + kTT * kLD + 2 * kTT);
-
-__global__ void __launch_bounds__(kThreads)
-favor_query_kernel(const float* __restrict__ q, const float* __restrict__ proj,
-                   const float* __restrict__ ctx, float* __restrict__ out, int T,
-                   float dn, float ratio) {
-  extern __shared__ float sm[];
-  float* s_proj = sm;                  // kM x kLD
-  float* s_ctx = s_proj + kM * kLD;    // kM x kD, then kM key sums
-  float* s_ksum = s_ctx + kM * kD;
-  float* s_f = s_ctx + kS;             // kTT x kM
-  float* s_x = s_f + kTT * kM;         // kTT x kLD
-  float* s_diag = s_x + kTT * kLD;     // kTT
-  float* s_row = s_diag + kTT;         // kTT: row max, then 1 / denominator
-  const int tile = blockIdx.x, bh = blockIdx.y;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int t0 = tile * kTT;
-  const int n = min(kTT, T - t0);
-  const size_t base = (size_t)bh * T * kD;
-
-  load_proj(proj, s_proj);
-  const float* c = ctx + (size_t)bh * kS;
-  for (int i = threadIdx.x; i < kS; i += kThreads) s_ctx[i] = c[i];
-  load_tile(q + base, nullptr, s_x, nullptr, t0, n, dn);
-  __syncthreads();
-  row_diag(s_x, s_diag);
-  project_tile(s_x, s_proj, s_f);
-  __syncthreads();
-  for (int t = warp; t < kTT; t += kWarps) {
-    float mx = -INFINITY;
-    for (int j = lane; j < kM; j += 32) mx = fmaxf(mx, s_f[t * kM + j]);
-    mx = warp_max(mx);
-    if (lane == 0) s_row[t] = mx;
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < kTT * kM; i += kThreads) {
-    const int t = i / kM;
-    s_f[i] = ratio * (expf(s_f[i] - s_diag[t] - s_row[t]) + kStabEps);
-  }
-  __syncthreads();
-  for (int t = warp; t < kTT; t += kWarps) {
-    float s = 0.f;
-    for (int j = lane; j < kM; j += 32) s = fmaf(s_f[t * kM + j], s_ksum[j], s);
-    s = warp_sum(s);
-    if (lane == 0) s_row[t] = 1.f / (s + kDenEps);
-  }
-  __syncthreads();
-  // out[t][e] for e = tid % 64 and rows 8 * (tid / 64) .. + 7
-  const int e = threadIdx.x & 63, tg = threadIdx.x >> 6;
-  float acc[8];
-#pragma unroll
-  for (int r = 0; r < 8; ++r) acc[r] = 0.f;
-  for (int j = 0; j < kM; ++j) {
-    const float cv = s_ctx[j * kD + e];
-#pragma unroll
-    for (int r = 0; r < 8; ++r) acc[r] = fmaf(s_f[(tg * 8 + r) * kM + j], cv, acc[r]);
-  }
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int t = tg * 8 + r;
-    if (t < n) out[base + (size_t)(t0 + t) * kD + e] = acc[r] * s_row[t];
-  }
+// CTAs per cluster: the least power of two >= the tile count, at most 8.
+int cluster_size(int T) {
+  const int n_tiles = (T + kTT - 1) / kTT;
+  int cs = 1;
+  while (cs < n_tiles && cs < kMaxCluster) cs *= 2;
+  return cs;
 }
 
 }  // namespace
 
-// q, k, v, out: (B, H, T, 64) fp32; proj: (266, 64) fp32; valid: (B,) int32;
-// part: B * H * ceil(T / 32) * (266 * 65) floats of scratch; ctx: B * H *
-// 266 * 65 floats of scratch.
+// The cluster size a launch at T takes, then the kernel's registers per
+// thread, local-memory (spilled) bytes per thread and dynamic shared memory
+// per CTA.
+extern "C" int performer_attention_info(int T, int* out) {
+  static const cudaError_t once = setup();
+  if (once != cudaSuccess) return (int)once;
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, favor_kernel);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = cluster_size(T);
+  out[1] = attr.numRegs;
+  out[2] = (int)attr.localSizeBytes;
+  out[3] = (int)sizeof(Smem);
+  return 0;
+}
+
+// q, k, v: (B, H, T, 64) fp32 views with unit column stride and batch, head
+// and time strides sb, sh, st (floats; multiples of 4, 16-byte aligned
+// base); out: (B, H, T, 64) contiguous; proj: (266, 64). valid: (B,) int32
+// on the card, or null to take valid_all for every row.
 extern "C" int performer_attention_launch(const float* q, const float* k, const float* v,
-                                          const float* proj, const int* valid, float* part,
-                                          float* ctx, float* out, int B, int H, int T,
-                                          float dn, float ratio, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = cudaFuncSetAttribute(
-      favor_context_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kContextSmem);
+                                          const float* proj, const int* valid, float* out,
+                                          int valid_all, int B, int H, int T, long long sb,
+                                          long long sh, long long st, float dn, float ratio,
+                                          void* stream) {
+  static const cudaError_t once = setup();
+  if (once != cudaSuccess) return (int)once;
+  if (B * H == 0 || T == 0) return 0;
+  if (B * H > 65535) return (int)cudaErrorInvalidValue;
+  const int cs = cluster_size(T);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cs, B * H, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = sizeof(Smem);
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cs;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, favor_kernel, q, k, v, proj, valid, valid_all,
+                                       out, H, T, sb, sh, st, dn, ratio);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(favor_query_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kQuerySmem);
-  if (err != cudaSuccess) return (int)err;
-  const int n_tiles = (T + kTT - 1) / kTT;
-  favor_context_kernel<<<dim3(n_tiles, B * H), kThreads, kContextSmem, s>>>(
-      k, v, proj, valid, part, H, T, n_tiles, dn, ratio);
-  favor_reduce_kernel<<<dim3((kS + kThreads - 1) / kThreads, B * H), kThreads, 0, s>>>(
-      part, valid, ctx, H, T, n_tiles);
-  favor_query_kernel<<<dim3(n_tiles, B * H), kThreads, kQuerySmem, s>>>(
-      q, proj, ctx, out, T, dn, ratio);
   return (int)cudaGetLastError();
 }

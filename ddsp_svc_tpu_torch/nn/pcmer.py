@@ -123,10 +123,9 @@ class SelfAttention(nn.Module):
         b, n, _ = x.shape
         dt = self.compute_dtype
 
-        def split_heads(layer):
+        def split_heads(layer):  # a (B, H, T, d) view, read in place
             t = linear(x, layer.weight, layer.bias, dt)
-            return t.reshape(b, n, self.heads,
-                             self.dim_head).transpose(1, 2).contiguous()
+            return t.reshape(b, n, self.heads, self.dim_head).transpose(1, 2)
 
         q, k, v = (split_heads(f) for f in (self.to_q, self.to_k, self.to_v))
         proj = self.fast_attention.projection_matrix

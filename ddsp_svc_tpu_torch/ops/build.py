@@ -29,9 +29,9 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ddsp_svc_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("performer_attention", "combsub_spectral", "harmonic_source",
-           "resblocks", "dft_magnitude", "oscillator_bank", "ltv_fir_convolve",
-           "resblock_chain", "fused_stage")
+SOURCES = ("performer_attention", "combsub_spectral", "combsub_spectral_bwd",
+           "harmonic_source", "resblocks", "dft_magnitude", "oscillator_bank",
+           "ltv_fir_convolve", "resblock_chain", "fused_stage")
 _LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -18,14 +18,16 @@ Counterpart of `ddsp_svc_tpu/ops/pallas_kernels.py`:
 
 Every wrapper but performer_attention, harmonic_source and
 combsub_spectral_bwd is differentiable: on CUDA tensors it runs inside a
-torch.autograd.Function whose backward is the combsub_spectral_bwd kernel
-for combsub_spectral, and plain PyTorch for the others (the JAX package's
+torch.autograd.Function (combsub_spectral only where a gradient is wanted)
+whose backward is the combsub_spectral_bwd kernel for combsub_spectral, and
+plain PyTorch for the others (the JAX package's
 VJPs of #6 and #9 are plain XLA, those of the resblock and stage kernels
 re-run their XLA references; oscillator_bank_pallas has none). The
 per-row `valid` forms of the trio are inference-only, as in JAX.
 
 Each wrapper takes its plain version only for CPU tensors. For any other
-(CUDA) tensor it checks device, dtype, shape and contiguity, allocates the
+(CUDA) tensor it checks device, dtype, shape and contiguity (the attention:
+the strides of the views it reads), allocates the
 outputs, and launches its kernel (csrc/<name>.cu, built by ops/build.py) on
 the current stream, or raises; it never falls back. `wrapper.launches` counts the
 launches. Layouts at these functions are the JAX package's: (B, T, C)
@@ -47,10 +49,12 @@ from .windows import sqrt_hann_window
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 
 _SIGNATURES = {
-    "performer_attention_launch": [_P] * 8 + [_I] * 3 + [_F, _F, _P],
+    "performer_attention_launch": [_P] * 6 + [_I] * 4 + [_L] * 3 + [_F, _F, _P],
+    "performer_attention_info": [_I, ctypes.POINTER(_I)],
     "combsub_spectral_launch": [_P] * 7 + [_I, _I, _P],
     "combsub_spectral_bwd_launch": [_P] * 12 + [_I, _I, _P],
     "dft_magnitude_launch": [_P] * 4 + [_I] * 4 + [_P],
@@ -136,11 +140,51 @@ def performer_attention_plain(q, k, v, projection, valid_frames=None):
     return linear_attention(qf, kf, v)
 
 
+def attention_lengths(valid, b: int, t: int, device):
+    """valid_frames as the attention kernel takes them: (None, n) when every
+    row has one length n, passed by value (None: T; an int, or a one-value
+    tensor on the host, read there), else ((B,) int32 lengths on `device`,
+    0). A tensor on the card stays there: reading it would wait for the
+    card."""
+    if valid is None:
+        return None, t
+    if isinstance(valid, (int, np.integer)) or np.ndim(valid) == 0 and (
+            not torch.is_tensor(valid) or valid.device.type == "cpu"):
+        return None, int(valid)
+    return _lengths(valid, b, t, device), 0
+
+
+def _attention_strides(x, name: str, shape, device):
+    """The (batch, head, time) strides of a q, k or v view that the kernel
+    reads in place: fp32 on `device`, unit stride over the head dim, the
+    other strides multiples of 4 floats from a 16-byte aligned start (a
+    dim of size 1 counts as stride 0)."""
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name} has dtype {x.dtype}, expected torch.float32")
+    if x.shape != shape:
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, "
+                         f"expected {tuple(shape)}")
+    sb, sh, st, sd = x.stride()
+    b, h, t, _ = shape
+    strides = (sb if b > 1 else 0, sh if h > 1 else 0, st if t > 1 else 0)
+    if sd != 1 or (strides[0] | strides[1] | strides[2]) & 3 \
+            or x.data_ptr() & 15:
+        raise ValueError(f"{name} with strides {x.stride()} is not a view "
+                         "the attention kernel reads (unit last stride, "
+                         "others multiples of 4, 16-byte aligned)")
+    return strides
+
+
 def performer_attention(q, k, v, projection, valid_frames=None):
-    """Fused non-causal FAVOR+ attention: q, k, v (B, H, T, 64) fp32,
-    projection (266, 64) -> (B, H, T, 64). valid_frames (int, 0-d or (B,))
-    masks the key features of padded frames; output rows past it are
-    meaningless, as in the plain version."""
+    """Fused non-causal FAVOR+ attention in one launch (a thread-block
+    cluster per batch row and head): q, k, v (B, H, T, 64) fp32, contiguous
+    or views with one set of strides (the heads split off a (B, T, H * 64)
+    projection), projection (266, 64) -> (B, H, T, 64) contiguous.
+    valid_frames (int, 0-d or (B,)) masks the key features of padded
+    frames; output rows past it are meaningless, as in the plain
+    version."""
     if q.device.type == "cpu":
         return performer_attention_plain(q, k, v, projection, valid_frames)
     b, h, t, d = q.shape
@@ -148,20 +192,32 @@ def performer_attention(q, k, v, projection, valid_frames=None):
     if (m, d) != (266, 64):
         raise ValueError(f"performer_attention takes dim_head 64 and 266 "
                          f"features, got {d} and {m}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        _check(x, name, (b, h, t, d), q.device)
+    strides = _attention_strides(q, "q", (b, h, t, d), q.device)
+    for name, x in (("k", k), ("v", v)):
+        if _attention_strides(x, name, (b, h, t, d), q.device) != strides:
+            raise ValueError(f"{name} has strides {x.stride()}, q "
+                             f"{q.stride()}: q, k and v must share them")
     _check(projection, "projection", (m, d), q.device)
-    valid = _lengths(valid_frames, b, t, q.device)
-    ctx_size = m * (d + 1)  # the (m, d) context and the m key sums
-    part = torch.empty((b * h * -(-t // 32) * ctx_size,), device=q.device)
-    ctx = torch.empty((b * h * ctx_size,), device=q.device)
-    out = torch.empty_like(q)
+    lengths, valid_all = attention_lengths(valid_frames, b, t, q.device)
+    out = torch.empty((b, h, t, d), dtype=torch.float32, device=q.device)
     _launch("performer_attention", "performer_attention_launch",
             q.data_ptr(), k.data_ptr(), v.data_ptr(), projection.data_ptr(),
-            valid.data_ptr(), part.data_ptr(), ctx.data_ptr(), out.data_ptr(),
-            b, h, t, d ** -0.25, m ** -0.5, _stream(q))
+            _ptr(lengths), out.data_ptr(), valid_all, b, h, t, *strides,
+            d ** -0.25, m ** -0.5, _stream(q))
     performer_attention.launches += 1
     return out
+
+
+def attention_kernel_info(t: int) -> dict:
+    """The attention kernel on the current card: the cluster size a launch
+    at T frames takes, registers per thread, local-memory (spilled) bytes
+    per thread and dynamic shared memory per CTA."""
+    out = (_I * 4)()
+    err = _c_function("performer_attention", "performer_attention_info")(t, out)
+    if err != 0:
+        raise RuntimeError(f"performer_attention_info failed: CUDA error {err}")
+    return dict(cluster=out[0], registers=out[1], spill_bytes=out[2],
+                smem_bytes=out[3])
 
 
 # ------------------------------ combsub spectral ----------------------------
@@ -194,6 +250,18 @@ def _check_combsub(n_fft: int, rows: int, dev, named) -> None:
         _check(x, name, (rows, width), dev)
 
 
+_WINDOWS: dict = {}
+
+
+def combsub_window(n_fft: int, device):
+    """sqrt_hann_window(n_fft) on `device`, made once per (n_fft, device):
+    the spectral kernels read it there."""
+    key = (n_fft, str(device))
+    if key not in _WINDOWS:
+        _WINDOWS[key] = sqrt_hann_window(n_fft, device=device)
+    return _WINDOWS[key]
+
+
 def _combsub_spectral_launch(tooth_frames, noise_frames, hm, hp, nm,
                              n_fft: int):
     rows = tooth_frames.shape[0]
@@ -201,7 +269,7 @@ def _combsub_spectral_launch(tooth_frames, noise_frames, hm, hp, nm,
     _check_combsub(n_fft, rows, dev, (
         ("tooth_frames", tooth_frames), ("noise_frames", noise_frames),
         ("hm", hm), ("hp", hp), ("nm", nm)))
-    window = sqrt_hann_window(n_fft, device=dev)
+    window = combsub_window(n_fft, dev)
     out = torch.empty_like(tooth_frames)
     _launch("combsub_spectral", "combsub_spectral_launch",
             tooth_frames.data_ptr(), noise_frames.data_ptr(), hm.data_ptr(),
@@ -229,15 +297,18 @@ class _CombsubSpectralFn(torch.autograd.Function):
 
 
 def combsub_spectral(tooth_frames, noise_frames, hm, hp, nm, n_fft: int):
-    """The CombSubFast STFT-domain filter chain of one frame row per block:
-    windowed excitation frames (R, n_fft) and raw controls (R, n_fft//2+1)
-    -> windowed output frames (R, n_fft). n_fft a power of two, 64..4096.
-    Differentiable in all five inputs."""
+    """The CombSubFast STFT-domain filter chain, per frame row three
+    half-length FFTs in shared memory: windowed excitation frames (R, n_fft)
+    and raw controls (R, n_fft//2+1) -> windowed output frames (R, n_fft).
+    n_fft a power of two, 64..4096. Differentiable in all five inputs; where
+    no gradient is wanted the kernel launches without the autograd
+    Function."""
+    tensors = (tooth_frames, noise_frames, hm, hp, nm)
     if tooth_frames.device.type == "cpu":
-        return combsub_spectral_plain(tooth_frames, noise_frames, hm, hp, nm,
-                                      n_fft)
-    return _CombsubSpectralFn.apply(tooth_frames, noise_frames, hm, hp, nm,
-                                    n_fft)
+        return combsub_spectral_plain(*tensors, n_fft)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in tensors):
+        return _CombsubSpectralFn.apply(*tensors, n_fft)
+    return _combsub_spectral_launch(*tensors, n_fft)
 
 
 def combsub_spectral_bwd_plain(g, tooth_frames, noise_frames, hm, hp, nm,
@@ -278,10 +349,10 @@ def combsub_spectral_bwd(g, tooth_frames, noise_frames, hm, hp, nm,
     _check_combsub(n_fft, rows, dev, (
         ("g", g), ("tooth_frames", tooth_frames),
         ("noise_frames", noise_frames), ("hm", hm), ("hp", hp), ("nm", nm)))
-    window = sqrt_hann_window(n_fft, device=dev)
+    window = combsub_window(n_fft, dev)
     d_tooth, d_noise = torch.empty_like(g), torch.empty_like(g)
     d_hm, d_hp, d_nm = (torch.empty_like(hm) for _ in range(3))
-    _launch("combsub_spectral", "combsub_spectral_bwd_launch",
+    _launch("combsub_spectral_bwd", "combsub_spectral_bwd_launch",
             g.data_ptr(), tooth_frames.data_ptr(), noise_frames.data_ptr(),
             hm.data_ptr(), hp.data_ptr(), nm.data_ptr(), window.data_ptr(),
             d_tooth.data_ptr(), d_noise.data_ptr(), d_hm.data_ptr(),

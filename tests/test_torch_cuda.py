@@ -32,23 +32,76 @@ def _randn(gen, *shape, scale=1.0, shift=0.0):
     return torch.randn(shape, generator=gen, device=gen.device) * scale + shift
 
 
-@pytest.mark.parametrize("b,t,valid", [(2, 40, None), (1, 256, 200),
-                                       (2, 1000, [999, 3]), (2, 64, [0, 64])])
-def test_performer_attention_kernel(cuda, b, t, valid):
-    """2e-5 of max |ref| on each row's valid prefix (the JAX package's
-    kernel tolerance); a row with no valid frame gives zeros in both."""
+def _attention_case(cuda, b, t):
     g = torch.Generator(device=cuda).manual_seed(t)
     q, k, v = (_randn(g, b, 8, t, 64) for _ in range(3))
     proj = torch.from_numpy(gaussian_orthogonal_random_matrix(266, 64, 5)).to(cuda)
-    ref = K.performer_attention_plain(q, k, v, proj, valid)
-    got = K.performer_attention(q, k, v, proj, valid)
-    n = [t] * b if valid is None else np.broadcast_to(valid, (b,))
+    return q, k, v, proj
+
+
+def _assert_attention_close(got, ref, t, valid):
+    """2e-5 of max |ref| on each row's valid prefix (the JAX package's
+    kernel tolerance); a row with no valid frame gives zeros in both."""
+    b = got.shape[0]
+    n = [t] * b if valid is None else np.minimum(np.broadcast_to(valid, (b,)), t)
     for i in range(b):
         if n[i] == 0:
             assert not got[i].any() and not ref[i].any()
             continue
         r, o = ref[i, :, :n[i]], got[i, :, :n[i]]
         assert (o - r).abs().max().item() <= 2e-5 * r.abs().max().item()
+
+
+@pytest.mark.parametrize("b,t,valid", [(2, 40, None), (1, 256, 200),
+                                       (2, 1000, [999, 3]), (2, 64, [0, 64])])
+def test_performer_attention_kernel(cuda, b, t, valid):
+    """2e-5 of max |ref| on each row's valid prefix (the JAX package's
+    kernel tolerance); a row with no valid frame gives zeros in both."""
+    q, k, v, proj = _attention_case(cuda, b, t)
+    ref = K.performer_attention_plain(q, k, v, proj, valid)
+    got = K.performer_attention(q, k, v, proj, valid)
+    _assert_attention_close(got, ref, t, valid)
+
+
+@pytest.mark.parametrize("b,t,valid", [
+    (1, 1, None), (3, 1, [0, 1, 5]), (3, 31, [0, 31, 40]), (1, 31, 30),
+    (3, 33, [33, 1, 100]), (16, 33, 20), (3, 65, [0, 65, 40]), (16, 128, "mixed"),
+    (1, 512, 384), (3, 512, [0, 512, 600]),
+    (16, 512, None), (16, 512, "mixed"), (1, 1000, 999), (3, 1000, [1000, 0, 1500]),
+    (16, 1000, "mixed")])
+def test_performer_attention_kernel_shapes(cuda, b, t, valid):
+    """Every cluster size, 1, 2, 4 and 8 CTAs (T of 1, 2, 3 to 4, and 5 to 32
+    32-row tiles; past 8 tiles each CTA loops over its share), at B = 1, 3
+    and 16, with per-row valid lengths of 0, inside T and past it ("mixed":
+    lengths drawn from [0, T + 50) with a 0 and a T + 7 among them): within
+    2e-5 of max |ref| on each row's valid prefix, and two calls bitwise
+    equal (the cluster reduction sums in a fixed order)."""
+    if valid == "mixed":
+        valid = np.random.default_rng(t).integers(0, t + 50, b)
+        valid[:2] = 0, t + 7
+        valid = valid.tolist()
+    q, k, v, proj = _attention_case(cuda, b, t)
+    got = K.performer_attention(q, k, v, proj, valid)
+    assert torch.equal(got, K.performer_attention(q, k, v, proj, valid))
+    _assert_attention_close(got, K.performer_attention_plain(q, k, v, proj, valid),
+                            t, valid)
+
+
+def test_performer_attention_kernel_reads_split_heads(cuda):
+    """q, k, v as the (B, H, T, 64) views SelfAttention splits off its
+    (B, T, H * 64) projections, read in place: the same output, bit for
+    bit, as from contiguous copies; a 0-d length on the card as the same
+    int."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    views = [_randn(g, 2, 300, 8 * 64).reshape(2, 300, 8, 64).transpose(1, 2)
+             for _ in range(3)]
+    proj = torch.from_numpy(gaussian_orthogonal_random_matrix(266, 64, 5)).to(cuda)
+    got = K.performer_attention(*views, proj, 250)
+    assert got.is_contiguous()
+    assert torch.equal(got, K.performer_attention(*(x.contiguous() for x in views),
+                                                  proj, 250))
+    assert torch.equal(got, K.performer_attention(
+        *views, proj, torch.tensor(250, device=cuda)))
 
 
 @pytest.mark.parametrize("n_fft,rows", [(64, 3), (1024, 9), (4096, 5)])
@@ -62,6 +115,40 @@ def test_combsub_spectral_kernel(cuda, n_fft, rows):
     ref = K.combsub_spectral_plain(*args)
     got = K.combsub_spectral(*args)
     assert ((got - ref).abs().max() / ref.abs().max()).item() < 2e-5
+
+
+@pytest.mark.parametrize("n_fft,rows", [(n, 37) for n in (64, 128, 256, 512, 1024,
+                                                        2048, 4096)]
+                         + [(1024, 4152)])
+def test_combsub_spectral_kernel_sizes(cuda, n_fft, rows):
+    """Every power of two the kernel takes, at a row count that leaves a
+    block's last slots empty, and at a training batch's 4152 rows; 2e-5 of
+    max |ref| (the JAX package's kernel tolerance)."""
+    g = torch.Generator(device=cuda).manual_seed(n_fft + rows)
+    bins = n_fft // 2 + 1
+    args = (_randn(g, rows, n_fft), _randn(g, rows, n_fft),
+            _randn(g, rows, bins, scale=0.3), _randn(g, rows, bins),
+            _randn(g, rows, bins, scale=0.3, shift=-3.0), n_fft)
+    ref = K.combsub_spectral_plain(*args)
+    got = K.combsub_spectral(*args)
+    assert ((got - ref).abs().max() / ref.abs().max()).item() < 2e-5
+
+
+@pytest.mark.parametrize("n_fft", [256, 1024, 4096])
+def test_combsub_spectral_kernel_mixed_scale(cuda, n_fft):
+    """Rows whose tooth and noise are scaled by 10^u, u uniform in [-4, 0]
+    (silent frames beside loud ones): each row against the chain in
+    float64 on the CPU within 2e-5 of its own max."""
+    g = torch.Generator(device=cuda).manual_seed(n_fft)
+    rows, bins = 301, n_fft // 2 + 1
+    scale = 10.0 ** (-4 * torch.rand((rows, 1), generator=g, device=cuda))
+    args = (_randn(g, rows, n_fft) * scale, _randn(g, rows, n_fft) * scale,
+            _randn(g, rows, bins, scale=0.3), _randn(g, rows, bins),
+            _randn(g, rows, bins, scale=0.3, shift=-3.0))
+    ref = K.combsub_spectral_plain(*(a.double().cpu() for a in args), n_fft)
+    got = K.combsub_spectral(*args, n_fft).double().cpu()
+    err = (got - ref).abs().amax(1) / ref.abs().amax(1)
+    assert err.max().item() <= 2e-5, err.max().item()
 
 
 @pytest.mark.parametrize("upp", [64, 300, 512])

@@ -14,6 +14,7 @@ from ddsp_svc_tpu.ops import pallas_kernels as jpk
 from ddsp_svc_tpu_torch.nn.nsf_hifigan import _source_phase
 from ddsp_svc_tpu_torch.ops import kernels as K
 from ddsp_svc_tpu_torch.ops.masking import frame_mask
+from ddsp_svc_tpu_torch.ops.windows import sqrt_hann_window
 
 torch.set_num_threads(2)
 
@@ -166,6 +167,110 @@ def test_combsub_spectral_plain_matches_jax(n_fft, rows):
         *(jnp.asarray(a) for a in args), n_fft))
     got = K.combsub_spectral(*(_t(a) for a in args), n_fft).numpy()
     assert np.abs(got - ref).max() / np.abs(ref).max() < 2e-5
+
+
+def _combsub_spectral_emulated(tooth, noise, hm, hp, nm, n_fft):
+    """combsub_spectral.cu's algorithm, written out in float64: each real
+    row as an L = n/2-point complex FFT of its even and odd samples, the
+    real split of both spectra at bin pairs (k, L - k), the filtered bins
+    (imaginary parts of DC and Nyquist dropped), the packing Z'[k] = Se[k] +
+    j So[k] for one L-point inverse, 1/L and the window on the way out."""
+    rows, l = tooth.shape[0], n_fft // 2
+    k = torch.arange(l // 2 + 1)
+    j = torch.where(k == 0, 0, l - k)
+    bj = torch.where(k == 0, l, j)  # the bin of the pair's second value
+    w = torch.exp(-2j * np.pi * k.double() / n_fft)
+
+    def split(x):  # (X[k], X[L - k]); X[0] and X[L] at k = 0
+        z = torch.fft.fft(torch.complex(x[:, 0::2], x[:, 1::2]))
+        e = (z[:, k] + z[:, j].conj()) / 2
+        o = (z[:, k] - z[:, j].conj()) / 2j
+        return e + w * o, (e - w * o).conj()
+
+    def filtered(a, nz, b):
+        return (a * torch.polar(torch.exp(hm[:, b]), np.pi * hp[:, b])
+                + nz * torch.exp(nm[:, b]) / 128)
+
+    (ak, aj), (nk, nj) = split(tooth), split(noise)
+    sk, sj = filtered(ak, nk, k), filtered(aj, nj, bj)
+    sk, sj = (torch.where(k == 0, s.real + 0j, s) for s in (sk, sj))
+    pe = (sk + sj.conj()) / 2
+    po = (sk - sj.conj()) * w.conj() / 2
+    zp = torch.zeros((rows, l), dtype=torch.complex128)
+    zp[:, k] = pe + 1j * po
+    zp[:, j[1:]] = pe[:, 1:].conj() + 1j * po[:, 1:].conj()
+    y = torch.fft.ifft(zp)  # the unscaled inverse / L
+    out = torch.stack((y.real, y.imag), -1).reshape(rows, n_fft)
+    return out * sqrt_hann_window(n_fft, dtype=torch.float64)
+
+
+@pytest.mark.parametrize("n_fft", [64, 1024, 4096])
+def test_combsub_spectral_algorithm_matches_irfft(n_fft):
+    """The index algebra of the spectral kernel (two half-length forward
+    transforms, the packed Hermitian product, one half-length inverse)
+    against the plain chain (rfft, irfft_any) in float64, within 1e-9 of
+    max |ref|."""
+    rng = np.random.default_rng(n_fft)
+    rows, bins = 3, n_fft // 2 + 1
+    args = (rng.standard_normal((rows, n_fft)),
+            rng.standard_normal((rows, n_fft)),
+            rng.standard_normal((rows, bins)) * 0.3,
+            rng.standard_normal((rows, bins)),
+            rng.standard_normal((rows, bins)) * 0.3 - 3)
+    args = [torch.from_numpy(a) for a in args]
+    ref = K.combsub_spectral_plain(*args, n_fft)
+    got = _combsub_spectral_emulated(*args, n_fft)
+    assert ((got - ref).abs().max() / ref.abs().max()).item() < 1e-9
+
+
+def test_combsub_window_is_cached():
+    """The spectral kernels' window: bit-identical to sqrt_hann_window,
+    made once per (n_fft, device)."""
+    w = K.combsub_window(1024, torch.device("cpu"))
+    assert w.dtype == torch.float32 and torch.equal(w, sqrt_hann_window(1024))
+    assert K.combsub_window(1024, "cpu") is w
+    assert K.combsub_window(512, "cpu") is not w
+
+
+def test_attention_lengths():
+    """valid_frames as the attention kernel takes them: None, an int or a
+    one-value tensor on the host by value (nothing copied to the card); a
+    list or (B,) tensor, and a 0-d tensor on the card (the meta device
+    stands in for it), as (B,) int32 lengths on the kernel's device."""
+    cpu = torch.device("cpu")
+    assert K.attention_lengths(None, 3, 40, cpu) == (None, 40)
+    assert K.attention_lengths(27, 3, 40, cpu) == (None, 27)
+    assert K.attention_lengths(np.int64(5), 3, 40, cpu) == (None, 5)
+    assert K.attention_lengths(torch.tensor(7), 3, 40, cpu) == (None, 7)
+    for valid in ([4, 0, 50], np.array([4, 0, 50]), torch.tensor([4, 0, 50])):
+        lengths, n = K.attention_lengths(valid, 3, 40, cpu)
+        assert n == 0 and lengths.dtype == torch.int32
+        assert lengths.tolist() == [4, 0, 50]
+    lengths, n = K.attention_lengths(torch.tensor(6, device="meta"), 3, 40,
+                                     torch.device("meta"))
+    assert n == 0 and lengths.shape == (3,) and lengths.device.type == "meta"
+    assert lengths.dtype == torch.int32
+
+
+def test_attention_reads_views_of_one_stride():
+    """The attention wrapper reads q, k, v in place when they share
+    strides with a unit last stride (the heads split off a (B, T, H * 64)
+    projection), and rejects views the kernel cannot read; checked before
+    any launch, so meta tensors stand in for the card's."""
+    proj = torch.empty((266, 64), device="meta")
+    split = torch.empty((2, 40, 8 * 64), device="meta").reshape(
+        2, 40, 8, 64).transpose(1, 2)
+    assert K._attention_strides(split, "q", (2, 8, 40, 64),
+                                split.device) == (40 * 512, 64, 512)
+    dense = torch.empty((2, 8, 40, 64), device="meta")
+    with pytest.raises(ValueError, match="share them"):
+        K.performer_attention(dense, split, split, proj)
+    odd = torch.empty((2, 8, 40, 66), device="meta")[..., :64]
+    with pytest.raises(ValueError, match="not a view"):
+        K.performer_attention(odd, odd, odd, proj)
+    with pytest.raises(ValueError, match="not a view"):
+        K.performer_attention(*(torch.empty((2, 8, 64, 40), device="meta")
+                                .transpose(2, 3),) * 3, proj)
 
 
 @pytest.mark.parametrize("upp", [64, 128])
