@@ -12,13 +12,13 @@ Phases, each printing its own lines:
   3. kernels: each hand-written kernel against its plain PyTorch version at
      the main path's shapes, with error, time (one call at a time, and
      device_ms: calls back to back), plain time and bound (#1 also at B =
-     16, and #1 and #2 with their host work per call and their kernel's own
-     device time from torch.profiler; #6
-     and #9 also per row, on rows of unequal scale, against float64; #4,
-     #5, #10 and #11, all on the tensor-core conv core, with their
-     registers, spills and shared memory; #10's three chains beside #5
-     and the cuDNN chain, #11 beside the cuDNN ConvTranspose followed by
-     #4);
+     16; #3 and #8, the sine banks, also against float64, within twice the
+     fp32 plain version's own error, with their registers, spills and
+     shared memory, #8 at each of its two shapes; #6 and #9 also per row,
+     on rows of unequal scale, against float64; #4, #5, #10 and #11, all
+     on the tensor-core conv core, with their registers, spills and shared
+     memory; #10's three chains beside #5 and the cuDNN chain, #11 beside
+     the cuDNN ConvTranspose followed by #4);
   4. offline paths: conversion (`convert_features`) with each synthesizer
      at the full width of its config (CombSubFast from configs/combsub.yaml,
      Sins from configs/sins.yaml, CombSub from configs/combsub-old.yaml) and
@@ -210,6 +210,17 @@ def errors_vs_float64(torch, kern, plain, args):
                  for fn in (kern, plain))
 
 
+def float64_gate(torch, name, kern, plain, args):
+    """errors_vs_float64 of a kernel whose plain version is its float64
+    yardstick's own formula: the kernel's error may be at most twice the
+    fp32 plain version's, + 1e-7 (all relative to max |f64|)."""
+    e64, p64 = errors_vs_float64(torch, kern, plain, args)
+    if not e64 <= 2 * p64 + 1e-7:
+        fail(f"{name}: {e64:.3e} x max|ref| against float64, over 2 x the "
+             f"plain's {p64:.3e} + 1e-7")
+    return e64, p64
+
+
 def kernel_phase(torch, K, gen):
     """Each kernel against its plain version at the main path's shapes.
     Returns {name: row} for the kernels JSON line (launches filled later)."""
@@ -275,7 +286,7 @@ def kernel_phase(torch, K, gen):
         device_ms=dms, bound=bound(nbytes, flops), library_ms=None,
         tol="2e-5 x max|ref| (the JAX package's kernel test)")
 
-    # 3. harmonic source at 512 mel frames x upp 512
+    # 3. harmonic source at 512 mel frames x upp 512, also against float64
     from ddsp_svc_tpu_torch.nn.nsf_hifigan import _source_phase
     f_mel, upp, sr = 512, 512, 44100
     inputs = []
@@ -288,8 +299,15 @@ def kernel_phase(torch, K, gen):
                        randn(1, scale=0.05), upp))
     err, ms, pms, dms = compare(torch, "harmonic_source", K.harmonic_source,
                                 K.harmonic_source_plain, inputs, 2e-5, 0.0)
+    e64, p64 = float64_gate(torch, "harmonic_source", K.harmonic_source,
+                            K.harmonic_source_plain, inputs[0])
     flops = f_mel * upp * (9 * 8 + 3)
     nbytes = 4 * (f_mel * 18 + 10 + f_mel * upp)
+    say(f"kernel harmonic_source {f_mel} frames x upp {upp} "
+        f"({build_info(K.harmonic_source_kernel_info())}): max|err| "
+        f"{err:.3e} (atol 2e-5); against float64 {e64:.3e} x max|ref| (at "
+        f"most 2 x the plain's + 1e-7), the fp32 plain {p64:.3e}; {ms:.4f} "
+        f"ms, device_ms {dms:.4f}, plain {pms:.4f} ms")
     rows["harmonic_source"] = dict(
         route="cuda", source="ddsp_svc_tpu_torch/csrc/harmonic_source.cu",
         replaces=f"{TPU_KERNELS}:138", max_abs_err=err, ms=ms, plain_ms=pms,
@@ -480,9 +498,10 @@ def kernel_phase(torch, K, gen):
 
     # 8. the Sins oscillator bank, 128 harmonics at block 512, amplitudes
     # <= 0.1 (the JAX package's kernel test), at the offline 512-frame bucket
-    # (1 x 512 frames) and a training batch (24 x 172 frames). The bound
-    # counts 9 fp32 operations per (sample, harmonic): the lerp (2), the
-    # harmonic multiple (1), the wrap (3), the sine (1), the sum (2)
+    # (1 x 512 frames) and a training batch (24 x 172 frames), also against
+    # float64. The bound counts 9 fp32 operations per (sample, harmonic) at
+    # the FMA-counted peak: the lerp (2), the harmonic multiple (1), the
+    # wrap (3), the sine (1), the sum (2)
     bs, n_h = 512, 128
     err = rel = ms_sum = pms_sum = dms_sum = flops = nbytes = 0.0
     for b, f in ((1, 512), (24, 172)):
@@ -495,16 +514,21 @@ def kernel_phase(torch, K, gen):
         e, ms, pms, dms = compare(torch, f"oscillator_bank {b}x{f}",
                                   K.oscillator_bank, K.oscillator_bank_plain,
                                   inputs, 2e-3, 0.0)
+        e64, p64 = float64_gate(torch, f"oscillator_bank {b}x{f}",
+                                K.oscillator_bank, K.oscillator_bank_plain,
+                                inputs[0])
         err, rel = max(err, e), max(rel, e / scale)
         ms_sum, pms_sum, dms_sum = ms_sum + ms, pms_sum + pms, dms_sum + dms
         terms = b * f * bs * n_h
         f_n, b_n = 9 * terms, 4 * (2 * b * f * bs + b * f * n_h)
         flops += f_n
         nbytes += b_n
-        say(f"kernel oscillator_bank {b} x {f} frames x {n_h} harmonics: "
-            f"max|err| {e:.3e} (rel {e / scale:.2e}), {ms:.4f} ms, device_ms "
-            f"{dms:.4f}, plain {pms:.4f} ms, bound {bound(b_n, f_n)[0]:.4f} ms (max|ref| "
-            f"{scale:.3f})")
+        say(f"kernel oscillator_bank {b} x {f} frames x {n_h} harmonics "
+            f"({build_info(K.oscillator_bank_kernel_info(n_h))}): max|err| "
+            f"{e:.3e} (rel {e / scale:.2e}); against float64 {e64:.3e} x "
+            f"max|ref| (at most 2 x the plain's + 1e-7), the fp32 plain "
+            f"{p64:.3e}; {ms:.4f} ms, device_ms {dms:.4f}, plain {pms:.4f} "
+            f"ms, bound {bound(b_n, f_n)[0]:.4f} ms (max|ref| {scale:.3f})")
     rows["oscillator_bank"] = dict(
         route="cuda", source="ddsp_svc_tpu_torch/csrc/oscillator_bank.cu",
         replaces=f"{TPU_KERNELS}:49", max_abs_err=err, ms=ms_sum,

@@ -18,9 +18,9 @@ Counterpart of `ddsp_svc_tpu/ops/pallas_kernels.py`:
 
 Every wrapper but performer_attention, harmonic_source and
 combsub_spectral_bwd is differentiable: on CUDA tensors it runs inside a
-torch.autograd.Function (combsub_spectral only where a gradient is wanted)
-whose backward is the combsub_spectral_bwd kernel for combsub_spectral, and
-plain PyTorch for the others (the JAX package's
+torch.autograd.Function (combsub_spectral and oscillator_bank only where a
+gradient is wanted) whose backward is the combsub_spectral_bwd kernel for
+combsub_spectral, and plain PyTorch for the others (the JAX package's
 VJPs of #6 and #9 are plain XLA, those of the resblock and stage kernels
 re-run their XLA references; oscillator_bank_pallas has none). The
 per-row `valid` forms of the trio are inference-only, as in JAX.
@@ -36,6 +36,7 @@ activations, (B, H, T, d) attention.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Sequence
 
 import numpy as np
@@ -59,9 +60,11 @@ _SIGNATURES = {
     "combsub_spectral_bwd_launch": [_P] * 12 + [_I, _I, _P],
     "dft_magnitude_launch": [_P] * 4 + [_I] * 4 + [_P],
     "harmonic_source_launch": [_P] * 5 + [_I, _I, _I, _F, _P],
+    "harmonic_source_info": [ctypes.POINTER(_I)],
     "resblocks_launch": [_P] * 12 + [_I] * 9 + [_P],
     "resblocks_info": [_I, ctypes.POINTER(_I)],
     "oscillator_bank_launch": [_P] * 3 + [_I] * 4 + [_P],
+    "oscillator_bank_info": [_I, ctypes.POINTER(_I)],
     "ltv_fir_convolve_launch": [_P] * 3 + [_I] * 4 + [_P],
     "resblock_chain_launch": [_P] * 4 + [_I] * 7 + [_P],
     "resblock_chain_info": [_I, _I, ctypes.POINTER(_I)],
@@ -72,6 +75,7 @@ _SIGNATURES = {
 _RESTYPES = {"fused_stage_scratch_floats": ctypes.c_longlong}
 
 
+@functools.cache
 def _c_function(lib_name: str, symbol: str):
     fn = getattr(library(lib_name), symbol)
     if fn.argtypes is None:
@@ -87,7 +91,9 @@ def _launch(lib_name: str, symbol: str, *args) -> None:
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current stream of t's device, read without building the Stream
+    object that torch.cuda.current_stream makes on every call."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -96,6 +102,9 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def _check(t: torch.Tensor, name: str, shape, device,
            dtype=torch.float32) -> None:
+    if (t.dtype is dtype and t.device == device and t.shape == shape
+            and t.is_contiguous()):
+        return
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -497,12 +506,19 @@ def harmonic_source(start, rad, w, b, upp: int, sine_amp: float = 0.1):
     _check(rad, "rad", (bsz, f, n_h), dev)
     _check(w, "w", (n_h,), dev)
     _check(b, "b", (1,), dev)
-    out = torch.empty((bsz, f * upp), dtype=torch.float32, device=dev)
+    out = start.new_empty((bsz, f * upp))
     _launch("harmonic_source", "harmonic_source_launch",
             start.data_ptr(), rad.data_ptr(), w.data_ptr(), b.data_ptr(),
             out.data_ptr(), bsz * f, n_h, upp, sine_amp, _stream(out))
     harmonic_source.launches += 1
     return out
+
+
+def harmonic_source_kernel_info() -> dict:
+    """The compiled harmonic-source kernel on the current card: registers
+    per thread, local-memory (spilled) bytes per thread and dynamic shared
+    memory per block."""
+    return _kernel_info("harmonic_source", "harmonic_source_info")
 
 
 # ------------------ backward by re-running the plain version ----------------
@@ -928,6 +944,12 @@ def _oscillator_bank_launch(phase, amplitudes_frames, block_size: int):
     return out
 
 
+def oscillator_bank_kernel_info(n_h: int = 128) -> dict:
+    """As harmonic_source_kernel_info, for the oscillator bank at n_h
+    harmonics."""
+    return _kernel_info("oscillator_bank", "oscillator_bank_info", n_h)
+
+
 def oscillator_bank_bwd_plain(g, phase, amplitudes_frames, block_size: int,
                               harmonic_chunk: int = 32, needs=(False, True)):
     """The adjoint of the oscillator bank (the JAX package's
@@ -943,13 +965,18 @@ def oscillator_bank(phase, amplitudes_frames, block_size: int,
                     harmonic_chunk: int = 32):
     """Additive synthesis in one kernel: phase (B, T) [rad] and
     amplitudes_frames (B, F, n_harm), T = F * block_size, fp32 ->
-    sum_k lerp(amp_k) sin(wrap((k+1) phase)), (B, T). One thread per output
-    sample; the (B, T, n_harm) bank never exists in the forward.
-    harmonic_chunk bounds the plain forward's memory; the backward, autograd
-    of the plain version, keeps the sines of every chunk. Differentiable."""
+    sum_k lerp(amp_k) sin(wrap((k+1) phase)), (B, T). Four samples a thread,
+    the sines by a recurrence along the harmonics; the (B, T, n_harm) bank
+    never exists in the forward. harmonic_chunk bounds the plain forward's
+    memory; the backward, autograd of the plain version, keeps the sines of
+    every chunk. Differentiable; where no gradient is wanted the kernel
+    launches without the autograd Function."""
     if phase.device.type == "cpu":
         return oscillator_bank_plain(phase, amplitudes_frames, block_size,
                                      harmonic_chunk)
+    if not (torch.is_grad_enabled() and (phase.requires_grad
+                                         or amplitudes_frames.requires_grad)):
+        return _oscillator_bank_launch(phase, amplitudes_frames, block_size)
     # the phase comes from f0 and needs no gradient; each is computed only
     # when asked for
     return _PlainBackwardFn.apply(

@@ -166,6 +166,128 @@ def test_harmonic_source_kernel(cuda, upp):
     assert (got - ref).abs().max().item() < 2e-5
 
 
+def _assert_float64_gate(got, plain, f64, where=None):
+    """The kernel within twice the fp32 plain version's own error against
+    float64 (the same formula evaluated in float64 from the same fp32
+    inputs) + 1e-7 of max |f64|; the plain version's error taken over
+    `where` (a mask of the output) when given."""
+    e_plain = (plain.double() - f64).abs()
+    if where is not None:
+        e_plain = e_plain[where]
+    limit = 2 * e_plain.max().item() + 1e-7 * f64.abs().max().item()
+    err = (got.double() - f64).abs().max().item()
+    assert err <= limit, (err, limit)
+
+
+def _harmonic_source_case(cuda, b, f, upp, n_harm=8, w_scale=1.0):
+    g = torch.Generator(device=cuda).manual_seed(b * f * upp)
+    f0 = 100 + 400 * torch.rand((b, f), generator=g, device=cuda)
+    ri = torch.rand((b, n_harm + 1), generator=g, device=cuda)
+    ri[:, 0] = 0
+    start, rad = _source_phase(f0, upp, 44100, ri, n_harm)
+    return (start.contiguous(), rad.contiguous(),
+            _randn(g, n_harm + 1, scale=w_scale), _randn(g, 1, scale=0.05),
+            upp)
+
+
+@pytest.mark.parametrize("b,f,upp", [(1, 512, 512), (2, 33, 300),
+                                     (2, 33, 64), (3, 7, 250), (1, 5, 1030)])
+def test_harmonic_source_kernel_float64(cuda, b, f, upp):
+    """Against float64 within 2x the plain version's own error + 1e-7 of
+    max |f64|, and atol 2e-5 against the plain version, with N(0, 1) merge
+    weights (the JAX package's kernel test): at the path's 512 frames x upp
+    512, at upp 300 and 250 (250: no float4 stores; 21 rows), upp 64 (66
+    rows) and upp 1030 (a row over three blocks, the last one partial)."""
+    _check_harmonic_source(_harmonic_source_case(cuda, b, f, upp))
+
+
+def _check_harmonic_source(args):
+    got = K.harmonic_source(*args)
+    plain = K.harmonic_source_plain(*args)
+    f64 = K.harmonic_source_plain(*(a.double() if torch.is_tensor(a) else a
+                                    for a in args))
+    assert (got - plain).abs().max().item() < 2e-5
+    _assert_float64_gate(got, plain, f64)
+
+
+@pytest.mark.parametrize("n_harm", [128, 299])
+def test_harmonic_source_kernel_many_harmonics(cuda, n_harm):
+    """Any number of harmonics, 129 and 300 here (the kernel reads each
+    row's start, rad and weights from global memory, so nothing bounds
+    H), at 2 x 40 frames of upp 512 with N(0, 0.1^2) merge weights (tanh
+    not saturated); the same gates as test_harmonic_source_kernel_float64."""
+    _check_harmonic_source(
+        _harmonic_source_case(cuda, 2, 40, 512, n_harm, w_scale=0.1))
+
+
+def _oscillator_case(cuda, b, f, h, block):
+    g = torch.Generator(device=cuda).manual_seed(b * f * h + block)
+    phase = (torch.rand((b, f * block), generator=g, device=cuda) * 2 - 1) * np.pi
+    amps = torch.rand((b, f, h), generator=g, device=cuda) * 0.1
+    return phase, amps
+
+
+def _oscillator_f64(phase, amps, block):
+    return K.oscillator_bank_plain(phase.double(), amps.double(), block)
+
+
+@pytest.mark.parametrize("b,f,h,block", [
+    (1, 512, 128, 512), (24, 172, 128, 512), (2, 9, 60, 300), (3, 5, 33, 64),
+    (2, 7, 128, 130), (1, 3, 1, 512)])
+def test_oscillator_bank_kernel_float64(cuda, b, f, h, block):
+    """Against float64 within 2x the plain version's own error + 1e-7 of
+    max |f64|, and atol 2e-3 against the plain version: at the path's two
+    shapes (the offline 1 x 512 frames, a training batch of 24 x 172), 60
+    and 33 harmonics (not a multiple of 4), block 300, 64 and 130 (130: no
+    float4 loads or stores), and one harmonic."""
+    phase, amps = _oscillator_case(cuda, b, f, h, block)
+    got = K.oscillator_bank(phase, amps, block)
+    plain = K.oscillator_bank_plain(phase, amps, block)
+    torch.testing.assert_close(got, plain, atol=2e-3, rtol=0)
+    _assert_float64_gate(got, plain, _oscillator_f64(phase, amps, block))
+
+
+def test_oscillator_bank_kernel_phase_edges(cuda):
+    """Phases of exactly +pi, -pi (fp32) and 0, and within 1e-3 of them,
+    among uniform ones: where a recurrence along the harmonics is weakest
+    (sin(phase) ~ 0). The kernel against float64 everywhere within 2x the
+    plain version's own error on the uniform phases + 1e-7 of max |f64|;
+    atol 2e-3 against the plain version; at phase 0 the output is 0."""
+    b, f, h, block = 2, 16, 128, 512
+    phase, amps = _oscillator_case(cuda, b, f, h, block)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    near = torch.rand(phase[:, 3::8].shape, generator=g, device=cuda) * 1e-3
+    pi = float(np.float32(np.pi))
+    phase[:, 0::8] = pi
+    phase[:, 1::8] = -pi
+    phase[:, 2::8] = 0.0
+    phase[:, 3::8] = near
+    phase[:, 4::8] = -near
+    phase[:, 5::8] = pi - near
+    phase[:, 6::8] = near - pi
+    uniform = torch.zeros_like(phase, dtype=torch.bool)
+    uniform[:, 7::8] = True
+    got = K.oscillator_bank(phase, amps, block)
+    plain = K.oscillator_bank_plain(phase, amps, block)
+    torch.testing.assert_close(got, plain, atol=2e-3, rtol=0)
+    _assert_float64_gate(got, plain, _oscillator_f64(phase, amps, block),
+                         where=uniform)
+    assert got[:, 2::8].abs().max().item() == 0.0
+
+
+def test_oscillator_bank_kernel_last_frame(cuda):
+    """The last frame takes its own amplitudes at both ends (the frame
+    repeated, f = F - 1): its samples equal bit for bit a one-frame call on
+    the same phases and amplitudes, and keep the float64 gate."""
+    b, f, h, block = 3, 6, 128, 512
+    phase, amps = _oscillator_case(cuda, b, f, h, block)
+    got = K.oscillator_bank(phase, amps, block)[:, -block:]
+    p1, a1 = phase[:, -block:].contiguous(), amps[:, -1:].contiguous()
+    assert torch.equal(got, K.oscillator_bank(p1, a1, block))
+    _assert_float64_gate(got, K.oscillator_bank_plain(p1, a1, block),
+                         _oscillator_f64(p1, a1, block))
+
+
 @pytest.mark.parametrize("c,t,s_src,valid,inject", [
     (64, 700, 4, None, True), (32, 1500, 2, [1400, 600], True),
     (16, 3000, 1, None, True), (8, 5000, 1, 4000, True),

@@ -600,6 +600,43 @@ def test_combsub_spectral_bwd_plain_matches_jax(n_fft, rows):
             assert err < 2e-5, (name, how, err)
 
 
+def _meta(*shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("case", [
+    "rad shape", "w dtype", "start strides", "b shape", "amps dtype",
+    "amps device", "T != F * block"])
+def test_sine_bank_wrappers_check_inputs(case):
+    """The harmonic source's (#3) and the oscillator bank's (#8) input
+    checks name each fault before any launch (meta tensors stand in
+    for the card's)."""
+    st, w, b = _meta(1, 4, 9), _meta(9), _meta(1)
+    phase, amps = _meta(2, 3 * 64), _meta(2, 3, 128)
+    calls = {
+        "rad shape": (ValueError, "rad has shape",
+                      lambda: K.harmonic_source(st, _meta(1, 4, 8), w, b, 64)),
+        "w dtype": (TypeError, "w has dtype", lambda: K.harmonic_source(
+            st, st, _meta(9, dtype=torch.float64), b, 64)),
+        "start strides": (ValueError, "start is not contiguous",
+                          lambda: K.harmonic_source(
+                              _meta(1, 9, 4).transpose(1, 2), st, w, b, 64)),
+        "b shape": (ValueError, "b has shape", lambda: K.harmonic_source(
+            st, st, w, _meta(2), 64)),
+        "amps dtype": (TypeError, "amplitudes_frames has dtype",
+                       lambda: K.oscillator_bank(
+                           phase, _meta(2, 3, 128, dtype=torch.float64), 64)),
+        "amps device": (ValueError, "amplitudes_frames is on cpu",
+                        lambda: K.oscillator_bank(
+                            phase, torch.empty((2, 3, 128)), 64)),
+        "T != F * block": (ValueError, "T = F \\* block_size",
+                           lambda: K.oscillator_bank(phase, amps, 32)),
+    }
+    err, match, call = calls[case]
+    with pytest.raises(err, match=match):
+        call()
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take():
     """Shape checks run before any launch, so they are testable here with
     meta tensors standing in for the card's."""

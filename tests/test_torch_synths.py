@@ -8,6 +8,9 @@ The port's models draw their weights from a seed; the JAX package's own
 torch -> flax converter gives the JAX models the same weights, and the JAX
 gradients come back through the port's `jax_synth_to_torch`. Both sides get
 the same noise excitation."""
+import re
+from pathlib import Path
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -98,6 +101,128 @@ def test_oscillator_bank_backward():
     ref = jax.grad(lambda am: jnp.sum(jexciters.oscillator_bank(
         jnp.asarray(phase), am, 32) * g))(jnp.asarray(amps))
     assert _rel_max(d_amps, ref) < 2e-4
+
+
+# The kernel's evaluation order (csrc/oscillator_bank.cu), emulated in fp32:
+# the Chebyshev step along the harmonics, re-seeded every kReseed harmonics
+# (read from the source), the lerp split. fp32 ops round as on the card; an
+# FFMA is one fp32 rounding of the float64 result (exact but for a rare
+# double rounding); the SFU's __sincosf at each re-seed is the correctly
+# rounded value moved by its error bound on [-pi, pi], +-4e-7, with a
+# seeded sign. No code outside this file calls it.
+
+
+def _osc_reseed():
+    text = (Path(K.__file__).resolve().parents[1] / "csrc"
+            / "oscillator_bank.cu").read_text()
+    return int(re.search(r"constexpr int kReseed = (\d+);", text).group(1))
+
+
+def _fma(a, b, c):
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _f32(x):
+    return float(np.float32(x))
+
+
+def _sincos_accurate(x):
+    """sincos_accurate of the kernel: Cody-Waite by pi/2, then the CUDA
+    math library's sinf/cosf polynomials."""
+    def c(v):
+        return torch.full_like(x, _f32(v))
+
+    q = torch.round(x * _f32(0.636619772))
+    r = _fma(q, c(-1.57079601e+00), x)
+    r = _fma(q, c(-3.13916473e-07), r)
+    r = _fma(q, c(-5.39030253e-15), r)
+    r2 = r * r
+    ps = _fma(c(-1.95152959e-4), r2, c(8.33216087e-3))
+    ps = _fma(ps, r2, c(-1.66666546e-1))
+    sr = _fma(ps * r2, r, r)
+    pc = _fma(c(2.44331571e-5), r2, c(-1.38873163e-3))
+    pc = _fma(pc, r2, c(4.16666457e-2))
+    pc = _fma(pc, r2, c(-0.5))
+    cr = _fma(pc, r2, c(1.0))
+    i = q.to(torch.int64)
+    odd = (i & 1) == 1
+    sv, cv = torch.where(odd, cr, sr), torch.where(odd, sr, cr)
+    return (torch.where((i & 2) == 2, -sv, sv),
+            torch.where(((i + 1) & 2) == 2, -cv, cv))
+
+
+def _sincos_multiple(n, ph, gen):
+    """sincos_multiple of the kernel: n ph wrapped exactly to [-pi, pi],
+    then the SFU modelled as above."""
+    nn = torch.full_like(ph, float(n))
+    y = ph * nn
+    lo = _fma(nn, ph, -y)
+    q = torch.round(y * _f32(0.15915494309189533577))
+    r = _fma(-q, torch.full_like(q, 6.28125), y)
+    r = _fma(-q, torch.full_like(q, _f32(1.9353071795864769253e-3)), r)
+    r = (r + lo).double()
+
+    def sign():
+        return torch.randint(0, 2, ph.shape, generator=gen) * 2.0 - 1
+
+    return ((torch.sin(r) + 4e-7 * sign()).float(),
+            (torch.cos(r) + 4e-7 * sign()).float())
+
+
+def oscillator_bank_emulated(phase, amps, block, reseed, seed=0):
+    """The kernel's arithmetic on (B, T) phases and (B, F, H) amplitudes."""
+    gen = torch.Generator().manual_seed(seed)
+    b, f, h = amps.shape
+    a0 = amps.reshape(b * f, h)
+    sl = torch.cat([amps[:, 1:], amps[:, -1:]], dim=1).reshape(b * f, h) - a0
+    ph = phase.reshape(b * f, block)
+    frac = (torch.arange(block, dtype=torch.float32) / float(block))[None]
+    frac = frac.expand_as(ph)
+    s1, c1 = _sincos_accurate(ph)
+    c2 = 2.0 * c1
+    s, u = s1, torch.zeros_like(ph)
+    acc0 = acc1 = torch.zeros_like(ph)
+    for k in range(h):
+        if k and k % reseed == 0:
+            sn, cn = _sincos_multiple(k + 1, ph, gen)
+            s, u = sn, _fma(sn, c1, -(cn * s1))
+        ak, dk = a0[:, k:k + 1].expand_as(ph), sl[:, k:k + 1].expand_as(ph)
+        acc0, acc1 = _fma(ak, s, acc0), _fma(dk, s, acc1)
+        s, u = _fma(c2, s, -u), s
+    return _fma(frac, acc1, acc0).reshape(b, f * block)
+
+
+@pytest.mark.parametrize("h", [128, 60])
+def test_oscillator_bank_kernel_order_matches_jax(h):
+    """The kernel's evaluation order (emulated) against the JAX package's
+    XLA bank at atol 2e-3, its kernel-vs-XLA bound
+    (test_pallas_kernels.py), on the same inputs."""
+    phase, amps = _osc_inputs(0, h=h)
+    got = oscillator_bank_emulated(_t(phase), _t(amps), 64, _osc_reseed())
+    ref = np.asarray(jexciters.oscillator_bank(jnp.asarray(phase),
+                                               jnp.asarray(amps), 64))
+    np.testing.assert_allclose(got.numpy(), ref, atol=2e-3, rtol=0)
+
+
+def test_oscillator_bank_kernel_order_float64_gate():
+    """The kernel's evaluation order (emulated) at 128 harmonics against
+    float64 within 2x the fp32 plain version's own error + 1e-7 of max
+    |f64|, on 51,200 samples: uniform phases, and phases near 0 and +-pi
+    (within 0.1), where the recurrence is weakest."""
+    rng = np.random.default_rng(5)
+    b, f, h, block = 4, 25, 128, 512
+    phase = (rng.random((b, f * block)) * 2 - 1) * np.pi
+    phase[1] = (rng.random(f * block) * 2 - 1) * 0.1
+    phase[2] = np.sign(rng.random(f * block) - 0.5) * (
+        np.pi - rng.random(f * block) * 0.1)
+    phase = _t(phase.astype(np.float32))
+    amps = _t((rng.random((b, f, h)) * 0.1).astype(np.float32))
+    got = oscillator_bank_emulated(phase, amps, block, _osc_reseed())
+    f64 = K.oscillator_bank_plain(phase.double(), amps.double(), block)
+    plain = K.oscillator_bank_plain(phase, amps, block)
+    e_plain = (plain.double() - f64).abs().max().item()
+    err = (got.double() - f64).abs().max().item()
+    assert err <= 2 * e_plain + 1e-7 * f64.abs().max().item(), (err, e_plain)
 
 
 # --------------------------------------------------- #9 LTV-FIR convolve ---
