@@ -14,8 +14,9 @@ Phases, each printing its own lines:
      device_ms: calls back to back), plain time and bound (#1 also at B =
      16; #3 and #8, the sine banks, also against float64, within twice the
      fp32 plain version's own error, with their registers, spills and
-     shared memory, #8 at each of its two shapes; #6 and #9 also per row,
-     on rows of unequal scale, against float64; #4, #5, #10 and #11, all
+     shared memory, #8 at each of its two shapes; #6, #7 and #9 also per
+     row, on rows of unequal scale, against float64, #7 with its registers,
+     spills and shared memory; #4, #5, #10 and #11, all
      on the tensor-core conv core, with their registers, spills and shared
      memory; #10's three chains beside #5 and the cuDNN chain, #11 beside
      the cuDNN ConvTranspose followed by #4);
@@ -490,6 +491,39 @@ def kernel_phase(torch, K, gen):
                                 K.combsub_spectral_bwd_plain, inputs, 0.0, 2e-5)
     flops = r * (5 * 2.5 * n * math.log2(n) + 40 * bins)
     nbytes = 4 * (r * (5 * n + 6 * bins) + n)
+    say(f"kernel combsub_spectral_bwd {r} x {n} "
+        f"({build_info(K.combsub_bwd_kernel_info(n))}): max|err| {err:.3e} "
+        f"(2e-5 x max|ref| per gradient), {ms:.4f} ms, device_ms {dms:.4f}, "
+        f"plain {pms:.4f} ms, bound {bound(nbytes, flops)[0]:.4f} ms")
+    # rows whose g, tooth and noise are each scaled by their own 10^u, u
+    # uniform in [-4, 0], the last 101 with noise at 1e-3 of tooth's scale:
+    # each row of each gradient against the plain adjoint in float64 on the
+    # CPU, within 2e-5 of its own max; the plain version on the card
+    # (cuFFT) beside it
+    def scale():
+        return 10.0 ** (-4 * torch.rand((301, 1), generator=gen, device=dev))
+
+    s_tooth, s_noise = scale(), scale()
+    s_noise[200:] = 1e-3 * s_tooth[200:]
+    args = (randn(301, n) * scale(), randn(301, n) * s_tooth,
+            randn(301, n) * s_noise, randn(301, bins, scale=0.3),
+            randn(301, bins), randn(301, bins, scale=0.3, shift=-3.0), n)
+    refs = K.combsub_spectral_bwd_plain(
+        *(a.double().cpu() if torch.is_tensor(a) else a for a in args))
+    worst = {}
+    for label, fn in (("kernel", K.combsub_spectral_bwd),
+                      ("plain (cuFFT)", K.combsub_spectral_bwd_plain)):
+        worst[label] = [((got.double().cpu() - ref).abs().amax(1)
+                         / ref.abs().amax(1)).max().item()
+                        for got, ref in zip(fn(*args), refs)]
+    say(f"kernel combsub_spectral_bwd n={n}, 301 rows, g, tooth, noise "
+        f"scaled by 10^[-4, 0] (101 with noise 1e-3 x tooth), worst row vs "
+        f"float64 / its own max, d_tooth d_noise d_hm d_hp d_nm: kernel "
+        + " ".join(f"{e:.3e}" for e in worst["kernel"]) + " (tolerance "
+        "2e-5), plain (cuFFT) "
+        + " ".join(f"{e:.3e}" for e in worst["plain (cuFFT)"]))
+    if not max(worst["kernel"]) <= 2e-5:
+        fail("combsub_spectral_bwd: a row of small scale disagrees")
     rows["combsub_spectral_bwd"] = dict(
         route="cuda", source="ddsp_svc_tpu_torch/csrc/combsub_spectral_bwd.cu",
         replaces=f"{TPU_KERNELS}:781", max_abs_err=err, ms=ms, plain_ms=pms,

@@ -95,11 +95,10 @@ combsub_spectral_kernel(const float* __restrict__ tooth, const float* __restrict
       pk.y = 0.f;
       pj.y = 0.f;
     }
-    // Se = (S[k] + conj S[L-k]) / 2, So = (S[k] - conj S[L-k]) conj(w) / 2
-    const float2 pe = cscale(cadd(pk, conjf2(pj)), 0.5f);
-    const float2 po = cscale(cmul(csub(pk, conjf2(pj)), conjf2(w)), 0.5f);
-    sa[pad(k)] = make_float2(pe.x - po.y, pe.y + po.x);                 // Se + j So
-    if (k != 0) sa[pad(j)] = make_float2(pe.x + po.y, po.x - pe.y);  // conj Se + j conj So
+    float2 zk, zj;
+    real_pack(pk, pj, w, zk, zj);
+    sa[pad(k)] = zk;
+    if (k != 0) sa[pad(j)] = zj;
   }
   __syncthreads();
 

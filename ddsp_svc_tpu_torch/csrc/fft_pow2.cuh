@@ -1,7 +1,8 @@
 // Power-of-two complex FFTs of one row in shared memory, with radix-R
 // butterflies in registers (Stockham autosort, natural order in and out).
 // Shared by dft_magnitude.cu (the loss's |rfft|, Bluestein for the sizes
-// that are not powers of two), ltv_fir_convolve.cu and combsub_spectral.cu.
+// that are not powers of two), ltv_fir_convolve.cu, combsub_spectral.cu and
+// combsub_spectral_bwd.cu (the CombSubFast chain and its adjoint).
 //
 // A transform of M points (a power of two, a template argument, so that
 // every stride, pad and pass count is a constant) runs on M / R threads of
@@ -223,6 +224,21 @@ __device__ __forceinline__ void real_split(float2 zk, float2 zj, float2 w,
   const float2 wo = cmul(w, o);
   xk = cadd(e, wo);
   xj = conjf2(csub(e, wo));
+}
+
+// The inverse of real_split: Z'[k] and Z'[l - k] of the l-point spectrum
+// whose unscaled inverse DFT is z'[i] = l (x[2i] + i x[2i+1]), x = irfft
+// of the Hermitian spectrum X of 2l points, from xk = X[k], xj = X[l - k]
+// (at k = 0 X[0] and X[l], whose imaginary parts the caller has zeroed),
+// w = exp(-2 pi i k / 2l): Z' = Xe + i Xo, Xe and Xo the spectra of the
+// even and odd samples. At k = 0 only zk is Z'[0]; zj is not a bin.
+__device__ __forceinline__ void real_pack(float2 xk, float2 xj, float2 w,
+                                          float2& zk, float2& zj) {
+  // Xe = (X[k] + conj X[l-k]) / 2, Xo = (X[k] - conj X[l-k]) conj(w) / 2
+  const float2 e = cscale(cadd(xk, conjf2(xj)), 0.5f);
+  const float2 o = cscale(cmul(csub(xk, conjf2(xj)), conjf2(w)), 0.5f);
+  zk = make_float2(e.x - o.y, e.y + o.x);  // Xe + i Xo
+  zj = make_float2(e.x + o.y, o.x - e.y);  // conj Xe + i conj Xo
 }
 
 }  // namespace

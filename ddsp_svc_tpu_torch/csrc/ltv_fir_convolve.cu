@@ -82,11 +82,10 @@ ltv_fir_convolve_kernel(const float* __restrict__ a, const float* __restrict__ h
     real_split(sa[pad(k)], sa[pad(j)], w, ak, aj);
     real_split(sh[pad(k)], sh[pad(j)], w, hk, hj);
     const float2 pk = cmul(ak, hk), pj = cmul(aj, hj);  // P[k], P[L - k]
-    // Pe = (P[k] + conj P[L-k]) / 2, Po = (P[k] - conj P[L-k]) conj(w) / 2
-    const float2 pe = cscale(cadd(pk, conjf2(pj)), 0.5f);
-    const float2 po = cscale(cmul(csub(pk, conjf2(pj)), conjf2(w)), 0.5f);
-    sa[pad(k)] = make_float2(pe.x - po.y, pe.y + po.x);   // Pe + j Po
-    if (k != 0) sa[pad(j)] = make_float2(pe.x + po.y, po.x - pe.y);  // conj Pe + j conj Po
+    float2 zk, zj;
+    real_pack(pk, pj, w, zk, zj);
+    sa[pad(k)] = zk;
+    if (k != 0) sa[pad(j)] = zj;
   }
   __syncthreads();
 

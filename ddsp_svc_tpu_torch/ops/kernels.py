@@ -58,6 +58,7 @@ _SIGNATURES = {
     "performer_attention_info": [_I, ctypes.POINTER(_I)],
     "combsub_spectral_launch": [_P] * 7 + [_I, _I, _P],
     "combsub_spectral_bwd_launch": [_P] * 12 + [_I, _I, _P],
+    "combsub_spectral_bwd_info": [_I, ctypes.POINTER(_I)],
     "dft_magnitude_launch": [_P] * 4 + [_I] * 4 + [_P],
     "harmonic_source_launch": [_P] * 5 + [_I, _I, _I, _F, _P],
     "harmonic_source_info": [ctypes.POINTER(_I)],
@@ -347,9 +348,9 @@ def combsub_spectral_bwd_plain(g, tooth_frames, noise_frames, hm, hp, nm,
 
 def combsub_spectral_bwd(g, tooth_frames, noise_frames, hm, hp, nm,
                          n_fft: int):
-    """The adjoint of combsub_spectral in one kernel (a block per frame row):
-    the upstream gradient g (R, n_fft) and the forward's inputs -> (d_tooth,
-    d_noise, d_hm, d_hp, d_nm)."""
+    """The adjoint of combsub_spectral in one kernel (per frame row five
+    half-length FFTs in shared memory): the upstream gradient g (R, n_fft)
+    and the forward's inputs -> (d_tooth, d_noise, d_hm, d_hp, d_nm)."""
     if g.device.type == "cpu":
         return combsub_spectral_bwd_plain(g, tooth_frames, noise_frames, hm,
                                           hp, nm, n_fft)
@@ -368,6 +369,12 @@ def combsub_spectral_bwd(g, tooth_frames, noise_frames, hm, hp, nm,
             d_hp.data_ptr(), d_nm.data_ptr(), rows, n_fft, _stream(g))
     combsub_spectral_bwd.launches += 1
     return d_tooth, d_noise, d_hm, d_hp, d_nm
+
+
+def combsub_bwd_kernel_info(n_fft: int) -> dict:
+    """As harmonic_source_kernel_info, for the adjoint kernel at n_fft."""
+    return _kernel_info("combsub_spectral_bwd", "combsub_spectral_bwd_info",
+                        n_fft)
 
 
 # ------------------------------- DFT magnitude ------------------------------

@@ -441,11 +441,14 @@ def test_dft_magnitude_grad_mixed_scale(cuda, n_fft):
     assert err.max().item() <= 1e-4, err.max().item()
 
 
-@pytest.mark.parametrize("n_fft,rows", [(64, 3), (1024, 9), (1024, 4152),
-                                        (4096, 5)])
+@pytest.mark.parametrize("n_fft,rows", [(n, 37) for n in (64, 128, 256, 512,
+                                                        1024, 2048, 4096)]
+                         + [(1024, 4152)])
 def test_combsub_spectral_bwd_kernel(cuda, n_fft, rows):
-    """Each of the five gradients within 2e-5 of its max |ref| (the JAX
-    package's kernel tolerance), by the kernel and by autograd through
+    """Every power of two the kernel takes, at a row count that leaves a
+    block's last slots empty, and at a training batch's 4152 rows: each of
+    the five gradients within 2e-5 of its max |ref| (the JAX package's
+    kernel tolerance), by the kernel and by autograd through
     combsub_spectral, against the plain adjoint."""
     g = torch.Generator(device=cuda).manual_seed(n_fft + rows)
     bins = n_fft // 2 + 1
@@ -460,6 +463,31 @@ def test_combsub_spectral_bwd_kernel(cuda, n_fft, rows):
     for r, o, x in zip(ref, got, xs):
         for out in (o, x.grad):
             assert ((out - r).abs().max() / r.abs().max()).item() < 2e-5
+
+
+@pytest.mark.parametrize("n_fft", [256, 1024, 4096])
+def test_combsub_spectral_bwd_kernel_mixed_scale(cuda, n_fft):
+    """Rows whose g, tooth and noise are each scaled by their own 10^u, u
+    uniform in [-4, 0], and rows whose noise is 1e-3 of tooth's scale: each
+    row of each of the five gradients against the plain adjoint in float64
+    on the CPU within 2e-5 of that row's own max. A transform shared by two
+    of the signals rounds the smaller at the larger's scale and fails."""
+    g = torch.Generator(device=cuda).manual_seed(n_fft + 1)
+    rows, bins = 301, n_fft // 2 + 1
+
+    def scale():
+        return 10.0 ** (-4 * torch.rand((rows, 1), generator=g, device=cuda))
+
+    s_tooth, s_noise = scale(), scale()
+    s_noise[200:] = 1e-3 * s_tooth[200:]
+    args = (_randn(g, rows, n_fft) * scale(), _randn(g, rows, n_fft) * s_tooth,
+            _randn(g, rows, n_fft) * s_noise, _randn(g, rows, bins, scale=0.3),
+            _randn(g, rows, bins), _randn(g, rows, bins, scale=0.3, shift=-3.0))
+    refs = K.combsub_spectral_bwd_plain(*(a.double().cpu() for a in args), n_fft)
+    gots = K.combsub_spectral_bwd(*args, n_fft)
+    for name, ref, got in zip(("tooth", "noise", "hm", "hp", "nm"), refs, gots):
+        err = (got.double().cpu() - ref).abs().amax(1) / ref.abs().amax(1)
+        assert err.max().item() <= 2e-5, (name, err.max().item())
 
 
 def test_combsub_spectral_plain_at_training_rows(cuda):

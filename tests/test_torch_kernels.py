@@ -169,39 +169,90 @@ def test_combsub_spectral_plain_matches_jax(n_fft, rows):
     assert np.abs(got - ref).max() / np.abs(ref).max() < 2e-5
 
 
+class _HalfLength:
+    """The half-length real transforms of fft_pow2.cuh in float64, at
+    n_fft: bin pairs (k, L - k), L = n/2, k = 0 .. L/2, and the pair's
+    second bin (L at k = 0)."""
+
+    def __init__(self, n_fft):
+        self.n, self.l = n_fft, n_fft // 2
+        self.k = torch.arange(self.l // 2 + 1)
+        self.j = torch.where(self.k == 0, 0, self.l - self.k)
+        self.bj = torch.where(self.k == 0, self.l, self.j)
+        self.w = torch.exp(-2j * np.pi * self.k.double() / n_fft)
+
+    def split(self, x):
+        """(X[k], X[L - k]) of rfft(x) (X[0] and X[L] at k = 0) from the
+        L-point FFT of z[i] = x[2i] + j x[2i+1]: real_split."""
+        k, j, w = self.k, self.j, self.w
+        z = torch.fft.fft(torch.complex(x[:, 0::2], x[:, 1::2]))
+        e = (z[:, k] + z[:, j].conj()) / 2
+        o = (z[:, k] - z[:, j].conj()) / 2j
+        return e + w * o, (e - w * o).conj()
+
+    def inverse(self, sk, sj):
+        """irfft of the half spectrum (S[k], S[L - k]) (imaginary parts of
+        DC and Nyquist dropped): the packing Z'[k] = Se[k] + j So[k]
+        (real_pack), one L-point inverse, 1/L."""
+        k, j, w = self.k, self.j, self.w
+        sk, sj = (torch.where(k == 0, s.real + 0j, s) for s in (sk, sj))
+        pe = (sk + sj.conj()) / 2
+        po = (sk - sj.conj()) * w.conj() / 2
+        zp = torch.zeros((sk.shape[0], self.l), dtype=torch.complex128)
+        zp[:, k] = pe + 1j * po
+        zp[:, j[1:]] = pe[:, 1:].conj() + 1j * po[:, 1:].conj()
+        y = torch.fft.ifft(zp)  # the unscaled inverse / L
+        return torch.stack((y.real, y.imag), -1).reshape(sk.shape[0], self.n)
+
+
 def _combsub_spectral_emulated(tooth, noise, hm, hp, nm, n_fft):
     """combsub_spectral.cu's algorithm, written out in float64: each real
     row as an L = n/2-point complex FFT of its even and odd samples, the
     real split of both spectra at bin pairs (k, L - k), the filtered bins
     (imaginary parts of DC and Nyquist dropped), the packing Z'[k] = Se[k] +
     j So[k] for one L-point inverse, 1/L and the window on the way out."""
-    rows, l = tooth.shape[0], n_fft // 2
-    k = torch.arange(l // 2 + 1)
-    j = torch.where(k == 0, 0, l - k)
-    bj = torch.where(k == 0, l, j)  # the bin of the pair's second value
-    w = torch.exp(-2j * np.pi * k.double() / n_fft)
-
-    def split(x):  # (X[k], X[L - k]); X[0] and X[L] at k = 0
-        z = torch.fft.fft(torch.complex(x[:, 0::2], x[:, 1::2]))
-        e = (z[:, k] + z[:, j].conj()) / 2
-        o = (z[:, k] - z[:, j].conj()) / 2j
-        return e + w * o, (e - w * o).conj()
+    hl = _HalfLength(n_fft)
 
     def filtered(a, nz, b):
         return (a * torch.polar(torch.exp(hm[:, b]), np.pi * hp[:, b])
                 + nz * torch.exp(nm[:, b]) / 128)
 
-    (ak, aj), (nk, nj) = split(tooth), split(noise)
-    sk, sj = filtered(ak, nk, k), filtered(aj, nj, bj)
-    sk, sj = (torch.where(k == 0, s.real + 0j, s) for s in (sk, sj))
-    pe = (sk + sj.conj()) / 2
-    po = (sk - sj.conj()) * w.conj() / 2
-    zp = torch.zeros((rows, l), dtype=torch.complex128)
-    zp[:, k] = pe + 1j * po
-    zp[:, j[1:]] = pe[:, 1:].conj() + 1j * po[:, 1:].conj()
-    y = torch.fft.ifft(zp)  # the unscaled inverse / L
-    out = torch.stack((y.real, y.imag), -1).reshape(rows, n_fft)
+    (ak, aj), (nk, nj) = hl.split(tooth), hl.split(noise)
+    out = hl.inverse(filtered(ak, nk, hl.k), filtered(aj, nj, hl.bj))
     return out * sqrt_hann_window(n_fft, dtype=torch.float64)
+
+
+def _combsub_spectral_bwd_emulated(g, tooth, noise, hm, hp, nm, n_fft):
+    """combsub_spectral_bwd.cu's algorithm, written out in float64: three
+    half-length forwards (g * window, tooth, noise) with the real split at
+    the pairs (k, L - k); the per-bin gradients dS = w G, d_hm + j d_hp / pi
+    = dS conj(A) conj(H), d_nm = Re(dS conj N) Q; the outputs' half spectra
+    n Y, Y = dA / 2 inside and Re dA at DC and Nyquist, dA = dS conj(H) (and
+    dS Q for d_noise), which is G conj(H) (and G Q) at every bin; and the
+    two packed half-length inverses with their 1/L."""
+    hl = _HalfLength(n_fft)
+    rows, l = g.shape[0], hl.l
+    win = sqrt_hann_window(n_fft, dtype=torch.float64)
+    d_ctrl = [torch.zeros((rows, l + 1), dtype=torch.float64)
+              for _ in range(3)]
+    ys = []
+    for (gb, ab, nb), b in zip(zip(hl.split(g * win), hl.split(tooth),
+                                   hl.split(noise)), (hl.k, hl.bj)):
+        h = torch.polar(torch.exp(hm[:, b]), np.pi * hp[:, b])
+        q = torch.exp(nm[:, b]) / 128
+        wk = torch.where((b == 0) | (b == l), 1.0, 2.0) / n_fft
+        ds = wk * gb
+        e = ds * ab.conj() * h.conj()
+        for d, v in zip(d_ctrl, (e.real, np.pi * e.imag,
+                                 (ds * nb.conj()).real * q)):
+            d[:, b] = v
+        da = ds * h.conj()
+        y = torch.where((b == 0) | (b == l), da.real + 0j, da / 2)
+        assert torch.allclose(n_fft * y, torch.where(
+            (b == 0) | (b == l), (gb * h.conj()).real + 0j, gb * h.conj()))
+        ys.append((gb * h.conj(), gb * q))
+    (yak, ynk), (yaj, ynj) = ys
+    return (hl.inverse(yak, yaj), hl.inverse(ynk, ynj), *d_ctrl)
 
 
 @pytest.mark.parametrize("n_fft", [64, 1024, 4096])
@@ -221,6 +272,29 @@ def test_combsub_spectral_algorithm_matches_irfft(n_fft):
     ref = K.combsub_spectral_plain(*args, n_fft)
     got = _combsub_spectral_emulated(*args, n_fft)
     assert ((got - ref).abs().max() / ref.abs().max()).item() < 1e-9
+
+
+@pytest.mark.parametrize("n_fft", [64, 1024, 4096])
+def test_combsub_spectral_bwd_algorithm_matches_plain(n_fft):
+    """The index algebra of the adjoint kernel (three half-length forward
+    transforms, the per-bin gradients, the Hermitian halving with DC and
+    Nyquist real, two packed half-length inverses) against the plain
+    adjoint in float64, each gradient within 1e-9 of its max |ref|."""
+    rng = np.random.default_rng(n_fft + 1)
+    rows, bins = 3, n_fft // 2 + 1
+    args = (rng.standard_normal((rows, n_fft)) * 1e-3,
+            rng.standard_normal((rows, n_fft)),
+            rng.standard_normal((rows, n_fft)),
+            rng.standard_normal((rows, bins)) * 0.3,
+            rng.standard_normal((rows, bins)),
+            rng.standard_normal((rows, bins)) * 0.3 - 3)
+    args = [torch.from_numpy(a) for a in args]
+    refs = K.combsub_spectral_bwd_plain(*args, n_fft)
+    gots = _combsub_spectral_bwd_emulated(*args, n_fft)
+    for name, ref, got in zip(("tooth", "noise", "hm", "hp", "nm"), refs,
+                              gots):
+        err = ((got - ref).abs().max() / ref.abs().max()).item()
+        assert err < 1e-9, (name, err)
 
 
 def test_combsub_window_is_cached():
