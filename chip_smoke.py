@@ -20,14 +20,27 @@ Phases, each printing its own lines:
      on the tensor-core conv core, with their registers, spills and shared
      memory; #10's three chains beside #5 and the cuDNN chain, #11 beside
      the cuDNN ConvTranspose followed by #4);
-  4. offline paths: conversion (`convert_features`) with each synthesizer
+  4. the CLI path: `python -m ddsp_svc_tpu_torch.infer`'s main on a 13 s
+     44.1 kHz wav of three sung phrases (wav in, checkpoint in, wav out) at
+     configs/combsub.yaml's full width: a `model_0.pt` from a seed, a
+     HuBERT-soft checkpoint in the bshall layout and an NSF-HiFiGAN
+     checkpoint (H_NSF) written from seeds; CREPE f0 (`-pe crepe -e true`),
+     run fp32, with the enhancer staged bf16 at 128 channels, and fp32 on the
+     plain versions; each run's launches (#1/#2/#3/#4 at 3/1/1/3 a segment),
+     output (44.1 kHz, within a block of the input, finite, RMS > 0), the
+     kernel run against the plain one (1e-3 x max|ref|) and staged against
+     fp32 (rel RMS 2e-2); the parselmouth, dio and harvest f0 on the card
+     against their CPU runs; the stage walls (f0 per family, CREPE's network
+     and host decode apart, units, synth + enhance, write) and the total as
+     audio-s/s, each beside the card's name and power limit;
+  5. offline paths: conversion (`convert_features`) with each synthesizer
      at the full width of its config (CombSubFast from configs/combsub.yaml,
      Sins from configs/sins.yaml, CombSub from configs/combsub-old.yaml) and
      the 44.1 kHz NSF-HiFiGAN, weights from seeds, on three segments (200,
      384, 512 frames); the kernels' launch counts over each run; the same
      run on the plain versions; audio-seconds per second at batch 1 (and,
      for CombSubFast, batched);
-  5. enhancer forms (after the CombSubFast offline path, on its three
+  6. enhancer forms (after the CombSubFast offline path, on its three
      segments' audio and f0): the default form (#3, #4), fused_inject=False
      (#3, #5) and fused_stage=True (#3, #11) at H_NSF's full width, each
      against the same run on the plain versions, with its launch counts and
@@ -35,7 +48,7 @@ Phases, each printing its own lines:
      mixed lengths (default and fused_inject=False), each item against its
      own enhance call with the tail past it exactly 0; one enhance with
      adaptive key 2 (44.1 <-> 49.5 kHz);
-  6. training paths: the port's trainer (`python -m ddsp_svc_tpu_torch.train`
+  7. training paths: the port's trainer (`python -m ddsp_svc_tpu_torch.train`
      main) on a synthetic dataset in the AudioDataset layout at each
      config's full width (batch 24, 2-s crops, RSS loss 256..2048 x 4
      scales): fp32 steps with a validation pass and a checkpoint; for
@@ -453,6 +466,23 @@ def kernel_phase(torch, K, gen):
         dms_sum += dms
         flops += f_n
         nbytes += b_n
+    # the staged-bf16 CLI run's mel: the reflect-padded frames of the CLI
+    # wav's longest segment (5 s) at H_NSF's n_fft and hop, Hann-windowed
+    n, hop = H_NSF["n_fft"], H_NSF["hop_size"]
+    pad = (n - hop) // 2 + max((n - hop + 1) // 2, hop)
+    rows_n = (int(5.0 * H_NSF["sampling_rate"]) + pad - n) // hop + 1
+    win = torch.hann_window(n, periodic=True, device=dev)
+    inputs = [(randn(rows_n, n, scale=0.1) * win, n) for _ in range(2)]
+    e, ms, pms, dms = compare(torch, f"dft_magnitude mel n={n}",
+                              K.dft_magnitude, K.dft_magnitude_plain,
+                              inputs, 2e-3, 0.0)
+    bins = n // 2 + 1
+    say(f"kernel dft_magnitude at the staged mel's shape, n={n} rows="
+        f"{rows_n}: max|err| {e:.3e}, {ms:.4f} ms, device_ms {dms:.4f}, "
+        f"plain {pms:.4f} ms, library "
+        f"{time_ms(torch, library_mag, inputs):.4f} ms, bound "
+        f"{bound(4 * rows_n * (n + bins), rows_n * (2.5 * n * math.log2(n) + 4 * bins))[0]:.4f} ms")
+    err = max(err, e)
     # rows of unequal scale (10^u, u uniform in [-4, 0]), as silent frames
     # sit beside loud ones in the loss: each row against the plain version
     # in float64 on the CPU, within 1e-4 of its own max; the plain version
@@ -476,8 +506,9 @@ def kernel_phase(torch, K, gen):
         replaces=f"{TPU_KERNELS}:241", max_abs_err=err, ms=ms_sum,
         plain_ms=pms_sum, device_ms=dms_sum, bound=bound(nbytes, flops),
         library_ms=lms_sum,
-        tol="atol 2e-3 (the JAX package's kernel test); times are the sum "
-            "of one call at each of the 16 bucket sizes")
+        tol="atol 2e-3 (the JAX package's kernel test), also at the staged "
+            "mel's shape; times are the sum of one call at each of the 16 "
+            "bucket sizes")
 
     # 7. the spectral chain's adjoint at the training batch: 24 x 173 frame
     # rows of n_fft 1024, all five gradients
@@ -1324,6 +1355,225 @@ def train_phase(torch, K, synth: str, config: str, expect,
     return total
 
 
+# the CLI phase: the kernels each segment of the offline path launches; the
+# staged-bf16 run's mel also takes #6, as JAX's takes dft_magnitude_pallas
+# on the TPU
+CLI_PER_SEGMENT = {"performer_attention": 3, "combsub_spectral": 1,
+                   "harmonic_source": 1, "fused_resblocks_inject": 3,
+                   "dft_magnitude": 0}
+CLI_STAGED_PER_SEGMENT = dict(CLI_PER_SEGMENT, dft_magnitude=1)
+CLI_STAGED = 128  # the staged-bf16 threshold of the second CLI run
+
+
+def sung_wav(sr: int, seed: int = 0) -> np.ndarray:
+    """~13 s of a sung-like line: three phrases (5.0, 4.5 and 2.5 s) of
+    notes between 150 and 500 Hz, six decaying harmonics, 5.5 Hz vibrato,
+    split by 0.5 s of silence, so that the slicer cuts three segments."""
+    rng = np.random.default_rng(seed)
+    parts = []
+    for i, dur in enumerate((5.0, 4.5, 2.5)):
+        if i:
+            parts.append(np.zeros(int(0.5 * sr)))
+        n = int(dur * sr)
+        t = np.arange(n) / sr
+        notes = 150 * 2 ** (rng.integers(0, 21, int(dur * 2) + 1) / 12)
+        f0 = notes[(t * 2).astype(int)] * (1 + 0.03 * np.sin(2 * np.pi * 5.5 * t))
+        ph = 2 * np.pi * np.cumsum(f0) / sr
+        x = sum(0.35 / k * np.sin(k * ph) for k in range(1, 7))
+        env = np.minimum(1.0, np.minimum(t, t[-1] - t) / 0.03)
+        parts.append(x * env * (0.8 + 0.2 * np.sin(2 * np.pi * 0.7 * t)))
+    audio = np.concatenate(parts)
+    return (audio + 3e-4 * rng.standard_normal(len(audio))).astype(np.float32)
+
+
+def cli_phase(torch, K, card: str) -> dict:
+    """The offline CLI (`python -m ddsp_svc_tpu_torch.infer`'s main) end to
+    end on a 44.1 kHz wav at configs/combsub.yaml's full width: CREPE f0,
+    HuBERT-soft units, CombSubFast, NSF-HiFiGAN (H_NSF), the wav written;
+    fp32, staged bf16, and fp32 on the plain versions; the staged mel
+    against the fp32 one; parselmouth against its CPU run; each stage's
+    wall. Returns the launch counts of the fp32 and staged runs, summed."""
+    import yaml
+    from ddsp_svc_tpu_torch.data.features import (F0Extractor, UnitsEncoder,
+                                                  VolumeExtractor)
+    from ddsp_svc_tpu_torch.data.wavio import read_wav, write_wav
+    from ddsp_svc_tpu_torch.infer import __main__ as cli
+    from ddsp_svc_tpu_torch.infer.enhancer import Enhancer, NsfHifiGAN
+    from ddsp_svc_tpu_torch.infer.offline import convert_features, split
+    from ddsp_svc_tpu_torch.models.factory import build_model, load_model
+    from ddsp_svc_tpu_torch.nn.crepe import CrepeExtractor, decode
+    from ddsp_svc_tpu_torch.nn.hubert import HubertSoft, init_hubert_
+    from ddsp_svc_tpu_torch.ops.resample import resample
+    from ddsp_svc_tpu_torch.ops.spectral import log_mel_spectrogram
+    from ddsp_svc_tpu_torch.train.checkpoint import save_checkpoint
+    from ddsp_svc_tpu_torch.utils.config import load_config
+
+    work = os.path.join(ROOT, "build", "chip_smoke_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(os.path.join(work, "nsf"))
+    args = load_config(os.path.join(ROOT, "configs", "combsub.yaml"))
+    sr, bs = args.data.sampling_rate, args.data.block_size
+    audio = sung_wav(sr)
+    wav = os.path.join(work, "in.wav")
+    write_wav(wav, audio, sr)
+    # HuBERT-soft in the bshall layout (weight norm on the positional conv)
+    sd = init_hubert_(HubertSoft(), torch.Generator().manual_seed(5)).state_dict()
+    w = sd.pop("positional_embedding.conv.weight")
+    sd["positional_embedding.conv.weight_g"] = w.pow(2).sum((0, 1), keepdim=True).sqrt()
+    sd["positional_embedding.conv.weight_v"] = w
+    torch.save(sd, os.path.join(work, "hubert-soft.pt"))
+    nsf = NsfHifiGAN(None, h=H_NSF, seed=1, device="cpu")
+    torch.save({"generator": nsf.model.state_dict()},
+               os.path.join(work, "nsf", "model"))
+    with open(os.path.join(work, "nsf", "config.json"), "w") as f:
+        json.dump(H_NSF, f)
+    args["data"]["encoder_ckpt"] = os.path.join(work, "hubert-soft.pt")
+    args["enhancer"]["ckpt"] = os.path.join(work, "nsf", "model")
+    model = build_model(args, device="cpu", seed=0)
+    ckpts = {}
+    for name, threshold in (("fp32", 0), ("bf16", CLI_STAGED)):
+        exp = os.path.join(work, "exp_" + name)
+        args["enhancer"]["bf16_min_channels"] = threshold
+        os.makedirs(exp)
+        with open(os.path.join(exp, "config.yaml"), "w") as f:
+            yaml.safe_dump(json.loads(json.dumps(args)), f)
+        ckpts[name] = os.path.join(exp, "model_0.pt")
+        save_checkpoint(ckpts[name], 0, model)
+    n_seg = len(split(audio, sr, bs))
+    dur = len(audio) / sr
+    say(f"CLI path: {dur:.3f} s wav at {sr} Hz, {n_seg} segments; "
+        f"CombSubFast (configs/combsub.yaml, n_unit "
+        f"{args.data.encoder_out_channels}), HuBERT-soft (768 x 12 layers), "
+        f"CREPE full, NSF-HiFiGAN initial channel "
+        f"{H_NSF['upsample_initial_channel']}; weights from seeds 0/1/5")
+    if n_seg < 3:
+        fail(f"the CLI wav split into {n_seg} segments, expected >= 3")
+
+    def run(label, kind, plain=False, out_dir="out"):
+        out = os.path.join(work, out_dir, label + ".wav")
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        with plain_kernels(K) if plain else nullcontext():
+            cli.main(["-m", ckpts[kind], "-i", wav, "-o", out, "-pe", "crepe",
+                      "-e", "true"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = K.launch_counts()
+        y, sr_o = read_wav(out)
+        rms = float(np.sqrt(np.mean(y.astype(np.float64) ** 2)))
+        say(f"CLI {label}: {y.shape[-1]} samples at {sr_o} Hz, rms {rms:.4f}, "
+            f"{wall:.2f} s; launches {json.dumps(counts)}")
+        if not (sr_o == sr and abs(y.shape[-1] - len(audio)) <= bs
+                and np.isfinite(y).all() and rms > 0):
+            fail(f"CLI {label}: {y.shape[-1]} samples at {sr_o} Hz (input "
+                 f"{len(audio)}), finite {np.isfinite(y).all()}, rms {rms}")
+        return y.astype(np.float64), counts, wall
+
+    # the first run extracts f0 into the cache beside its output; the
+    # others read it, so every run converts from the same f0
+    y32, counts, first_wall = run("fp32", "fp32")
+    for name, per in CLI_PER_SEGMENT.items():
+        if counts[name] != per * n_seg:
+            fail(f"CLI fp32 launched {name} {counts[name]} times, expected "
+                 f"{per} per segment x {n_seg}")
+    y16, counts16, _ = run(f"staged bf16 ({CLI_STAGED})", "bf16")
+    for name, per in CLI_STAGED_PER_SEGMENT.items():
+        if counts16[name] != per * n_seg:
+            fail(f"CLI staged bf16 launched {name} {counts16[name]} times, "
+                 f"expected {per} per segment x {n_seg}")
+    ref, _, _ = run("fp32 on the plain versions", "fp32", plain=True)
+    err = float(np.abs(y32 - ref).max())
+    scale = float(np.abs(ref).max())
+    rel = float(np.sqrt(np.mean((y16 - y32) ** 2) / np.mean(y32 ** 2)))
+    say(f"CLI kernels vs plain versions: max|err| {err:.3e} = "
+        f"{err / scale:.3e} x max|ref| (tolerance 1e-3 x max|ref|); staged "
+        f"bf16 vs fp32: rel RMS {rel:.3e} (tolerance 2e-2)")
+    if not err <= 1e-3 * scale:
+        fail("the CLI's audio disagrees with the plain versions")
+    if not rel < 2e-2:
+        fail("the staged-bf16 CLI run is not within 2e-2 of fp32")
+
+    # the staged mel (#6 on the card) against the fp32 route's (cuFFT) on
+    # each segment at H_NSF's geometry: the linear mel within rel RMS 1e-4
+    geo = tuple(H_NSF[k] for k in ("sampling_rate", "n_fft", "hop_size",
+                                   "win_size", "num_mels", "fmin", "fmax"))
+    mel_rel = mel_dlog = 0.0
+    for _, a in split(audio, sr, bs):
+        x = torch.as_tensor(a, device="cuda")[None]
+        m16 = log_mel_spectrogram(x, *geo, mxu_bf16=True).double()
+        m32 = log_mel_spectrogram(x, *geo).double()
+        mel_rel = max(mel_rel, ((m16.exp() - m32.exp()).pow(2).mean()
+                                / m32.exp().pow(2).mean()).sqrt().item())
+        mel_dlog = max(mel_dlog, (m16 - m32).abs().max().item())
+    say(f"CLI staged mel (dft_magnitude) vs fp32 mel (cuFFT): rel RMS "
+        f"{mel_rel:.3e} (tolerance 1e-4), max|d log mel| {mel_dlog:.3e}")
+    if not mel_rel < 1e-4:
+        fail("the staged mel disagrees with the fp32 mel")
+
+    # parselmouth's candidate stage runs on the card: against its CPU run
+    # (dio and harvest are host numpy whatever the device; their walls below)
+    got = F0Extractor("parselmouth", sr, bs, 50.0, 1100.0,
+                      device="cuda").extract(audio, uv_interp=False)
+    cpu = F0Extractor("parselmouth", sr, bs, 50.0, 1100.0,
+                      device="cpu").extract(audio, uv_interp=False)
+    same = float(((got > 0) == (cpu > 0)).mean())
+    v = (got > 0) & (cpu > 0)
+    cents = float(np.abs(1200 * np.log2(got[v] / cpu[v])).max()) if v.any() else 0.0
+    say(f"f0 parselmouth, card vs CPU: voicing agrees on {same:.4f} of "
+        f"frames (>= 0.99), voiced frames within {cents:.4f} cents (< 1); "
+        f"{v.mean():.3f} of frames voiced")
+    if not (same >= 0.99 and cents < 1.0 and v.mean() > 0.5):
+        fail("the parselmouth f0 on the card disagrees with the CPU")
+
+    # the stage walls (host clock around work that ends on the host)
+    def wall(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    walls = {}
+    for family in ("parselmouth", "dio", "harvest", "crepe"):
+        ext = F0Extractor(family, sr, bs, 50.0, 1100.0, device="cuda")
+        ext.extract(audio[:sr])
+        f0, walls[f"f0 {family}"] = wall(lambda: ext.extract(audio, uv_interp=True))
+        if not (f0.shape == (len(audio) // bs + 1,) and np.isfinite(f0).all()):
+            fail(f"f0 {family}: shape {f0.shape}, finite {np.isfinite(f0).all()}")
+    crepe = CrepeExtractor(50.0, 1100.0, device="cuda")
+    wav16k, _ = wall(lambda: resample(torch.as_tensor(audio, device="cuda")[None],
+                                      sr, 16000)[0])
+    probs, walls["crepe network (device stage)"] = wall(lambda: crepe.probabilities(wav16k))
+    _, walls["crepe Viterbi + cents (host)"] = wall(
+        lambda: decode(probs, 50.0, 1100.0))
+    mdl, margs = load_model(ckpts["fp32"], device="cuda")
+    enc = UnitsEncoder(margs.data.encoder, margs.data.encoder_ckpt,
+                       margs.data.encoder_sample_rate,
+                       margs.data.encoder_hop_size, device="cuda")
+    segs = split(audio, sr, bs)
+    units, walls["units (HuBERT, device stage)"] = wall(
+        lambda: [(st, enc.encode(a[None], sr, bs)) for st, a in segs])
+    f0 = np.load(os.path.join(work, "out", "cache", os.listdir(
+        os.path.join(work, "out", "cache"))[0]))[None, :, None].astype(np.float32)
+    volume = VolumeExtractor(bs).extract(audio)[None]
+    for label, threshold in (("fp32", 0), ("staged bf16", CLI_STAGED)):
+        enh = Enhancer("nsf-hifigan", margs.enhancer.ckpt, device="cuda",
+                       bf16_min_channels=threshold)
+        convert_features(mdl, units, f0, volume, enhancer=enh)
+        (result, _), walls[f"synth + enhance {label} (device stage)"] = wall(
+            lambda: convert_features(mdl, units, f0, volume, enhancer=enh))
+    _, walls["write"] = wall(lambda: write_wav(os.path.join(work, "w.wav"),
+                                               result.astype(np.float32), sr))
+    _, _, total = run("fp32, f0 cache empty", "fp32", out_dir="out_total")
+    for name, t in walls.items():
+        say(f"{card}: CLI stage {name}: {t * 1e3:.1f} ms")
+    say(f"{card}: CLI total (fp32, CREPE f0 included, warm): {total:.2f} s "
+        f"for {dur:.3f} audio-s = {dur / total:.2f} audio-s/s (first run, "
+        f"builds included: {first_wall:.2f} s)")
+    shutil.rmtree(work, ignore_errors=True)
+    return {k: counts[k] + counts16[k] for k in counts}
+
+
 def main() -> None:
     try:
         import torch
@@ -1358,8 +1608,12 @@ def main() -> None:
             f"{row['ms']:.4f} ms, device_ms {row['device_ms']:.4f}, plain "
             f"{row['plain_ms']:.4f} ms, bound {t_b:.4f} ms ({by})")
     # launches: the sum over the main paths' runs, each counted from 0 just
-    # before it (offline, then training, for each synthesizer)
+    # before it (the CLI; then offline and training for each synthesizer)
     launches = {k: 0 for k in K.launch_counts()}
+    t0 = time.perf_counter()
+    for k, v in cli_phase(torch, K, smi[0]).items():
+        launches[k] += v
+    say(f"CLI paths: {time.perf_counter() - t0:.1f} s")
     for synth, config, expect, full in SYNTHS:
         t0 = time.perf_counter()
         segments = [] if full else None

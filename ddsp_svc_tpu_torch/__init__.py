@@ -6,11 +6,15 @@ against; nothing here imports it, JAX or flax. The layout mirrors it:
     ops/    DSP functions on tensors, and the four hand-written CUDA kernels
             that replace the JAX package's Pallas kernels (ops/kernels.py,
             sources in csrc/, built by ops/build.py)
-    nn/     network modules (layers, PCmer, Unit2Control, NSF-HiFiGAN)
-    models/ the CombSubFast synthesizer and the model factory
-    infer/  the enhancer front end and the offline segment loop
-    data/   the silence slicer (numpy)
-    utils/  config, device policy, the flax -> torch weight bridge
+    nn/     network modules (layers, PCmer, Unit2Control, NSF-HiFiGAN,
+            HuBERT, CREPE)
+    models/ the three synthesizers, the model factory and load_model
+    infer/  the enhancer front end, the offline segment loop,
+            run_inference and the CLI (python -m ddsp_svc_tpu_torch.infer)
+    data/   the silence slicer, wav I/O, the training loaders, and the
+            feature front end (f0, volume, units)
+    utils/  config, device policy, the flax -> torch weight bridge, the
+            flax-msgpack reader
 
 Entry points run on CUDA unless the caller passes device="cpu"; with no GPU
 and no explicit CPU request they raise.

@@ -1,1 +1,2 @@
-"""The silence slicer (numpy)."""
+"""The silence slicer, wav I/O, the training loaders and the feature
+front end (f0, volume, units)."""

@@ -1,1 +1,2 @@
-"""The enhancer front end and the offline segment loop."""
+"""The enhancer front end, the offline segment loop, run_inference and
+the CLI."""

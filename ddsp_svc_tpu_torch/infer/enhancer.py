@@ -4,7 +4,8 @@ Counterpart of `ddsp_svc_tpu/infer/enhancer.py` (`NsfHifiGAN`, `Enhancer`):
 the adaptive key (`'auto'` derives it from max f0 against 760 Hz; the
 adaptive rate is rounded to 100 Hz), windowed-sinc resampling into the
 enhancer's rate and back, the f0 re-grid onto the enhancer's frame grid,
-the log-mel frontend, the generator forward and the silence-front padding;
+the log-mel frontend, the generator forward (fp32, or staged bf16 with
+`bf16_min_channels`) and the silence-front padding;
 `enhance_batch` runs mixed-length segments as one masked batch. Weights come
 from a reference checkpoint (a generator state dict beside its config.json)
 or from a seed.
@@ -45,11 +46,14 @@ class NsfHifiGAN:
     (a torch file holding the generator's state dict, under a 'generator'
     key or bare, weight norm folded on load) whose config.json lies beside
     it; None draws the weights from `seed`. generator_overrides: the
-    Generator's forms (fused_resblocks, fused_inject, fused_stage)."""
+    Generator's forms (fused_resblocks, fused_inject, fused_stage).
+    dtype / bf16_min_channels: the Generator's compute dtype and staged
+    bf16 threshold (0 = off); the parameters stay fp32."""
 
     def __init__(self, model_path: Optional[str], h: Optional[dict] = None,
                  seed: int = 0, device=None,
-                 generator_overrides: Optional[dict] = None):
+                 generator_overrides: Optional[dict] = None, dtype=None,
+                 bf16_min_channels: int = 0):
         self.device = resolve_device(device)
         if model_path is not None:
             if model_path.endswith((".ckpt", ".msgpack")):
@@ -62,7 +66,9 @@ class NsfHifiGAN:
         if h is None:
             raise ValueError("h (the generator config) is required")
         self.h = h
-        self.model = generator_from_h(h, **(generator_overrides or {}))
+        self.model = generator_from_h(
+            h, dtype=dtype, bf16_min_channels=bf16_min_channels,
+            **(generator_overrides or {}))
         if model_path is None:
             lecun_init_(self.model, torch.Generator().manual_seed(seed))
         else:
@@ -81,10 +87,13 @@ class NsfHifiGAN:
         return int(self.h["hop_size"])
 
     def _mel(self, audio: torch.Tensor, pre_padded: bool = False):
-        h = self.h
+        h, g = self.h, self.model
+        # JAX asks for its DFT route under bf16, which it takes on the TPU:
+        # on the card that is the dft_magnitude kernel
         return log_mel_spectrogram(
             audio, h["sampling_rate"], h["n_fft"], h["hop_size"],
             h["win_size"], h["num_mels"], h["fmin"], h["fmax"],
+            mxu_bf16=bool(g.bf16_min_channels) or g.dtype == torch.bfloat16,
             pre_padded=pre_padded).transpose(1, 2)
 
     @torch.no_grad()
@@ -121,12 +130,14 @@ class NsfHifiGAN:
 class Enhancer:
     def __init__(self, enhancer_type: str, enhancer_ckpt: Optional[str],
                  h: Optional[dict] = None, seed: int = 0, device=None,
-                 generator_overrides: Optional[dict] = None):
+                 generator_overrides: Optional[dict] = None,
+                 bf16_min_channels: int = 0):
         if enhancer_type != "nsf-hifigan":
             raise ValueError(f" [x] Unknown enhancer: {enhancer_type}")
         self.enhancer = NsfHifiGAN(enhancer_ckpt, h=h, seed=seed,
                                    device=device,
-                                   generator_overrides=generator_overrides)
+                                   generator_overrides=generator_overrides,
+                                   bf16_min_channels=bf16_min_channels)
         self.enhancer_sample_rate = self.enhancer.sample_rate
         self.enhancer_hop_size = self.enhancer.hop_size
 

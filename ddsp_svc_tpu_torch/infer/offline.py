@@ -1,21 +1,33 @@
-"""Offline conversion: segmentation, the segment loop and the stitching.
+"""Offline conversion: segmentation, the segment loop, the stitching and
+the whole-file entry point.
 
-Counterpart of `ddsp_svc_tpu/infer/offline.py`. `convert_features` is the
-segment loop of `run_inference` (per-segment bucketed synth, response mask,
-enhancer, silence padding and cross-fade stitching) over features the
-caller already has: units per segment, and f0 and volume for the whole
-input. Feature extraction (HuBERT units, f0, volume) is not ported yet.
+Counterpart of `ddsp_svc_tpu/infer/offline.py`. `run_inference` converts a
+wav file end to end: load the model, f0 with an MD5-keyed cache (the JAX
+package's file names, so its cache is read as is), the key change, volume
+and the response mask, the silence split, and per segment the units and
+`convert_features`' segment loop (bucketed synth, response mask, enhancer,
+silence padding and cross-fade stitching); then the wav is written.
+`convert_features` runs that loop over features the caller already has.
+
+As in the JAX package, the key change is applied once; compat_double_key
+reproduces the reference's double application (main.py applies it at two
+places), multiplying sequentially as it does.
 """
 from __future__ import annotations
 
+import hashlib
+import os
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 
+from ..data.features import F0Extractor, UnitsEncoder, VolumeExtractor
 from ..data.slicer import Slicer
-from ..models.factory import make_bucketed_synth
+from ..data.wavio import load_audio, write_wav
+from ..models.factory import load_model, make_bucketed_synth
+from ..utils.device import resolve_device
 from .enhancer import Enhancer
 
 
@@ -137,3 +149,96 @@ def convert_features(
             result = cross_fade(result, seg_out, current_length + silent_length)
         current_length = current_length + silent_length + len(seg_out)
     return result, sr_o
+
+
+def run_inference(
+    model_path: str,
+    input_path: str,
+    output_path: str,
+    spk_id: int = 1,
+    spk_mix_dict: Optional[Dict[int, float]] = None,
+    key: float = 0,
+    enhance: bool = True,
+    pitch_extractor: str = "crepe",
+    f0_min: float = 50,
+    f0_max: float = 1100,
+    threshold_db: float = -60,
+    enhancer_adaptive_key=0,
+    sampling_rate: int = 44100,
+    cache_dir: Optional[str] = None,
+    compat_double_key: bool = False,
+    seed: int = 0,
+    noise_hook=None,
+    enhancer_rand_hook=None,
+    output_subtype: str = "PCM_16",
+    device=None,
+) -> str:
+    """Convert `input_path` into `output_path` with the model at
+    `model_path` (its config.yaml beside it), on `device` (CUDA unless the
+    caller asks for the CPU). The enhancer is built with the config's
+    `enhancer.bf16_min_channels`. noise_hook(i, (1, samples)) and
+    enhancer_rand_hook(i) -> (1, 9) optionally inject segment i's noise
+    excitation and SineGen initial rotations; otherwise both are drawn from
+    a torch.Generator seeded with `seed`. Returns output_path."""
+    device = resolve_device(device)
+    model, args = load_model(model_path, device=device)
+
+    audio, sr_i = load_audio(input_path, sr=sampling_rate, mono=True)
+    hop_size = args.data.block_size * sr_i / args.data.sampling_rate
+
+    with open(input_path, "rb") as f:
+        md5_hash = hashlib.md5(f.read()).hexdigest()
+    cache_dir = cache_dir or os.path.join(
+        os.path.dirname(output_path) or ".", "cache")
+    cache_file = os.path.join(
+        cache_dir, f"{pitch_extractor}_{f0_min}_{f0_max}_{md5_hash}.npy")
+    if os.path.exists(cache_file):
+        print("Loading pitch curves from cache...")
+        f0 = np.load(cache_file, allow_pickle=False)
+    else:
+        print(f"Pitch extractor type: {pitch_extractor}")
+        ext = F0Extractor(pitch_extractor, sr_i, hop_size, f0_min, f0_max,
+                          device=device)
+        f0 = ext.extract(audio, uv_interp=True)
+        os.makedirs(cache_dir, exist_ok=True)
+        np.save(cache_file, f0, allow_pickle=False)
+    f0 = f0[None, :, None].astype(np.float32)
+
+    shift = np.float32(2.0 ** (float(key) / 12))
+    f0 = f0 * shift
+    if compat_double_key:
+        f0 = f0 * shift
+
+    volume = VolumeExtractor(hop_size).extract(audio)[None, :]
+    n_spk = int(args.model.n_spk or 1)
+    if spk_mix_dict is not None:
+        bad = [k for k in spk_mix_dict if not 1 <= int(k) <= n_spk]
+        if bad:
+            raise ValueError(
+                f" [x] spk_mix_dict ids {bad} out of range [1, {n_spk}]")
+    elif not 1 <= int(spk_id) <= n_spk:
+        raise ValueError(f" [x] spk_id {spk_id} out of range [1, {n_spk}]")
+    units_encoder = UnitsEncoder(
+        args.data.encoder, args.data.encoder_ckpt,
+        args.data.encoder_sample_rate, args.data.encoder_hop_size,
+        device=device,
+        trust_pickle=bool(args.data.encoder_trust_pickle))
+    enhancer = None
+    if enhance:
+        print("Enhancer type: " + str(args.enhancer.type))
+        enhancer = Enhancer(
+            args.enhancer.type, args.enhancer.ckpt, device=device,
+            bf16_min_channels=int(args.enhancer.bf16_min_channels or 0))
+
+    segments = split(audio, sr_i, hop_size)
+    print(f"Cut the input audio into {len(segments)} slices")
+    units = [(start, units_encoder.encode(seg[None, :], sr_i, hop_size))
+             for start, seg in segments]
+    result, sr_o = convert_features(
+        model, units, f0, volume, spk_id=spk_id, spk_mix_dict=spk_mix_dict,
+        enhancer=enhancer, enhancer_adaptive_key=enhancer_adaptive_key,
+        threshold_db=threshold_db, seed=seed, noise_hook=noise_hook,
+        enhancer_rand_hook=enhancer_rand_hook)
+    write_wav(output_path, result.astype(np.float32), int(sr_o),
+              subtype=output_subtype)
+    return output_path

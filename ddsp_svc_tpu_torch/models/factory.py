@@ -1,19 +1,22 @@
-"""Model factory: config -> Sins, CombSub or CombSubFast, and the bucketed
-segment synth.
+"""Model factory: config -> Sins, CombSub or CombSubFast, loading a
+checkpoint, and the bucketed segment synth.
 
-Counterpart of `ddsp_svc_tpu/models/factory.py` (`build_model`, and
-`make_jitted_synth(..., mask_padding=True)`).
+Counterpart of `ddsp_svc_tpu/models/factory.py` (`build_model`,
+`load_model`, and `make_jitted_synth(..., mask_padding=True)`).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import os
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 
 from ..nn.layers import lecun_init_
-from ..utils.config import DotDict
+from ..utils.config import DotDict, load_config
+from ..utils.convert import jax_synth_to_torch
+from ..utils.flax_msgpack import read_flax_checkpoint
 from ..utils.device import resolve_device
 from .synths import CombSub, CombSubFast, Sins
 
@@ -44,6 +47,33 @@ def build_model(args: DotDict, device=None, seed: int = 0) -> nn.Module:
         raise ValueError(f" [x] Unknown Model: {mtype}")
     lecun_init_(model, torch.Generator().manual_seed(seed))
     return model.to(device).eval()
+
+
+def load_model(model_path: str, device=None) -> Tuple[nn.Module, DotDict]:
+    """(model, args) from a checkpoint and the `config.yaml` beside it, on
+    `device` (CUDA unless the caller asks for the CPU). Reads three kinds:
+    the port's `model_{step}.pt` and a reference-format torch `.pt`
+    ({global_step, model, optimizer}, or a bare state dict: the port's
+    modules carry the reference's names; entries the port has no use for
+    are ignored), and the JAX package's flax-msgpack `.ckpt`, its variables
+    mapped by `jax_synth_to_torch`."""
+    device = resolve_device(device)
+    args = load_config(os.path.join(os.path.dirname(model_path),
+                                    "config.yaml"))
+    model = build_model(args, device=device)
+    if model_path.endswith((".ckpt", ".msgpack")):
+        sd = jax_synth_to_torch(read_flax_checkpoint(model_path)[1])
+    else:
+        sd = torch.load(model_path, map_location="cpu", weights_only=True)
+        if isinstance(sd.get("model"), dict):
+            sd = sd["model"]
+    own = model.state_dict()
+    missing = [k for k in own if k not in sd]
+    if missing:
+        raise KeyError(f"{model_path} lacks {missing[:4]}"
+                       f"{' ...' if len(missing) > 4 else ''}")
+    model.load_state_dict({k: sd[k] for k in own})
+    return model, args
 
 
 MIN_BUCKET_FRAMES = 32

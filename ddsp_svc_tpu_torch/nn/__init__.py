@@ -1,1 +1,2 @@
-"""Network modules: layers, PCmer, Unit2Control, NSF-HiFiGAN."""
+"""Network modules: layers, PCmer, Unit2Control, NSF-HiFiGAN, HuBERT,
+CREPE."""

@@ -19,6 +19,16 @@ transposed conv included, in one kernel (`fused_stage`);
 `fused_resblocks=False` keeps every stage on F.conv1d. The wide stages (C
 = 256, 128) stay on F.conv1d, as the JAX package left them to XLA.
 `valid_frames` masks a bucket-padded batch per item, as in JAX.
+
+Staged bf16 (`bf16_min_channels`, JAX's +29 % configuration at 128): a
+stage of C >= bf16_min_channels casts x to bf16 on entry and runs its
+transposed conv, injection conv (the source cast to bf16 inside it) and
+ResBlocks in bf16 on cuDNN, parameters fp32 and cast per call; the last
+bf16 stage hands fp32 to the first fp32 stage, whose kernels run as
+before; the output is fp32. `dtype=torch.bfloat16` runs every conv in
+bf16. A bf16 stage of C <= 64 is where JAX runs its bf16-input trio
+kernel, which is not ported: on CUDA it raises, on the CPU it runs the
+bf16 conv chain, as JAX does off the TPU.
 """
 from __future__ import annotations
 
@@ -90,12 +100,14 @@ class ResBlock1(nn.Module):
         return w, b
 
     def forward(self, x: torch.Tensor, mask=None) -> torch.Tensor:
-        """x (B, C, T) channel-first; mask (B?, 1, T) zeroes each conv's
-        input past the valid length."""
+        """x (B, C, T) channel-first, fp32 or bf16; mask (B?, 1, T) of x's
+        dtype zeroes each conv's input past the valid length."""
         pairs = list(zip(self.convs1, self.convs2))
-        return resblock1_cf(x, [(c1.weight, c2.weight) for c1, c2 in pairs],
-                            [(c1.bias, c2.bias) for c1, c2 in pairs],
-                            self.kernel_size, self.dilation, mask)
+        dt = x.dtype  # a bf16 stage casts the fp32 parameters per call
+        return resblock1_cf(
+            x, [(c1.weight.to(dt), c2.weight.to(dt)) for c1, c2 in pairs],
+            [(c1.bias.to(dt), c2.bias.to(dt)) for c1, c2 in pairs],
+            self.kernel_size, self.dilation, mask)
 
 
 class SourceModule(nn.Module):
@@ -114,8 +126,12 @@ class Generator(nn.Module):
                  resblock_kernel_sizes: Sequence[int],
                  resblock_dilation_sizes: Sequence[Sequence[int]],
                  fused_resblocks: bool = True, fused_inject: bool = True,
-                 fused_stage: bool = False):
+                 fused_stage: bool = False, dtype=None,
+                 bf16_min_channels: int = 0):
         super().__init__()
+        self.dtype = dtype
+        self.bf16_min_channels = int(bf16_min_channels)
+        self.upsample_initial_channel = upsample_initial_channel
         self.sampling_rate = sampling_rate
         self.upsample_rates = tuple(upsample_rates)
         self.upsample_kernel_sizes = tuple(upsample_kernel_sizes)
@@ -164,10 +180,26 @@ class Generator(nn.Module):
         return (bool(self.fused_stage) and k == 2 * u and c_in % 8 == 0
                 and u in STAGE_RATES)
 
+    def _stage_dtype(self, ch: int):
+        """The compute dtype of a stage of ch channels (None: fp32)."""
+        if self.bf16_min_channels:
+            return torch.bfloat16 if ch >= self.bf16_min_channels else None
+        return self.dtype
+
+    def _finish_stage(self, x: torch.Tensor, i: int, stage_dtype
+                      ) -> torch.Tensor:
+        """Cast back to fp32 after the last bf16 stage of a staged run."""
+        if self.bf16_min_channels and stage_dtype is not None:
+            next_ch = self.upsample_initial_channel // (2 ** (i + 2))
+            if (i + 1 >= len(self.upsample_rates)
+                    or next_ch < self.bf16_min_channels):
+                x = x.float()
+        return x
+
     def forward(self, mel: torch.Tensor, f0_frames: torch.Tensor,
                 rand_ini: torch.Tensor, valid_frames=None) -> torch.Tensor:
         """mel (B, F, num_mels); f0_frames (B, F); rand_ini (B, 9).
-        Returns (B, F * prod(upsample_rates)).
+        Returns (B, F * prod(upsample_rates)), fp32.
 
         valid_frames (int, 0-d or (B,)): the true frame counts of a
         bucket-padded batch. The mel, the source and every stage boundary
@@ -178,78 +210,106 @@ class Generator(nn.Module):
         upp = math.prod(self.upsample_rates)
         masks = {}
 
-        def mask(scale: int) -> torch.Tensor:  # (B?, 1, F * scale)
+        def mask(scale: int) -> torch.Tensor:  # (B?, 1, F * scale) fp32
             if scale not in masks:
                 masks[scale] = frame_mask(mel.shape[1] * scale, vf * scale,
-                                          mel.dtype, mel.device)[:, None, :]
+                                          torch.float32, mel.device
+                                          )[:, None, :]
             return masks[scale]
 
         if valid_frames is not None:
             vf = torch.as_tensor(valid_frames, device=mel.device)
             mel = mel * mask(1).transpose(1, 2)
         lin = self.m_source.l_linear
+        # the sine source stays fp32: phase accuracy matters
         har = harmonic_source_fused(f0_frames, upp, self.sampling_rate,
                                     rand_ini, lin.weight[0], lin.bias)
         if valid_frames is not None:
             har = har * mask(upp).transpose(1, 2)
-        har_cf = har.transpose(1, 2)
-        x = self.conv_pre(mel.transpose(1, 2))
+        if self.dtype is not None:
+            har, mel = har.to(self.dtype), mel.to(self.dtype)
+        x = _conv(mel.transpose(1, 2), self.conv_pre, padding=3)
         if valid_frames is not None:
-            x = x * mask(1)
-        n_k = len(self.resblock_kernel_sizes)
-        n_up = len(self.upsample_rates)
-        dils = self.resblock_dilation_sizes[0]
-        cum = 1
-        for i, (u, k) in enumerate(zip(self.upsample_rates,
-                                       self.upsample_kernel_sizes)):
-            cum *= u
-            s = math.prod(self.upsample_rates[i + 1:]) if i + 1 < n_up else 1
-            up, nc = self.ups[i], self.noise_convs[i]
-            rbs = self.resblocks[i * n_k:(i + 1) * n_k]
-            ch = x.shape[1] // 2
-            fused = self._use_fused(ch)
-            if fused:
-                stacks = [rb.stacked() for rb in rbs]
-                ws, bs = [w for w, _ in stacks], [b for _, b in stacks]
-            if (fused and valid_frames is None
-                    and self._stage_fusable(x.shape[1], u, k)):
-                x = fused_stage(x.transpose(1, 2), har, up.weight, up.bias,
-                                nc.weight, nc.bias, ws, bs, u, s,
-                                dils).transpose(1, 2)
-                continue
-            x = up(F.leaky_relu(x, LRELU_SLOPE))
-            stage_mask = None
-            vsamp = None
-            if valid_frames is not None:
-                stage_mask, vsamp = mask(cum), vf * cum
-                x = x * stage_mask
-            if fused and self.fused_inject:
-                # the trio kernels zero their output past vsamp themselves
-                x = fused_resblocks_inject(x.transpose(1, 2), har, nc.weight,
-                                           nc.bias, ws, bs, s, dils,
-                                           valid=vsamp).transpose(1, 2)
-                continue
-            x = x + noise_conv_cf(har_cf, nc.weight, nc.bias, s, x.shape[-1])
-            if stage_mask is not None:
-                x = x * stage_mask
-            if fused:
-                x = fused_resblocks(x.transpose(1, 2), ws, bs, dils,
-                                    valid=vsamp).transpose(1, 2)
-                continue
-            x = sum(rb(x, stage_mask) for rb in rbs) / n_k
-            if stage_mask is not None:
-                x = x * stage_mask
-        x = self.conv_post(F.leaky_relu(x, 0.01))
-        out = torch.tanh(x)[:, 0, :]
+            x = x * mask(1).to(x.dtype)
+        for i in range(len(self.upsample_rates)):
+            stage_dtype = self._stage_dtype(x.shape[1] // 2)
+            if self.bf16_min_channels and stage_dtype is not None:
+                x = x.to(stage_dtype)
+            x = self._stage(i, x, har, stage_dtype, mask,
+                            None if valid_frames is None else vf)
+            x = self._finish_stage(x, i, stage_dtype)
+        x = _conv(F.leaky_relu(x, 0.01), self.conv_post, padding=3)
+        out = torch.tanh(x.float())[:, 0, :]
         if valid_frames is not None:
             # conv_post's bias makes the pad region a nonzero constant
             out = out * mask(upp)[:, 0, :]
         return out
 
+    def _stage(self, i: int, x: torch.Tensor, har: torch.Tensor,
+               stage_dtype, mask, vf) -> torch.Tensor:
+        """Upsample stage i: leaky -> transposed conv -> + source injection
+        -> mean of the ResBlock trio, on the kernels or on cuDNN."""
+        u, k = self.upsample_rates[i], self.upsample_kernel_sizes[i]
+        n_up, n_k = len(self.upsample_rates), len(self.resblock_kernel_sizes)
+        cum = math.prod(self.upsample_rates[:i + 1])
+        s = math.prod(self.upsample_rates[i + 1:]) if i + 1 < n_up else 1
+        dils = self.resblock_dilation_sizes[0]
+        up, nc = self.ups[i], self.noise_convs[i]
+        rbs = self.resblocks[i * n_k:(i + 1) * n_k]
+        ch = x.shape[1] // 2
+        fused = self._use_fused(ch)
+        if stage_dtype is not None and fused:
+            if x.is_cuda:
+                raise NotImplementedError(
+                    f"a bf16 stage of {ch} channels runs the bf16-input form "
+                    "of the trio kernel (fused_resblocks_inject_pallas), "
+                    "which is not ported (ROADMAP.md queue 2, forms not yet "
+                    "ported); use bf16_min_channels > 64 or "
+                    "fused_resblocks=False")
+            fused = False
+        if fused:
+            stacks = [rb.stacked() for rb in rbs]
+            ws, bs = [w for w, _ in stacks], [b for _, b in stacks]
+            if vf is None and self._stage_fusable(x.shape[1], u, k):
+                return fused_stage(x.transpose(1, 2), har, up.weight,
+                                   up.bias, nc.weight, nc.bias, ws, bs, u, s,
+                                   dils).transpose(1, 2)
+        x = _conv(F.leaky_relu(x, LRELU_SLOPE), up, stride=u,
+                  padding=(k - u) // 2, transposed=True)
+        stage_mask = vsamp = None
+        if vf is not None:
+            stage_mask, vsamp = mask(cum).to(x.dtype), vf * cum
+            x = x * stage_mask
+        if fused and self.fused_inject:
+            # the trio kernels zero their output past vsamp themselves
+            return fused_resblocks_inject(x.transpose(1, 2), har, nc.weight,
+                                          nc.bias, ws, bs, s, dils,
+                                          valid=vsamp).transpose(1, 2)
+        dt = x.dtype
+        x = x + noise_conv_cf(har.transpose(1, 2).to(dt), nc.weight.to(dt),
+                              nc.bias.to(dt), s, x.shape[-1])
+        if stage_mask is not None:
+            x = x * stage_mask
+        if fused:
+            return fused_resblocks(x.transpose(1, 2), ws, bs, dils,
+                                   valid=vsamp).transpose(1, 2)
+        x = sum(rb(x, stage_mask) for rb in rbs) / n_k
+        if stage_mask is not None:
+            x = x * stage_mask
+        return x
+
+
+def _conv(x: torch.Tensor, conv: nn.Module, transposed: bool = False,
+          **kw) -> torch.Tensor:
+    """conv's forward in x's dtype: fp32 parameters cast per call."""
+    f = F.conv_transpose1d if transposed else F.conv1d
+    return f(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype), **kw)
+
 
 def generator_from_h(h: dict, **forms) -> Generator:
     """The Generator of config `h`; forms: fused_resblocks, fused_inject,
-    fused_stage (the JAX package's `generator_overrides`)."""
+    fused_stage (the JAX package's `generator_overrides`), dtype,
+    bf16_min_channels."""
     return Generator(
         sampling_rate=h["sampling_rate"],
         num_mels=h["num_mels"],

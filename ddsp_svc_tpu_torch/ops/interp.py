@@ -1,7 +1,9 @@
 """Frame-rate -> sample-rate linear upsampling (the reference's
-align_corners upsampler: last frame repeated, last sample dropped)."""
+align_corners upsampler: last frame repeated, last sample dropped), and the
+nearest alignment of encoder frames to synth frames."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -15,3 +17,13 @@ def upsample_frames(signal: torch.Tensor, factor: int) -> torch.Tensor:
     w = (w / factor).to(signal.dtype)
     out = signal[:, :, None, :] + slope[:, :, None, :] * w[None, None, :, None]
     return out.reshape(b, n_frames * factor, feat)
+
+
+def nearest_align(units: torch.Tensor, n_frames: int, ratio: float
+                  ) -> torch.Tensor:
+    """Nearest-neighbour alignment of encoder frames to synth frames:
+    (B, RawFrame, Feat) -> (B, n_frames, Feat), frame i taking encoder frame
+    round(ratio i) (half to even, in float64 on the host), clipped."""
+    idx = np.clip(np.round(ratio * np.arange(n_frames)).astype(np.int64),
+                  0, units.shape[1] - 1)
+    return units[:, torch.as_tensor(idx, device=units.device), :]

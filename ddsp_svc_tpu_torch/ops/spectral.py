@@ -1,10 +1,11 @@
 """Framing, overlap-add, STFT, the inverse real FFT of any size, the loss
 spectrogram and the NSF-HiFiGAN log-mel frontend.
 
-Transforms go through torch.fft (cuFFT on the card), except the loss
-spectrogram's magnitude, which goes through the dft_magnitude kernel on the
-card as the JAX package routes it through dft_magnitude_pallas on the TPU
-(it takes any n_fft). The mel filterbank is a numpy copy of
+Transforms go through torch.fft (cuFFT on the card), except two
+magnitudes, which go through the dft_magnitude kernel on the card as the
+JAX package routes them through dft_magnitude_pallas on the TPU: the loss
+spectrogram's (it takes any n_fft) and the staged-bf16 enhancer's mel
+(`mxu_bf16`). The mel filterbank is a numpy copy of
 `ddsp_svc_tpu/ops/spectral.py::mel_filterbank` (librosa slaney parity), so
 both packages share one basis bit for bit.
 """
@@ -73,15 +74,21 @@ def overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:
     return out[:, :(n - 1) * hop + frame]
 
 
-def stft(x: torch.Tensor, n_fft: int, hop: int, window: torch.Tensor
-         ) -> torch.Tensor:
-    """center=False STFT. (B, T) -> (B, n_frames, n_fft//2+1) complex; a
-    window shorter than n_fft is zero-padded on both sides (torch.stft)."""
+def windowed_frames(x: torch.Tensor, n_fft: int, hop: int,
+                    window: torch.Tensor) -> torch.Tensor:
+    """(B, T) -> (B, n_frames, n_fft) frames times the window; a window
+    shorter than n_fft is zero-padded on both sides (torch.stft)."""
     win_length = window.shape[0]
     if win_length < n_fft:
         lpad = (n_fft - win_length) // 2
         window = F.pad(window, (lpad, n_fft - win_length - lpad))
-    return torch.fft.rfft(frame_signal(x, n_fft, hop) * window, n_fft)
+    return frame_signal(x, n_fft, hop) * window
+
+
+def stft(x: torch.Tensor, n_fft: int, hop: int, window: torch.Tensor
+         ) -> torch.Tensor:
+    """center=False STFT. (B, T) -> (B, n_frames, n_fft//2+1) complex."""
+    return torch.fft.rfft(windowed_frames(x, n_fft, hop, window), n_fft)
 
 
 def spectrogram(x: torch.Tensor, n_fft: int) -> torch.Tensor:
@@ -159,9 +166,11 @@ def log_mel_spectrogram(x: torch.Tensor, sr: int, n_fft: int, hop: int,
     STFT, magnitude sqrt(re^2 + im^2 + 1e-9), slaney mel, log(clamp).
     (B, T) -> (B, n_mels, n_frames). pre_padded=True: the caller already
     applied that padding (each item of a mixed-length batch its own
-    reflection, `Enhancer.enhance_batch`)."""
-    if mxu_bf16:
-        raise NotImplementedError("the bf16 DFT mel branch is not ported yet")
+    reflection, `Enhancer.enhance_batch`). mxu_bf16 asks for JAX's DFT
+    route, which JAX takes on its accelerator (the TPU's "mxu" magnitude
+    backend) and not on the CPU. Here likewise: on the card the magnitude
+    is the dft_magnitude kernel's (fp32, its 1e-12 floor inside the root;
+    JAX's bf16-input form is not ported), on the CPU the fp32 FFT route's."""
     if keyshift != 0 or speed != 1:
         raise NotImplementedError(
             "keyshift/speed mel analysis is not ported yet"
@@ -169,8 +178,14 @@ def log_mel_spectrogram(x: torch.Tensor, sr: int, n_fft: int, hop: int,
     if not pre_padded:
         x = mel_reflect_pad(x, win_length, hop)
     win = hann_window(win_length, dtype=x.dtype, device=x.device)
-    spec = stft(x, n_fft, hop, win)
-    mag = torch.sqrt(spec.real ** 2 + spec.imag ** 2 + 1e-9)
+    if mxu_bf16 and x.is_cuda:
+        frames = windowed_frames(x, n_fft, hop, win)
+        b, f, _ = frames.shape
+        mag = dft_magnitude(frames.reshape(b * f, n_fft), n_fft).reshape(
+            b, f, n_fft // 2 + 1)
+    else:
+        spec = stft(x, n_fft, hop, win)
+        mag = torch.sqrt(spec.real ** 2 + spec.imag ** 2 + 1e-9)
     basis = torch.as_tensor(mel_filterbank(sr, n_fft, n_mels, fmin, fmax),
                             device=x.device)
     mel = torch.einsum("mf,btf->bmt", basis, mag)

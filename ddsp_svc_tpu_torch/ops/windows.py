@@ -1,4 +1,5 @@
-"""Periodic windows (torch.hann_window conventions), computed in float64 on
+"""Periodic windows (torch.hann_window conventions) and the symmetric Hann
+window of the autocorrelation pitch tracker, computed in float64 on
 the host and cast, as `ddsp_svc_tpu/ops/windows.py` does, so both packages
 hold bit-identical window constants."""
 from __future__ import annotations
@@ -28,3 +29,12 @@ def sqrt_hann_window(n: int, dtype=torch.float32, device=None) -> torch.Tensor:
     window of the CombSubFast synthesizer."""
     return torch.as_tensor(np.sqrt(_periodic_hann(n)), dtype=dtype,
                            device=device)
+
+
+def hann_window_symmetric(n: int, dtype=torch.float32, device=None
+                          ) -> torch.Tensor:
+    """Symmetric Hann window of length n (numpy/scipy convention)."""
+    if n == 1:
+        return torch.ones((1,), dtype=dtype, device=device)
+    w = 0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n) / (n - 1))
+    return torch.as_tensor(w, dtype=dtype, device=device)

@@ -1,5 +1,5 @@
 """The weight bridge: the JAX package's flax variables -> the port's
-state_dict.
+state_dict (the synthesizers, NSF-HiFiGAN, HuBERT and CREPE).
 
 Each function takes the flax variable tree as nested dicts of numpy arrays
 and inverts the layouts that `ddsp_svc_tpu/utils/convert.py` documents:
@@ -104,4 +104,50 @@ def jax_nsf_to_torch(params: Mapping, h: Mapping) -> Dict[str, torch.Tensor]:
             for m in range(n_dil):
                 _put(sd, f"{rp}.convs1.{m}", _conv(block[f"conv1_{m}"]))
                 _put(sd, f"{rp}.convs2.{m}", _conv(block[f"conv2_{m}"]))
+    return sd
+
+
+def jax_hubert_to_torch(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """HubertSoft flax variables ({'params': ...}) -> the port's
+    `nn/hubert.py` state_dict (the bshall names, positional conv folded),
+    for any variant: the layers present and `proj` if there is one."""
+    p = variables["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    fe = p["feature_extractor"]
+    for i in range(7):
+        sd[f"feature_extractor.conv{i}.weight"] = _conv(fe[f"conv{i}"])["weight"]
+    sd["feature_extractor.norm0.weight"] = _t(fe["norm0_scale"])
+    sd["feature_extractor.norm0.bias"] = _t(fe["norm0_bias"])
+    fp = p["feature_projection"]
+    _put(sd, "feature_projection.norm", _norm(fp["norm"]))
+    _put(sd, "feature_projection.projection", _dense(fp["projection"]))
+    _put(sd, "positional_embedding.conv", _conv(p["positional_embedding"]["conv"]))
+    _put(sd, "norm", _norm(p["norm"]))
+    i = 0
+    while f"layer_{i}" in p:
+        layer, lp = p[f"layer_{i}"], f"encoder.layers.{i}"
+        sd[f"{lp}.self_attn.in_proj_weight"] = _t(
+            np.asarray(layer["in_proj"]["kernel"]).T)
+        sd[f"{lp}.self_attn.in_proj_bias"] = _t(layer["in_proj"]["bias"])
+        _put(sd, f"{lp}.self_attn.out_proj", _dense(layer["out_proj"]))
+        for name in ("linear1", "linear2"):
+            _put(sd, f"{lp}.{name}", _dense(layer[name]))
+        for name in ("norm1", "norm2"):
+            _put(sd, f"{lp}.{name}", _norm(layer[name]))
+        i += 1
+    if "proj" in p:
+        _put(sd, "proj", _dense(p["proj"]))
+    return sd
+
+
+def jax_crepe_to_torch(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """CrepeFull flax variables ({'params': ...}, BatchNorm folded) -> the
+    port's `nn/crepe.py` state_dict."""
+    p = variables["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(1, 7):
+        _put(sd, f"conv{i}", _conv(p[f"conv{i}"]))
+        sd[f"bn{i}_scale"] = _t(p[f"bn{i}_scale"])
+        sd[f"bn{i}_bias"] = _t(p[f"bn{i}_bias"])
+    _put(sd, "classifier", _dense(p["classifier"]))
     return sd

@@ -858,3 +858,169 @@ def test_wrappers_count_launches(cuda):
                                  "ltv_fir_convolve": 0,
                                  "fused_resblock_chain": 0,
                                  "fused_stage": 0}
+
+
+def test_staged_bf16_generator_on_card(cuda):
+    """Staged bf16 at threshold 128 (stages of 128 channels in bf16 on
+    cuDNN, 64/32/16/8 fp32 on the trio kernel): fp32 output within rel RMS
+    2e-2 of the fp32 forward on the same weights (the JAX package's own
+    bound), #4 launched once per fp32 stage; a bf16 stage of <= 64
+    channels with the fused trio raises (its bf16-input form is not
+    ported), and runs on cuDNN with fused_resblocks=False or where the
+    trio would not be chosen."""
+    from ddsp_svc_tpu_torch.nn import nsf_hifigan
+    from ddsp_svc_tpu_torch.nn.layers import lecun_init_
+
+    h = {"sampling_rate": 16000, "num_mels": 16,
+         "upsample_rates": [4, 4, 2, 2, 2],
+         "upsample_kernel_sizes": [8, 8, 4, 4, 4],
+         "upsample_initial_channel": 256, "resblock_kernel_sizes": [3, 7, 11],
+         "resblock_dilation_sizes": [[1, 3, 5]] * 3}
+    g = torch.Generator(device=cuda).manual_seed(13)
+    mel = _randn(g, 1, 40, 16)
+    f0 = 150 + 100 * torch.rand((1, 40), generator=g, device=cuda)
+    ri = torch.zeros((1, 9), device=cuda)
+
+    def make(hh=h, **kw):
+        return lecun_init_(nsf_hifigan.generator_from_h(hh, **kw),
+                           torch.Generator().manual_seed(0)).to(cuda).eval()
+
+    with torch.no_grad():
+        y32 = make()(mel, f0, ri)
+        K.reset_launch_counts()
+        y16 = make(bf16_min_channels=128)(mel, f0, ri)
+        assert K.launch_counts()["fused_resblocks_inject"] == 4
+        assert y16.dtype == torch.float32 and bool(torch.isfinite(y16).all())
+        rel = ((y16 - y32).pow(2).mean().sqrt() / y32.pow(2).mean().sqrt()).item()
+        assert 1e-5 < rel < 2e-2, rel
+        with pytest.raises(NotImplementedError, match="bf16"):
+            make(bf16_min_channels=64)(mel, f0, ri)
+        y = make(bf16_min_channels=64, fused_resblocks=False)(mel, f0, ri)
+        rel = ((y - y32).pow(2).mean().sqrt() / y32.pow(2).mean().sqrt()).item()
+        assert rel < 2e-2, rel
+        # resblock kernel sizes the trio does not take: no stage would run
+        # the kernel, so bf16 stages of <= 64 channels run on cuDNN
+        h2 = dict(h, resblock_kernel_sizes=[3, 5, 7])
+        y32 = make(h2)(mel, f0, ri)
+        y = make(h2, bf16_min_channels=16)(mel, f0, ri)
+        rel = ((y - y32).pow(2).mean().sqrt() / y32.pow(2).mean().sqrt()).item()
+        assert rel < 2e-2, rel
+
+
+def test_parselmouth_f0_on_card_matches_cpu(cuda):
+    """The autocorrelation family with its candidate stage on the card
+    against the same on the CPU: at least 99 % of frames agree on voicing,
+    voiced frames within 1 cent."""
+    from ddsp_svc_tpu_torch.data.features import F0Extractor
+
+    sr, hop = 44100, 512
+    t = np.arange(int(sr * 2.0)) / sr
+    inst = 220 * (1 + 0.04 * np.sin(2 * np.pi * 5 * t))
+    ph = 2 * np.pi * np.cumsum(inst) / sr
+    audio = (0.4 * np.sin(ph) + 0.15 * np.sin(2 * ph)).astype(np.float32)
+    audio[int(0.8 * sr):int(1.1 * sr)] = 0.0
+    got = F0Extractor("parselmouth", sr, hop, 65, 800, device=cuda).extract(audio)
+    ref = F0Extractor("parselmouth", sr, hop, 65, 800, device="cpu").extract(audio)
+    same = (got > 0) == (ref > 0)
+    assert same.mean() >= 0.99, same.mean()
+    v = (got > 0) & (ref > 0)
+    assert v.sum() > 0.5 * len(v)
+    assert np.abs(1200 * np.log2(got[v] / ref[v])).max() < 1.0
+
+
+def test_staged_mel_runs_the_dft_kernel(cuda):
+    """The staged-bf16 enhancer's mel (mxu_bf16=True) on the card takes the
+    dft_magnitude kernel, once a call, as JAX's takes dft_magnitude_pallas
+    on the TPU, and agrees with the fp32 route's (cuFFT) at H_NSF's
+    geometry: the linear mel within rel RMS 1e-4."""
+    from ddsp_svc_tpu_torch.ops.spectral import log_mel_spectrogram
+
+    g = torch.Generator(device=cuda).manual_seed(21)
+    t = torch.arange(44100, device=cuda) / 44100
+    x = (0.3 * torch.sin(2 * np.pi * 220 * t)
+         + 0.01 * _randn(g, 44100))[None].repeat(2, 1)
+    geo = (44100, 2048, 512, 2048, 128, 40, 16000)
+    K.reset_launch_counts()
+    m16 = log_mel_spectrogram(x, *geo, mxu_bf16=True).double()
+    assert K.launch_counts()["dft_magnitude"] == 1
+    m32 = log_mel_spectrogram(x, *geo).double()
+    assert K.launch_counts()["dft_magnitude"] == 1
+    assert m16.shape == m32.shape
+    rel = ((m16.exp() - m32.exp()).pow(2).mean()
+           / m32.exp().pow(2).mean()).sqrt().item()
+    assert rel < 1e-4, rel
+
+
+def _plain_swaps():
+    """(module, name, plain version) of every kernel the offline path runs."""
+    from ddsp_svc_tpu_torch.models import synths
+    from ddsp_svc_tpu_torch.nn import nsf_hifigan, pcmer
+
+    return [(pcmer, "performer_attention", K.performer_attention_plain),
+            (synths, "combsub_spectral", K.combsub_spectral_plain),
+            (nsf_hifigan, "harmonic_source", K.harmonic_source_plain),
+            (nsf_hifigan, "fused_resblocks_inject", K.resblocks_inject_plain)]
+
+
+def test_cli_on_card_matches_plain(cuda, tmp_path, monkeypatch):
+    """The CLI on a short 16 kHz wav (crepe f0, enhancer on) on the kernels
+    against the same run with every kernel swapped for its plain version
+    (the f0 cache shared): 1e-3 of max |ref| (chip_smoke.py's path gate);
+    #1, #2, #3 and #4 launched."""
+    import json
+
+    import yaml
+
+    from ddsp_svc_tpu_torch.data.wavio import read_wav, write_wav
+    from ddsp_svc_tpu_torch.infer import __main__ as cli
+    from ddsp_svc_tpu_torch.infer.enhancer import NsfHifiGAN
+    from ddsp_svc_tpu_torch.models.factory import build_model
+    from ddsp_svc_tpu_torch.nn.hubert import HubertSoft, init_hubert_
+    from ddsp_svc_tpu_torch.train.checkpoint import save_checkpoint
+    from ddsp_svc_tpu_torch.utils.config import DotDict
+
+    sr = 16000
+    sd = init_hubert_(HubertSoft(), torch.Generator().manual_seed(5)).state_dict()
+    w = sd.pop("positional_embedding.conv.weight")
+    sd["positional_embedding.conv.weight_g"] = w.pow(2).sum((0, 1), keepdim=True).sqrt()
+    sd["positional_embedding.conv.weight_v"] = w
+    torch.save(sd, tmp_path / "hubert.pt")
+    h = {"sampling_rate": sr, "num_mels": 16, "n_fft": 512, "win_size": 512,
+         "hop_size": 128, "fmin": 40, "fmax": 8000,
+         "upsample_rates": [4, 4, 8], "upsample_kernel_sizes": [8, 8, 16],
+         "upsample_initial_channel": 32, "resblock_kernel_sizes": [3, 7, 11],
+         "resblock_dilation_sizes": [[1, 3, 5]] * 3}
+    nsf = NsfHifiGAN(None, h=h, seed=6, device="cpu")
+    torch.save({"generator": nsf.model.state_dict()}, tmp_path / "nsf.pt")
+    (tmp_path / "config.json").write_text(json.dumps(h))
+    args = {"data": {"sampling_rate": sr, "block_size": 256,
+                     "encoder": "hubertsoft", "encoder_sample_rate": 16000,
+                     "encoder_hop_size": 320, "encoder_out_channels": 256,
+                     "encoder_ckpt": str(tmp_path / "hubert.pt")},
+            "model": {"type": "CombSubFast", "n_spk": 2},
+            "enhancer": {"type": "nsf-hifigan", "ckpt": str(tmp_path / "nsf.pt")}}
+    (tmp_path / "config.yaml").write_text(yaml.safe_dump(args))
+    save_checkpoint(str(tmp_path / "model_0.pt"), 0,
+                    build_model(DotDict(args), device="cpu", seed=7))
+    t = np.arange(int(sr * 1.5)) / sr
+    ph = 2 * np.pi * np.cumsum(200 * (1 + 0.03 * np.sin(2 * np.pi * 5 * t))) / sr
+    write_wav(str(tmp_path / "in.wav"), (0.4 * np.sin(ph)).astype(np.float32), sr)
+
+    def run(name):
+        out = str(tmp_path / name)
+        cli.main(["-m", str(tmp_path / "model_0.pt"), "-i",
+                  str(tmp_path / "in.wav"), "-o", out, "-pe", "crepe",
+                  "-sr", str(sr)])
+        return read_wav(out)[0]
+
+    K.reset_launch_counts()
+    got = run("kernels.wav")
+    counts = K.launch_counts()
+    for name in ("performer_attention", "combsub_spectral", "harmonic_source",
+                 "fused_resblocks_inject"):
+        assert counts[name] > 0, counts
+    for mod, name, fn in _plain_swaps():
+        monkeypatch.setattr(mod, name, fn)
+    ref = run("plain.wav")
+    assert got.shape == ref.shape and np.isfinite(got).all()
+    assert np.abs(got - ref).max() <= 1e-3 * np.abs(ref).max()

@@ -1,8 +1,10 @@
 """PyTorch port, isolation: the package and chip_smoke.py stand without JAX,
-flax and the JAX package (every module, the training ones, the Sins and
-CombSub synthesizers, the resampler and the enhancer's forms with an
-adaptive key included), and entry points, the trainer's and the factory's
-for all three synthesizers among them, never fall back to the CPU."""
+flax, msgpack and the JAX package (every module, the training ones, the Sins
+and CombSub synthesizers, the resampler, the enhancer's forms with an
+adaptive key and staged bf16, and the feature front end and the offline
+CLI included), and entry points, the trainer's, the factory's for all three
+synthesizers, `load_model`, `run_inference`, the CLI, `UnitsEncoder` and the
+torch f0 extractors among them, never fall back to the CPU."""
 import ast
 import os
 import pathlib
@@ -18,6 +20,7 @@ import importlib, importlib.abc, pkgutil, sys
 
 sys.modules["jax"] = None
 sys.modules["flax"] = None
+sys.modules["msgpack"] = None
 
 
 class RefuseJaxPackage(importlib.abc.MetaPathFinder):
@@ -36,7 +39,7 @@ names = [m.name for m in pkgutil.walk_packages(ddsp_svc_tpu_torch.__path__,
                                                 "ddsp_svc_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 32, names
+assert len(names) >= 40, names
 
 from ddsp_svc_tpu_torch.infer.enhancer import Enhancer, NsfHifiGAN
 from ddsp_svc_tpu_torch.models.factory import build_model
@@ -65,9 +68,11 @@ for other in others:
                           generator=torch.Generator().manual_seed(0))
     assert sig.shape == (1, 4 * 64) and bool(torch.isfinite(sig).all())
 import numpy as np
-for forms in ({"fused_inject": False}, {"fused_stage": True}):
+for forms in ({"fused_inject": False}, {"fused_stage": True},
+              {"bf16": 8}):
+    bf16 = forms.pop("bf16", 0)
     enh = Enhancer("nsf-hifigan", None, h=h, device="cpu",
-                   generator_overrides=forms)
+                   generator_overrides=forms, bf16_min_channels=bf16)
     out, sr = enh.enhance(torch.zeros((1, 1000)), 16000,
                           np.full((1, 17, 1), 200.0, np.float32), 64,
                           adaptive_key=2)
@@ -83,11 +88,25 @@ cfg = os.path.join(tempfile.mkdtemp(), "cfg.yaml")
 with open(cfg, "w") as f:
     yaml.safe_dump(dict(args), f)
 
+from ddsp_svc_tpu_torch.data.features import F0Extractor, UnitsEncoder
+from ddsp_svc_tpu_torch.infer.__main__ import main as cli_main
+from ddsp_svc_tpu_torch.infer.offline import run_inference
+from ddsp_svc_tpu_torch.models.factory import load_model
+from ddsp_svc_tpu_torch.utils.config import save_config
+ckpt = os.path.join(os.path.dirname(cfg), "model_0.pt")
+save_config(os.path.join(os.path.dirname(cfg), "config.yaml"), args)
+torch.save(model.state_dict(), ckpt)
+assert load_model(ckpt, device="cpu")[1].data.block_size == 64
+
 torch.cuda.is_available = lambda: False  # as on a machine with no card
 for make in (lambda: build_model(args), lambda: build_model(others[0]),
              lambda: build_model(others[1]), lambda: NsfHifiGAN(None, h=h),
              lambda: Enhancer("nsf-hifigan", None, h=h),
-             lambda: train_main(["-c", cfg])):
+             lambda: train_main(["-c", cfg]), lambda: load_model(ckpt),
+             lambda: run_inference(ckpt, "in.wav", "out.wav"),
+             lambda: cli_main(["-m", ckpt, "-i", "in.wav", "-o", "out.wav"]),
+             lambda: UnitsEncoder("hubertsoft", None),
+             lambda: F0Extractor("crepe"), lambda: F0Extractor("parselmouth")):
     try:
         make()
     except RuntimeError as e:
@@ -118,7 +137,8 @@ def _imports(path: pathlib.Path):
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "flax", "ddsp_svc_tpu", "torchaudio")
+    return top in ("jax", "jaxlib", "flax", "msgpack", "ddsp_svc_tpu",
+                   "torchaudio")
 
 
 @pytest.mark.parametrize("path", [ROOT / "chip_smoke.py"] + sorted(
