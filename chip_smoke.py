@@ -8,7 +8,8 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 Phases, each printing its own lines:
   1. card: name and power limit (nvidia-smi), TF32 switched off for the
      comparisons below;
-  2. build: every CUDA kernel from the checkout's sources (nvcc, sm_90a);
+  2. build: every CUDA kernel from the checkout's sources (nvcc, sm_90a)
+     and the native NCCF f0 library (g++, the JAX package's flags);
   3. kernels: each hand-written kernel against its plain PyTorch version at
      the main path's shapes, with error, time (one call at a time, and
      device_ms: calls back to back), plain time and bound (#1 also at B =
@@ -33,6 +34,20 @@ Phases, each printing its own lines:
      against their CPU runs; the stage walls (f0 per family, CREPE's network
      and host decode apart, units, synth + enhance, write) and the total as
      audio-s/s, each beside the card's name and power limit;
+  4b. the batch path: the CLI's directory mode (`-i DIR -o OUT --batch 16
+     -pe crepe -eak 0`) on six sung 44.1 kHz wavs of 3..13 s (12 segments
+     in the 64..512-frame buckets) with the CLI phase's checkpoints: every
+     output written, finite, of its input's length; `run_inference_batch`
+     with injected noise and rotations, fp32 and staged bf16, against
+     `run_inference` file by file (fp32 1e-4 x max|ref|; staged rel RMS
+     2e-2); #1-#4 (#6 staged) launched as the bucket plan says; each
+     stage's wall and the first and warm audio-s/s;
+  4c. the preprocess path: `python -m ddsp_svc_tpu_torch.preprocess`'s main
+     on 2 speakers x 3 clips x 4 s (and a validation clip each) with f0
+     parselmouth on the native NCCF library and HuBERT-soft on the card:
+     the store's files, f0_stats.npy against the clips' pitch, the units
+     against the CPU's plain path (1e-4 x max|ref|), the stage walls and
+     files/s, then one trainer step that reads the store;
   5. offline paths: conversion (`convert_features`) with each synthesizer
      at the full width of its config (CombSubFast from configs/combsub.yaml,
      Sins from configs/sins.yaml, CombSub from configs/combsub-old.yaml) and
@@ -1365,13 +1380,14 @@ CLI_STAGED_PER_SEGMENT = dict(CLI_PER_SEGMENT, dft_magnitude=1)
 CLI_STAGED = 128  # the staged-bf16 threshold of the second CLI run
 
 
-def sung_wav(sr: int, seed: int = 0) -> np.ndarray:
-    """~13 s of a sung-like line: three phrases (5.0, 4.5 and 2.5 s) of
-    notes between 150 and 500 Hz, six decaying harmonics, 5.5 Hz vibrato,
-    split by 0.5 s of silence, so that the slicer cuts three segments."""
+def sung_wav(sr: int, seed: int = 0, phrases=(5.0, 4.5, 2.5)) -> np.ndarray:
+    """A sung-like line: phrases (by default 5.0, 4.5 and 2.5 s, 13 s in
+    all) of notes between 150 and 500 Hz, six decaying harmonics, 5.5 Hz
+    vibrato, split by 0.5 s of silence; the slicer cuts a segment at a
+    silence once it holds 5 s (the default: three segments)."""
     rng = np.random.default_rng(seed)
     parts = []
-    for i, dur in enumerate((5.0, 4.5, 2.5)):
+    for i, dur in enumerate(phrases):
         if i:
             parts.append(np.zeros(int(0.5 * sr)))
         n = int(dur * sr)
@@ -1392,7 +1408,9 @@ def cli_phase(torch, K, card: str) -> dict:
     HuBERT-soft units, CombSubFast, NSF-HiFiGAN (H_NSF), the wav written;
     fp32, staged bf16, and fp32 on the plain versions; the staged mel
     against the fp32 one; parselmouth against its CPU run; each stage's
-    wall. Returns the launch counts of the fp32 and staged runs, summed."""
+    wall. Returns the launch counts of the fp32 and staged runs, summed, and
+    the fp32 and staged experiments' checkpoints (under build/chip_smoke_cli/,
+    which the batch and preprocess phases read and main removes)."""
     import yaml
     from ddsp_svc_tpu_torch.data.features import (F0Extractor, UnitsEncoder,
                                                   VolumeExtractor)
@@ -1570,8 +1588,272 @@ def cli_phase(torch, K, card: str) -> dict:
     say(f"{card}: CLI total (fp32, CREPE f0 included, warm): {total:.2f} s "
         f"for {dur:.3f} audio-s = {dur / total:.2f} audio-s/s (first run, "
         f"builds included: {first_wall:.2f} s)")
+    return {k: counts[k] + counts16[k] for k in counts}, ckpts
+
+
+# the batch phase: six wavs of 3..13 s (phrases split by 0.5 s silences),
+# whose segments fall into the 64..512-frame buckets
+BATCH_WAVS = ((3.0,), (5.0,), (5.5, 1.0), (5.5, 3.0), (5.0, 4.7, 0.3),
+              (5.0, 4.5, 2.5))
+BATCH_SIZE = 16
+# the kernels of one synth chunk and of one enhance_batch call (and, staged
+# at 128, #6 once in its mel)
+SYNTH_PER_CHUNK = {"performer_attention": 3, "combsub_spectral": 1}
+ENHANCE_PER_CALL = {"harmonic_source": 1, "fused_resblocks_inject": 3}
+
+
+def batch_phase(torch, K, card: str, ckpts: dict) -> dict:
+    """Directory conversion (`python -m ddsp_svc_tpu_torch.infer -i DIR -o
+    OUT --batch 16`) at configs/combsub.yaml's full width with the CLI
+    phase's checkpoints: six sung wavs; every output written, finite, of its
+    input's length; hooked batch runs in fp32 and staged bf16 against the
+    single path file by file (fp32 1e-4 of max |ref|; staged rel RMS
+    2e-2, the staged bound, since the batch's own fp32 rounding flips bf16
+    roundings); launches against the bucket plan; walls. Returns the launch counts of the first run and the
+    two hooked runs, summed."""
+    from ddsp_svc_tpu_torch.data.wavio import read_wav, write_wav
+    from ddsp_svc_tpu_torch.infer import __main__ as cli
+    from ddsp_svc_tpu_torch.infer.batch import run_inference_batch
+    from ddsp_svc_tpu_torch.infer.offline import run_inference, split
+    from ddsp_svc_tpu_torch.models.factory import bucket_frames
+
+    work = os.path.join(ROOT, "build", "chip_smoke_batch")
     shutil.rmtree(work, ignore_errors=True)
-    return {k: counts[k] + counts16[k] for k in counts}
+    os.makedirs(os.path.join(work, "in"))
+    sr, bs = 44100, 512
+    wavs, audios = [], []
+    for seed, phrases in enumerate(BATCH_WAVS):
+        a = sung_wav(sr, seed + 1, phrases)
+        wavs.append(os.path.join(work, "in", f"w{seed}.wav"))
+        write_wav(wavs[-1], a, sr)
+        audios.append(a)
+    dur = sum(len(a) for a in audios) / sr
+    # the bucket plan: each segment's frames as the units give them
+    groups = {}
+    for a in audios:
+        for _, seg in split(a, sr, bs):
+            b = bucket_frames(len(seg) // bs + 1)
+            groups[b] = groups.get(b, 0) + 1
+    chunks = sum(-(-n // BATCH_SIZE) for n in groups.values())
+    n_seg = sum(groups.values())
+    say(f"batch path: {len(wavs)} wavs ({dur:.3f} audio-s at {sr} Hz), "
+        f"{n_seg} segments in buckets {json.dumps(dict(sorted(groups.items())))}"
+        f", --batch {BATCH_SIZE}: {chunks} synth chunks and {chunks} "
+        f"enhance_batch calls")
+
+    def expect(label, counts, staged):
+        want = {k: v * chunks for k, v in {**SYNTH_PER_CHUNK,
+                                            **ENHANCE_PER_CALL}.items()}
+        want["dft_magnitude"] = chunks if staged else 0
+        bad = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
+        say(f"batch {label} launches: {json.dumps(counts)}")
+        if bad:
+            fail(f"batch {label}: launches (got, expected) {bad}")
+
+    out1 = os.path.join(work, "out")
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = cli.main(["-m", ckpts["fp32"], "-i", os.path.join(work, "in"),
+                     "-o", out1, "--batch", str(BATCH_SIZE), "-pe", "crepe",
+                     "-eak", "0"])
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    counts = K.launch_counts()
+    expect("fp32 CLI", counts, staged=False)
+    if outs != [os.path.join(out1, os.path.basename(w)) for w in wavs]:
+        fail(f"batch CLI wrote {outs}")
+    for o, a in zip(outs, audios):
+        y, sr_o = read_wav(o)
+        if not (sr_o == sr and abs(y.shape[-1] - len(a)) <= bs
+                and np.isfinite(y).all() and np.sqrt(np.mean(y ** 2)) > 0):
+            fail(f"batch CLI {o}: {y.shape[-1]} samples at {sr_o} Hz (input "
+                 f"{len(a)}), finite {np.isfinite(y).all()}")
+    walls = {}
+    t0 = time.perf_counter()
+    run_inference_batch(ckpts["fp32"], wavs, os.path.join(work, "warm"),
+                        batch_size=BATCH_SIZE, pitch_extractor="crepe",
+                        f0_min=50.0, f0_max=1100.0, walls=walls)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+
+    def noise(f, s, shape):
+        return (np.random.default_rng((7, f, s)).random(shape, np.float32)
+                * 2 - 1)
+
+    def rand(f, s):
+        r = np.random.default_rng((11, f, s)).random((1, 9), np.float32)
+        r[:, 0] = 0
+        return r
+
+    # CREPE ran once a file above; the cache's names carry the CLI's floats
+    cache = os.path.join(out1, "cache")
+    f0_kw = dict(pitch_extractor="crepe", f0_min=50.0, f0_max=1100.0)
+    for label, kind in (("fp32", "fp32"), (f"staged bf16 ({CLI_STAGED})",
+                                           "bf16")):
+        K.reset_launch_counts()
+        got = run_inference_batch(
+            ckpts[kind], wavs, os.path.join(work, "hooked_" + kind),
+            batch_size=BATCH_SIZE, cache_dir=cache, **f0_kw,
+            noise_hook=noise, enhancer_rand_hook=rand, output_subtype="FLOAT")
+        torch.cuda.synchronize()
+        hooked = K.launch_counts()
+        expect(label, hooked, staged=kind == "bf16")
+        for k, v in hooked.items():
+            counts[k] += v
+        worst = worst_rms = 0.0
+        for fi, wav in enumerate(wavs):
+            ref = run_inference(
+                ckpts[kind], wav, os.path.join(work, f"single_{kind}_{fi}.wav"),
+                cache_dir=cache, **f0_kw,
+                noise_hook=lambda i, shape: noise(fi, i, shape),
+                enhancer_rand_hook=lambda i: rand(fi, i),
+                output_subtype="FLOAT")
+            y, r = read_wav(got[fi])[0], read_wav(ref)[0]
+            if y.shape != r.shape:
+                fail(f"batch {label} {wav}: {y.shape} vs single {r.shape}")
+            worst = max(worst, float(np.abs(y - r).max() / np.abs(r).max()))
+            worst_rms = max(worst_rms, float(np.sqrt(
+                np.mean((y - r) ** 2) / np.mean(r ** 2))))
+        if kind == "fp32":
+            say(f"batch {label} vs single path, file by file: max|err| "
+                f"{worst:.3e} x max|ref| (tolerance 1e-4), rel RMS "
+                f"{worst_rms:.3e}")
+            ok = worst < 1e-4
+        else:
+            # the batch's fp32 rounding (other batch sizes, masking) differs
+            # from the single path's by ~1e-6 and flips bf16 roundings in
+            # the wide stages (2^-8 each): the staged bound, as staged
+            # against fp32
+            say(f"batch {label} vs single path, file by file: rel RMS "
+                f"{worst_rms:.3e} (tolerance 2e-2), max|err| {worst:.3e} x "
+                "max|ref|")
+            ok = worst_rms < 2e-2
+        if not ok:
+            fail(f"batch {label} disagrees with the single path")
+    for name, t in walls.items():
+        say(f"{card}: batch stage {name}: {t * 1e3:.1f} ms")
+    say(f"{card}: batch directory, {dur:.3f} audio-s (CREPE f0 included): "
+        f"first {first:.2f} s = {dur / first:.2f} audio-s/s, warm "
+        f"{warm:.2f} s = {dur / warm:.2f} audio-s/s")
+    shutil.rmtree(work, ignore_errors=True)
+    return counts
+
+
+def preprocess_phase(torch, K, card: str, ckpt: str) -> dict:
+    """`python -m ddsp_svc_tpu_torch.preprocess -c CFG`'s main on a store of
+    2 speakers x 3 clips x 4 s (and one validation clip a speaker) at 44.1
+    kHz with configs/combsub.yaml at full width, f0 parselmouth (the native
+    NCCF library), the CLI phase's HuBERT-soft on the card: the store's
+    layout and f0_stats.npy, the units against the plain path on the CPU
+    (1e-4 of max |ref|, tests/test_torch_features.py's HuBERT bound), then
+    one trainer step that reads the store. Returns the step's launches."""
+    import yaml
+    from ddsp_svc_tpu_torch import preprocess as entry
+    from ddsp_svc_tpu_torch.data.features import (F0Extractor, UnitsEncoder,
+                                                  VolumeExtractor)
+    from ddsp_svc_tpu_torch.data.wavio import load_audio
+    from ddsp_svc_tpu_torch.train import __main__ as train_main
+    from ddsp_svc_tpu_torch.utils.config import load_config
+
+    args = load_config(os.path.join(os.path.dirname(ckpt), "config.yaml"))
+    d = args.data
+    sr, bs = d.sampling_rate, d.block_size
+    work = os.path.join(ROOT, "build", "chip_smoke_preprocess")
+    shutil.rmtree(work, ignore_errors=True)
+    write_dataset(os.path.join(work, "train"), 2, 3, 4.0, sr, bs,
+                  d.encoder_out_channels, 0)
+    write_dataset(os.path.join(work, "val"), 2, 1, 4.0, sr, bs,
+                  d.encoder_out_channels, 1)
+    for split in ("train", "val"):  # keep the audio; the features are made
+        for sub in ("units", "f0", "volume"):
+            shutil.rmtree(os.path.join(work, split, sub))
+        os.remove(os.path.join(work, split, "f0_stats.npy"))
+    cfg = json.loads(json.dumps(args))
+    cfg["data"].update(f0_extractor="parselmouth",
+                       train_path=os.path.join(work, "train"),
+                       valid_path=os.path.join(work, "val"))
+    cfg["train"].update(interval_log=1, interval_val=1000, epochs=1000)
+    cfg["env"]["expdir"] = os.path.join(work, "exp")
+    cfg_path = os.path.join(work, "config.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    t0 = time.perf_counter()
+    entry.main(["-c", cfg_path])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rels = sorted(os.path.relpath(os.path.join(r, f), os.path.join(work, "train", "audio"))
+                  for r, _, fs in os.walk(os.path.join(work, "train", "audio"))
+                  for f in fs)
+    n_files = len(rels) + 2
+    for rel in rels:
+        stem = rel[:-len(".wav")]
+        for sub, suffix in (("units", ".0.npy"), ("f0", ".npy"),
+                            ("f0_stat", ".npy"), ("volume", ".npy")):
+            if not os.path.isfile(os.path.join(work, "train", sub, stem + suffix)):
+                fail(f"preprocess wrote no {sub}/{stem}{suffix}")
+    stats = np.load(os.path.join(work, "train", "f0_stats.npy"),
+                    allow_pickle=True).item()
+    want = {"1": float(np.log(110.0)), "2": float(np.log(220.0))}
+    say(f"preprocess: {len(rels)} training and 2 validation clips, "
+        f"f0_stats {json.dumps(stats)} (mean log f0 {json.dumps(want)})")
+    if sorted(stats) != ["1", "2"] or any(abs(stats[k] - v) > 0.02
+                                          for k, v in want.items()):
+        fail("preprocess: f0_stats.npy is off the clips' pitch")
+    cpu = UnitsEncoder(d.encoder, d.encoder_ckpt, d.encoder_sample_rate,
+                       d.encoder_hop_size, device="cpu")
+    worst = 0.0
+    for rel in rels:
+        audio, _ = load_audio(os.path.join(work, "train", "audio", rel), sr=sr)
+        ref = cpu.encode(audio[None], sr, bs)[0]
+        got = np.load(os.path.join(work, "train", "units", rel[:-4] + ".0.npy"))
+        if got.shape != ref.shape:
+            fail(f"preprocess units {rel}: {got.shape} vs {ref.shape}")
+        worst = max(worst, float(np.abs(got - ref).max() / np.abs(ref).max()))
+    say(f"preprocess units (card) vs the plain path on the CPU: max|err| "
+        f"{worst:.3e} x max|ref| (tolerance 1e-4)")
+    if not worst < 1e-4:
+        fail("the preprocessed units disagree with the CPU's")
+
+    # the stages apart, over the training clips (host clock)
+    audios = [load_audio(os.path.join(work, "train", "audio", r), sr=sr)[0]
+              for r in rels]
+    ext = F0Extractor("parselmouth", sr, bs, d.f0_min, d.f0_max, backend="auto")
+    vol = VolumeExtractor(bs)
+    enc = UnitsEncoder(d.encoder, d.encoder_ckpt, d.encoder_sample_rate,
+                       d.encoder_hop_size, device="cuda")
+    stage = {}
+    for name, fn in (("native f0 (NCCF, host)", lambda a: ext.extract(a)),
+                     ("volume (host)", vol.extract),
+                     ("units (HuBERT-soft, device)",
+                      lambda a: enc.encode(a[None], sr, bs))):
+        t0 = time.perf_counter()
+        for a in audios:
+            fn(a)
+        torch.cuda.synchronize()
+        stage[name] = time.perf_counter() - t0
+    for name, t in stage.items():
+        say(f"{card}: preprocess stage {name}: {t * 1e3:.1f} ms for "
+            f"{len(audios)} clips of 4 s")
+    say(f"{card}: preprocess total {wall:.2f} s for {n_files} files = "
+        f"{n_files / wall:.2f} files/s (4 worker threads, HuBERT load "
+        "included)")
+
+    K.reset_launch_counts()
+    state, saver = train_main.main(["-c", cfg_path, "--max-steps", "1"])
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    with open(os.path.join(saver.expdir, "log_values.jsonl")) as f:
+        losses = [json.loads(line).get("train/loss") for line in f]
+    losses = [x for x in losses if x is not None]
+    say(f"preprocess -> train: one step on the store, loss {losses}, "
+        f"launches {json.dumps(counts)}")
+    if state.step != 1 or len(losses) != 1 or not np.isfinite(losses).all():
+        fail(f"the step on the preprocessed store: step {state.step}, "
+             f"losses {losses}")
+    if counts["dft_magnitude"] <= 0:
+        fail("the step on the preprocessed store launched no dft_magnitude")
+    shutil.rmtree(work, ignore_errors=True)
+    return counts
 
 
 def main() -> None:
@@ -1599,6 +1881,12 @@ def main() -> None:
     secs = build.build()
     say(f"build: {len(build.SOURCES)} CUDA sources (nvcc sm_90a) in "
         f"{secs:.1f} s")
+    from ddsp_svc_tpu_torch import native
+    t0 = time.perf_counter()
+    lib = native.build()
+    say(f"build: the native NCCF library ({native.CXX} "
+        f"{' '.join(native.CXX_FLAGS)}) -> {os.path.relpath(lib, ROOT)} in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = kernel_phase(torch, K, gen)
@@ -1611,9 +1899,19 @@ def main() -> None:
     # before it (the CLI; then offline and training for each synthesizer)
     launches = {k: 0 for k in K.launch_counts()}
     t0 = time.perf_counter()
-    for k, v in cli_phase(torch, K, smi[0]).items():
-        launches[k] += v
+    cli_counts, ckpts = cli_phase(torch, K, smi[0])
     say(f"CLI paths: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    batch_counts = batch_phase(torch, K, smi[0], ckpts)
+    say(f"batch paths: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    pre_counts = preprocess_phase(torch, K, smi[0], ckpts["fp32"])
+    say(f"preprocess paths: {time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(os.path.join(ROOT, "build", "chip_smoke_cli"),
+                  ignore_errors=True)
+    for counts in (cli_counts, batch_counts, pre_counts):
+        for k, v in counts.items():
+            launches[k] += v
     for synth, config, expect, full in SYNTHS:
         t0 = time.perf_counter()
         segments = [] if full else None

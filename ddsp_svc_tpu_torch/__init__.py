@@ -3,16 +3,23 @@
 The JAX package `ddsp_svc_tpu/` is the reference this package is held
 against; nothing here imports it, JAX or flax. The layout mirrors it:
 
-    ops/    DSP functions on tensors, and the four hand-written CUDA kernels
+    ops/    DSP functions on tensors, and the hand-written CUDA kernels
             that replace the JAX package's Pallas kernels (ops/kernels.py,
             sources in csrc/, built by ops/build.py)
     nn/     network modules (layers, PCmer, Unit2Control, NSF-HiFiGAN,
             HuBERT, CREPE)
-    models/ the three synthesizers, the model factory and load_model
+    models/ the three synthesizers, the model factory, load_model and the
+            bucketed synths (one segment, or a batch of them)
     infer/  the enhancer front end, the offline segment loop,
-            run_inference and the CLI (python -m ddsp_svc_tpu_torch.infer)
-    data/   the silence slicer, wav I/O, the training loaders, and the
-            feature front end (f0, volume, units)
+            run_inference, batched conversion (run_inference_batch) and
+            the CLI (python -m ddsp_svc_tpu_torch.infer, a wav or a
+            directory)
+    data/   the silence slicer, wav I/O, the training loaders, the feature
+            front end (f0, volume, units) and preprocessing (python -m
+            ddsp_svc_tpu_torch.preprocess)
+    native/ the C++ NCCF f0 and volume host library, built with g++ at
+            first use
+    train/  the trainer (python -m ddsp_svc_tpu_torch.train)
     utils/  config, device policy, the flax -> torch weight bridge, the
             flax-msgpack reader
 

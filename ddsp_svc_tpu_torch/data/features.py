@@ -11,8 +11,10 @@ Counterpart of `ddsp_svc_tpu/data/features.py`:
       'crepe': the CREPE network on the device, median pool 4 of the
         periodicity, periodicity < 0.05 -> unvoiced, NaN-masked average
         pool 4, the 5 ms grid resampled nearest onto the hop grid.
-    The default backend is the port's torch one; 'native' / 'auto' (the
-    JAX package's C++ NCCF library) raise until it is ported.
+    The default backend is the port's torch one; 'native' and 'auto' run
+    the parselmouth family on the C++ NCCF host library (`native/`, built
+    at first use), as the JAX package's do. Unlike JAX, 'auto' never falls
+    back to the device tracker: it raises when the library cannot be built.
   - VolumeExtractor: frame RMS.
   - UnitsEncoder: resample to the encoder's rate -> HuBERT -> nearest
     alignment onto the synth hop; weights from a torch checkpoint or a seed.
@@ -38,9 +40,11 @@ from ..ops.spectral import next_pow2
 from ..ops.volume import extract_volume_np
 from ..ops.windows import hann_window_symmetric
 from ..utils.device import resolve_device
+from .. import native
 from . import world_f0
 
 F0_FAMILIES = ("parselmouth", "dio", "harvest", "crepe")
+F0_BACKENDS = ("torch", "native", "auto")
 
 
 def autocorr_candidates(frames: torch.Tensor, sr: int, f0_min: float,
@@ -154,25 +158,29 @@ class F0Extractor:
     def __init__(self, f0_extractor: str, sample_rate: int = 44100,
                  hop_size: float = 512, f0_min: float = 65,
                  f0_max: float = 800, backend: str = "torch", device=None):
-        """backend 'torch' (the only one ported); 'native' / 'auto' select
-        the JAX package's C++ NCCF library for the parselmouth family,
-        which the port does not have yet. device: where the torch families
-        (parselmouth, crepe) run; dio and harvest are host numpy."""
+        """backend selects the parselmouth family's implementation:
+        'torch' (candidates on the device, the path search on the host),
+        'native' (the C++ NCCF host library, `native/`, built at first use:
+        the CPU fast path for preprocessing) or 'auto'. In the JAX package
+        'auto' means native if it builds, else the device tracker; here it
+        means native and raises when the library cannot be built or loaded,
+        so a missing compiler never changes the f0 quietly. The backend does
+        not apply to dio, harvest and crepe. device: where the torch
+        families (parselmouth on 'torch', crepe) run; the others run on the
+        host."""
         if f0_extractor not in F0_FAMILIES:
             raise ValueError(f" [x] Unknown f0 extractor: {f0_extractor}")
-        if backend in ("native", "auto"):
-            raise NotImplementedError(
-                "the native C++ NCCF f0 library is not ported yet (ROADMAP.md "
-                "queue 1); use backend='torch'")
-        if backend != "torch":
+        if backend not in F0_BACKENDS:
             raise ValueError(f" [x] Unknown f0 backend: {backend}")
         self.f0_extractor = f0_extractor
+        self.native = backend != "torch" and f0_extractor == "parselmouth"
         self.sample_rate = sample_rate
         self.hop_size = hop_size
         self.f0_min = f0_min
         self.f0_max = f0_max
-        self.device = (resolve_device(device)
-                       if f0_extractor in ("parselmouth", "crepe") else None)
+        on_device = f0_extractor == "crepe" or (
+            f0_extractor == "parselmouth" and not self.native)
+        self.device = resolve_device(device) if on_device else None
         # analysis window: ~3 periods of f0_min (Praat AC convention)
         self.win = next_pow2(int(3 * sample_rate / f0_min))
         self._crepe = None
@@ -192,6 +200,10 @@ class F0Extractor:
             f0 = getattr(world_f0, self.f0_extractor)(
                 audio_trim, self.sample_rate, self.hop_size, self.f0_min,
                 self.f0_max)
+        elif self.native:
+            f0 = native.extract_f0_native(
+                audio_trim, self.sample_rate, self.hop_size, self.f0_min,
+                self.f0_max, self.win)
         else:
             f0 = autocorr_f0(audio_trim, self.sample_rate, self.hop_size,
                              self.f0_min, self.f0_max, self.win, self.device)

@@ -8,16 +8,19 @@
 -m takes the port's `model_{step}.pt`, a reference torch `.pt` or the JAX
 package's `.ckpt` (`models.factory.load_model`), each with its config.yaml
 beside it. --compat-double-key reproduces the reference's double key
-change. Runs on CUDA; `--device cpu` runs the plain versions of the kernels
-on the CPU. Directory mode (-i a directory, batched through --batch) is not
-ported yet.
+change. When -i is a directory, every `*.wav` in it (sorted) is converted
+into the directory -o, segments from many files packed into batches of
+--batch (`infer/batch.py::run_inference_batch`). Runs on CUDA; `--device
+cpu` runs the plain versions of the kernels on the CPU.
 """
 from __future__ import annotations
 
 import argparse
+import glob
 import os
 from ast import literal_eval
 
+from .batch import run_inference_batch
 from .offline import run_inference
 
 
@@ -46,18 +49,13 @@ def parse_args(args=None):
     return p.parse_args(args=args)
 
 
-def main(argv=None) -> str:
-    """Returns the path of the written wav."""
+def main(argv=None):
+    """Returns the path of the written wav, or in directory mode the list
+    of them (in the inputs' sorted order)."""
     cmd = parse_args(argv)
-    if os.path.isdir(cmd.input):
-        raise NotImplementedError(
-            "directory mode (batched conversion, infer/batch.py) is not "
-            "ported yet (ROADMAP.md queue 1, batched offline conversion)")
     eak = cmd.enhancer_adaptive_key
-    return run_inference(
+    common = dict(
         model_path=cmd.model_path,
-        input_path=cmd.input,
-        output_path=cmd.output,
         spk_id=int(cmd.spk_id),
         spk_mix_dict=literal_eval(cmd.spk_mix_dict),
         key=float(cmd.key),
@@ -71,6 +69,17 @@ def main(argv=None) -> str:
         compat_double_key=cmd.compat_double_key,
         device=cmd.device,
     )
+    if os.path.isdir(cmd.input):
+        inputs = sorted(glob.glob(os.path.join(cmd.input, "*.wav")))
+        if not inputs:
+            raise SystemExit(f" [x] no .wav files in {cmd.input}")
+        outs = run_inference_batch(input_paths=inputs, output_dir=cmd.output,
+                                   batch_size=cmd.batch, **common)
+        for o in outs:
+            print(f" [*] wrote {o}")
+        return outs
+    return run_inference(input_path=cmd.input, output_path=cmd.output,
+                         **common)
 
 
 if __name__ == "__main__":

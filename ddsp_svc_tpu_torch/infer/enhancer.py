@@ -196,7 +196,8 @@ class Enhancer:
                       rand_ini: Optional[np.ndarray] = None, pad_to: int = 0
                       ) -> Tuple[List[torch.Tensor], int]:
         """`enhance` of mixed-length segments in one masked batch, at ONE
-        resolved adaptive key. audios: (T_i,) or (1, T_i) arrays; f0s:
+        resolved adaptive key. audios: (T_i,) or (1, T_i) arrays or
+        tensors (a tensor on the enhancer's device stays there); f0s:
         (F_i,) or (1, F_i, 1) arrays on the hop_size grid; rand_ini (B, 9).
         The resampler zero-pads as each exact-length call does, the mel sees
         each item's own reflect padding and the generator masks each item's
@@ -209,13 +210,13 @@ class Enhancer:
         h = self.enhancer.h
         dev = self.enhancer.device
         b = len(audios)
-        flat = [np.asarray(a, np.float32).reshape(-1) for a in audios]
-        lens = [len(a) for a in flat]
-        batch = np.zeros((b, max(max(lens), int(pad_to))), np.float32)
+        flat = [torch.as_tensor(a, dtype=torch.float32, device=dev).reshape(-1)
+                for a in audios]
+        lens = [a.numel() for a in flat]
+        batch = torch.zeros((b, max(max(lens), int(pad_to))), device=dev)
         for i, a in enumerate(flat):
             batch[i, :lens[i]] = a
-        res = resample(torch.as_tensor(batch, device=dev), sample_rate,
-                       adaptive_sample_rate)
+        res = resample(batch, sample_rate, adaptive_sample_rate)
         res_lens = [math.ceil(adaptive_sample_rate * n / sample_rate)
                     for n in lens]
 

@@ -1,8 +1,9 @@
 """Model factory: config -> Sins, CombSub or CombSubFast, loading a
-checkpoint, and the bucketed segment synth.
+checkpoint, and the bucketed segment synths.
 
 Counterpart of `ddsp_svc_tpu/models/factory.py` (`build_model`,
-`load_model`, and `make_jitted_synth(..., mask_padding=True)`).
+`load_model`, and `make_jitted_synth(..., mask_padding=True)`, called with
+one segment or, from the batched path, with a (B,) `valid` vector).
 """
 from __future__ import annotations
 
@@ -79,6 +80,11 @@ def load_model(model_path: str, device=None) -> Tuple[nn.Module, DotDict]:
 MIN_BUCKET_FRAMES = 32
 
 
+def bucket_frames(n: int) -> int:
+    """The frame bucket of an n-frame segment: max(32, next_pow2(n))."""
+    return max(MIN_BUCKET_FRAMES, 1 << (int(n) - 1).bit_length())
+
+
 def make_bucketed_synth(model: nn.Module,
                         spk_mix_dict: Optional[Dict[int, float]] = None):
     """Segment synth with power-of-two frame buckets.
@@ -99,8 +105,7 @@ def make_bucketed_synth(model: nn.Module,
     @torch.no_grad()
     def run(units, f0, volume, spk_id, noise=None, generator=None):
         n = units.shape[1]
-        bucket = max(MIN_BUCKET_FRAMES, 1 << (int(n) - 1).bit_length())
-        pad = bucket - n
+        pad = bucket_frames(n) - n
         if pad:
             units = np.pad(units, ((0, 0), (0, pad), (0, 0)))
             f0 = np.pad(f0, ((0, 0), (0, pad), (0, 0)), mode="edge")
@@ -118,5 +123,34 @@ def make_bucketed_synth(model: nn.Module,
             valid_frames=n if pad else None, generator=generator,
         )
         return signal[:, :n * block]
+
+    return run
+
+
+def make_batched_synth(model: nn.Module,
+                       spk_mix_dict: Optional[Dict[int, float]] = None):
+    """Synth of a batch of segments padded to one bucket, each with its own
+    true length (the batched offline path).
+
+    Returns run(units (B, F, C), f0 (B, F, 1), volume (B, F), spk_id (B, 1),
+    valid (B,), noise (B, F*block)) -> signal (B, F*block) on the model's
+    device. The arrays are numpy, already padded by the caller (f0 by edge
+    replication, the rest with zeros); `valid` goes to the model as a (B,)
+    `valid_frames` tensor, so row i's first valid[i] frames equal an
+    exact-length forward of item i. The rest of each row is masked output
+    for the caller to crop.
+    """
+    device = next(model.parameters()).device
+
+    def dev(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    @torch.no_grad()
+    def run(units, f0, volume, spk_id, valid, noise):
+        signal, _, _ = model(
+            dev(units), dev(f0), dev(volume), dev(spk_id, torch.int64),
+            spk_mix_dict=spk_mix_dict, infer=True, noise=dev(noise),
+            valid_frames=dev(valid, torch.int64))
+        return signal
 
     return run

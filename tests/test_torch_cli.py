@@ -222,7 +222,8 @@ def test_cli_flags_match_main():
 def test_cli_converts_with_each_checkpoint_kind(exp, tmp_path):
     """The CLI's main on the CPU: crepe f0, the enhancer on, the same audio
     from each checkpoint kind; 16 kHz, within a block of the input's length,
-    finite, RMS > 0. A directory input raises."""
+    finite, RMS > 0. A directory input goes through directory mode: one
+    wav of the input's length in the output directory."""
     root, model = exp
     wav = str(root / "short.wav")
     n_in = read_wav(wav)[0].shape[-1]
@@ -237,9 +238,15 @@ def test_cli_converts_with_each_checkpoint_kind(exp, tmp_path):
         assert np.isfinite(audio).all() and np.sqrt(np.mean(audio ** 2)) > 0
         outs.append(audio)
     assert all(np.array_equal(outs[0], o) for o in outs[1:])
-    with pytest.raises(NotImplementedError, match="batched"):
-        cli.main(["-m", "x.pt", "-i", str(tmp_path), "-o", str(tmp_path),
-                  "--device", "cpu"])
+    (tmp_path / "in").mkdir()
+    (tmp_path / "in" / "short.wav").write_bytes(pathlib.Path(wav).read_bytes())
+    got = cli.main(["-m", _write_kind(root, model, "port"), "-i",
+                    str(tmp_path / "in"), "-o", str(tmp_path / "dir_out"),
+                    "-pe", "crepe", "-sr", str(SR), "--device", "cpu"])
+    assert got == [str(tmp_path / "dir_out" / "short.wav")]
+    audio, sr = read_wav(got[0])
+    assert sr == SR and abs(audio.shape[-1] - n_in) <= BLOCK
+    assert np.isfinite(audio).all() and np.sqrt(np.mean(audio ** 2)) > 0
 
 
 def test_cli_module_runs(exp, tmp_path):

@@ -1024,3 +1024,138 @@ def test_cli_on_card_matches_plain(cuda, tmp_path, monkeypatch):
     ref = run("plain.wav")
     assert got.shape == ref.shape and np.isfinite(got).all()
     assert np.abs(got - ref).max() <= 1e-3 * np.abs(ref).max()
+
+
+def test_batched_synth_per_item_lengths(cuda, monkeypatch):
+    """The batched bucket synth (the directory path's) on one 128-frame
+    bucket of three items of 128, 91 and 33 valid frames at 44.1 kHz /
+    block 512: #1 with per-item device lengths and #2 on the kernels
+    against the same batch on the plain versions, and each item against its
+    own exact-length run on the kernels, 1e-4 of max |ref| on each valid
+    prefix; #1 launched 3 times (one a PCmer layer) and #2 once."""
+    from ddsp_svc_tpu_torch.models import synths
+    from ddsp_svc_tpu_torch.models.factory import (make_batched_synth,
+                                                   make_bucketed_synth)
+    from ddsp_svc_tpu_torch.nn import pcmer
+    from ddsp_svc_tpu_torch.nn.layers import lecun_init_
+
+    model = lecun_init_(synths.CombSubFast(44100, 512, n_unit=64, n_spk=2),
+                        torch.Generator().manual_seed(0)).to(cuda).eval()
+    rng = np.random.default_rng(3)
+    lengths, bucket, block = [128, 91, 33], 128, 512
+    b = len(lengths)
+    units = rng.standard_normal((b, bucket, 64)).astype(np.float32)
+    f0 = (110 + 300 * rng.random((b, bucket, 1))).astype(np.float32)
+    vol = rng.random((b, bucket)).astype(np.float32)
+    noise = (rng.random((b, bucket * block)) * 2 - 1).astype(np.float32)
+    for i, n in enumerate(lengths):
+        f0[i, n:] = f0[i, n - 1]
+        units[i, n:], vol[i, n:], noise[i, n * block:] = 0, 0, 0
+    spk = np.array([[1], [2], [1]], np.int64)
+    batched = make_batched_synth(model)
+    K.reset_launch_counts()
+    got = batched(units, f0, vol, spk, np.array(lengths), noise)
+    counts = K.launch_counts()
+    assert counts["performer_attention"] == 3, counts
+    assert counts["combsub_spectral"] == 1, counts
+    single = make_bucketed_synth(model)
+    alone = [single(units[i:i + 1, :n], f0[i:i + 1, :n], vol[i:i + 1, :n],
+                    spk[i:i + 1], noise=noise[i:i + 1, :n * block])[0]
+             for i, n in enumerate(lengths)]
+    monkeypatch.setattr(pcmer, "performer_attention", K.performer_attention_plain)
+    monkeypatch.setattr(synths, "combsub_spectral", K.combsub_spectral_plain)
+    ref = batched(units, f0, vol, spk, np.array(lengths), noise)
+    assert torch.isfinite(got).all()
+    for i, n in enumerate(lengths):
+        for other in (ref[i, :n * block], alone[i]):
+            err = (got[i, :n * block] - other).abs().max().item()
+            assert err <= 1e-4 * other.abs().max().item(), (i, n, err)
+
+
+@pytest.mark.parametrize("staged", [0, 128])
+def test_enhance_batch_mixed_lengths_on_kernels(cuda, monkeypatch, staged):
+    """Enhancer.enhance_batch on items of 128, 91 and 33 frames padded to
+    one 128-frame bucket (pad_to) with a generator of 256 initial channels:
+    #3, #4 (per-item valid lengths) and, staged at 128 channels, #6 in the
+    mel, against the same call on the plain versions. fp32: 1e-4 of max
+    |ref| per item; staged (C = 256/128 in bf16): rel RMS 2e-2 per item, the
+    JAX package's staged bound, as the kernels' fp32 rounding flips bf16
+    roundings. #3 once, #4 once per fp32 stage of <= 64 channels (4), #6
+    once when staged."""
+    from ddsp_svc_tpu_torch.infer.enhancer import Enhancer
+    from ddsp_svc_tpu_torch.nn import nsf_hifigan
+    from ddsp_svc_tpu_torch.ops import spectral
+
+    h = {"sampling_rate": 16000, "num_mels": 32, "n_fft": 512, "win_size": 512,
+         "hop_size": 128, "fmin": 40, "fmax": 8000,
+         "upsample_rates": [4, 4, 2, 2, 2],
+         "upsample_kernel_sizes": [8, 8, 4, 4, 4],
+         "upsample_initial_channel": 256, "resblock_kernel_sizes": [3, 7, 11],
+         "resblock_dilation_sizes": [[1, 3, 5]] * 3}
+    enh = Enhancer("nsf-hifigan", None, h=h, seed=2, device=cuda,
+                   bf16_min_channels=staged)
+    rng = np.random.default_rng(4)
+    lengths, bucket, block = [128, 91, 33], 128, 256
+    t = np.arange(bucket * block) / 16000
+    audios, f0s = [], []
+    for i, n in enumerate(lengths):
+        hz = 150.0 + 60 * i
+        audios.append(torch.as_tensor(
+            (0.3 * np.sin(2 * np.pi * hz * t[:n * block])
+             + 0.01 * rng.standard_normal(n * block)).astype(np.float32),
+            device=cuda)[None])
+        f0s.append(np.full((1, n, 1), hz, np.float32))
+    ri = rng.random((3, 9)).astype(np.float32)
+    ri[:, 0] = 0
+
+    def run():
+        return enh.enhance_batch(audios, 16000, f0s, block, rand_ini=ri,
+                                 pad_to=bucket * block)[0]
+
+    K.reset_launch_counts()
+    got = run()
+    counts = K.launch_counts()
+    assert counts["harmonic_source"] == 1, counts
+    assert counts["fused_resblocks_inject"] == 4, counts
+    assert counts["dft_magnitude"] == (1 if staged else 0), counts
+    monkeypatch.setattr(nsf_hifigan, "harmonic_source", K.harmonic_source_plain)
+    monkeypatch.setattr(nsf_hifigan, "fused_resblocks_inject",
+                        K.resblocks_inject_plain)
+    monkeypatch.setattr(spectral, "dft_magnitude", K.dft_magnitude_plain)
+    ref = run()
+    for i, (g_i, r_i) in enumerate(zip(got, ref)):
+        assert g_i.shape == r_i.shape and bool(torch.isfinite(g_i).all())
+        if staged:
+            rel = ((g_i - r_i).pow(2).mean() / r_i.pow(2).mean()).sqrt().item()
+            assert rel < 2e-2, (i, rel)
+        else:
+            err = (g_i - r_i).abs().max().item()
+            assert err <= 1e-4 * r_i.abs().max().item(), (i, err)
+
+
+def test_native_library_on_card_host(cuda):
+    """The native NCCF library built and called on the card's host, held
+    to tests/test_native.py's bounds (-march=native makes its bits the
+    host's): a pure tone within 1 % median, silence unvoiced, volume within
+    1e-4 of numpy; F0Extractor('parselmouth', backend='auto') runs it."""
+    from ddsp_svc_tpu_torch import native
+    from ddsp_svc_tpu_torch.data.features import F0Extractor
+    from ddsp_svc_tpu_torch.ops.volume import extract_volume_np
+
+    sr, hop = 44100, 512.0
+    t = np.arange(int(sr * 1.5)) / sr
+    for hz in (110.0, 220.0, 440.0):
+        audio = (0.5 * np.sin(2 * np.pi * hz * t)).astype(np.float32)
+        f0 = native.extract_f0_native(audio, sr, hop, 65, 800, 2048)
+        mid = f0[6:-6]
+        voiced = mid[mid > 0]
+        assert len(voiced) > 0.9 * len(mid)
+        assert np.median(np.abs(voiced - hz) / hz) < 0.01
+        ext = F0Extractor("parselmouth", sr, 512, 65, 800, backend="auto")
+        assert np.array_equal(ext.extract(audio), f0)
+    assert (native.extract_f0_native(np.zeros(sr, np.float32), sr, hop, 65,
+                                      800, 2048) == 0).all()
+    noise = np.random.default_rng(0).standard_normal(sr).astype(np.float32)
+    for h in (512.0, 185.76):
+        np.testing.assert_allclose(native.extract_volume_native(noise, h),
+                                   extract_volume_np(noise, h), atol=1e-4)

@@ -180,10 +180,24 @@ def test_parselmouth_f0_matches_jax(f0_hz, vibrato):
 
 
 def test_f0_extractor_backends():
-    with pytest.raises(NotImplementedError, match="native"):
-        features.F0Extractor("parselmouth", backend="native", device="cpu")
-    with pytest.raises(NotImplementedError, match="native"):
-        features.F0Extractor("parselmouth", backend="auto", device="cpu")
+    """'native' and 'auto' run the parselmouth family on the port's NCCF
+    library: the JAX package's native backend's f0 bit for bit (both
+    libraries built here with the same flags), the frame contract
+    (silence_front, uv_interp) included. An unknown backend or family
+    raises."""
+    sr, hop = 44100, 512
+    audio, _ = _tone(220.0, sr, 1.0, 0.03)
+    audio[:8000] = 0.0
+    ref = jfeatures.F0Extractor("parselmouth", sr, hop, 65, 800,
+                                backend="native").extract(
+        audio, uv_interp=True, silence_front=0.05)
+    for backend in ("native", "auto"):
+        got = features.F0Extractor("parselmouth", sr, hop, 65, 800,
+                                   backend=backend).extract(
+            audio, uv_interp=True, silence_front=0.05)
+        assert np.array_equal(got, ref)
+    with pytest.raises(ValueError):
+        features.F0Extractor("parselmouth", backend="jax", device="cpu")
     with pytest.raises(ValueError):
         features.F0Extractor("yin", device="cpu")
 

@@ -3,8 +3,9 @@ flax, msgpack and the JAX package (every module, the training ones, the Sins
 and CombSub synthesizers, the resampler, the enhancer's forms with an
 adaptive key and staged bf16, and the feature front end and the offline
 CLI included), and entry points, the trainer's, the factory's for all three
-synthesizers, `load_model`, `run_inference`, the CLI, `UnitsEncoder` and the
-torch f0 extractors among them, never fall back to the CPU."""
+synthesizers, `load_model`, `run_inference`, `run_inference_batch`, the
+CLI, the preprocess entry, `UnitsEncoder` and the torch f0 extractors among
+them, never fall back to the CPU."""
 import ast
 import os
 import pathlib
@@ -93,8 +94,17 @@ from ddsp_svc_tpu_torch.infer.__main__ import main as cli_main
 from ddsp_svc_tpu_torch.infer.offline import run_inference
 from ddsp_svc_tpu_torch.models.factory import load_model
 from ddsp_svc_tpu_torch.utils.config import save_config
+from ddsp_svc_tpu_torch.infer.batch import run_inference_batch
+from ddsp_svc_tpu_torch.preprocess import main as preprocess_main
 ckpt = os.path.join(os.path.dirname(cfg), "model_0.pt")
 save_config(os.path.join(os.path.dirname(cfg), "config.yaml"), args)
+pre_cfg = os.path.join(os.path.dirname(cfg), "pre.yaml")
+with open(pre_cfg, "w") as f:
+    yaml.safe_dump({**dict(args), "data": {
+        **args["data"], "f0_extractor": "parselmouth", "f0_min": 65,
+        "f0_max": 800, "encoder": "hubertsoft", "encoder_ckpt": None,
+        "encoder_sample_rate": 16000, "encoder_hop_size": 320,
+        "train_path": "train", "valid_path": "val"}}, f)
 torch.save(model.state_dict(), ckpt)
 assert load_model(ckpt, device="cpu")[1].data.block_size == 64
 
@@ -104,6 +114,8 @@ for make in (lambda: build_model(args), lambda: build_model(others[0]),
              lambda: Enhancer("nsf-hifigan", None, h=h),
              lambda: train_main(["-c", cfg]), lambda: load_model(ckpt),
              lambda: run_inference(ckpt, "in.wav", "out.wav"),
+             lambda: run_inference_batch(ckpt, ["in.wav"], "out"),
+             lambda: preprocess_main(["-c", pre_cfg]),
              lambda: cli_main(["-m", ckpt, "-i", "in.wav", "-o", "out.wav"]),
              lambda: UnitsEncoder("hubertsoft", None),
              lambda: F0Extractor("crepe"), lambda: F0Extractor("parselmouth")):
