@@ -48,6 +48,19 @@ Phases, each printing its own lines:
      the store's files, f0_stats.npy against the clips' pitch, the units
      against the CPU's plain path (1e-4 x max|ref|), the stage walls and
      files/s, then one trainer step that reads the store;
+  4d. streaming, with the CLI phase's checkpoints: a 10.8 s sung 44.1 kHz
+     wav through `python -m ddsp_svc_tpu_torch.stream`'s session at
+     gui.py's defaults (SOLA: 0.9 s windows of 78 frames in the 128-frame
+     bucket, enhancer on, fp32, noise and SineGen phases injected) at
+     pipeline_depth 0, at depth 1 (bit for bit depth 0's blocks, one
+     late) and on the plain versions (each window within 1e-3 x max|ref|,
+     the spliced blocks where the SOLA shifts agree); #1/#2/#3/#4 at
+     3/1/1/3 a window; the block walls (p50/p95/max against 300 ms) and a
+     warm window's stages; then a causal + frame_norm model_0.pt from a seed
+     through IncrementalSession (26 frames a block, dio): its replay
+     through the engine (atol 2e-5), the engine against the batch forward
+     on 64 frames (1e-3 x max|ref|; #2 once, #1 never), the block walls
+     and the CUDA launches a frame (torch.profiler);
   5. offline paths: conversion (`convert_features`) with each synthesizer
      at the full width of its config (CombSubFast from configs/combsub.yaml,
      Sins from configs/sins.yaml, CombSub from configs/combsub-old.yaml) and
@@ -1856,6 +1869,264 @@ def preprocess_phase(torch, K, card: str, ckpt: str) -> dict:
     return counts
 
 
+# the streaming phase: a 10.8 s sung wav (two phrases split by 0.5 s of
+# silence) through gui.py's defaults, and the incremental engine's blocks
+STREAM_PHRASES = (5.0, 5.3)
+STREAM_PER_WINDOW = {"performer_attention": 3, "combsub_spectral": 1,
+                     "harmonic_source": 1, "fused_resblocks_inject": 3}
+# StreamingSession's own arguments among StreamConfig.session_kwargs()'s;
+# the rest go to SvcCore.infer
+STREAM_SESSION_KEYS = ("samplerate", "block_time", "crossfade_time",
+                       "buffer_num", "use_phase_vocoder", "pipeline_depth")
+INC_FRAMES_PER_BLOCK = 26
+INC_BATCH_FRAMES = 64
+
+
+def _percentiles(walls) -> str:
+    ms = np.asarray(walls) * 1e3
+    return (f"p50 {np.percentile(ms, 50):.1f} / p95 {np.percentile(ms, 95):.1f}"
+            f" / max {ms.max():.1f} ms")
+
+
+def stream_phase(torch, K, card: str, ckpts: dict, device: str = "cuda"
+                 ) -> dict:
+    """Streaming conversion at configs/combsub.yaml's full width with the
+    CLI phase's checkpoints (HuBERT-soft, H_NSF). SOLA: the sung wav through
+    `python -m ddsp_svc_tpu_torch.stream`'s session with gui.py's defaults
+    (44.1 kHz, blocks of 0.3 s, crossfade 0.04, buffer 2, dio, the enhancer
+    on in fp32), with injected noise and SineGen phases, at pipeline_depth 0,
+    at depth 1 (bit for bit depth 0's blocks, one block late) and on the
+    plain versions (each window within 1e-3 of max |ref|; the spliced
+    blocks where the SOLA shifts agree); #1-#4 at 3/1/1/3 a window; the
+    per-block walls against the 300 ms block and one warm window's stages.
+    Incremental: a causal + frame_norm model_0.pt from a seed through
+    `IncrementalSession` (26 frames a block, dio): its recorded features
+    replayed through a fresh engine (atol 2e-5), the engine against the
+    model's batch forward on 64 frames (1e-3 of max |ref|; the forward
+    launches #2 once, #1 never), the per-block walls and the CUDA launches
+    a frame (torch.profiler, one warm block). Returns the launch counts of
+    the two SOLA runs on the kernels."""
+    import yaml
+    from ddsp_svc_tpu_torch import stream as entry
+    from ddsp_svc_tpu_torch.infer.realtime import IncrementalSession
+    from ddsp_svc_tpu_torch.infer.streaming import StreamingSession, SvcCore
+    from ddsp_svc_tpu_torch.models.factory import build_model
+    from ddsp_svc_tpu_torch.models.incremental import IncrementalCombSubFast
+    from ddsp_svc_tpu_torch.train.checkpoint import save_checkpoint
+    from ddsp_svc_tpu_torch.utils.config import load_config
+
+    # ---- SOLA ----
+    cfg = entry.effective_config(entry.parse_args(["-m", ckpts["fp32"]]))
+    sr = cfg.samplerate
+    audio = sung_wav(sr, seed=2, phrases=STREAM_PHRASES)
+    core = SvcCore(cfg.checkpoint_path, device=device)
+    bs = int(core.args.data.block_size)
+    rng = np.random.default_rng(11)
+    noises, rand_inis = {}, {}
+
+    def noise_hook(step, shape):
+        if step not in noises:
+            noises[step] = (rng.random(shape) * 2 - 1).astype(np.float32)
+        return noises[step]
+
+    def rand_hook(step):
+        if step not in rand_inis:
+            rand_inis[step] = rng.random((1, 9)).astype(np.float32)
+            rand_inis[step][:, 0] = 0.0
+        return rand_inis[step]
+
+    infer = core.infer
+    windows = []
+
+    def recording(*a, **kw):
+        out = infer(*a, **kw)
+        if kw.get("materialize", True):
+            windows.append(out[0].copy())
+        return out
+
+    core.infer = recording
+
+    def run(depth, label, plain=False):
+        core._step = 0
+        windows.clear()
+        sess = StreamingSession(core, noise_hook=noise_hook,
+                                enhancer_rand_hook=rand_hook,
+                                **dict(cfg.session_kwargs(),
+                                       pipeline_depth=depth))
+        bf = sess.block_frame
+        n_blocks = len(audio) // bf
+        outs, walls = [], []
+        K.reset_launch_counts()
+        with plain_kernels(K) if plain else nullcontext():
+            for i in range(n_blocks):
+                t0 = time.perf_counter()
+                outs.append(sess.process_block(audio[i * bf:(i + 1) * bf]))
+                walls.append(time.perf_counter() - t0)
+            outs += sess.flush()
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        y = np.concatenate(outs)
+        if not (all(o.shape == (bf,) for o in outs) and np.isfinite(y).all()
+                and np.sqrt(np.mean(y ** 2)) > 0):
+            fail(f"SOLA {label}: blocks of {set(o.shape for o in outs)}, "
+                 f"finite {np.isfinite(y).all()}")
+        say(f"{card}: SOLA {label}: {n_blocks} blocks of {bf} samples "
+            f"({bf / sr * 1e3:.0f} ms): first {walls[0] * 1e3:.1f} ms, warm "
+            f"{_percentiles(walls[1:])}; launches {json.dumps(counts)}")
+        return outs, list(sess.shifts), counts, n_blocks, list(windows), sess
+
+    n_frames = int(cfg.block_time * sr * (1 + cfg.buffer_num)) // bs + 1
+    say(f"SOLA path: {len(audio) / sr:.3f} s wav at {sr} Hz; gui.py's "
+        f"defaults (block {cfg.block_time} s, crossfade {cfg.crossfade_time}"
+        f" s, buffer {cfg.buffer_num}, {cfg.pitch_extractor}, enhancer on, "
+        f"fp32): windows of {n_frames} frames in the "
+        f"{max(32, 1 << (n_frames - 1).bit_length())}-frame bucket, masked "
+        "to its own length")
+    outs0, shifts0, counts0, n_blocks, win0, sess0 = run(0, "pipeline_depth 0")
+    for name, per in STREAM_PER_WINDOW.items():
+        if counts0[name] != per * n_blocks:
+            fail(f"SOLA launched {name} {counts0[name]} times, expected "
+                 f"{per} a window x {n_blocks}")
+    outs1, _, counts1, _, _, _ = run(1, "pipeline_depth 1")
+    if not (len(outs1) == len(outs0) + 1 and not outs1[0].any() and all(
+            np.array_equal(a, b) for a, b in zip(outs0, outs1[1:]))):
+        fail("SOLA pipeline_depth 1 is not depth 0's stream, one block late")
+    say("SOLA pipeline_depth 1 = depth 0 bit for bit, one block late")
+    outs_p, shifts_p, _, _, win_p, _ = run(0, "on the plain versions",
+                                           plain=True)
+    err = max(float(np.abs(g - r).max() / np.abs(r).max())
+              for g, r in zip(win0, win_p))
+    agree = 0
+    while agree < len(shifts0) and shifts0[agree] == shifts_p[agree]:
+        agree += 1
+    same = sum(a == b for a, b in zip(shifts0, shifts_p))
+    scale = max(float(np.abs(r).max()) for r in outs_p)
+    splice_err = max([float(np.abs(g - r).max()) for g, r in
+                      zip(outs0[:agree], outs_p[:agree])] or [0.0])
+    say(f"SOLA kernels vs plain versions: each window max|err| <= "
+        f"{err:.3e} x its max|ref| (tolerance 1e-3); SOLA shifts agree on "
+        f"{same} of {len(shifts0)} blocks ({agree} from the start); spliced "
+        f"blocks there max|err| {splice_err / scale:.3e} x max|ref| "
+        f"(tolerance 1e-3)")
+    if not (err <= 1e-3 and splice_err <= 1e-3 * scale):
+        fail("the SOLA path disagrees with the plain versions")
+
+    # one warm window's stages (host clock, the device synchronised at each)
+    walls = {}
+    res = infer(sess0.input_wav, sr, walls=walls,
+                safe_prefix_pad_length=sess0.safe_prefix_pad_length,
+                **{k: v for k, v in cfg.session_kwargs().items()
+                   if k not in STREAM_SESSION_KEYS})
+    t0 = time.perf_counter()
+    sess0._splice(*res)
+    walls["splice"] = time.perf_counter() - t0
+    say(f"{card}: SOLA warm window stages: " + ", ".join(
+        f"{k} {v * 1e3:.1f} ms" for k, v in walls.items()))
+
+    # ---- incremental ----
+    work = os.path.dirname(os.path.dirname(ckpts["fp32"]))
+    exp = os.path.join(work, "exp_causal")
+    os.makedirs(exp, exist_ok=True)
+    args = load_config(os.path.join(os.path.dirname(ckpts["fp32"]),
+                                    "config.yaml"))
+    args["model"]["c"] = True
+    args["model"]["frame_norm"] = True
+    with open(os.path.join(exp, "config.yaml"), "w") as f:
+        yaml.safe_dump(json.loads(json.dumps(args)), f)
+    ckpt = os.path.join(exp, "model_0.pt")
+    save_checkpoint(ckpt, 0, build_model(args, device="cpu", seed=3))
+    sess = IncrementalSession.from_checkpoint(
+        ckpt, device=device, frames_per_block=INC_FRAMES_PER_BLOCK,
+        f0_extractor="dio", record=True)
+    n = sess.block_samples
+    inc_audio = audio[: (len(audio) // n) * n]
+    outs, walls = [], []
+    for i in range(len(inc_audio) // n):
+        t0 = time.perf_counter()
+        outs.append(sess.process_block(inc_audio[i * n:(i + 1) * n]))
+        walls.append(time.perf_counter() - t0)
+    outs.append(sess.flush())
+    y = np.concatenate(outs)
+    if not (y.shape == (len(inc_audio) + 2 * bs,) and np.isfinite(y).all()
+            and np.abs(y).max() > 0):
+        fail(f"incremental stream: shape {y.shape}, finite "
+             f"{np.isfinite(y).all()}")
+    say(f"{card}: incremental path (causal + frame_norm CombSubFast, "
+        f"{INC_FRAMES_PER_BLOCK} frames = {n} samples = "
+        f"{n / sr * 1e3:.1f} ms a block, lookahead "
+        f"{sess.lookahead_frames} frames, context {sess.ctx_frames}): "
+        f"{len(walls)} blocks, first {walls[0] * 1e3:.1f} ms, warm "
+        f"{_percentiles(walls[1:])}")
+    eng = IncrementalCombSubFast(sess.engine.model)
+    raw, _ = eng.process(eng.init_state(np.asarray([[1]])), *(
+        np.concatenate(sess.recorded[k], axis=1)
+        for k in ("units", "f0", "volume", "noise")))
+    replay = raw.cpu().numpy()[0] * np.concatenate(sess.recorded["mask"])
+    rep_err = float(np.abs(np.concatenate(outs[:-1]) - replay).max())
+    say(f"incremental session vs its features replayed through the engine: "
+        f"max|err| {rep_err:.3e} (tolerance atol 2e-5)")
+    if not rep_err <= 2e-5:
+        fail("the incremental session disagrees with its replay")
+
+    model = sess.engine.model
+    g = np.random.default_rng(12)
+    f = INC_BATCH_FRAMES
+    units = g.standard_normal((1, f, model.unit2ctrl.unit_prenet["1"]
+                               .in_channels)).astype(np.float32)
+    f0 = (150 + 250 * g.random((1, f, 1))).astype(np.float32)
+    volume = g.random((1, f)).astype(np.float32)
+    noise = (g.random((1, f * bs)) * 2 - 1).astype(np.float32)
+    spk = np.asarray([[1]], np.int64)
+    dev = [torch.as_tensor(a, device=device) for a in
+           (units, f0, volume, spk, noise)]
+    K.reset_launch_counts()
+    with torch.no_grad():
+        ref = model(*dev[:4], infer=True, noise=dev[4])[0].cpu().numpy()
+    counts = K.launch_counts()
+    shifted = np.zeros_like(noise)
+    shifted[:, bs:] = noise[:, :-bs]
+    got, st = eng.process(eng.init_state(spk), units, f0[:, :, 0], volume,
+                          shifted)
+    tail, _ = eng.flush(st, noise_last=noise[:, -bs:])
+    got = torch.cat([got, tail], -1).cpu().numpy()[:, 2 * bs:]
+    inc_err = float(np.abs(got - ref).max() / np.abs(ref).max())
+    say(f"incremental engine vs the batch forward on the card ({f} frames): "
+        f"max|err| {inc_err:.3e} x max|ref| (tolerance 1e-3); the forward "
+        f"launched combsub_spectral {counts['combsub_spectral']} and "
+        f"performer_attention {counts['performer_attention']} times "
+        "(expected 1 and 0)")
+    if not (inc_err <= 1e-3 and counts["combsub_spectral"] == 1
+            and counts["performer_attention"] == 0):
+        fail("the incremental engine or the causal batch forward is off")
+
+    # CUDA launches a frame over one warm block of the engine
+    from torch.profiler import ProfilerActivity, profile
+    blk = [np.concatenate(sess.recorded[k], axis=1)[
+        :, :INC_FRAMES_PER_BLOCK * (bs if k == "noise" else 1)]
+        for k in ("units", "f0", "volume", "noise")]
+    st = eng.init_state(spk)
+    eng.process(st, *blk)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.process(st, *blk)
+        torch.cuda.synchronize()
+    runtime = sum(e.count for e in prof.key_averages()
+                  if "LaunchKernel" in e.key or e.key == "cudaMemcpyAsync")
+    kernels = sum(1 for e in prof.events()
+                  if e.device_type.name == "CUDA")
+    t0 = time.perf_counter()
+    eng.process(st, *blk)
+    torch.cuda.synchronize()
+    block_ms = (time.perf_counter() - t0) * 1e3
+    say(f"{card}: incremental engine, one warm block of "
+        f"{INC_FRAMES_PER_BLOCK} frames: {block_ms:.1f} ms (profiler off); "
+        f"torch.profiler: {runtime} launch and copy calls on the host = "
+        f"{runtime / INC_FRAMES_PER_BLOCK:.1f} a frame, {kernels} device "
+        f"events = {kernels / INC_FRAMES_PER_BLOCK:.1f} a frame")
+    return {k: counts0[k] + counts1[k] for k in counts0}
+
+
 def main() -> None:
     try:
         import torch
@@ -1907,9 +2178,12 @@ def main() -> None:
     t0 = time.perf_counter()
     pre_counts = preprocess_phase(torch, K, smi[0], ckpts["fp32"])
     say(f"preprocess paths: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    stream_counts = stream_phase(torch, K, smi[0], ckpts)
+    say(f"streaming paths: {time.perf_counter() - t0:.1f} s")
     shutil.rmtree(os.path.join(ROOT, "build", "chip_smoke_cli"),
                   ignore_errors=True)
-    for counts in (cli_counts, batch_counts, pre_counts):
+    for counts in (cli_counts, batch_counts, pre_counts, stream_counts):
         for k, v in counts.items():
             launches[k] += v
     for synth, config, expect, full in SYNTHS:

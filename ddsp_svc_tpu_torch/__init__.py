@@ -8,12 +8,18 @@ against; nothing here imports it, JAX or flax. The layout mirrors it:
             sources in csrc/, built by ops/build.py)
     nn/     network modules (layers, PCmer, Unit2Control, NSF-HiFiGAN,
             HuBERT, CREPE)
-    models/ the three synthesizers, the model factory, load_model and the
-            bucketed synths (one segment, or a batch of them)
+    models/ the three synthesizers (causal, and CombSubFast with the
+            frame-local prenet norm, too), the model factory, load_model,
+            the bucketed synths (one segment, or a batch of them) and the
+            exact incremental engine (incremental.py)
     infer/  the enhancer front end, the offline segment loop,
-            run_inference, batched conversion (run_inference_batch) and
-            the CLI (python -m ddsp_svc_tpu_torch.infer, a wav or a
-            directory)
+            run_inference, batched conversion (run_inference_batch), the
+            CLI (python -m ddsp_svc_tpu_torch.infer, a wav or a
+            directory), SOLA streaming (streaming.py: SvcCore,
+            StreamingSession; stream_config.py: the settings profiles) and
+            the incremental real-time session (realtime.py)
+    stream  the streaming entry (python -m ddsp_svc_tpu_torch.stream, the
+            root gui.py's counterpart: a wav block by block, or live)
     data/   the silence slicer, wav I/O, the training loaders, the feature
             front end (f0, volume, units) and preprocessing (python -m
             ddsp_svc_tpu_torch.preprocess)

@@ -81,6 +81,23 @@ class GroupNorm(nn.Module):
         return xg.reshape(b, t, c) * self.weight + self.bias
 
 
+class FrameGroupNorm(GroupNorm):
+    """GroupNorm with frame-local statistics: each frame's channel groups
+    are normalised on their own, with no reduction over time, so a causal
+    model built with it depends on no future frame (the exact incremental
+    engine, models/incremental.py, needs that). Padding cannot leak into
+    the statistics, so `valid_frames` is a no-op. The parameters carry
+    GroupNorm's names."""
+
+    def forward(self, x: torch.Tensor, valid_frames=None) -> torch.Tensor:
+        b, t, c = x.shape
+        xg = x.reshape(b, t, self.num_groups, c // self.num_groups)
+        mean = xg.mean(dim=3, keepdim=True)
+        var = ((xg - mean) ** 2).mean(dim=3, keepdim=True)
+        xg = (xg - mean) * torch.rsqrt(var + self.eps)
+        return xg.reshape(b, t, c) * self.weight + self.bias
+
+
 class WeightNormDense(nn.Module):
     """Linear layer under torch weight_norm (dim=0): W = g * V / ||V||, the
     norm per output unit over the input axis (the Unit2Control head)."""

@@ -1,4 +1,4 @@
-"""PCmer: the conformer-performer backbone of Unit2Control, non-causal path.
+"""PCmer: the conformer-performer backbone of Unit2Control.
 
 Counterpart of `ddsp_svc_tpu/nn/pcmer.py`. Each layer is
     x = x + SelfAttention(LayerNorm(x));  x = x + ConformerConvModule(x)
@@ -7,9 +7,12 @@ random features). Module and buffer names follow the reference model's
 state dict (`net.{i}.attn.to_q`, `attn.fast_attention.projection_matrix`,
 `local_mixer.net.{0,2,4,6}`).
 
-At inference the attention runs through the hand-written kernel
+At inference the non-causal attention runs through the hand-written kernel
 (`ops.kernels.performer_attention`); training and the CPU take the plain
-softmax_kernel + linear_attention below.
+softmax_kernel + linear_attention below. A causal layer (`causal=True`, the
+streamable models) takes `causal_linear_attention`, a chunked prefix scan
+of plain products, in training and at inference alike: the JAX package
+never routes a causal layer to its Pallas attention either.
 
 compute_dtype=torch.bfloat16 (model.bf16) runs the QKV/out projections, the
 random-feature projection, the attention contractions and the conv module's
@@ -87,6 +90,47 @@ def linear_attention(q: torch.Tensor, k: torch.Tensor,
                         d_inv.to(q.dtype))
 
 
+def causal_linear_attention(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, chunk: int = 128,
+                            eps: float = 1e-6) -> torch.Tensor:
+    """Causal linear attention as a chunked prefix scan. q, k (B, H, T, m)
+    features; v (B, H, T, d) -> (B, H, T, d):
+
+        out[t] = (q[t] S_t) / (q[t] . (K_t + eps)),
+        S_t = sum_{s<=t} k[s] v[s]^T,  K_t = sum_{s<=t} k[s].
+
+    Within a chunk of `chunk` frames the causal interaction is a masked
+    (C x C) product; across chunks an (m x d) state and an (m,) key sum
+    are carried in fp32 whatever the inputs' dtype (they grow with T, and
+    bf16 would drop late contributions). T is zero-padded to a multiple of
+    the chunk; padded positions have q = k = 0, so their denominator is 0,
+    and they divide by 1 instead, which keeps the backward free of NaNs
+    (real positions always have a positive denominator: FAVOR+ features
+    are positive)."""
+    b, h, t, m = q.shape
+    pad = (-t) % chunk
+    if pad:
+        q, k, v = (F.pad(x, (0, 0, 0, pad)) for x in (q, k, v))
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=q.dtype,
+                                 device=q.device))
+    s = torch.zeros((b, h, m, v.shape[-1]), dtype=torch.float32,
+                    device=q.device)
+    ksum = torch.zeros((b, h, m), dtype=torch.float32, device=q.device)
+    outs = []
+    for lo in range(0, t + pad, chunk):
+        qi, ki, vi = (x[:, :, lo:lo + chunk] for x in (q, k, v))
+        attn = torch.einsum("bhim,bhjm->bhij", qi, ki) * mask
+        num = (torch.einsum("bhij,bhjd->bhid", attn, vi)
+               + torch.einsum("bhim,bhmd->bhid", qi, s.to(qi.dtype)))
+        k_cum = torch.cumsum(ki.float(), dim=-2) + ksum[:, :, None, :]
+        denom = torch.einsum("bhim,bhim->bhi", qi.float(), k_cum + eps)
+        safe = torch.where(denom > 0, denom, torch.ones_like(denom))
+        outs.append((num.float() / safe[..., None]).to(qi.dtype))
+        s = s + torch.einsum("bhjm,bhjd->bhmd", ki, vi).float()
+        ksum = ksum + ki.float().sum(dim=-2)
+    return torch.cat(outs, dim=2)[:, :, :t]
+
+
 class FastAttention(nn.Module):
     """Holds the fixed random projection, as the reference module does."""
 
@@ -102,9 +146,7 @@ class SelfAttention(nn.Module):
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 64,
                  causal: bool = False, proj_seed: int = 0, compute_dtype=None):
         super().__init__()
-        if causal:
-            raise NotImplementedError(
-                "causal PCmer attention is not ported yet")
+        self.causal = causal
         self.heads = heads
         self.dim_head = dim_head
         self.compute_dtype = compute_dtype
@@ -129,7 +171,14 @@ class SelfAttention(nn.Module):
 
         q, k, v = (split_heads(f) for f in (self.to_q, self.to_k, self.to_v))
         proj = self.fast_attention.projection_matrix
-        if infer:
+        if self.causal:
+            qf = softmax_kernel(q, proj, is_query=True)
+            kf = softmax_kernel(k, proj, is_query=False)
+            if valid_frames is not None:
+                kf = kf * frame_mask(n, valid_frames, kf.dtype,
+                                     kf.device)[:, None, :, None]
+            out = causal_linear_attention(qf, kf, v)
+        elif infer:
             # the attention kernel takes fp32 only: bf16 q, k, v are cast up
             # for it (the JAX kernel feeds its matrix unit bf16 here instead)
             out = performer_attention(q.float(), k.float(), v.float(), proj,

@@ -1,7 +1,8 @@
 """Unit2Control: units + f0/phase/volume/speaker -> DSP control parameters.
 
 Counterpart of `ddsp_svc_tpu/nn/unit2control.py`:
-  PreNet (Conv k3 -> GroupNorm(4) -> LeakyReLU -> Conv k3)
+  PreNet (Conv k3 -> GroupNorm(4), or FrameGroupNorm(4) with frame_norm,
+  -> LeakyReLU -> Conv k3; causal convs with `causal`)
   + Linear(1, 256) embeddings of log-scaled f0, phase/pi and volume
   + the speaker embedding, ids counted from 1 (or a {spk: weight} mix)
   -> PCmer(3 layers, 8 heads, 256) -> LayerNorm -> weight-norm Linear
@@ -20,7 +21,8 @@ import torch
 import torch.nn as nn
 
 from ..ops.masking import frame_mask, valid_col
-from .layers import Conv1d, GroupNorm, WeightNormDense, leaky_relu
+from .layers import (Conv1d, FrameGroupNorm, GroupNorm, WeightNormDense,
+                     leaky_relu)
 from .pcmer import PCmer
 
 
@@ -40,14 +42,11 @@ class Unit2Control(nn.Module):
                  num_heads: int = 8, frame_norm: bool = False,
                  compute_dtype=None):
         super().__init__()
-        if frame_norm:
-            raise NotImplementedError(
-                "frame-local prenet norm (frame_norm) is not ported yet")
         d = ndim_feat
         self.output_splits = dict(output_splits)
         self.unit_prenet = nn.ModuleDict({
             "1": Conv1d(input_channel, d, 3, causal=causal),
-            "2": GroupNorm(4, d),
+            "2": (FrameGroupNorm if frame_norm else GroupNorm)(4, d),
             "4": Conv1d(d, d, 3, causal=causal),
         })
         self.f0_embed = nn.Linear(1, d)

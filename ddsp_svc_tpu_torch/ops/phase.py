@@ -90,6 +90,31 @@ def _cumsum_mod1_compensated(x: torch.Tensor, dim: int = -1,
     return _wrap(hi + lo)
 
 
+def frame_totals(a: torch.Tensor, nxt: torch.Tensor, block: int, sr: int):
+    """Each frame's rotation total (block a + (block - 1) / 2 (nxt - a)) / sr
+    [turns] of f0 lerped from a to nxt over the frame, as an exact
+    double-single pair (hi, lo)."""
+    t1_hi, t1_lo = _two_prod(torch.full_like(a, float(block)), a)
+    sl_hi, sl_lo = _two_sum(nxt, -a)
+    half = float(np.float32((block - 1) / 2.0))
+    t2_hi, t2_lo = _two_prod(sl_hi, torch.full_like(a, half))
+    t2_lo = t2_lo + sl_lo * half
+    s_hi, e1 = _two_sum(t1_hi, t2_hi)
+    s_lo = t1_lo + t2_lo + e1
+    s_hi, s_lo = _fast_two_sum(s_hi, s_lo)
+    return _div_ds(s_hi, s_lo, float(np.float32(sr)))
+
+
+def frame_inner(a: torch.Tensor, slope: torch.Tensor, block: int,
+                sr: int) -> torch.Tensor:
+    """The inclusive rotation within a frame, ((s + 1) a + s (s + 1) /
+    (2 block) slope) / sr for s < block, in the closed form of the lerped
+    f0's prefix sum: (...,) -> (..., block), not wrapped."""
+    s = torch.arange(block, dtype=a.dtype, device=a.device)
+    tri = (s * (s + 1.0)) * float(np.float32(0.5 / block))
+    return ((s + 1.0) * a[..., None] + tri * slope[..., None]) / sr
+
+
 def f0_to_rot_upsampled(f0_frames: torch.Tensor, block: int, sr: int,
                         initial_phase: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
@@ -102,25 +127,13 @@ def f0_to_rot_upsampled(f0_frames: torch.Tensor, block: int, sr: int,
     """
     a = f0_frames
     nxt = torch.cat([a[:, 1:], a[:, -1:]], dim=1)
-    slope = nxt - a
-    t1_hi, t1_lo = _two_prod(torch.full_like(a, float(block)), a)
-    sl_hi, sl_lo = _two_sum(nxt, -a)
-    half = float(np.float32((block - 1) / 2.0))
-    t2_hi, t2_lo = _two_prod(sl_hi, torch.full_like(a, half))
-    t2_lo = t2_lo + sl_lo * half
-    s_hi, e1 = _two_sum(t1_hi, t2_hi)
-    s_lo = t1_lo + t2_lo + e1
-    s_hi, s_lo = _fast_two_sum(s_hi, s_lo)
-    s_hi, s_lo = _div_ds(s_hi, s_lo, float(np.float32(sr)))
+    s_hi, s_lo = frame_totals(a, nxt, block, sr)
     # exclusive prefix via zero-prepend
     zeros = torch.zeros_like(s_hi[:, :1])
     shifted_hi = torch.cat([zeros, s_hi[:, :-1]], dim=1)
     shifted_lo = torch.cat([zeros, s_lo[:, :-1]], dim=1)
     carry = _cumsum_mod1_compensated(shifted_hi, dim=1, x_lo=shifted_lo)
-    s = torch.arange(block, dtype=a.dtype, device=a.device)
-    tri = (s * (s + 1.0)) * float(np.float32(0.5 / block))
-    inner = ((s + 1.0)[None, None, :] * a[..., None]
-             + tri[None, None, :] * slope[..., None]) / sr
+    inner = frame_inner(a, nxt - a, block, sr)
     rot = _wrap(_wrap(inner) + carry[..., None])
     if initial_phase is not None:
         rot = _wrap(rot + initial_phase[..., None, None].to(rot.dtype)

@@ -988,7 +988,7 @@ def test_cli_on_card_matches_plain(cuda, tmp_path, monkeypatch):
     h = {"sampling_rate": sr, "num_mels": 16, "n_fft": 512, "win_size": 512,
          "hop_size": 128, "fmin": 40, "fmax": 8000,
          "upsample_rates": [4, 4, 8], "upsample_kernel_sizes": [8, 8, 16],
-         "upsample_initial_channel": 32, "resblock_kernel_sizes": [3, 7, 11],
+         "upsample_initial_channel": 64, "resblock_kernel_sizes": [3, 7, 11],
          "resblock_dilation_sizes": [[1, 3, 5]] * 3}
     nsf = NsfHifiGAN(None, h=h, seed=6, device="cpu")
     torch.save({"generator": nsf.model.state_dict()}, tmp_path / "nsf.pt")
@@ -1159,3 +1159,178 @@ def test_native_library_on_card_host(cuda):
     for h in (512.0, 185.76):
         np.testing.assert_allclose(native.extract_volume_native(noise, h),
                                    extract_volume_np(noise, h), atol=1e-4)
+
+
+# ------------------------------------------- streaming and real time ----
+
+
+def _causal_model(device, n_unit=256):
+    """A causal + frame_norm CombSubFast at 16 kHz, block 256, seed 3."""
+    from ddsp_svc_tpu_torch.models.factory import build_model
+    from ddsp_svc_tpu_torch.utils.config import DotDict
+
+    args = DotDict({"data": {"sampling_rate": 16000, "block_size": 256,
+                             "encoder_out_channels": n_unit},
+                    "model": {"type": "CombSubFast", "n_spk": 2, "c": True,
+                              "frame_norm": True}})
+    return build_model(args, device=device, seed=3)
+
+
+def _causal_inputs(device, f, seed=0):
+    rng = np.random.default_rng(seed)
+    arrays = (rng.standard_normal((1, f, 256)).astype(np.float32),
+              (150 + 100 * rng.random((1, f, 1))).astype(np.float32),
+              rng.random((1, f)).astype(np.float32),
+              np.asarray([[2]], np.int64),
+              (rng.random((1, f * 256)) * 2 - 1).astype(np.float32))
+    return arrays, [torch.as_tensor(a, device=device) for a in arrays]
+
+
+def test_causal_forward_on_card(cuda):
+    """The causal + frame_norm CombSubFast at infer=True on the card against
+    the same weights on the CPU: 1e-3 of max |ref| (chip_smoke.py's path
+    gate); the spectral kernel (#2) launched once, the attention kernel
+    (#1) never (a causal layer takes the prefix scan, as in JAX)."""
+    cpu_model = _causal_model("cpu")
+    model = _causal_model(cuda)
+    _, host = _causal_inputs("cpu", 100)
+    _, dev = _causal_inputs(cuda, 100)
+    with torch.no_grad():
+        ref = cpu_model(*host[:4], infer=True, noise=host[4])[0]
+        K.reset_launch_counts()
+        got = model(*dev[:4], infer=True, noise=dev[4])[0]
+        counts = K.launch_counts()
+    assert counts["combsub_spectral"] == 1, counts
+    assert counts["performer_attention"] == 0, counts
+    assert (got.cpu() - ref).abs().max() <= 1e-3 * ref.abs().max()
+
+
+def test_incremental_engine_on_card_matches_batch(cuda):
+    """IncrementalCombSubFast on the card over 40 frames and the flush
+    against the model's batch forward on the card: 1e-3 of max |ref| (the
+    JAX package's bound, tests/test_incremental.py)."""
+    from ddsp_svc_tpu_torch.models.incremental import IncrementalCombSubFast
+
+    model = _causal_model(cuda)
+    (units, f0, volume, spk, noise), dev = _causal_inputs(cuda, 40, seed=1)
+    with torch.no_grad():
+        ref = model(*dev[:4], infer=True, noise=dev[4])[0].cpu().numpy()
+    shifted = np.zeros_like(noise)
+    shifted[:, 256:] = noise[:, :-256]
+    eng = IncrementalCombSubFast(model)
+    audio, state = eng.process(eng.init_state(spk), units, f0[:, :, 0],
+                               volume, shifted)
+    tail, _ = eng.flush(state, noise_last=noise[:, -256:])
+    assert audio.device == model.unit2ctrl.f0_embed.weight.device
+    got = torch.cat([audio, tail], -1).cpu().numpy()[:, 512:]
+    assert np.abs(got - ref).max() <= 1e-3 * np.abs(ref).max()
+
+
+def _stream_exp(tmp_path):
+    """A non-causal CombSubFast experiment with HuBERT-soft and NSF-HiFiGAN
+    checkpoints (16 kHz, block 256; the enhancer's stages of 32, 16 and 8
+    channels all take the trio kernel)."""
+    import json
+
+    import yaml
+
+    from ddsp_svc_tpu_torch.infer.enhancer import NsfHifiGAN
+    from ddsp_svc_tpu_torch.models.factory import build_model
+    from ddsp_svc_tpu_torch.nn.hubert import HubertSoft, init_hubert_
+    from ddsp_svc_tpu_torch.train.checkpoint import save_checkpoint
+    from ddsp_svc_tpu_torch.utils.config import DotDict
+
+    sd = init_hubert_(HubertSoft(), torch.Generator().manual_seed(5)).state_dict()
+    w = sd.pop("positional_embedding.conv.weight")
+    sd["positional_embedding.conv.weight_g"] = w.pow(2).sum((0, 1), keepdim=True).sqrt()
+    sd["positional_embedding.conv.weight_v"] = w
+    torch.save(sd, tmp_path / "hubert.pt")
+    h = {"sampling_rate": 16000, "num_mels": 16, "n_fft": 512,
+         "win_size": 512, "hop_size": 128, "fmin": 40, "fmax": 8000,
+         "upsample_rates": [4, 4, 8], "upsample_kernel_sizes": [8, 8, 16],
+         "upsample_initial_channel": 64, "resblock_kernel_sizes": [3, 7, 11],
+         "resblock_dilation_sizes": [[1, 3, 5]] * 3}
+    nsf = NsfHifiGAN(None, h=h, seed=6, device="cpu")
+    torch.save({"generator": nsf.model.state_dict()}, tmp_path / "nsf.pt")
+    (tmp_path / "config.json").write_text(json.dumps(h))
+    args = {"data": {"sampling_rate": 16000, "block_size": 256,
+                     "encoder": "hubertsoft", "encoder_sample_rate": 16000,
+                     "encoder_hop_size": 320, "encoder_out_channels": 256,
+                     "encoder_ckpt": str(tmp_path / "hubert.pt")},
+            "model": {"type": "CombSubFast", "n_spk": 2},
+            "enhancer": {"type": "nsf-hifigan",
+                         "ckpt": str(tmp_path / "nsf.pt")}}
+    (tmp_path / "config.yaml").write_text(yaml.safe_dump(args))
+    save_checkpoint(str(tmp_path / "model_0.pt"), 0,
+                    build_model(DotDict(args), device="cpu", seed=7))
+    t = np.arange(16000 * 2) / 16000
+    ph = 2 * np.pi * np.cumsum(200 * (1 + 0.03 * np.sin(2 * np.pi * 5 * t))) / 16000
+    return str(tmp_path / "model_0.pt"), (0.4 * np.sin(ph)).astype(np.float32)
+
+
+def test_sola_window_launches_and_pipeline_on_card(cuda, tmp_path,
+                                                   monkeypatch):
+    """gui.py's defaults at 16 kHz through StreamingSession on the card,
+    enhancer on: #1/#2/#3/#4 launched 3/1/1/3 times a window; each window
+    on the kernels against the plain versions within 1e-3 of max |ref|;
+    pipeline_depth 1 gives the sequential blocks bit for bit, one block
+    late."""
+    from ddsp_svc_tpu_torch.infer.streaming import StreamingSession, SvcCore
+
+    path, audio = _stream_exp(tmp_path)
+    core = SvcCore(path, device=cuda)
+    kw = dict(samplerate=16000, block_time=0.3, crossfade_time=0.04,
+              buffer_num=2, pitch_extractor_type="dio",
+              enhancer_adaptive_key=0)
+    windows = []
+    infer = core.infer
+
+    def recording(*a, **k):
+        out = infer(*a, **k)
+        windows.append(out)
+        return out
+
+    def run(depth):
+        core._step = 0
+        sess = StreamingSession(core, pipeline_depth=depth, **kw)
+        bf = sess.block_frame
+        outs = [sess.process_block(audio[i * bf:(i + 1) * bf])
+                for i in range(len(audio) // bf)]
+        return outs + sess.flush()
+
+    monkeypatch.setattr(core, "infer", recording)
+    K.reset_launch_counts()
+    plain_run = run(0)
+    counts = K.launch_counts()
+    n = len(windows)
+    expect = {"performer_attention": 3, "combsub_spectral": 1,
+              "harmonic_source": 1, "fused_resblocks_inject": 3}
+    for name, per in expect.items():
+        assert counts[name] == per * n, (name, counts)
+    got = [w[0] for w in windows]
+    windows.clear()
+    for mod, name, fn in _plain_swaps():
+        monkeypatch.setattr(mod, name, fn)
+    run(0)
+    for g, (r, _) in zip(got, windows):
+        assert np.abs(g - r).max() <= 1e-3 * np.abs(r).max()
+    monkeypatch.undo()
+    piped = run(1)
+    assert len(piped) == len(plain_run) + 1 and not piped[0].any()
+    for a, b in zip(plain_run, piped[1:]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_stream_entry_on_card(cuda, tmp_path):
+    """python -m ddsp_svc_tpu_torch.stream's main with no --device runs on
+    the card: a 2 s wav streamed block by block, written, finite, live."""
+    from ddsp_svc_tpu_torch import stream
+    from ddsp_svc_tpu_torch.data.wavio import read_wav, write_wav
+
+    path, audio = _stream_exp(tmp_path)
+    write_wav(str(tmp_path / "in.wav"), audio, 16000)
+    stream.main(["-m", path, "-i", str(tmp_path / "in.wav"), "-o",
+                 str(tmp_path / "out.wav"), "-sr", "16000", "-pe", "dio"])
+    out, sr = read_wav(str(tmp_path / "out.wav"))
+    assert sr == 16000 and out.shape == (6 * 4800,)
+    assert np.isfinite(out).all() and np.abs(out).max() > 1e-3

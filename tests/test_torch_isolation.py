@@ -4,8 +4,9 @@ and CombSub synthesizers, the resampler, the enhancer's forms with an
 adaptive key and staged bf16, and the feature front end and the offline
 CLI included), and entry points, the trainer's, the factory's for all three
 synthesizers, `load_model`, `run_inference`, `run_inference_batch`, the
-CLI, the preprocess entry, `UnitsEncoder` and the torch f0 extractors among
-them, never fall back to the CPU."""
+CLI, the preprocess entry, the streaming entry, `SvcCore`,
+`IncrementalSession.from_checkpoint`, `UnitsEncoder` and the torch f0
+extractors among them, never fall back to the CPU."""
 import ast
 import os
 import pathlib
@@ -96,6 +97,9 @@ from ddsp_svc_tpu_torch.models.factory import load_model
 from ddsp_svc_tpu_torch.utils.config import save_config
 from ddsp_svc_tpu_torch.infer.batch import run_inference_batch
 from ddsp_svc_tpu_torch.preprocess import main as preprocess_main
+from ddsp_svc_tpu_torch.stream import main as stream_main
+from ddsp_svc_tpu_torch.infer.streaming import SvcCore
+from ddsp_svc_tpu_torch.infer.realtime import IncrementalSession
 ckpt = os.path.join(os.path.dirname(cfg), "model_0.pt")
 save_config(os.path.join(os.path.dirname(cfg), "config.yaml"), args)
 pre_cfg = os.path.join(os.path.dirname(cfg), "pre.yaml")
@@ -117,6 +121,9 @@ for make in (lambda: build_model(args), lambda: build_model(others[0]),
              lambda: run_inference_batch(ckpt, ["in.wav"], "out"),
              lambda: preprocess_main(["-c", pre_cfg]),
              lambda: cli_main(["-m", ckpt, "-i", "in.wav", "-o", "out.wav"]),
+             lambda: stream_main(["-m", ckpt, "-i", "in.wav", "-o", "out.wav"]),
+             lambda: SvcCore(ckpt),
+             lambda: IncrementalSession.from_checkpoint(ckpt),
              lambda: UnitsEncoder("hubertsoft", None),
              lambda: F0Extractor("crepe"), lambda: F0Extractor("parselmouth")):
     try:
