@@ -48,7 +48,18 @@ Phases, each printing its own lines:
      the store's files, f0_stats.npy against the clips' pitch, the units
      against the CPU's plain path (1e-4 x max|ref|), the stage walls and
      files/s, then one trainer step that reads the store;
-  4d. streaming, with the CLI phase's checkpoints: a 10.8 s sung 44.1 kHz
+  4d. enhancer GAN fine-tuning (`python -m ddsp_svc_tpu_torch.train_gan`)
+     at H_NSF's full width warm-started from the CLI phase's NSF-HiFiGAN,
+     batch 8 x 32-frame crops of a 2 x 3 x 4 s store: one D and one G step
+     on the kernels against the plain versions (each loss term 1e-4
+     relative, every gradient through grads_agree; #3/#4 at 1/3 a step);
+     ms per D, G and D + G step, it/s, peak memory and a warm G step's
+     device time by part (torch.profiler); the entry's 4 steps, a resume to
+     6 and 2 steps on the device clip pool (checkpoints, exports,
+     config.json, #3/#4 at 1/3 a generator forward); the exported
+     model_best.pt converting the CLI phase's wav through the CLI (#3/#4 at
+     1/3 a segment);
+  4e. streaming, with the CLI phase's checkpoints: a 10.8 s sung 44.1 kHz
      wav through `python -m ddsp_svc_tpu_torch.stream`'s session at
      gui.py's defaults (SOLA: 0.9 s windows of 78 frames in the 128-frame
      bucket, enhancer on, fp32, noise and SineGen phases injected) at
@@ -1182,10 +1193,15 @@ def write_dataset(root: str, n_spk: int, files_per_spk: int, seconds: float,
 
 def grads_agree(label, model_k, model_p, tol_rel: float, tol_cos: float):
     """Every parameter gradient of the kernel run against the plain run:
-    relative L2 distance and cosine. Returns the worst of each."""
+    relative L2 distance and cosine; a missing one fails by name. Returns
+    the worst of each."""
     worst_rel, worst_cos = 0.0, 1.0
     plain = dict(model_p.named_parameters())
     for name, p in model_k.named_parameters():
+        if p.grad is None or plain[name].grad is None:
+            fail(f"{label}: no gradient of {name} (kernels "
+                 f"{p.grad is not None}, plain versions "
+                 f"{plain[name].grad is not None})")
         g, r = p.grad.double(), plain[name].grad.double()
         nr = r.norm().item()
         rel = (g - r).norm().item() / (nr + 1e-12)
@@ -1869,6 +1885,383 @@ def preprocess_phase(torch, K, card: str, ckpt: str) -> dict:
     return counts
 
 
+# the GAN phase: H_NSF fine-tuned at the train.gan block's defaults (batch 8
+# x 32-frame crops); each D or G step runs the generator once: #3 once and
+# #4 at each of the three narrow stages
+GAN_BATCH, GAN_CROP = 8, 32
+GAN_PER_FORWARD = {"harmonic_source": 1, "fused_resblocks_inject": 3}
+GAN_TIMED = 5
+GAN_LOSS_RTOL = 1e-4
+# the device-time split of a G step: the innermost labelled range over each
+# op, a backward op taking its forward op's label (by sequence number)
+GAN_LABELS = ("discriminators", "mel", "generator", "#3 kernel",
+              "#3 plain replay", "#4 kernel", "#4 plain replay")
+
+
+@contextmanager
+def gan_labels(torch, K):
+    """Label the G step's parts with torch.profiler ranges: the
+    discriminators' scores, the mel, the generator, #3's and #4's launches
+    and their plain replays in the backward."""
+    from ddsp_svc_tpu_torch.nn import discriminators as D
+    from ddsp_svc_tpu_torch.nn import nsf_hifigan
+    from ddsp_svc_tpu_torch.train import gan
+
+    def labelled(label, fn):
+        def call(*a, **kw):
+            with torch.profiler.record_function(label):
+                return fn(*a, **kw)
+        return call
+
+    replay = K._replay_grads
+
+    def labelled_replay(plain, *a):
+        name = ("#3" if "harmonic_source" in plain.__qualname__ else "#4")
+        with torch.profiler.record_function(name + " plain replay"):
+            return replay(plain, *a)
+
+    swaps = [(D.MultiPeriodDiscriminator, "score", "discriminators"),
+             (D.MultiScaleDiscriminator, "score", "discriminators"),
+             (gan, "mel_of", "mel"),
+             (nsf_hifigan.Generator, "forward", "generator"),
+             (K, "_harmonic_source_launch", "#3 kernel"),
+             (K, "_trio_launch", "#4 kernel")]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in swaps]
+    for obj, name, label in swaps:
+        setattr(obj, name, labelled(label, getattr(obj, name)))
+    K._replay_grads = labelled_replay
+    try:
+        yield
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+        K._replay_grads = replay
+
+
+def device_split(torch, prof, part_of) -> tuple:
+    """Device time of a torch.profiler trace by part: each kernel, memcpy
+    and memset event goes to the part `part_of(event)` names. A part's ms
+    is the union of its events' intervals (cuDNN runs a grouped conv's
+    groups as concurrent kernels on several streams, so a sum would count
+    overlapping time twice), and busy the union of all of them. Returns
+    ({part: (ms, launches)}, busy ms, the number of streams)."""
+    dev = [ev for ev in prof.events()
+           if ev.device_type == torch.autograd.DeviceType.CUDA
+           and not getattr(ev, "is_user_annotation", False)]
+
+    def union_ms(intervals) -> float:
+        total, end = 0.0, -math.inf
+        for start, stop in sorted(intervals):
+            total += max(0.0, stop - max(start, end))
+            end = max(end, stop)
+        return total / 1e3
+
+    parts = {}
+    for ev in dev:
+        parts.setdefault(part_of(ev), []).append((ev.time_range.start,
+                                                  ev.time_range.end))
+    busy = union_ms([iv for ivs in parts.values() for iv in ivs])
+    streams = len({getattr(ev, "device_resource_id", None) for ev in dev})
+    return ({k: (union_ms(iv), len(iv)) for k, iv in parts.items()}, busy,
+            streams)
+
+
+def gan_part_of(torch, prof, labels=GAN_LABELS):
+    """device_split's part_of for a GAN step traced under gan_labels: #3's
+    and #4's own kernels by name; any other by the op that launched it (the
+    CUDA runtime call of the same id, and its parent op), under the
+    innermost `labels` range around that op; a backward op (autograd's
+    evaluate_function) takes the label of its forward op (same sequence
+    number); the optimizer's step is its own; the rest is "other"."""
+    cpu = [ev for ev in prof.events()
+           if ev.device_type != torch.autograd.DeviceType.CUDA]
+    runtime = {ev.id: ev for ev in cpu if ev.name.startswith("cuda")}
+
+    def label_of(ev):
+        while ev is not None:
+            if ev.name in labels:
+                return ev.name
+            if ev.name.startswith("Optimizer.step"):
+                return "optimizer (AdamW)"
+            ev = ev.cpu_parent
+        return None
+
+    fwd = {}
+    for ev in cpu:
+        seq = getattr(ev, "sequence_nr", -1)
+        if seq >= 0 and not ev.name.startswith("autograd::engine"):
+            lab = label_of(ev)
+            if lab is not None:
+                fwd.setdefault(seq, lab)
+
+    def part_of(ev):
+        low = ev.name.lower()
+        if "harmonic_source" in low:
+            return "#3 kernel"
+        if "resblocks_kernel" in low:
+            return "#4 kernel"
+        op = runtime.get(ev.id)
+        if op is None:
+            return "other"
+        lab = label_of(op)
+        if lab is None:
+            while op.cpu_parent is not None and not op.name.startswith(
+                    "autograd::engine::evaluate_function"):
+                op = op.cpu_parent
+            lab = fwd.get(getattr(op, "sequence_nr", -1), "other")
+        return lab
+
+    return part_of
+
+
+def gan_phase(torch, K, card: str, ckpts: dict, device: str = "cuda"
+              ) -> dict:
+    """Enhancer GAN fine-tuning (`python -m ddsp_svc_tpu_torch.train_gan`)
+    at H_NSF's full width, warm-started from the CLI phase's NSF-HiFiGAN,
+    on a store of 2 speakers x 3 clips x 4 s (and a validation clip each),
+    batch 8 x 32-frame crops: one D step and one G step on the kernels
+    against the same on the plain versions (each loss term within 1e-4
+    relative, every parameter gradient through grads_agree, #3/#4 at 1/3 a
+    step); ms per D, G and D + G step (median of 5 warm) and it/s, peak
+    memory, a warm G step's device time by part (torch.profiler); the entry
+    in-process: 4 steps validating every 2 (checkpoints, exports,
+    config.json), a resume to 6, 2 steps on the device clip pool; then the
+    exported model_best.pt converts the CLI phase's wav through the CLI.
+    Returns the launch counts of the entry's runs and the conversion."""
+    import yaml
+    from ddsp_svc_tpu_torch import train_gan as entry
+    from ddsp_svc_tpu_torch.data.wavio import read_wav
+    from ddsp_svc_tpu_torch.infer import __main__ as cli
+    from ddsp_svc_tpu_torch.infer.enhancer import NsfHifiGAN
+    from ddsp_svc_tpu_torch.infer.offline import split
+    from ddsp_svc_tpu_torch.nn.nsf_hifigan import generator_from_h
+    from ddsp_svc_tpu_torch.train import gan as G
+    from ddsp_svc_tpu_torch.train.gan_solver import GanDataset
+    from ddsp_svc_tpu_torch.utils.config import load_config
+
+    on_card = device != "cpu"
+    exp_cli = os.path.dirname(ckpts["fp32"])
+    args = load_config(os.path.join(exp_cli, "config.yaml"))
+    nsf_ckpt = args.enhancer.ckpt
+    d = args.data
+    sr, bs = d.sampling_rate, d.block_size
+    work = os.path.join(ROOT, "build", "chip_smoke_gan")
+    shutil.rmtree(work, ignore_errors=True)
+    write_dataset(os.path.join(work, "train"), 2, 3, 4.0, sr, bs,
+                  d.encoder_out_channels, 0)
+    write_dataset(os.path.join(work, "val"), 2, 1, 4.0, sr, bs,
+                  d.encoder_out_channels, 1)
+    with open(os.path.join(os.path.dirname(nsf_ckpt), "config.json")) as f:
+        h = json.load(f)
+    upp = math.prod(h["upsample_rates"])
+    say(f"GAN path: NSF-HiFiGAN initial channel "
+        f"{h['upsample_initial_channel']}, upsample {h['upsample_rates']} "
+        f"(warm start: the CLI phase's checkpoint), MPD periods 2/3/5/7/11 + "
+        f"MSD x 3; batch {GAN_BATCH} x {GAN_CROP} frames = "
+        f"{GAN_CROP * upp} samples; store 2 speakers x 3 clips x 4 s at "
+        f"{sr} Hz")
+
+    # one D step and one G step on the kernels against the plain versions,
+    # each from the same fresh state, batch and rand_ini
+    ds = GanDataset(os.path.join(work, "train"), h, sr, bs)
+    batch = {k: torch.as_tensor(v, device=device) for k, v in
+             ds.sample_batch(np.random.default_rng(0), GAN_BATCH,
+                             GAN_CROP).items()}
+    batch["mel"] = G.mel_of(h, batch["audio"]).transpose(1, 2)
+    rand_ini = torch.rand((GAN_BATCH, 9), generator=torch.Generator(
+        device=device).manual_seed(3), device=device)
+    rand_ini[:, 0] = 0.0
+    warm = NsfHifiGAN(nsf_ckpt, device="cpu").model.state_dict()
+
+    def fresh():
+        g = generator_from_h(h)
+        g.load_state_dict(warm)
+        trainer = G.GanTrainer(h)
+        return trainer, trainer.create_state(g.to(device), seed=0)
+
+    runs = {}
+    for plain in (False, True):
+        with plain_kernels(K) if plain else nullcontext():
+            trainer, st_d = fresh()
+            K.reset_launch_counts()
+            d_logs = trainer.step_d(st_d, batch, rand_ini)
+            counts_d = K.launch_counts()
+            trainer, st_g = fresh()
+            K.reset_launch_counts()
+            g_logs = trainer.step_g(st_g, batch, rand_ini)
+            counts_g = K.launch_counts()
+        runs[plain] = (st_d, st_g, {**d_logs, **g_logs}, counts_d, counts_g)
+    (kd, kg, k_logs, counts_d, counts_g) = runs[False]
+    (pd, pg, p_logs, _, _) = runs[True]
+    if on_card:
+        for label, counts in (("D", counts_d), ("G", counts_g)):
+            want = {k: GAN_PER_FORWARD.get(k, 0) for k in counts}
+            if counts != want:
+                fail(f"the GAN {label} step launched {json.dumps(counts)}, "
+                     f"expected {json.dumps(want)}")
+    for k, v in k_logs.items():
+        ref = float(p_logs[k])
+        rel = abs(float(v) - ref) / abs(ref)
+        say(f"GAN step {k}, kernels vs plain versions: {float(v):.6f} vs "
+            f"{ref:.6f} (rel {rel:.2e}, tolerance {GAN_LOSS_RTOL})")
+        if not rel < GAN_LOSS_RTOL:
+            fail(f"the GAN step's {k} disagrees with the plain versions")
+    tol_rel, tol_cos = 2e-2, 1 - 1e-4  # the train phase's bounds
+    for label, mk, mp in (("D step mpd", kd.mpd, pd.mpd),
+                          ("D step msd", kd.msd, pd.msd),
+                          ("G step generator", kg.generator, pg.generator)):
+        worst_rel, worst_cos = grads_agree(f"GAN {label}", mk, mp, tol_rel,
+                                           tol_cos)
+        say(f"GAN {label}, kernels vs plain versions: worst parameter "
+            f"gradient rel {worst_rel:.3e} (< {tol_rel}), cos "
+            f"{worst_cos:.7f} (> {tol_cos})")
+    if any(p.grad is not None for p in kd.generator.parameters()):
+        fail("the GAN D step formed gradients of the generator")
+    if any(p.grad is not None for p in kg.d_parameters()):
+        fail("the GAN G step formed gradients of the discriminators")
+    del runs, pd, pg, kd, kg
+
+    # ms per step on the kernels (host clock around synchronised steps)
+    trainer, st = fresh()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    d_ms, g_ms = [], []
+    for _ in range(GAN_TIMED + 1):
+        for fn, times in ((trainer.step_d, d_ms), (trainer.step_g, g_ms)):
+            t0 = time.perf_counter()
+            fn(st, batch)
+            if on_card:
+                torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    dg = [a + b for a, b in zip(d_ms[1:], g_ms[1:])]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else 0.0
+    say(f"{card}: GAN D step {np.median(d_ms[1:]):.1f} ms, G step "
+        f"{np.median(g_ms[1:]):.1f} ms, D + G {np.median(dg):.1f} ms = "
+        f"{1e3 / np.median(dg):.2f} it/s (median of {GAN_TIMED} warm; batch "
+        f"{GAN_BATCH} x {GAN_CROP * upp} samples; first D + G "
+        f"{d_ms[0] + g_ms[0]:.1f} ms); peak memory {peak:.2f} GiB")
+    from torch.profiler import ProfilerActivity, profile
+    for label, fn in (("D", trainer.step_d), ("G", trainer.step_g)):
+        with gan_labels(torch, K):
+            fn(st, batch)
+            if on_card:
+                torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU] + (
+                    [ProfilerActivity.CUDA] if on_card else [])) as prof:
+                t0 = time.perf_counter()
+                fn(st, batch)
+                if on_card:
+                    torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+        by_part, busy, streams = device_split(torch, prof,
+                                              gan_part_of(torch, prof))
+        parts = {k: ms for k, (ms, _) in by_part.items()}
+        total = sum(parts.values())
+        say(f"{card}: GAN {label} step device time by part (torch.profiler, "
+            f"one warm step): busy {busy:.2f} ms of a {wall:.2f} ms traced "
+            f"wall (idle share {1 - busy / wall:.3f}; kernels on {streams} "
+            f"streams); the parts sum to {total:.2f} ms: " + ", ".join(
+                f"{k} {v:.2f} ({100 * v / max(total, 1e-9):.1f} %)"
+                for k, v in sorted(parts.items(), key=lambda kv: -kv[1])))
+    del st, trainer
+
+    # the entry in-process: 4 steps validating every 2, a resume to 6, then
+    # 2 steps on the device clip pool
+    def config_file(name: str, **gan) -> str:
+        cfg = json.loads(json.dumps(args))
+        cfg["data"].update(train_path=os.path.join(work, "train"),
+                           valid_path=os.path.join(work, "val"))
+        cfg["train"]["gan"] = {"expdir": os.path.join(work, name),
+                               "batch_size": GAN_BATCH,
+                               "crop_frames": GAN_CROP, "interval_log": 1,
+                               "interval_val": 2, **gan}
+        path = os.path.join(work, name + ".yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(cfg, f)
+        return path
+
+    launches = {}
+
+    def run(cfg_path: str, steps: int, start: int, label: str):
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        argv = ["-c", cfg_path, "--max-steps", str(steps)]
+        state, expdir = entry.main(argv + ([] if on_card else
+                                           ["--device", "cpu"]))
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = K.launch_counts()
+        n_val = sum(1 for n in range(start + 1, steps + 1)
+                    if n % 2 == 0 or n == steps)
+        forwards = 2 * (steps - start) + n_val
+        say(f"GAN entry {label}: steps {start} -> {state.step} in {wall:.1f} "
+            f"s ({n_val} validations and checkpoints included); launches "
+            f"{json.dumps(counts)}")
+        if state.step != steps:
+            fail(f"GAN entry {label} ended at step {state.step}")
+        if on_card:
+            want = {k: GAN_PER_FORWARD.get(k, 0) * forwards for k in counts}
+            if counts != want:
+                fail(f"GAN entry {label} launched {json.dumps(counts)}, "
+                     f"expected {json.dumps(want)}")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        return expdir
+
+    cfg = config_file("gan")
+    expdir = run(cfg, 4, 0, "4 steps")
+    enh_dir = os.path.join(expdir, "enhancer")
+    for path in ("gan_2.pt", "gan_4.pt", "enhancer/model_2.pt",
+                 "enhancer/model_4.pt", "enhancer/model_best.pt"):
+        if not os.path.isfile(os.path.join(expdir, path)):
+            fail(f"the GAN entry wrote no {path}")
+    with open(os.path.join(enh_dir, "config.json")) as f:
+        if json.load(f) != h:
+            fail("the GAN export's config.json is not h")
+    run(cfg, 6, 4, "resumed from gan_4.pt")
+    if not os.path.isfile(os.path.join(expdir, "gan_6.pt")):
+        fail("the resumed GAN run wrote no gan_6.pt")
+    pool_dir = run(config_file("gan_pool", data_on_device=True), 2, 0,
+                   "on the device clip pool")
+    shutil.rmtree(pool_dir, ignore_errors=True)
+
+    # the fine-tuned enhancer converts the CLI phase's wav through the CLI
+    exp = os.path.join(work, "exp_convert")
+    os.makedirs(exp)
+    shutil.copy(ckpts["fp32"], os.path.join(exp, "model_0.pt"))
+    cfg_c = json.loads(json.dumps(args))
+    cfg_c["enhancer"]["ckpt"] = os.path.join(enh_dir, "model_best.pt")
+    with open(os.path.join(exp, "config.yaml"), "w") as f:
+        yaml.safe_dump(cfg_c, f)
+    wav = os.path.join(os.path.dirname(exp_cli), "in.wav")
+    audio, _ = read_wav(wav)
+    n_seg = len(split(audio, sr, bs))
+    out = os.path.join(work, "converted.wav")
+    K.reset_launch_counts()
+    cli.main(["-m", os.path.join(exp, "model_0.pt"), "-i", wav, "-o", out,
+              "-pe", "dio", "-e", "true"]
+             + ([] if on_card else ["--device", "cpu"]))
+    counts = K.launch_counts()
+    y, sr_o = read_wav(out)
+    say(f"GAN export through the CLI: {y.shape[-1]} samples at {sr_o} Hz "
+        f"(input {len(audio)}), {n_seg} segments, launches "
+        f"{json.dumps(counts)}")
+    if not (sr_o == sr and abs(y.shape[-1] - len(audio)) <= bs
+            and np.isfinite(y).all() and np.abs(y).max() > 0):
+        fail("the fine-tuned enhancer's conversion is not a finite wav of "
+             "the input's length")
+    if on_card:
+        for name, per in GAN_PER_FORWARD.items():
+            if counts[name] != per * n_seg:
+                fail(f"the conversion launched {name} {counts[name]} times, "
+                     f"expected {per} per segment x {n_seg}")
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 # the streaming phase: a 10.8 s sung wav (two phrases split by 0.5 s of
 # silence) through gui.py's defaults, and the incremental engine's blocks
 STREAM_PHRASES = (5.0, 5.3)
@@ -2179,11 +2572,15 @@ def main() -> None:
     pre_counts = preprocess_phase(torch, K, smi[0], ckpts["fp32"])
     say(f"preprocess paths: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    gan_counts = gan_phase(torch, K, smi[0], ckpts)
+    say(f"GAN paths: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     stream_counts = stream_phase(torch, K, smi[0], ckpts)
     say(f"streaming paths: {time.perf_counter() - t0:.1f} s")
     shutil.rmtree(os.path.join(ROOT, "build", "chip_smoke_cli"),
                   ignore_errors=True)
-    for counts in (cli_counts, batch_counts, pre_counts, stream_counts):
+    for counts in (cli_counts, batch_counts, pre_counts, gan_counts,
+                   stream_counts):
         for k, v in counts.items():
             launches[k] += v
     for synth, config, expect, full in SYNTHS:

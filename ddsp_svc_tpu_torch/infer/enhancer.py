@@ -7,8 +7,9 @@ enhancer's rate and back, the f0 re-grid onto the enhancer's frame grid,
 the log-mel frontend, the generator forward (fp32, or staged bf16 with
 `bf16_min_channels`) and the silence-front padding;
 `enhance_batch` runs mixed-length segments as one masked batch. Weights come
-from a reference checkpoint (a generator state dict beside its config.json)
-or from a seed.
+from a reference checkpoint (a generator state dict beside its config.json,
+as the port's GAN export writes it), the JAX package's flax msgpack, or a
+seed.
 """
 from __future__ import annotations
 
@@ -25,7 +26,9 @@ from ..nn.layers import lecun_init_
 from ..nn.nsf_hifigan import generator_from_h
 from ..ops.resample import resample
 from ..ops.spectral import log_mel_spectrogram, mel_reflect_pad
+from ..utils.convert import jax_nsf_to_torch
 from ..utils.device import resolve_device
+from ..utils.flax_msgpack import read_msgpack
 
 
 def _fold_weight_norm(sd, name: str) -> torch.Tensor:
@@ -44,8 +47,9 @@ def _fold_weight_norm(sd, name: str) -> torch.Tensor:
 class NsfHifiGAN:
     """Generator + its config dict `h`. model_path: a reference checkpoint
     (a torch file holding the generator's state dict, under a 'generator'
-    key or bare, weight norm folded on load) whose config.json lies beside
-    it; None draws the weights from `seed`. generator_overrides: the
+    key or bare, weight norm folded on load) or the JAX package's flax
+    msgpack (`.ckpt` / `.msgpack`, {'params': ...}), with config.json
+    beside it; None draws the weights from `seed`. generator_overrides: the
     Generator's forms (fused_resblocks, fused_inject, fused_stage).
     dtype / bf16_min_channels: the Generator's compute dtype and staged
     bf16 threshold (0 = off); the parameters stay fp32."""
@@ -56,10 +60,6 @@ class NsfHifiGAN:
                  bf16_min_channels: int = 0):
         self.device = resolve_device(device)
         if model_path is not None:
-            if model_path.endswith((".ckpt", ".msgpack")):
-                raise NotImplementedError(
-                    "the JAX package's flax-msgpack enhancer checkpoints are "
-                    "not read by the port; give a reference torch checkpoint")
             with open(os.path.join(os.path.dirname(model_path),
                                    "config.json")) as f:
                 h = json.load(f)
@@ -71,6 +71,11 @@ class NsfHifiGAN:
             **(generator_overrides or {}))
         if model_path is None:
             lecun_init_(self.model, torch.Generator().manual_seed(seed))
+        elif model_path.endswith((".ckpt", ".msgpack")):
+            # the JAX package's flax checkpoint ({"params": ...}, written by
+            # its GAN fine-tuning export)
+            params = read_msgpack(model_path)["params"]
+            self.model.load_state_dict(jax_nsf_to_torch(params, h))
         else:
             cp = torch.load(model_path, map_location="cpu", weights_only=True)
             sd = cp["generator"] if "generator" in cp else cp

@@ -141,11 +141,12 @@ def lecun_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
             m.weight_g.copy_(torch.linalg.vector_norm(m.weight_v, dim=1,
                                                       keepdim=True))
             m.bias.zero_()
-        elif isinstance(m, (nn.Linear, nn.Conv1d, nn.ConvTranspose1d)):
+        elif isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d,
+                            nn.ConvTranspose1d)):
             w = m.weight
             if isinstance(m, nn.ConvTranspose1d):  # (in, out, k)
                 fan_in = w.shape[0] * w.shape[2]
-            else:  # (out, in[/groups], k?)
+            else:  # (out, in[/groups], k...)
                 fan_in = math.prod(w.shape[1:])
             normal_(w, fan_in ** -0.5)
             if m.bias is not None:

@@ -16,14 +16,16 @@ Counterpart of `ddsp_svc_tpu/ops/pallas_kernels.py`:
     oscillator_bank          <- oscillator_bank_pallas
     ltv_fir_convolve         <- ltv_fir_convolve_pallas
 
-Every wrapper but performer_attention, harmonic_source and
-combsub_spectral_bwd is differentiable: on CUDA tensors it runs inside a
-torch.autograd.Function (combsub_spectral and oscillator_bank only where a
+Every wrapper but performer_attention and combsub_spectral_bwd is
+differentiable: on CUDA tensors it runs inside a torch.autograd.Function
+(combsub_spectral, oscillator_bank and harmonic_source only where a
 gradient is wanted) whose backward is the combsub_spectral_bwd kernel for
 combsub_spectral, and plain PyTorch for the others (the JAX package's
 VJPs of #6 and #9 are plain XLA, those of the resblock and stage kernels
-re-run their XLA references; oscillator_bank_pallas has none). The
-per-row `valid` forms of the trio are inference-only, as in JAX.
+re-run their XLA references; oscillator_bank_pallas and
+harmonic_source_pallas have none, and JAX differentiates the harmonic
+source on its XLA route). The per-row `valid` forms of the trio are
+inference-only, as in JAX.
 
 Each wrapper takes its plain version only for CPU tensors. For any other
 (CUDA) tensor it checks device, dtype, shape and contiguity (the attention:
@@ -501,12 +503,7 @@ def harmonic_source_plain(start, rad, w, b, upp: int, sine_amp: float = 0.1):
     return torch.tanh(sine_amp * acc + b).reshape(bsz, f * upp)
 
 
-def harmonic_source(start, rad, w, b, upp: int, sine_amp: float = 0.1):
-    """The NSF harmonic source merge: only the merged audio is written, the
-    (B, F, upp, H) sine bank never exists. Same arguments as the plain
-    version; b is a (1,) tensor so that no host read is needed."""
-    if start.device.type == "cpu":
-        return harmonic_source_plain(start, rad, w, b, upp, sine_amp)
+def _harmonic_source_launch(start, rad, w, b, upp: int, sine_amp: float):
     bsz, f, n_h = start.shape
     dev = start.device
     _check(start, "start", (bsz, f, n_h), dev)
@@ -519,6 +516,22 @@ def harmonic_source(start, rad, w, b, upp: int, sine_amp: float = 0.1):
             out.data_ptr(), bsz * f, n_h, upp, sine_amp, _stream(out))
     harmonic_source.launches += 1
     return out
+
+
+def harmonic_source(start, rad, w, b, upp: int, sine_amp: float = 0.1):
+    """The NSF harmonic source merge: only the merged audio is written, the
+    (B, F, upp, H) sine bank never exists. Same arguments as the plain
+    version; b is a (1,) tensor so that no host read is needed. Where a
+    gradient is wanted the kernel runs inside _PlainBackwardFn: the
+    backward re-runs the plain bank."""
+    if start.device.type == "cpu":
+        return harmonic_source_plain(start, rad, w, b, upp, sine_amp)
+    tensors = (start, rad, w, b)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in tensors):
+        return _PlainBackwardFn.apply(
+            lambda *xs: _harmonic_source_launch(*xs, upp, sine_amp),
+            lambda *xs: harmonic_source_plain(*xs, upp, sine_amp), *tensors)
+    return _harmonic_source_launch(*tensors, upp, sine_amp)
 
 
 def harmonic_source_kernel_info() -> dict:

@@ -1,9 +1,13 @@
 """The weight bridge: the JAX package's flax variables -> the port's
-state_dict (the synthesizers, NSF-HiFiGAN, HuBERT and CREPE).
+state_dict (the synthesizers, NSF-HiFiGAN, its discriminators, HuBERT and
+CREPE).
 
 Each function takes the flax variable tree as nested dicts of numpy arrays
 and inverts the layouts that `ddsp_svc_tpu/utils/convert.py` documents:
-    Conv             (k, in, out) -> (out, in, k)
+    Conv             (k, in, out) -> (out, in, k); grouped (k, in/g, out)
+                     -> (out, in/g, k), the output channels in the same
+                     group order
+    Conv 2-D         (kh, kw, in, out) -> (out, in, kh, kw)
     Dense            (in, out)    -> (out, in)
     ConvTranspose    (k, in, out) -> (in, out, k)
     WeightNormDense  g (out,), v (in, out) -> weight_g (out, 1), weight_v
@@ -105,6 +109,32 @@ def jax_nsf_to_torch(params: Mapping, h: Mapping) -> Dict[str, torch.Tensor]:
                 _put(sd, f"{rp}.convs1.{m}", _conv(block[f"conv1_{m}"]))
                 _put(sd, f"{rp}.convs2.{m}", _conv(block[f"conv2_{m}"]))
     return sd
+
+
+def jax_discriminators_to_torch(d_params: Mapping
+                                ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The GAN's discriminator params {'mpd': ..., 'msd': ...} (flax,
+    `nn/discriminators.py`, convs named Conv_0.. in call order) -> {'mpd':
+    state_dict, 'msd': state_dict} of the port's MultiPeriodDiscriminator
+    and MultiScaleDiscriminator."""
+    out = {}
+    for key, prefix in (("mpd", "disc_p"), ("msd", "disc_s")):
+        sd: Dict[str, torch.Tensor] = {}
+        subs = sorted((name for name in d_params[key]),
+                      key=lambda n: int(n[len(prefix):]))
+        for i, name in enumerate(subs):
+            convs = d_params[key][name]
+            n = len(convs)
+            for j in range(n):
+                p = convs[f"Conv_{j}"]
+                kernel = np.asarray(p["kernel"])
+                conv = (_conv(p) if kernel.ndim == 3 else
+                        {"weight": _t(kernel.transpose(3, 2, 0, 1)),
+                         "bias": _t(p["bias"])})
+                dst = "conv_post" if j == n - 1 else f"convs.{j}"
+                _put(sd, f"discriminators.{i}.{dst}", conv)
+        out[key] = sd
+    return out
 
 
 def jax_hubert_to_torch(variables: Mapping) -> Dict[str, torch.Tensor]:

@@ -1334,3 +1334,163 @@ def test_stream_entry_on_card(cuda, tmp_path):
     out, sr = read_wav(str(tmp_path / "out.wav"))
     assert sr == 16000 and out.shape == (6 * 4800,)
     assert np.isfinite(out).all() and np.abs(out).max() > 1e-3
+
+
+@pytest.mark.parametrize("upp", [512, 64])
+@pytest.mark.parametrize("phase_grads", [False, True])
+def test_harmonic_source_kernel_backward(cuda, upp, phase_grads):
+    """#3 under autograd: the gradients of w and b (and of start and rad
+    when asked for) through the kernel against autograd of the plain
+    version on the same upstream gradient (the backward replays the plain
+    bank: 1e-6 relative); one launch, none in the backward; without grad
+    mode the kernel launches with no graph."""
+    g = torch.Generator(device=cuda).manual_seed(upp)
+    b, f = 2, 17
+    f0 = 100 + 300 * torch.rand((b, f), generator=g, device=cuda)
+    ri = torch.rand((b, 9), generator=g, device=cuda)
+    ri[:, 0] = 0
+    start, rad = _source_phase(f0, upp, 44100, ri, 8)
+    w = _randn(g, 9)
+    bias = _randn(g, 1, scale=0.1)
+    g_out = _randn(g, b, f * upp)
+    wants = (phase_grads, phase_grads, True, True)
+
+    def grads(fn):
+        xs = [x.detach().clone().contiguous().requires_grad_(want)
+              for x, want in zip((start, rad, w, bias), wants)]
+        out = fn(*xs, upp)
+        assert out.grad_fn is not None
+        return torch.autograd.grad((out * g_out).sum(),
+                                   [x for x in xs if x.requires_grad])
+
+    K.reset_launch_counts()
+    got = grads(K.harmonic_source)
+    assert K.harmonic_source.launches == 1
+    ref = grads(K.harmonic_source_plain)
+    assert K.harmonic_source.launches == 1
+    assert len(got) == len(ref) == (4 if phase_grads else 2)
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a, r, rtol=1e-6,
+                                   atol=1e-7 * r.abs().max().item())
+    with torch.no_grad():
+        out = K.harmonic_source(start, rad, w.requires_grad_(), bias, upp)
+    assert out.grad_fn is None and K.harmonic_source.launches == 2
+
+
+# a small enhancer whose four stages (C = 64/32/16/8) all take the trio kernel
+GAN_H = {"sampling_rate": 16000, "num_mels": 16, "n_fft": 512,
+         "win_size": 512, "hop_size": 64, "fmin": 40, "fmax": 8000,
+         "upsample_rates": [4, 4, 2, 2], "upsample_kernel_sizes": [8, 8, 4, 4],
+         "upsample_initial_channel": 128, "resblock_kernel_sizes": [3, 7, 11],
+         "resblock_dilation_sizes": [[1, 3, 5]] * 3}
+
+
+def _gan_grads_agree(mk, mp):
+    """chip_smoke.py's train-phase bounds: per parameter relative L2 < 2e-2
+    and cosine > 1 - 1e-4; a missing gradient fails by name."""
+    plain = dict(mp.named_parameters())
+    for name, p in mk.named_parameters():
+        assert p.grad is not None and plain[name].grad is not None, name
+        gk, gp = p.grad.double(), plain[name].grad.double()
+        rel = ((gk - gp).norm() / (gp.norm() + 1e-12)).item()
+        cos = torch.nn.functional.cosine_similarity(
+            gk.flatten(), gp.flatten(), dim=0).item()
+        assert rel < 2e-2 and (gp.norm() < 1e-10 or cos > 1 - 1e-4), (
+            name, rel, cos)
+
+
+def test_gan_steps_on_kernels_match_plain(cuda, monkeypatch):
+    """One D step and one G step of the GAN trainer on the kernels (#3 once
+    and #4 at each of the four stages per generator forward) against the
+    same steps with the kernels swapped for their plain versions, from the
+    same weights, batch and rand_ini: the losses within 1e-4 relative,
+    every gradient (the source merge's included) at the train bounds."""
+    from ddsp_svc_tpu_torch.nn import nsf_hifigan
+    from ddsp_svc_tpu_torch.nn.layers import lecun_init_
+    from ddsp_svc_tpu_torch.train import gan as G
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    t = torch.arange(16 * 64, device=cuda) / 16000
+    audio = torch.stack([0.4 * torch.sin(2 * np.pi * 220 * t),
+                         0.3 * torch.sin(2 * np.pi * 330 * t)])
+    audio = audio + 0.02 * _randn(g, *audio.shape)
+    batch = {"audio": audio, "f0": torch.tensor([[220.0] * 16, [330.0] * 16],
+                                                device=cuda),
+             "mel": G.mel_of(GAN_H, audio).transpose(1, 2)}
+    ri = torch.rand((2, 9), generator=g, device=cuda)
+    ri[:, 0] = 0
+    weights = lecun_init_(nsf_hifigan.generator_from_h(GAN_H),
+                          torch.Generator().manual_seed(1)).state_dict()
+
+    def steps():
+        out = []
+        for phase in ("d", "g"):
+            gen = nsf_hifigan.generator_from_h(GAN_H)
+            gen.load_state_dict(weights)
+            trainer = G.GanTrainer(GAN_H)
+            state = trainer.create_state(gen.to(cuda), seed=2)
+            step = trainer.step_d if phase == "d" else trainer.step_g
+            K.reset_launch_counts()
+            logs = step(state, batch, ri)
+            out.append((state, logs, K.launch_counts()))
+        return out
+
+    kern = steps()
+    for _, _, counts in kern:
+        assert counts["harmonic_source"] == 1, counts
+        assert counts["fused_resblocks_inject"] == 4, counts
+        assert sum(counts.values()) == 5, counts
+    monkeypatch.setattr(nsf_hifigan, "harmonic_source",
+                        K.harmonic_source_plain)
+    monkeypatch.setattr(nsf_hifigan, "fused_resblocks_inject",
+                        K.resblocks_inject_plain)
+    plain = steps()
+    for (sk, lk, _), (sp, lp, _) in zip(kern, plain):
+        for k, v in lk.items():
+            assert abs(float(v) - float(lp[k])) <= 1e-4 * abs(float(lp[k])), k
+    _gan_grads_agree(kern[0][0].mpd, plain[0][0].mpd)
+    _gan_grads_agree(kern[0][0].msd, plain[0][0].msd)
+    _gan_grads_agree(kern[1][0].generator, plain[1][0].generator)
+    assert kern[1][0].generator.m_source.l_linear.weight.grad.abs().max() > 0
+
+
+def test_train_gan_entry_on_card(cuda, tmp_path):
+    """python -m ddsp_svc_tpu_torch.train_gan's main with no --device runs
+    on the card: 2 steps on a 16 kHz store, a validation, a checkpoint and
+    an export; #3 and #4 launched at 1 and 4 a generator forward (two steps
+    of D and G, one validation)."""
+    import yaml
+
+    from ddsp_svc_tpu_torch import train_gan
+    from ddsp_svc_tpu_torch.data.wavio import write_wav
+
+    for split in ("train", "val"):
+        for sub in ("audio", "f0"):
+            (tmp_path / split / sub / "1").mkdir(parents=True)
+        tt = np.arange(16000) / 16000
+        write_wav(str(tmp_path / split / "audio" / "1" / "a.wav"),
+                  (0.4 * np.sin(2 * np.pi * 220 * tt)).astype(np.float32),
+                  16000)
+        np.save(str(tmp_path / split / "f0" / "1" / "a.npy"),
+                np.full(16000 // 256 + 1, 220.0, np.float32))
+    cfg = {"data": {"sampling_rate": 16000, "block_size": 256,
+                    "train_path": str(tmp_path / "train"),
+                    "valid_path": str(tmp_path / "val")},
+           "enhancer": {"type": "nsf-hifigan", "ckpt": None},
+           "env": {"expdir": str(tmp_path / "exp")},
+           "train": {"seed": 0, "gan": {
+               "h": GAN_H, "batch_size": 2, "crop_frames": 16,
+               "interval_log": 1, "interval_val": 2,
+               "expdir": str(tmp_path / "gan")}}}
+    with open(tmp_path / "gan.yaml", "w") as f:
+        yaml.safe_dump(cfg, f)
+    K.reset_launch_counts()
+    state, expdir = train_gan.main(["-c", str(tmp_path / "gan.yaml"),
+                                    "--max-steps", "2"])
+    counts = K.launch_counts()
+    assert state.step == 2
+    assert next(state.generator.parameters()).is_cuda
+    assert (tmp_path / "gan" / "gan_2.pt").is_file()
+    assert (tmp_path / "gan" / "enhancer" / "model_best.pt").is_file()
+    assert counts["harmonic_source"] == 5 and counts[
+        "fused_resblocks_inject"] == 20, counts

@@ -4,7 +4,7 @@ and CombSub synthesizers, the resampler, the enhancer's forms with an
 adaptive key and staged bf16, and the feature front end and the offline
 CLI included), and entry points, the trainer's, the factory's for all three
 synthesizers, `load_model`, `run_inference`, `run_inference_batch`, the
-CLI, the preprocess entry, the streaming entry, `SvcCore`,
+CLI, the preprocess entry, the streaming entry, the GAN entry, `SvcCore`,
 `IncrementalSession.from_checkpoint`, `UnitsEncoder` and the torch f0
 extractors among them, never fall back to the CPU."""
 import ast
@@ -100,7 +100,11 @@ from ddsp_svc_tpu_torch.preprocess import main as preprocess_main
 from ddsp_svc_tpu_torch.stream import main as stream_main
 from ddsp_svc_tpu_torch.infer.streaming import SvcCore
 from ddsp_svc_tpu_torch.infer.realtime import IncrementalSession
+from ddsp_svc_tpu_torch.train_gan import main as gan_main
 ckpt = os.path.join(os.path.dirname(cfg), "model_0.pt")
+gan_cfg = os.path.join(os.path.dirname(cfg), "gan.yaml")
+with open(gan_cfg, "w") as f:
+    yaml.safe_dump({**dict(args), "train": {"gan": {"h": h}}}, f)
 save_config(os.path.join(os.path.dirname(cfg), "config.yaml"), args)
 pre_cfg = os.path.join(os.path.dirname(cfg), "pre.yaml")
 with open(pre_cfg, "w") as f:
@@ -124,6 +128,7 @@ for make in (lambda: build_model(args), lambda: build_model(others[0]),
              lambda: stream_main(["-m", ckpt, "-i", "in.wav", "-o", "out.wav"]),
              lambda: SvcCore(ckpt),
              lambda: IncrementalSession.from_checkpoint(ckpt),
+             lambda: gan_main(["-c", gan_cfg]),
              lambda: UnitsEncoder("hubertsoft", None),
              lambda: F0Extractor("crepe"), lambda: F0Extractor("parselmouth")):
     try:

@@ -7,10 +7,12 @@ NSF-HiFiGAN, weights from seeds) on three segments of 200, 384 and 512
 frames, warms up, then traces one run with torch.profiler (and, with
 --train, one training step of the fp32 and of the model.bf16 model at the
 config's batch, 24 x 2 s) and prints:
-  - wall time of the traced run, device busy time (sum of kernel times),
-    and the device's idle share of the wall time;
+  - wall time of the traced run, device busy time (the union of the
+    kernels' intervals: kernels on concurrent streams count once), and the
+    device's idle share of the wall time;
   - device time by group (the hand-written kernels, convolutions, GEMMs,
-    FFTs, everything else) and the top kernels by device time.
+    FFTs, everything else; each the union of its kernels' intervals) and
+    the top kernels by device time (chip_smoke.py's device_split).
 Run from the root of a checkout on a machine with an NVIDIA GPU:
 
     python3 tools/profile_torch_main_path.py [--config configs/sins.yaml]
@@ -35,7 +37,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from chip_smoke import (BATCH_FRAMES, ENHANCER_FORMS, H_NSF,  # noqa: E402
-                        SEGMENT_FRAMES)  # (the main path's shapes)
+                        SEGMENT_FRAMES,  # (the main path's shapes)
+                        device_split)
 
 GROUPS = (
     ("kernel: performer_attention", ("favor_",)),
@@ -75,29 +78,18 @@ def profile(torch, fn, top: int, label: str) -> None:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    by_name = {}
-    for ev in prof.events():
-        # user annotations (Optimizer.step#AdamW.step) span kernels listed
-        # on their own: counting them too would count that time twice
-        if (ev.device_type == torch.autograd.DeviceType.CUDA
-                and not getattr(ev, "is_user_annotation", False)):
-            t = ev.time_range.elapsed_us()
-            n, c = by_name.get(ev.name, (0.0, 0))
-            by_name[ev.name] = (n + t, c + 1)
-    busy = sum(t for t, _ in by_name.values()) / 1e3
+    groups, busy, streams = device_split(torch, prof,
+                                         lambda ev: group_of(ev.name))
+    by_name, _, _ = device_split(torch, prof, lambda ev: ev.name)
     print(f"[{label}] wall {wall * 1e3:.2f} ms, device busy {busy:.2f} ms, "
           f"idle share {1 - busy / (wall * 1e3):.3f}, "
-          f"{sum(c for _, c in by_name.values())} kernel launches")
-    groups = {}
-    for name, (t, c) in by_name.items():
-        g = groups.setdefault(group_of(name), [0.0, 0])
-        g[0] += t / 1e3
-        g[1] += c
+          f"{sum(c for _, c in by_name.values())} kernel launches on "
+          f"{streams} streams")
     for g, (t, c) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
         print(f"[{label}]   {t:9.3f} ms {100 * t / busy:5.1f}%  {c:5d} launches  {g}")
     print(f"[{label}] top kernels by device time:")
     for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
-        print(f"[{label}]   {t / 1e3:9.3f} ms {c:5d}x  {name[:110]}")
+        print(f"[{label}]   {t:9.3f} ms {c:5d}x  {name[:110]}")
 
 
 def main() -> None:
