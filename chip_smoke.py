@@ -72,6 +72,28 @@ Phases, each printing its own lines:
      through the engine (atol 2e-5), the engine against the batch forward
      on 64 frames (1e-3 x max|ref|; #2 once, #1 never), the block walls
      and the CUDA launches a frame (torch.profiler);
+  4f. serving, with the CLI phase's checkpoints: model_0.pt exported by
+     `python -m ddsp_svc_tpu_torch.export`'s `export_synth` at 512 frames
+     on the card, loaded by torch.export.load: its graph's ddsp_svc op
+     nodes (3 performer_attention, 1 combsub_spectral), a replay's
+     launches (3/1), the artifact against the eager model on the kernels
+     (1e-6 x max|ref|) and on the plain versions (1e-3 x max|ref|); the
+     same for Sins (configs/sins.yaml; #1 with #8 and #9) and CombSub
+     (configs/combsub-old.yaml; #1 with #9) from seeds at full width;
+     `serve`'s handler in-process on 127.0.0.1:0 (ExportedSynth over the
+     CombSubFast artifact): the 13 s wav posted to /convert (first and
+     warm) and /voiceChangeModel?fPitchChange=2, GET /healthz, each
+     response finite, RMS > 0, as long as its frames and within PCM16
+     quantization of ExportedSynth.convert called directly, #1/#2 at 3/1
+     a window (3 windows at a step of 504 frames); `api`'s handler
+     in-process: the 13 s wav with enhance=true&pe=dio&sampleRate=16000
+     and with enhance=false, each against a fresh SvcCore.infer at the
+     same step resampled the same way (PCM16 quantization), and against
+     the plain versions (1e-3 x max|ref|), #1-#4 launches a request; the
+     web panel's handler: genconfig, one /stream run of the 10.8 s wav
+     (block stats, the wav written) and one infer job (the port's CLI as
+     a subprocess on the card, exited 0, its wav written); walls and
+     audio-s/s beside the card's name and power limit;
   5. offline paths: conversion (`convert_features`) with each synthesizer
      at the full width of its config (CombSubFast from configs/combsub.yaml,
      Sins from configs/sins.yaml, CombSub from configs/combsub-old.yaml) and
@@ -2520,6 +2542,355 @@ def stream_phase(torch, K, card: str, ckpts: dict, device: str = "cuda"
     return {k: counts0[k] + counts1[k] for k in counts0}
 
 
+# the serving phase: the synthesizers exported at 512 frames and the op
+# nodes each graph holds; ExportedSynth's windows overlap by 8 frames
+SERVE_FRAMES = 512
+EXPORTS = (("CombSubFast", "combsub.yaml",
+            {"performer_attention": 3, "combsub_spectral": 1}),
+           ("Sins", "sins.yaml", {"performer_attention": 3,
+                                  "oscillator_bank": 1,
+                                  "ltv_fir_convolve": 2}),
+           ("CombSub", "combsub-old.yaml",
+            {"performer_attention": 3, "ltv_fir_convolve": 3}))
+SERVE_PER_WINDOW = {"performer_attention": 3, "combsub_spectral": 1}
+# one API request is one SvcCore window: the synth, and with the enhancer
+# its source and three narrow stages
+API_PER_REQUEST = {True: STREAM_PER_WINDOW,
+                   False: {"performer_attention": 3, "combsub_spectral": 1,
+                           "harmonic_source": 0, "fused_resblocks_inject": 0}}
+PCM16 = 1.0 / 32767
+
+
+def _pcm16(audio, sr: int) -> np.ndarray:
+    """audio as a PCM16 wav carries it."""
+    from ddsp_svc_tpu_torch.data.wavio import read_wav_bytes, wav_bytes
+    return read_wav_bytes(wav_bytes(audio, sr))[0]
+
+
+@contextmanager
+def http_server(handler):
+    """A ThreadingHTTPServer on 127.0.0.1:0 serving in a thread; yields its
+    port and shuts it down after."""
+    import threading
+    from http.server import ThreadingHTTPServer
+    server = ThreadingHTTPServer(("127.0.0.1", 0), handler)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield server.server_address[1]
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join()
+
+
+def http(port: int, path: str, body=None, timeout: float = 300):
+    """(status, body) of a GET, or of a POST of `body`."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def export_checks(torch, K, synth: str, ckpt: str, expect, card: str,
+                  device: str = "cuda"):
+    """Export a checkpoint's synthesizer at SERVE_FRAMES on the card, load
+    it back, count its ddsp_svc op nodes, and hold a replay against the
+    eager model on the kernels and on the plain versions. Returns (path,
+    the replay's launch counts)."""
+    from ddsp_svc_tpu_torch.export import export_synth
+    from ddsp_svc_tpu_torch.models.factory import load_model
+
+    out = os.path.join(os.path.dirname(ckpt), "model.pt2")
+    t0 = time.perf_counter()
+    export_synth(ckpt, out, frames=SERVE_FRAMES, device=device)
+    t_export = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    program = torch.export.load(out)
+    forward = program.module()
+    t_load = time.perf_counter() - t0
+    targets = [str(n.target) for n in program.graph.nodes
+               if n.op == "call_function"]
+    ops = {t.split(".")[1]: targets.count(t) for t in set(targets)
+           if t.startswith("ddsp_svc.")}
+    if ops != expect:
+        fail(f"exported {synth}: op nodes {ops}, expected {expect}")
+    model, args = load_model(ckpt, device=device)
+    bs, n_unit = int(args.data.block_size), int(args.data.encoder_out_channels)
+    g = np.random.default_rng(21)
+    f = SERVE_FRAMES
+    x = [torch.as_tensor(a, device=device) for a in (
+        g.standard_normal((1, f, n_unit)).astype(np.float32),
+        (150 + 250 * g.random((1, f, 1))).astype(np.float32),
+        g.random((1, f)).astype(np.float32), np.ones((1, 1), np.int64),
+        (g.random((1, f * bs)) * 2 - 1).astype(np.float32))]
+    with torch.no_grad():
+        forward(*x)  # warm
+        sync(torch, device)
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = forward(*x)
+        sync(torch, device)
+        t_call = time.perf_counter() - t0
+        counts = K.launch_counts()
+        eager = model(*x[:4], infer=True, noise=x[4])[0]
+        with plain_kernels(K):
+            plain = model(*x[:4], infer=True, noise=x[4])[0]
+    for name, n in expect.items():
+        if counts[name] != n:
+            fail(f"exported {synth}: a call launched {name} {counts[name]} "
+                 f"times, expected {n}")
+    scale = plain.abs().max().item()
+    e_k = (got - eager).abs().max().item() / eager.abs().max().item()
+    e_p = (got - plain).abs().max().item() / scale
+    say(f"{card}: exported {synth} ({SERVE_FRAMES} frames, n_unit {n_unit}, "
+        f"{os.path.getsize(out)} bytes): export {t_export:.2f} s, load "
+        f"{t_load:.2f} s, one call {t_call * 1e3:.2f} ms; op nodes "
+        f"{json.dumps(ops)}; a call's launches {json.dumps(counts)}; vs "
+        f"eager on the kernels {e_k:.3e} x max|ref| (tolerance 1e-6), vs "
+        f"eager on the plain versions {e_p:.3e} x max|ref| (tolerance 1e-3)")
+    if not (torch.isfinite(got).all() and e_k <= 1e-6 and e_p <= 1e-3):
+        fail(f"exported {synth} disagrees with its eager model")
+    return out, counts
+
+
+def sync(torch, device: str) -> None:
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def serve_phase(torch, K, card: str, ckpts: dict, device: str = "cuda"
+                ) -> dict:
+    """Serving at full width with the CLI phase's checkpoints: the three
+    synthesizers exported and checked (export_checks); `serve`'s
+    ExportedSynth and handler over the CombSubFast artifact; `api`'s
+    handler over a SvcCore; the web panel's handler (genconfig, /stream,
+    an infer job). Returns the launch counts of the in-process runs on the
+    kernels."""
+    import yaml
+    from ddsp_svc_tpu_torch import api, serve, webui
+    from ddsp_svc_tpu_torch.data.wavio import read_wav_bytes, wav_bytes
+    from ddsp_svc_tpu_torch.data.wavio import write_wav
+    from ddsp_svc_tpu_torch.infer.streaming import SvcCore
+    from ddsp_svc_tpu_torch.models.factory import build_model
+    from ddsp_svc_tpu_torch.ops.resample import resample
+    from ddsp_svc_tpu_torch.train.checkpoint import save_checkpoint
+    from ddsp_svc_tpu_torch.utils.config import load_config
+
+    total = {k: 0 for k in K.launch_counts()}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    # ---- export ----
+    work = os.path.dirname(os.path.dirname(ckpts["fp32"]))
+    artifacts = {}
+    for synth, config, expect in EXPORTS:
+        ckpt = ckpts["fp32"]
+        if synth != "CombSubFast":
+            exp = os.path.join(work, "exp_" + synth)
+            os.makedirs(exp, exist_ok=True)
+            args = load_config(os.path.join(ROOT, "configs", config))
+            with open(os.path.join(exp, "config.yaml"), "w") as f:
+                yaml.safe_dump(json.loads(json.dumps(args)), f)
+            ckpt = os.path.join(exp, "model_0.pt")
+            save_checkpoint(ckpt, 0, build_model(args, device="cpu", seed=0))
+        artifacts[synth], counts = export_checks(torch, K, synth, ckpt,
+                                                 expect, card, device)
+        add(counts)
+
+    # ---- serve ----
+    cfg_path = os.path.join(os.path.dirname(ckpts["fp32"]), "config.yaml")
+    t0 = time.perf_counter()
+    synth = serve.ExportedSynth(artifacts["CombSubFast"], cfg_path,
+                                device=device)
+    t_load = time.perf_counter() - t0
+    sr, bs = synth.sr, synth.block
+    body = wav_bytes(sung_wav(sr), sr)
+    audio = read_wav_bytes(body)[0]  # what the servers read
+    dur = len(audio) / sr
+    n_f = len(audio) // bs + 1
+    step = synth.frames - synth.overlap
+    n_win = next(i + 1 for i in range(n_f) if i * step + synth.frames >= n_f)
+    say(f"serve: ExportedSynth over the CombSubFast artifact ({synth.frames} "
+        f"frames, overlap {synth.overlap}, dio, HuBERT-soft), loaded with "
+        f"its warm call in {t_load:.2f} s; the {dur:.3f} s wav = {n_f} "
+        f"frames = {n_win} windows")
+    with http_server(serve.make_handler(synth)) as port:
+        code, info = http(port, "/healthz")
+        if code != 200 or json.loads(info)["status"] != "ok":
+            fail(f"serve /healthz: {code} {info[:200]}")
+        for path, key, label in (("/convert", 0.0, "first"),
+                                 ("/convert", 0.0, "warm"),
+                                 ("/voiceChangeModel?fPitchChange=2", 2.0,
+                                  "voiceChangeModel")):
+            synth._rng = np.random.default_rng(0)
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            code, resp = http(port, path, body)
+            wall = time.perf_counter() - t0
+            counts = K.launch_counts()
+            add(counts)
+            if code != 200:
+                fail(f"serve {path}: {code} {resp[:300]}")
+            out, sr_o = read_wav_bytes(resp)
+            synth._rng = np.random.default_rng(0)
+            ref = _pcm16(synth.convert(audio, key=key), sr)
+            err = float(np.abs(out - ref).max())
+            rms = float(np.sqrt(np.mean(out.astype(np.float64) ** 2)))
+            say(f"{card}: serve {path} ({label}): {wall * 1e3:.1f} ms = "
+                f"{dur / wall:.2f} audio-s/s; {len(out)} samples at {sr_o} "
+                f"Hz, rms {rms:.4f}; vs the direct call max|err| {err:.3e} "
+                f"(tolerance one PCM16 step {PCM16:.3e}); launches "
+                f"{json.dumps(counts)}")
+            if not (sr_o == sr and len(out) == n_f * bs and np.isfinite(out).all()
+                    and rms > 0 and err <= PCM16):
+                fail(f"serve {path}: {len(out)} samples (expected {n_f * bs}) "
+                     f"at {sr_o} Hz, rms {rms}, err {err}")
+            for name, per in SERVE_PER_WINDOW.items():
+                if counts[name] != per * n_win:
+                    fail(f"serve {path} launched {name} {counts[name]} "
+                         f"times, expected {per} a window x {n_win}")
+    del synth
+
+    # ---- API ----
+    core = SvcCore(ckpts["fp32"], device=device)
+    fresh = SvcCore(ckpts["fp32"], device=device)
+    saved_core, api.CORE = api.CORE, core
+    try:
+        with http_server(api.Handler) as port:
+            code, info = http(port, "/")
+            if code != 200 or json.loads(info) != {"status": "ok",
+                                                   "model": True}:
+                fail(f"api GET: {code} {info[:200]}")
+            for enhance, query in ((True, "enhance=true&pe=dio&sampleRate"
+                                    "=16000"), (False, "enhance=false")):
+                core._step = 0
+                K.reset_launch_counts()
+                t0 = time.perf_counter()
+                code, resp = http(port, "/voiceChangeModel?" + query, body)
+                wall = time.perf_counter() - t0
+                counts = K.launch_counts()
+                add(counts)
+                if code != 200:
+                    fail(f"api {query}: {code} {resp[:300]}")
+                out, sr_o = read_wav_bytes(resp)
+                refs = []
+                for plain in (False, True):
+                    fresh._step = 0
+                    with plain_kernels(K) if plain else nullcontext():
+                        y, y_sr = fresh.infer(audio, sr, use_enhancer=enhance,
+                                              pitch_extractor_type="dio")
+                    target = 16000 if enhance else y_sr
+                    if target != y_sr:
+                        y = resample(torch.from_numpy(y)[None], y_sr,
+                                     target)[0].numpy()
+                    refs.append(y)
+                err = float(np.abs(out - _pcm16(refs[0], target)).max())
+                e_p = float(np.abs(refs[0] - refs[1]).max()
+                            / np.abs(refs[1]).max())
+                rms = float(np.sqrt(np.mean(out.astype(np.float64) ** 2)))
+                say(f"{card}: api {query}: {wall * 1e3:.1f} ms = "
+                    f"{dur / wall:.2f} audio-s/s; {len(out)} samples at "
+                    f"{sr_o} Hz, rms {rms:.4f}; vs a fresh SvcCore.infer "
+                    f"max|err| {err:.3e} (tolerance one PCM16 step); kernels "
+                    f"vs plain versions {e_p:.3e} x max|ref| (tolerance "
+                    f"1e-3); launches {json.dumps(counts)}")
+                if not (sr_o == target and len(out) == len(refs[0])
+                        and np.isfinite(out).all() and rms > 0
+                        and err <= PCM16 and e_p <= 1e-3):
+                    fail(f"api {query}: {len(out)} samples at {sr_o} Hz, "
+                         f"rms {rms}, err {err}, plain {e_p}")
+                for name, per in API_PER_REQUEST[enhance].items():
+                    if counts[name] != per:
+                        fail(f"api {query} launched {name} {counts[name]} "
+                             f"times, expected {per}")
+    finally:
+        api.CORE = saved_core
+    del core, fresh
+
+    # ---- the web panel ----
+    panel = os.path.join(work, "panel")
+    os.makedirs(panel, exist_ok=True)
+    stream_wav = os.path.join(panel, "stream_in.wav")
+    write_wav(stream_wav, sung_wav(sr, seed=2, phrases=STREAM_PHRASES), sr)
+    cli_wav = os.path.join(work, "in.wav")
+    saved = webui.REPO_ROOT, webui.DEVICE, webui.JOBS
+    webui.REPO_ROOT, webui.DEVICE, webui.JOBS = panel, device, {}
+    try:
+        with http_server(webui.Handler) as port:
+            def post(path, **form):
+                import html
+                import urllib.parse
+                code, page = http(port, path, urllib.parse.urlencode(
+                    form).encode())
+                page = html.unescape(page.decode())
+                if code != 200 or "error:" in page:
+                    fail(f"panel {path} {form.get('action')}: {code} "
+                         f"{page[-600:]}")
+                return page
+
+            post("/run", action="genconfig",
+                 base=os.path.join(ROOT, "configs", "combsub.yaml"),
+                 train_path="data/train", valid_path="data/val",
+                 expdir="exp/panel", batch_size="8", out="opt.yaml")
+            opt = load_config(os.path.join(panel, "opt.yaml"))
+            if not (opt.train.batch_size == 8 and opt.model.type
+                    == "CombSubFast"):
+                fail("panel genconfig wrote the wrong config")
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            page = post("/stream", action="stream", model=ckpts["fp32"],
+                        input=stream_wav, output="stream_out.wav",
+                        samplerate=str(sr), pe="dio", enhance="true")
+            wall = time.perf_counter() - t0
+            add(K.launch_counts())
+            stats = json.loads(page[page.index("{"): page.rindex("}") + 1])
+            y, _ = read_wav_bytes(open(os.path.join(panel, "stream_out.wav"),
+                                       "rb").read())
+            say(f"{card}: panel /stream: {stats['blocks']} blocks of "
+                f"{stats['block_ms']} ms, latency {json.dumps(stats['latency_ms'])}"
+                f" ms, {wall:.2f} s with the core's load; {len(y)} samples "
+                f"written; launches {json.dumps(K.launch_counts())}")
+            if not (stats["blocks"] > 0 and len(y) == stats["blocks"]
+                    * int(0.3 * sr) and np.isfinite(y).all()):
+                fail("panel /stream: wrong output")
+            out_wav = os.path.join(panel, "job_out.wav")
+            t0 = time.perf_counter()
+            page = post("/run", action="infer", model=ckpts["fp32"],
+                        input=cli_wav, output=out_wav)
+            if "started 'infer'" not in page:
+                fail(f"panel infer: {page[-300:]}")
+            job = webui.JOBS["infer"]
+            if job.args[-2:] != ["--device", device]:
+                fail(f"panel infer job: {job.args}")
+            try:
+                job.wait(timeout=300)
+            finally:
+                if job.poll() is None:
+                    job.kill()
+                    job.wait()
+            wall = time.perf_counter() - t0
+            page = http(port, "/")[1].decode()
+            if job.returncode != 0 or "exited 0" not in page \
+                    or not os.path.isfile(out_wav):
+                log = open(os.path.join(panel, "webui_infer.log")).read()
+                fail(f"panel infer job exited {job.returncode}: {log[-800:]}")
+            y, y_sr = read_wav_bytes(open(out_wav, "rb").read())
+            say(f"{card}: panel infer job (python -m ddsp_svc_tpu_torch.infer"
+                f" -pe crepe -e true on the card, a subprocess): exited 0 in "
+                f"{wall:.2f} s, {len(y)} samples at {y_sr} Hz")
+    finally:
+        webui.REPO_ROOT, webui.DEVICE, webui.JOBS = saved
+        webui.STREAM_CORES.clear()
+    return total
+
+
 def main() -> None:
     try:
         import torch
@@ -2577,10 +2948,13 @@ def main() -> None:
     t0 = time.perf_counter()
     stream_counts = stream_phase(torch, K, smi[0], ckpts)
     say(f"streaming paths: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    serve_counts = serve_phase(torch, K, smi[0], ckpts)
+    say(f"serving paths: {time.perf_counter() - t0:.1f} s")
     shutil.rmtree(os.path.join(ROOT, "build", "chip_smoke_cli"),
                   ignore_errors=True)
     for counts in (cli_counts, batch_counts, pre_counts, gan_counts,
-                   stream_counts):
+                   stream_counts, serve_counts):
         for k, v in counts.items():
             launches[k] += v
     for synth, config, expect, full in SYNTHS:

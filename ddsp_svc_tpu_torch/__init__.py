@@ -20,6 +20,10 @@ against; nothing here imports it, JAX or flax. The layout mirrors it:
             the incremental real-time session (realtime.py)
     stream  the streaming entry (python -m ddsp_svc_tpu_torch.stream, the
             root gui.py's counterpart: a wav block by block, or live)
+    export  the synthesizer traced by torch.export (tools/export.py's
+            counterpart); serve, its HTTP server (tools/serve.py's); api,
+            the voice-change HTTP API (flask_api.py's); webui, the web
+            control panel (webui.py's)
     data/   the silence slicer, wav I/O, the training loaders, the feature
             front end (f0, volume, units) and preprocessing (python -m
             ddsp_svc_tpu_torch.preprocess)

@@ -17,7 +17,8 @@ Counterpart of `ddsp_svc_tpu/data/features.py`:
     back to the device tracker: it raises when the library cannot be built.
   - VolumeExtractor: frame RMS.
   - UnitsEncoder: resample to the encoder's rate -> HuBERT -> nearest
-    alignment onto the synth hop; weights from a torch checkpoint or a seed.
+    alignment onto the synth hop; weights from a torch checkpoint, the JAX
+    package's flax variables (`.ckpt` / `.msgpack`) or a seed.
 The torch families and the units encoder run on CUDA unless the caller
 passes device="cpu".
 """
@@ -39,7 +40,9 @@ from ..ops.resample import resample
 from ..ops.spectral import next_pow2
 from ..ops.volume import extract_volume_np
 from ..ops.windows import hann_window_symmetric
+from ..utils.convert import jax_hubert_to_torch
 from ..utils.device import resolve_device
+from ..utils.flax_msgpack import read_msgpack
 from .. import native
 from . import world_f0
 
@@ -252,7 +255,9 @@ class VolumeExtractor:
 class UnitsEncoder:
     """Audio -> units aligned to the synthesizer's frame grid. encoder: one
     of `nn.hubert.VARIANTS`; encoder_ckpt: a torch checkpoint (the bshall
-    HuBERT-soft layout or fairseq's), or None for weights from `seed`.
+    HuBERT-soft layout or fairseq's), the JAX package's flax HuBERT
+    variables serialized with msgpack (`.ckpt` or `.msgpack`), or None for
+    weights from `seed`.
     The checkpoint is read with torch.load(weights_only=True); a file that
     pickles other objects beside its tensors (fairseq saves its run
     configuration so) is refused unless trust_pickle is set, because a full
@@ -282,9 +287,9 @@ class UnitsEncoder:
     @staticmethod
     def _load_ckpt(path: str, trust_pickle: bool = False):
         if path.endswith((".ckpt", ".msgpack")):
-            raise NotImplementedError(
-                "flax-msgpack HuBERT variables are not read by the port; give "
-                "a torch checkpoint")
+            # the JAX package's flax variables ({'params': ...}), read by
+            # the port's own msgpack reader
+            return jax_hubert_to_torch(read_msgpack(path))
         try:
             return torch.load(path, map_location="cpu", weights_only=True)
         except pickle.UnpicklingError as e:

@@ -34,6 +34,25 @@ outputs, and launches its kernel (csrc/<name>.cu, built by ops/build.py) on
 the current stream, or raises; it never falls back. `wrapper.launches` counts the
 launches. Layouts at these functions are the JAX package's: (B, T, C)
 activations, (B, H, T, d) attention.
+
+Four kernels, the ones an exported synthesizer runs, are reached through
+PyTorch custom ops, so that a program made by torch.export holds them as
+nodes and a saved program replays them:
+
+    ddsp_svc::performer_attention   #1
+    ddsp_svc::combsub_spectral      #2 (forward)
+    ddsp_svc::oscillator_bank       #8
+    ddsp_svc::ltv_fir_convolve      #9
+
+Each op's CUDA implementation checks, launches and counts; its CPU
+implementation is the plain version; its fake implementation only
+allocates the output. Everything that reads data (a pointer's alignment, a
+host length) or fills a cache (the spectral window) runs in the CUDA
+implementation, never in traced code. Their wrappers call the op on either
+device where no gradient is wanted; where one is, a CPU tensor takes
+autograd through the plain version and a CUDA tensor the autograd
+Function, whose forward calls the op. The other seven wrappers launch
+through ctypes directly, as an exported program reaches none of them.
 """
 from __future__ import annotations
 
@@ -126,6 +145,10 @@ def _lengths(valid, b: int, default: int, device) -> torch.Tensor:
     return v.expand(b).contiguous()
 
 
+def _wants_grad(tensors) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in tensors)
+
+
 def launch_counts() -> dict:
     return {f.__name__: f.launches for f in KERNELS}
 
@@ -152,16 +175,21 @@ def performer_attention_plain(q, k, v, projection, valid_frames=None):
     return linear_attention(qf, kf, v)
 
 
+def _by_value(valid) -> bool:
+    """valid_frames the attention kernel takes by value: an int, or a
+    one-value tensor or array on the host (read there)."""
+    return isinstance(valid, (int, np.integer)) or np.ndim(valid) == 0 and (
+        not torch.is_tensor(valid) or valid.device.type == "cpu")
+
+
 def attention_lengths(valid, b: int, t: int, device):
     """valid_frames as the attention kernel takes them: (None, n) when every
-    row has one length n, passed by value (None: T; an int, or a one-value
-    tensor on the host, read there), else ((B,) int32 lengths on `device`,
-    0). A tensor on the card stays there: reading it would wait for the
-    card."""
+    row has one length n, passed by value (None: T; `_by_value`), else
+    ((B,) int32 lengths on `device`, 0). A tensor on the card stays there:
+    reading it would wait for the card."""
     if valid is None:
         return None, t
-    if isinstance(valid, (int, np.integer)) or np.ndim(valid) == 0 and (
-            not torch.is_tensor(valid) or valid.device.type == "cpu"):
+    if _by_value(valid):
         return None, int(valid)
     return _lengths(valid, b, t, device), 0
 
@@ -189,16 +217,8 @@ def _attention_strides(x, name: str, shape, device):
     return strides
 
 
-def performer_attention(q, k, v, projection, valid_frames=None):
-    """Fused non-causal FAVOR+ attention in one launch (a thread-block
-    cluster per batch row and head): q, k, v (B, H, T, 64) fp32, contiguous
-    or views with one set of strides (the heads split off a (B, T, H * 64)
-    projection), projection (266, 64) -> (B, H, T, 64) contiguous.
-    valid_frames (int, 0-d or (B,)) masks the key features of padded
-    frames; output rows past it are meaningless, as in the plain
-    version."""
-    if q.device.type == "cpu":
-        return performer_attention_plain(q, k, v, projection, valid_frames)
+def _attention_checks(q, k, v, projection):
+    """The attention kernel's checks of its inputs: (m, strides)."""
     b, h, t, d = q.shape
     m = projection.shape[0]
     if (m, d) != (266, 64):
@@ -210,7 +230,22 @@ def performer_attention(q, k, v, projection, valid_frames=None):
             raise ValueError(f"{name} has strides {x.stride()}, q "
                              f"{q.stride()}: q, k and v must share them")
     _check(projection, "projection", (m, d), q.device)
-    lengths, valid_all = attention_lengths(valid_frames, b, t, q.device)
+    return m, strides
+
+
+@torch.library.custom_op("ddsp_svc::performer_attention", mutates_args=(),
+                         device_types="cuda")
+def performer_attention_op(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, projection: torch.Tensor,
+                           lengths: Optional[torch.Tensor],
+                           valid_all: int) -> torch.Tensor:
+    """#1 as a custom op: valid_frames as (lengths, valid_all), the pair of
+    attention_lengths, lengths a tensor of any int dtype (0-d or (B,)) that
+    the CUDA implementation turns into (B,) int32 on the card."""
+    b, h, t, d = q.shape
+    m, strides = _attention_checks(q, k, v, projection)
+    if lengths is not None:
+        lengths, valid_all = attention_lengths(lengths, b, t, q.device)
     out = torch.empty((b, h, t, d), dtype=torch.float32, device=q.device)
     _launch("performer_attention", "performer_attention_launch",
             q.data_ptr(), k.data_ptr(), v.data_ptr(), projection.data_ptr(),
@@ -218,6 +253,39 @@ def performer_attention(q, k, v, projection, valid_frames=None):
             d ** -0.25, m ** -0.5, _stream(q))
     performer_attention.launches += 1
     return out
+
+
+@performer_attention_op.register_kernel("cpu")
+def _(q, k, v, projection, lengths, valid_all):
+    return performer_attention_plain(
+        q, k, v, projection,
+        valid_all if lengths is None else lengths).contiguous()
+
+
+@performer_attention_op.register_fake
+def _(q, k, v, projection, lengths, valid_all):
+    return q.new_empty(q.shape)
+
+
+def performer_attention(q, k, v, projection, valid_frames=None):
+    """Fused non-causal FAVOR+ attention in one launch (a thread-block
+    cluster per batch row and head): q, k, v (B, H, T, 64) fp32, contiguous
+    or views with one set of strides (the heads split off a (B, T, H * 64)
+    projection), projection (266, 64) -> (B, H, T, 64) contiguous.
+    valid_frames (int, 0-d or (B,)) masks the key features of padded
+    frames; output rows past it are meaningless, as in the plain
+    version. Through the custom op, except for a CPU tensor where a
+    gradient is wanted (the kernel has no backward: on the card a backward
+    through the op raises)."""
+    if q.device.type == "cpu" and _wants_grad((q, k, v, projection)):
+        return performer_attention_plain(q, k, v, projection, valid_frames)
+    if valid_frames is None:
+        lengths, valid_all = None, q.shape[2]
+    elif _by_value(valid_frames):
+        lengths, valid_all = None, int(valid_frames)
+    else:
+        lengths, valid_all = torch.as_tensor(valid_frames), 0
+    return performer_attention_op(q, k, v, projection, lengths, valid_all)
 
 
 def attention_kernel_info(t: int) -> dict:
@@ -274,8 +342,12 @@ def combsub_window(n_fft: int, device):
     return _WINDOWS[key]
 
 
-def _combsub_spectral_launch(tooth_frames, noise_frames, hm, hp, nm,
-                             n_fft: int):
+@torch.library.custom_op("ddsp_svc::combsub_spectral", mutates_args=(),
+                         device_types="cuda")
+def combsub_spectral_op(tooth_frames: torch.Tensor, noise_frames: torch.Tensor,
+                        hm: torch.Tensor, hp: torch.Tensor, nm: torch.Tensor,
+                        n_fft: int) -> torch.Tensor:
+    """#2 as a custom op."""
     rows = tooth_frames.shape[0]
     dev = tooth_frames.device
     _check_combsub(n_fft, rows, dev, (
@@ -291,15 +363,23 @@ def _combsub_spectral_launch(tooth_frames, noise_frames, hm, hp, nm,
     return out
 
 
+combsub_spectral_op.register_kernel("cpu")(combsub_spectral_plain)
+
+
+@combsub_spectral_op.register_fake
+def _(tooth_frames, noise_frames, hm, hp, nm, n_fft):
+    return tooth_frames.new_empty(tooth_frames.shape)
+
+
 class _CombsubSpectralFn(torch.autograd.Function):
-    """The forward kernel, with the adjoint kernel as its backward."""
+    """The forward op, with the adjoint kernel as its backward."""
 
     @staticmethod
     def forward(ctx, tooth_frames, noise_frames, hm, hp, nm, n_fft):
         ctx.n_fft = n_fft
         ctx.save_for_backward(tooth_frames, noise_frames, hm, hp, nm)
-        return _combsub_spectral_launch(tooth_frames, noise_frames, hm, hp,
-                                        nm, n_fft)
+        return combsub_spectral_op(tooth_frames, noise_frames, hm, hp, nm,
+                                   n_fft)
 
     @staticmethod
     def backward(ctx, g):
@@ -313,14 +393,13 @@ def combsub_spectral(tooth_frames, noise_frames, hm, hp, nm, n_fft: int):
     half-length FFTs in shared memory: windowed excitation frames (R, n_fft)
     and raw controls (R, n_fft//2+1) -> windowed output frames (R, n_fft).
     n_fft a power of two, 64..4096. Differentiable in all five inputs; where
-    no gradient is wanted the kernel launches without the autograd
-    Function."""
+    no gradient is wanted the op runs without the autograd Function."""
     tensors = (tooth_frames, noise_frames, hm, hp, nm)
+    if not _wants_grad(tensors):
+        return combsub_spectral_op(*tensors, n_fft)
     if tooth_frames.device.type == "cpu":
         return combsub_spectral_plain(*tensors, n_fft)
-    if torch.is_grad_enabled() and any(x.requires_grad for x in tensors):
-        return _CombsubSpectralFn.apply(*tensors, n_fft)
-    return _combsub_spectral_launch(*tensors, n_fft)
+    return _CombsubSpectralFn.apply(*tensors, n_fft)
 
 
 def combsub_spectral_bwd_plain(g, tooth_frames, noise_frames, hm, hp, nm,
@@ -527,7 +606,7 @@ def harmonic_source(start, rad, w, b, upp: int, sine_amp: float = 0.1):
     if start.device.type == "cpu":
         return harmonic_source_plain(start, rad, w, b, upp, sine_amp)
     tensors = (start, rad, w, b)
-    if torch.is_grad_enabled() and any(x.requires_grad for x in tensors):
+    if _wants_grad(tensors):
         return _PlainBackwardFn.apply(
             lambda *xs: _harmonic_source_launch(*xs, upp, sine_amp),
             lambda *xs: harmonic_source_plain(*xs, upp, sine_amp), *tensors)
@@ -947,21 +1026,40 @@ def fused_stage(x_pre, har, up_weight, up_bias, nc_weight, nc_bias, weights,
 
 # ------------------------------ oscillator bank -----------------------------
 
-def _oscillator_bank_launch(phase, amplitudes_frames, block_size: int):
+def _oscillator_bank_checks(phase, amplitudes_frames, block_size: int):
+    """The oscillator bank kernel's checks of its inputs: (B, F, n_h)."""
     bsz, t = phase.shape
     _, f, n_h = amplitudes_frames.shape
-    dev = phase.device
     if t != f * block_size:
         raise ValueError(f"oscillator_bank takes T = F * block_size, got T={t}"
                          f", F={f}, block_size={block_size}")
-    _check(phase, "phase", (bsz, t), dev)
-    _check(amplitudes_frames, "amplitudes_frames", (bsz, f, n_h), dev)
+    _check(phase, "phase", (bsz, t), phase.device)
+    _check(amplitudes_frames, "amplitudes_frames", (bsz, f, n_h), phase.device)
+    return bsz, f, n_h
+
+
+@torch.library.custom_op("ddsp_svc::oscillator_bank", mutates_args=(),
+                         device_types="cuda")
+def oscillator_bank_op(phase: torch.Tensor, amplitudes_frames: torch.Tensor,
+                       block_size: int, harmonic_chunk: int) -> torch.Tensor:
+    """#8 as a custom op; harmonic_chunk is the plain version's (the CPU
+    implementation's), which the kernel does not need."""
+    bsz, f, n_h = _oscillator_bank_checks(phase, amplitudes_frames,
+                                          block_size)
     out = torch.empty_like(phase)
     _launch("oscillator_bank", "oscillator_bank_launch", phase.data_ptr(),
             amplitudes_frames.data_ptr(), out.data_ptr(), bsz * f, f, n_h,
             block_size, _stream(out))
     oscillator_bank.launches += 1
     return out
+
+
+oscillator_bank_op.register_kernel("cpu")(oscillator_bank_plain)
+
+
+@oscillator_bank_op.register_fake
+def _(phase, amplitudes_frames, block_size, harmonic_chunk):
+    return phase.new_empty(phase.shape)
 
 
 def oscillator_bank_kernel_info(n_h: int = 128) -> dict:
@@ -989,20 +1087,19 @@ def oscillator_bank(phase, amplitudes_frames, block_size: int,
     the sines by a recurrence along the harmonics; the (B, T, n_harm) bank
     never exists in the forward. harmonic_chunk bounds the plain forward's
     memory; the backward, autograd of the plain version, keeps the sines of
-    every chunk. Differentiable; where no gradient is wanted the kernel
-    launches without the autograd Function."""
+    every chunk. Differentiable; where no gradient is wanted the op runs
+    without the autograd Function."""
+    tensors = (phase, amplitudes_frames)
+    if not _wants_grad(tensors):
+        return oscillator_bank_op(*tensors, block_size, harmonic_chunk)
     if phase.device.type == "cpu":
-        return oscillator_bank_plain(phase, amplitudes_frames, block_size,
-                                     harmonic_chunk)
-    if not (torch.is_grad_enabled() and (phase.requires_grad
-                                         or amplitudes_frames.requires_grad)):
-        return _oscillator_bank_launch(phase, amplitudes_frames, block_size)
+        return oscillator_bank_plain(*tensors, block_size, harmonic_chunk)
     # the phase comes from f0 and needs no gradient; each is computed only
     # when asked for
     return _PlainBackwardFn.apply(
-        lambda p, a: _oscillator_bank_launch(p, a, block_size),
+        lambda p, a: oscillator_bank_op(p, a, block_size, harmonic_chunk),
         lambda p, a: oscillator_bank_plain(p, a, block_size, harmonic_chunk),
-        phase, amplitudes_frames)
+        *tensors)
 
 
 # ------------------------------ LTV-FIR convolve ----------------------------
@@ -1020,7 +1117,11 @@ def ltv_fir_convolve_plain(a_frames, ir_frames, n_fft: int):
     return irfft_any(spec, n_fft)
 
 
-def _ltv_fir_convolve_launch(a_frames, ir_frames, n_fft: int):
+@torch.library.custom_op("ddsp_svc::ltv_fir_convolve", mutates_args=(),
+                         device_types="cuda")
+def ltv_fir_convolve_op(a_frames: torch.Tensor, ir_frames: torch.Tensor,
+                        n_fft: int) -> torch.Tensor:
+    """#9 as a custom op."""
     rows, frame = a_frames.shape
     ir = ir_frames.shape[-1]
     dev = a_frames.device
@@ -1037,6 +1138,14 @@ def _ltv_fir_convolve_launch(a_frames, ir_frames, n_fft: int):
             _stream(out))
     ltv_fir_convolve.launches += 1
     return out
+
+
+ltv_fir_convolve_op.register_kernel("cpu")(ltv_fir_convolve_plain)
+
+
+@ltv_fir_convolve_op.register_fake
+def _(a_frames, ir_frames, n_fft):
+    return a_frames.new_empty((a_frames.shape[0], n_fft))
 
 
 def ltv_fir_convolve_bwd_plain(g, a_frames, ir_frames, n_fft: int,
@@ -1061,13 +1170,13 @@ def ltv_fir_convolve_bwd_plain(g, a_frames, ir_frames, n_fft: int,
 
 
 class _LtvFirConvolveFn(torch.autograd.Function):
-    """The kernel forward, ltv_fir_convolve_bwd_plain as the backward."""
+    """The forward op, ltv_fir_convolve_bwd_plain as the backward."""
 
     @staticmethod
     def forward(ctx, a_frames, ir_frames, n_fft):
         ctx.n_fft = n_fft
         ctx.save_for_backward(a_frames, ir_frames)
-        return _ltv_fir_convolve_launch(a_frames, ir_frames, n_fft)
+        return ltv_fir_convolve_op(a_frames, ir_frames, n_fft)
 
     @staticmethod
     def backward(ctx, g):
@@ -1081,7 +1190,10 @@ def ltv_fir_convolve(a_frames, ir_frames, n_fft: int):
     """The framed spectral convolution of `frequency_filter` in one kernel
     (per row three n/2-point FFTs in shared memory): a_frames (R, frame),
     ir_frames (R, ir) fp32, n_fft a power of two >= frame + ir - 1 ->
-    (R, n_fft). Differentiable in both inputs."""
+    (R, n_fft). Differentiable in both inputs; where no gradient is wanted
+    the op runs without the autograd Function."""
+    if not _wants_grad((a_frames, ir_frames)):
+        return ltv_fir_convolve_op(a_frames, ir_frames, n_fft)
     if a_frames.device.type == "cpu":
         return ltv_fir_convolve_plain(a_frames, ir_frames, n_fft)
     return _LtvFirConvolveFn.apply(a_frames, ir_frames, n_fft)

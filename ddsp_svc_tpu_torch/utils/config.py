@@ -1,6 +1,8 @@
 """YAML config <-> attribute-access dict (missing keys read as None)."""
 from __future__ import annotations
 
+from typing import Any, Mapping
+
 import yaml
 
 
@@ -28,3 +30,14 @@ def save_config(path: str, args: dict) -> None:
 
 def _plain(d):
     return {k: _plain(v) for k, v in d.items()} if isinstance(d, dict) else d
+
+
+def deep_update(base: dict, override: Mapping[str, Any]) -> dict:
+    """Recursively merge `override` into a copy of `base`."""
+    out = dict(base)
+    for k, v in override.items():
+        if isinstance(v, Mapping) and isinstance(out.get(k), Mapping):
+            out[k] = deep_update(dict(out[k]), v)
+        else:
+            out[k] = v
+    return out

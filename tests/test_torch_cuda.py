@@ -1494,3 +1494,99 @@ def test_train_gan_entry_on_card(cuda, tmp_path):
     assert (tmp_path / "gan" / "enhancer" / "model_best.pt").is_file()
     assert counts["harmonic_source"] == 5 and counts[
         "fused_resblocks_inject"] == 20, counts
+
+
+# ---------------------------------------------------- the custom ops ----
+
+
+def _op_cases(dev):
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (_randn(g, 2, 8, 40, 64) for _ in range(3))
+    split = _randn(g, 2, 40, 8 * 64).reshape(2, 40, 8, 64).transpose(1, 2)
+    proj = torch.from_numpy(gaussian_orthogonal_random_matrix(266, 64, 5)).to(dev)
+    rows, n = 5, 1024
+    spectral = [_randn(g, rows, n) for _ in range(2)] + [
+        _randn(g, rows, n // 2 + 1, scale=0.3) for _ in range(3)]
+    phase = (2 * torch.rand((2, 4 * 512), generator=g, device=dev) - 1) * np.pi
+    amps = 0.1 * torch.rand((2, 4, 128), generator=g, device=dev)
+    # (name, op, args, tolerance relative to max |ref|, absolute tolerance):
+    # each kernel's card test's (#8: atol 2e-3 at amplitudes <= 0.1)
+    return [
+        ("performer_attention", K.performer_attention_op,
+         (q, k, v, proj, None, 40), 2e-5, 0.0),
+        ("performer_attention", K.performer_attention_op,
+         (split, split, split, proj, None, 27), 2e-5, 0.0),
+        ("performer_attention", K.performer_attention_op,
+         (q, k, v, proj, torch.tensor([30, 12], device=dev), 0), 2e-5, 0.0),
+        ("combsub_spectral", K.combsub_spectral_op, (*spectral, n), 2e-5,
+         0.0),
+        ("oscillator_bank", K.oscillator_bank_op, (phase, amps, 512, 32),
+         0.0, 2e-3),
+        ("ltv_fir_convolve", K.ltv_fir_convolve_op,
+         (_randn(g, 6, 1024), _randn(g, 6, 513), 2048), 2e-5, 0.0),
+    ]
+
+
+@pytest.mark.parametrize("case", range(6), ids=[
+    "attention", "attention split heads", "attention lengths", "spectral",
+    "oscillator bank", "ltv-fir"])
+def test_custom_ops_on_card(cuda, case):
+    """torch.library.opcheck's schema and fake-tensor checks of each op on
+    CUDA tensors; one call launches its kernel once and agrees with the
+    plain version (each kernel's card-test tolerance; the attention on the
+    valid rows)."""
+    name, op, args, tol, atol = _op_cases(cuda)[case]
+    torch.library.opcheck(op, args, test_utils=("test_schema",
+                                                "test_faketensor"))
+    plain = {K.performer_attention_op: lambda q, k, v, p, n, va:
+             K.performer_attention_plain(q, k, v, p, va if n is None else n),
+             K.combsub_spectral_op: K.combsub_spectral_plain,
+             K.oscillator_bank_op: K.oscillator_bank_plain,
+             K.ltv_fir_convolve_op: K.ltv_fir_convolve_plain}[op]
+    K.reset_launch_counts()
+    got = op(*args)
+    assert K.launch_counts()[name] == 1
+    ref = plain(*args)
+    if name == "performer_attention":
+        n = args[4].tolist() if args[4] is not None else [args[5]] * 2
+        got = torch.cat([got[i, :, :n[i]].flatten() for i in range(2)])
+        ref = torch.cat([ref[i, :, :n[i]].flatten() for i in range(2)])
+    assert got.is_cuda and got.is_contiguous()
+    assert (got - ref).abs().max().item() <= (tol * ref.abs().max().item()
+                                              + atol)
+
+
+def test_exported_combsub_fast_on_card(cuda, tmp_path):
+    """A CombSubFast (16 kHz, block 256, n_unit 64) exported on the card,
+    saved and loaded: its graph holds 3 performer_attention and 1
+    combsub_spectral op nodes, a replay launches #1/#2 3/1 times and
+    matches the eager forward within 1e-6 of max |ref|."""
+    from ddsp_svc_tpu_torch.export import export_program
+    from ddsp_svc_tpu_torch.models.factory import build_model
+    from ddsp_svc_tpu_torch.utils.config import DotDict
+
+    args = DotDict({"data": {"sampling_rate": 16000, "block_size": 256,
+                             "encoder_out_channels": 64},
+                    "model": {"type": "CombSubFast", "n_spk": 2}})
+    model = build_model(args, device=cuda, seed=0)
+    program = export_program(model, frames=64)
+    torch.export.save(program, str(tmp_path / "m.pt2"))
+    program = torch.export.load(str(tmp_path / "m.pt2"))
+    targets = [str(n.target) for n in program.graph.nodes
+               if n.op == "call_function"]
+    assert targets.count("ddsp_svc.performer_attention.default") == 3
+    assert targets.count("ddsp_svc.combsub_spectral.default") == 1
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = (_randn(g, 1, 64, 64), 150 + 200 * torch.rand(
+        (1, 64, 1), generator=g, device=cuda),
+         torch.rand((1, 64), generator=g, device=cuda),
+         torch.ones((1, 1), dtype=torch.int64, device=cuda),
+         2 * torch.rand((1, 64 * 256), generator=g, device=cuda) - 1)
+    with torch.no_grad():
+        ref = model(*x[:4], infer=True, noise=x[4])[0]
+        K.reset_launch_counts()
+        got = program.module()(*x)
+    counts = K.launch_counts()
+    assert counts["performer_attention"] == 3, counts
+    assert counts["combsub_spectral"] == 1, counts
+    assert (got - ref).abs().max().item() <= 1e-6 * ref.abs().max().item()

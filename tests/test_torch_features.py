@@ -3,12 +3,14 @@ volume, the NaN-masked pools and `nearest_align` (1e-6); the copied WORLD
 trackers bit for bit; the autocorrelation candidate stage and the tracked f0
 of the 'parselmouth' family; HuBERT at full width, its variants and both
 torch checkpoint layouts (each held through the JAX package's own
-converter); CREPE at full width on a handful of frames, the torchcrepe
+converter), and the JAX package's flax HuBERT variables as `.ckpt` and
+`.msgpack` files (read without the msgpack package); CREPE at full width on a handful of frames, the torchcrepe
 loader and the post-processing chain; `UnitsEncoder.encode` at 44.1 kHz
 (the resampler at 44.1 -> 16 kHz is held by
 tests/test_torch_enhancer.py::test_resample_matches_jax).
 Inputs from numpy seeds; weights seeded in numpy and written as the torch
 checkpoints the loaders read."""
+import os
 import types
 
 import numpy as np
@@ -368,6 +370,46 @@ def test_units_encoder_unpickles_in_full_only_when_trusted(tmp_path):
     wav = _sung(16000, 0.3, seed=4)[None]
     np.testing.assert_array_equal(enc.encode(wav, 16000, 320),
                                   bare.encode(wav, 16000, 320))
+
+
+@pytest.fixture(scope="module")
+def flax_hubert(tmp_path_factory):
+    """HuBERT-base (9 layers, final_proj) initialised by the JAX package
+    from a seed, its variables serialized by flax as `.ckpt` and as
+    `.msgpack` (the same bytes), and the JAX UnitsEncoder's units of a
+    sung line through the `.ckpt`."""
+    from flax import serialization
+
+    variables = jax.jit(JHubertSoft(output_layer=9, proj_dim=256,
+                                    pad_input=False).init)(
+        jax.random.key(7), jnp.zeros((1, 1600)))
+    blob = serialization.msgpack_serialize(jax.tree.map(np.asarray,
+                                                        variables))
+    root = tmp_path_factory.mktemp("flax_hubert")
+    paths = {ext: root / f"hubert.{ext}" for ext in ("ckpt", "msgpack")}
+    paths["ckpt"].write_bytes(blob)
+    os.link(paths["ckpt"], paths["msgpack"])  # the same bytes, one copy
+    wav = _sung(16000, 0.4, seed=6)[None]
+    ref = np.asarray(jfeatures.UnitsEncoder(
+        "hubertbase", str(paths["ckpt"])).encode(wav, 16000, 320))
+    return paths, wav, ref
+
+
+@pytest.mark.parametrize("ext", ["ckpt", "msgpack"])
+def test_units_encoder_reads_flax_variables(flax_hubert, ext, monkeypatch):
+    """The JAX package's flax HuBERT variables through the port's
+    UnitsEncoder, with the msgpack package refused, against JAX's
+    UnitsEncoder on the same file: within 1e-4 of max |ref|."""
+    import sys
+
+    paths, wav, ref = flax_hubert
+    path = str(paths[ext])
+    monkeypatch.setitem(sys.modules, "msgpack", None)
+    got = features.UnitsEncoder("hubertbase", path, device="cpu").encode(
+        wav, 16000, 320)
+    assert got.shape == ref.shape == (1, 21, 256)
+    assert np.abs(ref).max() > 1e-3
+    assert _max_rel(got, ref) < HUBERT_TOL, _max_rel(got, ref)
 
 
 def test_units_encoder_matches_jax(hubert_ckpt):

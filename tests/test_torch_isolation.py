@@ -5,8 +5,9 @@ adaptive key and staged bf16, and the feature front end and the offline
 CLI included), and entry points, the trainer's, the factory's for all three
 synthesizers, `load_model`, `run_inference`, `run_inference_batch`, the
 CLI, the preprocess entry, the streaming entry, the GAN entry, `SvcCore`,
-`IncrementalSession.from_checkpoint`, `UnitsEncoder` and the torch f0
-extractors among them, never fall back to the CPU."""
+`IncrementalSession.from_checkpoint`, `UnitsEncoder`, the torch f0
+extractors, the export entry, the server's `ExportedSynth` and entry, the
+API's entry and the web panel's among them, never fall back to the CPU."""
 import ast
 import os
 import pathlib
@@ -101,6 +102,10 @@ from ddsp_svc_tpu_torch.stream import main as stream_main
 from ddsp_svc_tpu_torch.infer.streaming import SvcCore
 from ddsp_svc_tpu_torch.infer.realtime import IncrementalSession
 from ddsp_svc_tpu_torch.train_gan import main as gan_main
+from ddsp_svc_tpu_torch.api import main as api_main
+from ddsp_svc_tpu_torch.export import main as export_main
+from ddsp_svc_tpu_torch.serve import ExportedSynth, main as serve_main
+from ddsp_svc_tpu_torch.webui import main as webui_main
 ckpt = os.path.join(os.path.dirname(cfg), "model_0.pt")
 gan_cfg = os.path.join(os.path.dirname(cfg), "gan.yaml")
 with open(gan_cfg, "w") as f:
@@ -130,7 +135,12 @@ for make in (lambda: build_model(args), lambda: build_model(others[0]),
              lambda: IncrementalSession.from_checkpoint(ckpt),
              lambda: gan_main(["-c", gan_cfg]),
              lambda: UnitsEncoder("hubertsoft", None),
-             lambda: F0Extractor("crepe"), lambda: F0Extractor("parselmouth")):
+             lambda: F0Extractor("crepe"), lambda: F0Extractor("parselmouth"),
+             lambda: export_main(["-m", ckpt, "-o", "m.pt2"]),
+             # the device is resolved before the artifact is read
+             lambda: ExportedSynth("model.pt2", cfg),
+             lambda: serve_main(["-a", "model.pt2", "-c", cfg]),
+             lambda: api_main(["-m", ckpt]), lambda: webui_main([])):
     try:
         make()
     except RuntimeError as e:

@@ -327,24 +327,27 @@ def test_attention_lengths():
 
 
 def test_attention_reads_views_of_one_stride():
-    """The attention wrapper reads q, k, v in place when they share
-    strides with a unit last stride (the heads split off a (B, T, H * 64)
-    projection), and rejects views the kernel cannot read; checked before
-    any launch, so meta tensors stand in for the card's."""
+    """The attention op reads q, k, v in place when they share strides
+    with a unit last stride (the heads split off a (B, T, H * 64)
+    projection), and rejects views the kernel cannot read: its CUDA
+    implementation's checks (`_attention_checks`), made before any launch,
+    so meta tensors stand in for the card's."""
     proj = torch.empty((266, 64), device="meta")
     split = torch.empty((2, 40, 8 * 64), device="meta").reshape(
         2, 40, 8, 64).transpose(1, 2)
     assert K._attention_strides(split, "q", (2, 8, 40, 64),
                                 split.device) == (40 * 512, 64, 512)
+    assert K._attention_checks(split, split, split, proj) == (
+        266, (40 * 512, 64, 512))
     dense = torch.empty((2, 8, 40, 64), device="meta")
     with pytest.raises(ValueError, match="share them"):
-        K.performer_attention(dense, split, split, proj)
+        K._attention_checks(dense, split, split, proj)
     odd = torch.empty((2, 8, 40, 66), device="meta")[..., :64]
     with pytest.raises(ValueError, match="not a view"):
-        K.performer_attention(odd, odd, odd, proj)
+        K._attention_checks(odd, odd, odd, proj)
     with pytest.raises(ValueError, match="not a view"):
-        K.performer_attention(*(torch.empty((2, 8, 64, 40), device="meta")
-                                .transpose(2, 3),) * 3, proj)
+        K._attention_checks(*(torch.empty((2, 8, 64, 40), device="meta")
+                              .transpose(2, 3),) * 3, proj)
 
 
 @pytest.mark.parametrize("upp", [64, 128])
@@ -684,7 +687,8 @@ def _meta(*shape, dtype=torch.float32):
 def test_sine_bank_wrappers_check_inputs(case):
     """The harmonic source's (#3) and the oscillator bank's (#8) input
     checks name each fault before any launch (meta tensors stand in
-    for the card's)."""
+    for the card's; #8's are its op's CUDA implementation's,
+    `_oscillator_bank_checks`)."""
     st, w, b = _meta(1, 4, 9), _meta(9), _meta(1)
     phase, amps = _meta(2, 3 * 64), _meta(2, 3, 128)
     calls = {
@@ -698,13 +702,13 @@ def test_sine_bank_wrappers_check_inputs(case):
         "b shape": (ValueError, "b has shape", lambda: K.harmonic_source(
             st, st, w, _meta(2), 64)),
         "amps dtype": (TypeError, "amplitudes_frames has dtype",
-                       lambda: K.oscillator_bank(
+                       lambda: K._oscillator_bank_checks(
                            phase, _meta(2, 3, 128, dtype=torch.float64), 64)),
         "amps device": (ValueError, "amplitudes_frames is on cpu",
-                        lambda: K.oscillator_bank(
+                        lambda: K._oscillator_bank_checks(
                             phase, torch.empty((2, 3, 128)), 64)),
         "T != F * block": (ValueError, "T = F \\* block_size",
-                           lambda: K.oscillator_bank(phase, amps, 32)),
+                           lambda: K._oscillator_bank_checks(phase, amps, 32)),
     }
     err, match, call = calls[case]
     with pytest.raises(err, match=match):
@@ -713,14 +717,17 @@ def test_sine_bank_wrappers_check_inputs(case):
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
     """Shape checks run before any launch, so they are testable here with
-    meta tensors standing in for the card's."""
+    meta tensors standing in for the card's (those of #1 and #2 in their
+    ops' CUDA implementations, whose checks are called directly)."""
     q = torch.empty((1, 2, 8, 32), device="meta")
     with pytest.raises(ValueError, match="dim_head 64"):
-        K.performer_attention(q, q, q, torch.empty((266, 32), device="meta"))
+        K._attention_checks(q, q, q, torch.empty((266, 32), device="meta"))
     fr = torch.empty((3, 640), device="meta")
     ctl = torch.empty((3, 321), device="meta")
     with pytest.raises(ValueError, match="power-of-two"):
-        K.combsub_spectral(fr, fr, ctl, ctl, ctl, 640)
+        K._check_combsub(640, 3, fr.device, (
+            ("tooth_frames", fr), ("noise_frames", fr), ("hm", ctl),
+            ("hp", ctl), ("nm", ctl)))
     with pytest.raises(ValueError, match="power-of-two"):
         K.combsub_spectral_bwd(fr, fr, fr, ctl, ctl, ctl, 640)
     with pytest.raises(ValueError, match="n_fft in"):
