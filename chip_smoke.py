@@ -115,9 +115,25 @@ Phases, each printing its own lines:
      scales): fp32 steps with a validation pass and a checkpoint; for
      CombSubFast also a resume from it, then model.bf16 steps with a
      validation pass and a bf16 validation forward on the kernels against
-     the plain versions; each run's launch counts; one fp32 step (and for
-     CombSubFast one bf16 step) on the kernels against the same on the
-     plain versions (loss and every parameter gradient); ms per step.
+     the plain versions; the entry with the four train options together
+     (steps_per_dispatch 4, data_on_device, remat, async_save; fp32, and
+     bf16 for CombSubFast), each asynchronous checkpoint against a
+     synchronous one of the same state, with the training thread's ms in
+     save_model for both; each run's launch counts; the graphed step
+     (train/graphed.py) against the eager one from the same weights and
+     data with cuDNN deterministic (and the spread of two default eager
+     runs beside it): for CombSubFast fp32 and bf16 8 steps as two K = 4
+     dispatches on the loader's batches and on the device pool, for Sins
+     and CombSub one dispatch, each loss within 1e-5 relative and every
+     parameter within 1e-4 x max|param|, the replays' launch counts equal
+     to the eager steps' (#6 8 a step; #2/#7, #8, #9 through the replays);
+     for CombSubFast ms a step eager, graphed and graphed on the pool
+     (median of 5 dispatches, the capture apart), CUDA launch API calls a
+     step and the idle share (torch.profiler), a remat step's gradients
+     against the plain step's and the peak memory with and without remat;
+     one fp32 step (and for CombSubFast one bf16 step) on the kernels
+     against the same on the plain versions (loss and every parameter
+     gradient); ms per step.
 The last two lines are the kernels JSON and {"ok": true, "device": ...}.
 Any failed check exits non-zero before them. Without a GPU it fails.
 """
@@ -1269,11 +1285,12 @@ def train_phase(torch, K, synth: str, config: str, expect,
         f"scales; synthetic dataset of 6 training and 2 validation clips")
     expect_train = tuple(expect) + ("dft_magnitude",)
 
-    def config_file(name: str, bf16: bool, interval_val: int) -> str:
+    def config_file(name: str, bf16: bool, interval_val: int,
+                    **train) -> str:
         cfg = json.loads(json.dumps(args))
         cfg["model"]["bf16"] = bf16
         cfg["env"]["expdir"] = os.path.join(work, "exp_" + name)
-        cfg["train"]["interval_val"] = interval_val
+        cfg["train"].update(interval_val=interval_val, **train)
         path = os.path.join(work, name + ".yaml")
         with open(path, "w") as f:
             yaml.safe_dump(cfg, f)
@@ -1291,7 +1308,8 @@ def train_phase(torch, K, synth: str, config: str, expect,
         with open(os.path.join(saver.expdir, "log_values.jsonl")) as f:
             values = [json.loads(line) for line in f]
         losses = [v["train/loss"] for v in values if "train/loss" in v]
-        if len(losses) < steps or not np.isfinite(losses).all():
+        k = int(load_config(cfg_path).train.steps_per_dispatch or 1)
+        if len(losses) < steps // k or not np.isfinite(losses).all():
             fail(f"{label}: losses {losses}")
         if not any("validation/loss" in v for v in values):
             fail(f"{label}: no validation pass")
@@ -1333,6 +1351,33 @@ def train_phase(torch, K, synth: str, config: str, expect,
         run(cfg16, BF16_STEPS, f"train {synth} bf16")
         add(path_launches(K, f"training path ({synth}, bf16)",
                           expect_train + ("combsub_spectral_bwd",)))
+
+    # the four train options together through the entry: K-step graphed
+    # dispatches over the device pool, remat and asynchronous checkpoints,
+    # each checkpoint also written synchronously at the same moment
+    for bf16 in ((False, True) if full else (False,)):
+        name = "options_bf16" if bf16 else "options"
+        cfg_opt = config_file(name, bf16, OPTION_STEPS, **TRAIN_OPTIONS)
+        K.reset_launch_counts()
+        with sync_twins() as saves:
+            run(cfg_opt, OPTION_STEPS, f"train {synth} "
+                f"{'bf16' if bf16 else 'fp32'} {json.dumps(TRAIN_OPTIONS)}")
+        add(path_launches(K, f"training path ({synth}, {name})",
+                          expect_train + (("combsub_spectral_bwd",)
+                                          if bf16 else ())))
+        check_twins(torch, saves, f"{synth} {name}")
+
+    # the graphed step against the eager one, at this config's width
+    for bf16 in ((False, True) if full else (False,)):
+        # the kernels a step launches: the synth's own (CombSubFast's
+        # spectral chain only under bf16, with its adjoint) and #6
+        step_kernels = tuple(
+            k for k in expect_train if k != "performer_attention"
+            and (bf16 or k != "combsub_spectral")) + (
+                ("combsub_spectral_bwd",) if bf16 else ())
+        add(graph_phase(torch, K, config_file("graph", bf16, 10 ** 6),
+                        f"{synth} {'bf16' if bf16 else 'fp32'}", step_kernels,
+                        full))
 
     # one step on the kernels against the same step on the plain versions:
     # same weights, batch, noise and loss scales, at loss eps 1e-3 (the
@@ -1418,6 +1463,258 @@ def train_phase(torch, K, synth: str, config: str, expect,
                 f"{batch['audio'].shape[1]} samples, RSS "
                 f"{args.loss.n_scale} scales drawn per step)")
     shutil.rmtree(work, ignore_errors=True)
+    return total
+
+
+# the trainer's options (train/solver.py): the run of all four through the
+# entry, its steps, and the graphed phase's steps, dispatch size and timed
+# dispatches
+TRAIN_OPTIONS = {"steps_per_dispatch": 4, "data_on_device": True,
+                 "remat": True, "async_save": True}
+OPTION_STEPS = 8
+GRAPH_STEPS, GRAPH_K, GRAPH_TIMED = 8, 4, 5
+GRAPH_LOSS_RTOL, GRAPH_PARAM_TOL = 1e-5, 1e-4
+
+
+@contextmanager
+def sync_twins():
+    """While it is open, every Saver.save_model also writes the same state
+    synchronously beside the file (`<path>.sync`); yields {path: (ms in
+    save_model, ms in the synchronous save)}."""
+    from ddsp_svc_tpu_torch.train import saver as saver_mod
+    from ddsp_svc_tpu_torch.train.checkpoint import save_checkpoint
+    real = saver_mod.Saver.save_model
+    saves = {}
+
+    def both(self, model, optimizer, postfix):
+        t0 = time.perf_counter()
+        path = real(self, model, optimizer, postfix)
+        t1 = time.perf_counter()
+        save_checkpoint(path + ".sync", self.global_step, model, optimizer)
+        saves[path] = ((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3)
+        return path
+
+    saver_mod.Saver.save_model = both
+    try:
+        yield saves
+    finally:
+        saver_mod.Saver.save_model = real
+
+
+def check_twins(torch, saves: dict, label: str) -> None:
+    """Each checkpoint against its synchronous twin: every tensor equal
+    (model and optimizer state)."""
+    def same(a, b) -> bool:
+        if isinstance(a, dict):
+            return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+        if isinstance(a, (list, tuple)):
+            return len(a) == len(b) and all(map(same, a, b))
+        if torch.is_tensor(a):
+            return torch.equal(a, b)
+        return a == b
+
+    for path in saves:
+        got, ref = (torch.load(p, weights_only=True)
+                    for p in (path, path + ".sync"))
+        if not same(got, ref):
+            fail(f"{label}: {os.path.basename(path)} differs from the "
+                 "synchronous checkpoint of the same state")
+    t_async = [a for a, _ in saves.values()]
+    t_sync = [b for _, b in saves.values()]
+    say(f"checkpoints {label}: {len(saves)} asynchronous saves, each equal "
+        f"to the synchronous one of the same state; the training thread "
+        f"spent {np.median(t_async):.1f} ms a save in save_model "
+        f"(asynchronous: host copy and queue; max {max(t_async):.1f}) "
+        f"against {np.median(t_sync):.1f} ms a synchronous save (max "
+        f"{max(t_sync):.1f})")
+
+
+def profile_dispatch(torch, fn, k: int) -> tuple:
+    """One dispatch of k steps under torch.profiler: (CUDA launch API calls
+    a step, memcpy calls a step, the device's idle share of the traced
+    window)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    launches = sum(e.count for e in prof.key_averages() if "Launch" in e.key)
+    copies = sum(e.count for e in prof.key_averages()
+                 if e.key.startswith("cudaMemcpy"))
+    _, busy, _ = device_split(torch, prof, lambda ev: "all")
+    evs = list(prof.events())
+    window = (max(e.time_range.end for e in evs)
+              - min(e.time_range.start for e in evs)) / 1e3
+    return launches / k, copies / k, 1.0 - busy / window
+
+
+def graph_phase(torch, K, cfg_path: str, label: str, expect,
+                full: bool) -> dict:
+    """The graphed step (train/graphed.py) against the eager step at one
+    config's width, from the same weights and data: GRAPH_STEPS (full) or
+    GRAPH_K steps on the loader's batches, and for the default model also
+    on the device pool's crops, each eager and as graphed dispatches of
+    GRAPH_K. Each step's loss within GRAPH_LOSS_RTOL relative and every
+    parameter after them within GRAPH_PARAM_TOL x max|param| of the eager
+    run's, the replays' launch counts equal to the eager steps' (#6 at 2 x
+    n_scale a step) and each kernel of `expect` launched; ms a step eager
+    and graphed (median of GRAPH_TIMED dispatches after a warm one, the
+    capture apart), launch API calls a step and the idle share
+    (torch.profiler). With full also the peak memory of a step with and
+    without remat, and a remat step's gradients against the plain step's.
+    Returns the graphed dispatches' launch counts."""
+    import random
+    from ddsp_svc_tpu_torch.data.dataset import get_data_loaders
+    from ddsp_svc_tpu_torch.data.device_pool import DevicePool
+    from ddsp_svc_tpu_torch.models.factory import build_model
+    from ddsp_svc_tpu_torch.models.losses import RSSLoss
+    from ddsp_svc_tpu_torch.train.graphed import GraphedTrainSteps
+    from ddsp_svc_tpu_torch.train.step import (
+        BATCH_KEYS, TrainState, create_optimizer, stage, train_step,
+        train_steps)
+    from ddsp_svc_tpu_torch.utils.config import load_config
+
+    args = load_config(cfg_path)
+    loader, _ = get_data_loaders(args)
+    rss = RSSLoss(int(args.loss.fft_min), int(args.loss.fft_max),
+                  int(args.loss.n_scale))
+    n_steps = GRAPH_STEPS if full else GRAPH_K
+    host = [{k: b[k] for k in BATCH_KEYS}
+            for e in range(n_steps) for b in loader.epoch(e)][:n_steps]
+    runs = [("loader batches", host, None)]
+    if full:
+        pool = DevicePool(loader.dataset, int(args.data.block_size), "cuda")
+        rng = random.Random(0)
+        bsz = int(args.train.batch_size)
+        runs.append(("device pool", [
+            pool.sample([rng.randrange(len(pool)) for _ in range(bsz)], rng)
+            for _ in range(n_steps)], pool))
+
+    def fresh():
+        model = build_model(args, device="cuda", seed=0)
+        return TrainState(0, model, create_optimizer(
+            model, float(args.train.lr), float(args.train.weight_decay or 0)))
+
+    def chunks(items):
+        return [stage(items[i:i + GRAPH_K], "cuda")
+                for i in range(0, len(items), GRAPH_K)]
+
+    def eager_run(items, pool):
+        st = fresh()
+        K.reset_launch_counts()
+        losses = torch.cat([train_steps(st, x, rss, pool=pool)
+                            for x in chunks(items)])
+        return st, losses, K.launch_counts()
+
+    def distance(a, la, b, lb):
+        """(max relative loss difference, worst parameter difference over
+        max|param| and its name, bit for bit)"""
+        rel = ((la - lb).abs() / lb.abs()).max().item()
+        worst, worst_name = 0.0, ""
+        for (name, p), q in zip(a.model.named_parameters(),
+                                b.model.parameters()):
+            err = ((p - q).abs().max() / q.abs().max()).item()
+            if err >= worst:
+                worst, worst_name = err, name
+        bitwise = torch.equal(la, lb) and all(
+            torch.equal(p, q) for p, q in zip(a.model.parameters(),
+                                              b.model.parameters()))
+        return rel, worst, worst_name, bitwise
+
+    total = {}
+    for kind, items, pool in runs:
+        # cuDNN's weight-gradient convolutions may sum in another order on
+        # every run, and AdamW's first steps turn a near-zero gradient's
+        # sign into a whole lr step; the gated runs take its deterministic
+        # algorithms (both sides), the spread of two default runs is shown
+        torch.backends.cudnn.deterministic = True
+        eager, le, counts_e = eager_run(items, pool)
+        graphed = fresh()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps = GraphedTrainSteps(graphed, rss, chunks(items)[0], pool=pool)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        K.reset_launch_counts()
+        lg = torch.cat([steps(x) for x in chunks(items)])
+        counts_g = K.launch_counts()
+        torch.backends.cudnn.deterministic = False
+        for k, v in counts_g.items():
+            total[k] = total.get(k, 0) + v
+        rel, worst, worst_name, bitwise = distance(graphed, lg, eager, le)
+        spread = distance(*eager_run(items, pool)[:2], *eager_run(
+            items, pool)[:2])
+        say(f"graphed {label} ({kind}), {n_steps} steps as dispatches of "
+            f"{GRAPH_K} against {n_steps} eager steps (cuDNN deterministic): "
+            f"losses rel {rel:.3e} (tolerance {GRAPH_LOSS_RTOL}), parameters "
+            f"{worst:.3e} x max|param| ({worst_name}; tolerance "
+            f"{GRAPH_PARAM_TOL}), bit for bit {bitwise}; two eager runs with "
+            f"cuDNN's default algorithms: losses rel {spread[0]:.3e}, "
+            f"parameters {spread[1]:.3e} x max|param| ({spread[2]}), bit for "
+            f"bit {spread[3]}; the capture (warm-up included) "
+            f"{capture_s:.2f} s once; launches through the replays "
+            f"{json.dumps(counts_g)}")
+        if not (torch.isfinite(lg).all() and rel <= GRAPH_LOSS_RTOL
+                and worst <= GRAPH_PARAM_TOL):
+            fail(f"graphed {label} ({kind}) disagrees with the eager steps")
+        if counts_g != counts_e or counts_g["dft_magnitude"] != \
+                2 * rss.n_scale * n_steps:
+            fail(f"graphed {label} ({kind}): replays launched {counts_g}, "
+                 f"the eager steps {counts_e}")
+        for name in expect:
+            if counts_g[name] <= 0:
+                fail(f"graphed {label} ({kind}): {name} not launched")
+        x = chunks(items)[0]
+        times = {}
+        for mode, fn in (("eager", lambda: train_steps(eager, x, rss,
+                                                       pool=pool)),
+                         ("graphed", lambda: steps(x))):
+            walls = []
+            for _ in range(GRAPH_TIMED + 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3 / GRAPH_K)
+            launches, copies, idle = profile_dispatch(torch, fn, GRAPH_K)
+            times[mode] = np.median(walls[1:])
+            say(f"train step {label} ({kind}) {mode}: "
+                f"{times[mode]:.2f} ms a step, median of {GRAPH_TIMED} "
+                f"dispatches of {GRAPH_K} (walls "
+                f"{[round(w, 2) for w in walls[1:]]}); torch.profiler over "
+                f"one dispatch: {launches:.1f} CUDA launch API calls and "
+                f"{copies:.1f} memcpy calls a step, device idle share "
+                f"{idle:.3f}")
+        say(f"train step {label} ({kind}): graphed / eager "
+            f"{times['graphed'] / times['eager']:.3f}")
+
+    if full:
+        # remat: a step's gradients against the plain step's (from the same
+        # weights, cuDNN deterministic), then the peak memory of a further
+        # step with and without
+        batch = {k: v[0] for k, v in stage(host[:1], "cuda").items()}
+        states, peaks = {}, {}
+        torch.backends.cudnn.deterministic = True
+        for remat in (False, True):
+            states[remat] = fresh()
+            train_step(states[remat], batch, rss, remat=remat)
+        torch.backends.cudnn.deterministic = False
+        worst_rel, worst_cos = grads_agree(f"{label} remat step",
+                                           states[True].model,
+                                           states[False].model, 2e-2,
+                                           1 - 1e-4)
+        for remat in (False, True):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            train_step(states[remat], batch, rss, remat=remat)
+            torch.cuda.synchronize()
+            peaks[remat] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        say(f"train step {label} remat: gradients against the plain step's "
+            f"worst rel {worst_rel:.3e} (< 2e-2), cos {worst_cos:.7f} (> 1 - "
+            f"1e-4); peak memory above the resident state {peaks[True]:.3f} "
+            f"GiB with remat, {peaks[False]:.3f} GiB without")
     return total
 
 

@@ -32,8 +32,10 @@ Each wrapper takes its plain version only for CPU tensors. For any other
 the strides of the views it reads), allocates the
 outputs, and launches its kernel (csrc/<name>.cu, built by ops/build.py) on
 the current stream, or raises; it never falls back. `wrapper.launches` counts the
-launches. Layouts at these functions are the JAX package's: (B, T, C)
-activations, (B, H, T, d) attention.
+launches; a replay of a captured CUDA graph runs no wrapper, so the graph's
+launches are recorded at its capture (`captured_launches`) and counted at
+each replay (`add_launches`, train/graphed.py). Layouts at these functions
+are the JAX package's: (B, T, C) activations, (B, H, T, d) attention.
 
 Four kernels, the ones an exported synthesizer runs, are reached through
 PyTorch custom ops, so that a program made by torch.export holds them as
@@ -56,6 +58,7 @@ through ctypes directly, as an exported program reaches none of them.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import Optional, Sequence
@@ -156,6 +159,29 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for f in KERNELS:
         f.launches = 0
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Around a CUDA-graph capture: yields a dict that, on exit, holds the
+    launches the captured code recorded, {name: n}, and takes them back
+    out of the counts (a capture runs nothing). Each replay of the graph
+    runs them: add_launches(that dict) counts them there, since a replay
+    runs no wrapper."""
+    before = launch_counts()
+    delta: dict = {}
+    yield delta
+    for f in KERNELS:
+        n = f.launches - before[f.__name__]
+        if n:
+            delta[f.__name__] = n
+            f.launches -= n
+
+
+def add_launches(counts: dict) -> None:
+    """Count the launches of one graph replay (captured_launches' dict)."""
+    for f in KERNELS:
+        f.launches += counts.get(f.__name__, 0)
 
 
 # --------------------------- performer attention ---------------------------
@@ -330,16 +356,10 @@ def _check_combsub(n_fft: int, rows: int, dev, named) -> None:
         _check(x, name, (rows, width), dev)
 
 
-_WINDOWS: dict = {}
-
-
 def combsub_window(n_fft: int, device):
-    """sqrt_hann_window(n_fft) on `device`, made once per (n_fft, device):
-    the spectral kernels read it there."""
-    key = (n_fft, str(device))
-    if key not in _WINDOWS:
-        _WINDOWS[key] = sqrt_hann_window(n_fft, device=device)
-    return _WINDOWS[key]
+    """sqrt_hann_window(n_fft) on `device` (made once per (n_fft, device),
+    ops/windows.py): the spectral kernels read it there."""
+    return sqrt_hann_window(n_fft, device=device)
 
 
 @torch.library.custom_op("ddsp_svc::combsub_spectral", mutates_args=(),

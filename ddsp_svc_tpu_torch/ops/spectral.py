@@ -31,13 +31,15 @@ def irfft_any(spec: torch.Tensor, n: int) -> torch.Tensor:
     n, the Nyquist bin are dropped. torch.fft.irfft drops them on the CPU,
     but cuFFT's C2R reads them (measured on an H100 from 2048 rows of n
     1024 up), so they are zeroed first. Counterpart of
-    `ddsp_svc_tpu/ops/spectral.py::irfft_any`, whose DFT path drops them."""
-    keep = torch.ones(spec.shape[-1], dtype=spec.real.dtype,
-                      device=spec.device)
-    keep[0] = 0.0
+    `ddsp_svc_tpu/ops/spectral.py::irfft_any`, whose DFT path drops them.
+    The mask is made by comparisons on the device (no host scalar is
+    copied in), so a CUDA graph can capture it."""
+    bins = torch.arange(spec.shape[-1], device=spec.device)
+    keep = bins != 0
     if n % 2 == 0:
-        keep[n // 2] = 0.0
-    return torch.fft.irfft(torch.complex(spec.real, spec.imag * keep), n)
+        keep = keep & (bins != n // 2)
+    return torch.fft.irfft(
+        torch.complex(spec.real, spec.imag * keep.to(spec.real.dtype)), n)
 
 
 def frame_signal(x: torch.Tensor, frame_size: int, hop: int) -> torch.Tensor:

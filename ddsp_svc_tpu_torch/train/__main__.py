@@ -5,8 +5,11 @@
 Counterpart of the root `train.py`: builds the model from the config
 (weights from seed 0), AdamW from `train.lr` / `train.weight_decay`, resumes
 from the newest checkpoint in `env.expdir` if there is one, and runs the
-solver loop. Runs on CUDA; `--device cpu` runs the plain versions on the CPU.
-Multi-host and mesh flags are not ported yet.
+solver loop with the config's train options (steps_per_dispatch,
+data_on_device, remat, async_save; train/solver.py). Runs on CUDA, where
+a K-step dispatch and the device pool replay a captured CUDA graph of the
+step; `--device cpu` runs the plain versions on the CPU, K steps as K
+eager steps. Multi-host and mesh flags are not ported yet.
 """
 from __future__ import annotations
 

@@ -4,7 +4,8 @@ the global step and checkpoints.
 Counterpart of `ddsp_svc_tpu/train/saver.py`. `log_info` prints and appends
 to `log_info.txt`; `log_value` appends one JSON line per call to
 `log_values.jsonl` (no TensorBoard); `log_audio` writes wav files under
-`audio/`; `save_model` writes `model_{postfix}.pt`. The config is dumped as
+`audio/`; `save_model` writes `model_{postfix}.pt`, through a writer thread
+under `train.async_save` (`finish` drains it). The config is dumped as
 `config.yaml` beside the checkpoints.
 """
 from __future__ import annotations
@@ -19,7 +20,7 @@ import torch
 
 from ..data.wavio import write_wav
 from ..utils.config import save_config
-from .checkpoint import save_checkpoint
+from .checkpoint import AsyncCheckpointer, save_checkpoint
 
 
 class Saver:
@@ -29,6 +30,8 @@ class Saver:
         self.global_step = initial_global_step
         self.init_time = time.time()
         self.last_time = time.time()
+        self._async_ckpt = (AsyncCheckpointer() if args.train.async_save
+                            else None)
         os.makedirs(self.expdir, exist_ok=True)
         self.path_log_info = os.path.join(self.expdir, "log_info.txt")
         self.path_log_values = os.path.join(self.expdir, "log_values.jsonl")
@@ -76,5 +79,15 @@ class Saver:
                    postfix: str) -> str:
         path = os.path.join(self.expdir, f"model_{postfix}.pt")
         self.log_info(f" [*] model checkpoint saved: {path}")
-        save_checkpoint(path, self.global_step, model, optimizer)
+        if self._async_ckpt is not None:
+            self._async_ckpt.save(path, self.global_step, model, optimizer)
+        else:
+            save_checkpoint(path, self.global_step, model, optimizer)
         return path
+
+    def finish(self) -> None:
+        """Drain the pending asynchronous checkpoint writes (the end of
+        training); a failed write raises here."""
+        if self._async_ckpt is not None:
+            ckpt, self._async_ckpt = self._async_ckpt, None
+            ckpt.close()

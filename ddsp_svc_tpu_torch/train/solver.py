@@ -1,13 +1,26 @@
 """The training loop and validation.
 
-Counterpart of `ddsp_svc_tpu/train/solver.py` for one device, one step per
-iteration: interval logging (`interval_log`), validation and checkpoints
-(`interval_val`, best-loss tracking), and a validation pass that reports the
-all-bucket spectral loss, the real-time factor, and a cross-speaker
-conversion with per-speaker mean-log-f0 transposition:
+Counterpart of `ddsp_svc_tpu/train/solver.py` for one device: interval
+logging (`interval_log`), validation and checkpoints (`interval_val`,
+best-loss tracking), and a validation pass that reports the all-bucket
+spectral loss, the real-time factor, and a cross-speaker conversion with
+per-speaker mean-log-f0 transposition:
     f0_vc = exp(tgt_lfo * log(f0) / src_lfo),  tgt = (src + 1) % n_spk (1-based).
-`train.steps_per_dispatch` > 1, `train.data_on_device`, `train.remat` and
-`train.async_save` are not ported yet and raise.
+The train options, as JAX runs them:
+  steps_per_dispatch K  K microbatches staged to the device in one copy per
+                        key and run as K steps (on the card, replays of the
+                        captured step, train/graphed.py); log, validation
+                        and max_steps are checked at dispatch boundaries;
+                        a partial last dispatch is drained at the end;
+  data_on_device        the training set in device memory
+                        (data/device_pool.py): only each step's crop
+                        indices cross, drawn by a per-epoch
+                        random.Random(f"{seed}:{epoch}:pool"); on the card
+                        also graphed, at any K;
+  remat                 the forward recomputed in the backward;
+  async_save            checkpoints written by a worker thread
+                        (train/checkpoint.py::AsyncCheckpointer).
+Validation stays eager.
 """
 from __future__ import annotations
 
@@ -19,19 +32,11 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..data.device_pool import DevicePool
+from .graphed import GraphedTrainSteps
 from .saver import Saver
-from .step import TrainState, batch_to_device, eval_step, train_step
-
-UNPORTED_OPTIONS = ("data_on_device", "remat", "async_save")
-
-
-def _check_options(args) -> None:
-    if int(args.train.steps_per_dispatch or 1) > 1:
-        raise NotImplementedError(
-            "train.steps_per_dispatch > 1 is not ported yet")
-    for name in UNPORTED_OPTIONS:
-        if getattr(args.train, name):
-            raise NotImplementedError(f"train.{name} is not ported yet")
+from .step import (BATCH_KEYS, TrainState, batch_to_device, eval_step, stage,
+                   train_steps)
 
 
 def test(args, model: torch.nn.Module, rss, dataset_valid,
@@ -95,16 +100,62 @@ def train(args, initial_global_step: int, state: TrainState, rss,
           loader_train, dataset_valid, max_steps: Optional[int] = None):
     """The epoch x batch loop; returns (state, saver) after max_steps steps
     (or all epochs)."""
-    _check_options(args)
     saver = Saver(args, initial_global_step=initial_global_step)
     device = next(state.model.parameters()).device
+    k_dispatch = int(args.train.steps_per_dispatch or 1)
+    remat = bool(args.train.remat)
+    pool = None
+    if args.train.data_on_device:
+        ds = getattr(loader_train, "dataset", None)
+        if ds is None:  # a PrefetchIterator wraps the BatchIterator
+            ds = loader_train.inner.dataset
+        pool = DevicePool(ds, int(args.data.block_size), device)
+        saver.log_info(f" [pool] {len(pool)} files, {pool.nbytes() / 1e6:.0f}"
+                       " MB staged in device memory")
+    graphed = device.type == "cuda" and (k_dispatch > 1 or pool is not None)
+    steps = None  # GraphedTrainSteps, captured at the first dispatch
+
+    def dispatch(items) -> torch.Tensor:
+        nonlocal steps
+        staged = stage(items, device)
+        if not graphed:
+            return train_steps(state, staged, rss, pool=pool, remat=remat)
+        if steps is None:
+            t0 = time.time()
+            steps = GraphedTrainSteps(state, rss, staged, pool=pool,
+                                      remat=remat)
+            saver.log_info(f" [graph] the step captured in "
+                           f"{time.time() - t0:.2f} s")
+        return steps(staged)
+
+    def pool_epoch(epoch_idx):
+        """The epoch's file shuffle and crop indices, drawn on the host
+        (the JAX pool's seeded draws)."""
+        rng_l = random.Random(f"{args.train.seed}:{epoch_idx}:pool")
+        order = list(range(len(pool)))
+        rng_l.shuffle(order)
+        bsz = int(args.train.batch_size)
+        for b in range(max(1, len(pool) // bsz)):
+            yield pool.sample([order[(b * bsz + i) % len(order)]
+                               for i in range(bsz)], rng_l)
+
     best_loss = np.inf
-    num_batches = len(loader_train)
+    num_batches = (max(1, len(pool) // int(args.train.batch_size))
+                   if pool is not None else len(loader_train))
+    micro: list = []  # the pending microbatches of a K-step dispatch
     saver.log_info("======= start training =======")
     for epoch in range(args.train.epochs):
-        for batch_idx, data in enumerate(loader_train.epoch(epoch)):
-            saver.global_step_increment()
-            loss = train_step(state, batch_to_device(data, device), rss)
+        epoch_iter = (pool_epoch(epoch) if pool is not None
+                      else loader_train.epoch(epoch))
+        for batch_idx, data in enumerate(epoch_iter):
+            micro.append(data if pool is not None
+                         else {k: data[k] for k in BATCH_KEYS})
+            if len(micro) < k_dispatch:
+                continue
+            loss = dispatch(micro)[-1]
+            for _ in micro:
+                saver.global_step_increment()
+            micro = []
 
             if saver.global_step % args.train.interval_log == 0:
                 loss_val = float(loss)
@@ -131,5 +182,15 @@ def train(args, initial_global_step: int, state: TrainState, rss,
 
             if (max_steps is not None
                     and saver.global_step >= initial_global_step + max_steps):
+                saver.finish()
                 return state, saver
+    if micro:
+        # the epochs ended inside a K-step dispatch: its microbatches still
+        # train, as single steps (the same seeds as in a full dispatch)
+        dispatch(micro)
+        for _ in micro:
+            saver.global_step_increment()
+        saver.log_info(
+            f"drained {len(micro)} pending microbatches at end of training")
+    saver.finish()
     return state, saver

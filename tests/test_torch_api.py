@@ -10,6 +10,7 @@ safe-prefix pad and a response rate other than the model's; GET's status;
 a 400 on an out-of-range speaker. Weights from seeds."""
 import functools
 import json
+import shutil
 import threading
 import urllib.error
 import urllib.parse
@@ -151,6 +152,7 @@ def servers(tmp_path_factory):
         s.shutdown()
         s.server_close()
     api.CORE, flask_api.CORE = saved
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def _post(server, query, body):

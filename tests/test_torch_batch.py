@@ -7,6 +7,7 @@ smaller than a bucket group), the adaptive key resolved per segment
 ('auto'), the batched bucket synth against the single one, and the CLI's
 directory mode. 16 kHz, block 256, weights from seeds."""
 import json
+import shutil
 
 import numpy as np
 import pytest
@@ -25,6 +26,7 @@ from ddsp_svc_tpu_torch.models.factory import (
 from ddsp_svc_tpu_torch.nn.hubert import HubertSoft, init_hubert_
 from ddsp_svc_tpu_torch.train.checkpoint import save_checkpoint
 from ddsp_svc_tpu_torch.utils.config import DotDict
+from torch_tmp import tmp_path  # noqa: F401  (removed when each test ends)
 
 torch.set_num_threads(2)
 
@@ -104,7 +106,8 @@ def exp(tmp_path_factory):
     for seed, (name, (base, parts)) in enumerate(sorted(WAVS.items())):
         write_wav(str(root / "in" / f"{name}.wav"), _wav(base, parts, seed),
                   SR)
-    return root, model
+    yield root, model
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def _wavs(root, names=None):

@@ -11,6 +11,7 @@ import importlib.util
 import json
 import os
 import pathlib
+import shutil
 import subprocess
 import sys
 
@@ -31,6 +32,7 @@ from ddsp_svc_tpu_torch.models.factory import build_model, load_model
 from ddsp_svc_tpu_torch.nn.hubert import HubertSoft, init_hubert_
 from ddsp_svc_tpu_torch.train.checkpoint import save_checkpoint
 from ddsp_svc_tpu_torch.utils.config import DotDict
+from torch_tmp import tmp_path  # noqa: F401  (removed when each test ends)
 
 torch.set_num_threads(2)
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -99,7 +101,8 @@ def exp(tmp_path_factory):
     save_checkpoint(str(root / "exp" / "model_0.pt"), 0, model)
     write_wav(str(root / "two_phrases.wav"), _wav(5.2, 0.4, 0.6), SR)
     write_wav(str(root / "short.wav"), _wav(0.7, 0.0, 0.0, seed=1), SR)
-    return root, model
+    yield root, model
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def _write_kind(root, model, kind) -> str:

@@ -14,6 +14,7 @@ import torch
 from ddsp_svc_tpu_torch.nn.nsf_hifigan import _source_phase
 from ddsp_svc_tpu_torch.nn.pcmer import gaussian_orthogonal_random_matrix
 from ddsp_svc_tpu_torch.ops import kernels as K
+from torch_tmp import tmp_path  # noqa: F401  (removed when each test ends)
 
 pytestmark = pytest.mark.cuda
 
@@ -1590,3 +1591,231 @@ def test_exported_combsub_fast_on_card(cuda, tmp_path):
     assert counts["performer_attention"] == 3, counts
     assert counts["combsub_spectral"] == 1, counts
     assert (got - ref).abs().max().item() <= 1e-6 * ref.abs().max().item()
+
+
+# ------------------------------------------------ the trainer's options ----
+
+TRAIN_SIZES = {"CombSubFast": {},
+               "Sins": dict(n_harmonics=32, n_mag_allpass=64, n_mag_noise=64),
+               "CombSub": dict(n_mag_allpass=64, n_mag_harmonic=128,
+                               n_mag_noise=64)}
+
+
+def _train_model_args(mtype, bf16):
+    from ddsp_svc_tpu_torch.utils.config import DotDict
+    return DotDict({
+        "data": {"sampling_rate": 16000, "block_size": 256,
+                 "encoder_out_channels": 32},
+        "model": {"type": mtype, "n_spk": 2, "bf16": bf16,
+                  **TRAIN_SIZES[mtype]},
+    })
+
+
+def _train_state(mtype, bf16, cuda):
+    from ddsp_svc_tpu_torch.models.factory import build_model
+    from ddsp_svc_tpu_torch.train.step import TrainState, create_optimizer
+    model = build_model(_train_model_args(mtype, bf16), device=cuda, seed=0)
+    return TrainState(0, model, create_optimizer(model, 5e-4, 0.01), seed=3)
+
+
+def _train_batch(seed, frames=48):
+    rng = np.random.default_rng(seed)
+    return {"audio": (0.3 * rng.standard_normal((2, frames * 256))
+                      ).astype(np.float32),
+            "f0": (110 + 330 * rng.random((2, frames, 1))).astype(np.float32),
+            "volume": rng.random((2, frames)).astype(np.float32),
+            "units": rng.standard_normal((2, frames, 32)).astype(np.float32),
+            "spk_id": np.asarray([[1], [2]], np.int64)}
+
+
+class _PoolDataset:
+    """The AudioDataset fields a DevicePool reads: three float16-cached
+    files of unequal length, two unit variants."""
+    waveform_sec = 0.768
+    sample_rate = 16000
+    hop_size = 256
+    n_aunit = 1
+
+    def __init__(self):
+        rng = np.random.default_rng(9)
+        self.paths = ["1/a", "1/b", "2/c"]
+        self.data_buffer = {}
+        for i, (rel, nf) in enumerate(zip(self.paths, (90, 130, 170))):
+            self.data_buffer[rel] = {
+                "duration": nf * 256 / 16000,
+                "f0": 110 + 330 * rng.random((nf, 1)).astype(np.float32),
+                "volume": rng.random(nf).astype(np.float32),
+                "audio": (0.3 * rng.standard_normal(nf * 256)
+                          ).astype(np.float16),
+                "units": [rng.standard_normal((nf, 32)).astype(np.float16)
+                          for _ in range(2)],
+                "spk_id": np.asarray([1 + i // 2], np.int64)}
+
+
+def _assert_graphed_matches_eager(eager, graphed, le, lg):
+    """chip_smoke.py's gate: each step's loss within 1e-5 relative, every
+    parameter within 1e-4 x max|param|."""
+    assert torch.isfinite(lg).all()
+    assert ((lg - le).abs() <= 1e-5 * le.abs()).all(), (lg, le)
+    assert graphed.step == eager.step
+    for (name, p), q in zip(graphed.model.named_parameters(),
+                            eager.model.parameters()):
+        assert ((p - q).abs().max() <= 1e-4 * q.abs().max()).item(), name
+
+
+@pytest.mark.parametrize("mtype,bf16", [("CombSubFast", False),
+                                        ("CombSubFast", True),
+                                        ("Sins", False), ("CombSub", False)])
+def test_graphed_dispatch_matches_eager(cuda, mtype, bf16):
+    """A K = 4 dispatch as replays of the captured step (train/graphed.py)
+    against 4 eager steps from the same weights, batches and seeds, then a
+    second dispatch: the losses and parameters at chip_smoke.py's gate, and
+    the replays' launch counts equal to the eager steps' (#6 8 a step at
+    n_scale 4; under bf16 #2 and #7 once a step; Sins #8 once and #9 twice
+    a step, CombSub #9 three times)."""
+    from ddsp_svc_tpu_torch.models.losses import RSSLoss
+    from ddsp_svc_tpu_torch.train.graphed import GraphedTrainSteps
+    from ddsp_svc_tpu_torch.train.step import stage, train_steps
+
+    rss = RSSLoss(128, 512, n_scale=4)
+    stacks = [stage([_train_batch(4 * d + s) for s in range(4)], cuda)
+              for d in range(2)]
+    eager = _train_state(mtype, bf16, cuda)
+    K.reset_launch_counts()
+    le = torch.cat([train_steps(eager, x, rss) for x in stacks])
+    counts_e = K.launch_counts()
+    graphed = _train_state(mtype, bf16, cuda)
+    steps = GraphedTrainSteps(graphed, rss, stacks[0])
+    K.reset_launch_counts()
+    lg = torch.cat([steps(x) for x in stacks])
+    counts_g = K.launch_counts()
+    _assert_graphed_matches_eager(eager, graphed, le, lg)
+    assert counts_g == counts_e
+    per_step = {"dft_magnitude": 8,
+                "combsub_spectral": int(bf16 and mtype == "CombSubFast"),
+                "combsub_spectral_bwd": int(bf16 and mtype == "CombSubFast"),
+                "oscillator_bank": int(mtype == "Sins"),
+                "ltv_fir_convolve": {"Sins": 2, "CombSub": 3}.get(mtype, 0)}
+    for name, n in per_step.items():
+        assert counts_g[name] == 8 * n, (name, counts_g)
+
+
+def test_graphed_pool_dispatch_matches_eager(cuda):
+    """The pool step graphed (the crop gather inside the forward's graph;
+    only the (K, B) index arrays cross) against eager pool steps."""
+    import random
+
+    from ddsp_svc_tpu_torch.data.device_pool import DevicePool
+    from ddsp_svc_tpu_torch.models.losses import RSSLoss
+    from ddsp_svc_tpu_torch.train.graphed import GraphedTrainSteps
+    from ddsp_svc_tpu_torch.train.step import stage, train_steps
+
+    pool = DevicePool(_PoolDataset(), 256, cuda)
+    rng = random.Random(2)
+    idx = stage([pool.sample([rng.randrange(3), rng.randrange(3)], rng)
+                 for _ in range(4)], cuda)
+    rss = RSSLoss(128, 512, n_scale=4)
+    eager = _train_state("CombSubFast", True, cuda)
+    le = train_steps(eager, idx, rss, pool=pool)
+    graphed = _train_state("CombSubFast", True, cuda)
+    lg = GraphedTrainSteps(graphed, rss, idx, pool=pool)(idx)
+    _assert_graphed_matches_eager(eager, graphed, le, lg)
+
+
+def test_gather_batch_on_card_matches_cpu(cuda):
+    """The pool's crops gathered on the card equal the CPU's bit for bit
+    (float16 cache cast to float32)."""
+    import random
+
+    from ddsp_svc_tpu_torch.data.device_pool import DevicePool
+
+    ds = _PoolDataset()
+    on_card, on_cpu = DevicePool(ds, 256, cuda), DevicePool(ds, 256, "cpu")
+    idx = on_cpu.sample([0, 2, 1, 2], random.Random(1))
+    got = on_card.gather({k: torch.from_numpy(v).to(cuda)
+                          for k, v in idx.items()})
+    ref = on_cpu.gather({k: torch.from_numpy(v) for k, v in idx.items()})
+    for k, v in ref.items():
+        assert got[k].dtype == v.dtype and torch.equal(got[k].cpu(), v), k
+
+
+TRAIN_OPTION_SETS = {"k4": {"steps_per_dispatch": 4},
+                     "pool": {"data_on_device": True},
+                     "remat": {"remat": True},
+                     "async": {"async_save": True},
+                     "all": {"steps_per_dispatch": 4, "data_on_device": True,
+                             "remat": True, "async_save": True}}
+
+
+@pytest.mark.parametrize("options", list(TRAIN_OPTION_SETS))
+@pytest.mark.parametrize("mtype,bf16", [("CombSubFast", False),
+                                        ("CombSubFast", True),
+                                        ("Sins", False), ("CombSub", False)])
+def test_train_entry_options_on_card(cuda, tmp_path, mtype, bf16, options):
+    """python -m ddsp_svc_tpu_torch.train's main on the card with each
+    option alone and all four together, for each synthesizer (CombSubFast
+    also bf16): 8 steps with a validation and checkpoints at step 8, finite
+    losses, and a second run that resumes from model_8.pt."""
+    import yaml
+
+    from ddsp_svc_tpu_torch.data.wavio import write_wav
+    from ddsp_svc_tpu_torch.train import __main__ as train_main
+
+    rng = np.random.default_rng(0)
+    for split, n in (("train", 3), ("val", 1)):
+        for i in range(n):
+            spk = 1 + i % 2
+            for sub in ("audio", "units", "f0", "volume"):
+                (tmp_path / split / sub / str(spk)).mkdir(parents=True,
+                                                          exist_ok=True)
+            t = 24000
+            write_wav(str(tmp_path / split / "audio" / str(spk) / f"u{i}.wav"),
+                      (0.3 * np.sin(2 * np.pi * 220 * np.arange(t) / 16000)
+                       ).astype(np.float32), 16000)
+            nf = t // 256 + 1
+            for sub, arr in (("units", rng.standard_normal((nf, 32))),
+                             ("f0", np.full(nf, 220.0)),
+                             ("volume", np.full(nf, 0.2))):
+                name = f"u{i}.0.npy" if sub == "units" else f"u{i}.npy"
+                np.save(str(tmp_path / split / sub / str(spk) / name),
+                        arr.astype(np.float32))
+    cfg = dict(_train_model_args(mtype, bf16))
+    cfg["data"].update(train_path=str(tmp_path / "train"),
+                       valid_path=str(tmp_path / "val"), duration=1.0,
+                       n_aunit=0)
+    cfg.update(loss={"fft_min": 128, "fft_max": 512, "n_scale": 4},
+               env={"expdir": str(tmp_path / "exp")},
+               train={"batch_size": 2, "cache_all_data": True,
+                      "cache_fp16": True, "epochs": 100, "interval_log": 4,
+                      "interval_val": 8, "lr": 5e-4, "weight_decay": 0.0,
+                      "seed": 0, **TRAIN_OPTION_SETS[options]})
+    path = tmp_path / "cfg.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    state, saver = train_main.main(["-c", str(path), "--max-steps", "8"])
+    assert state.step == saver.global_step == 8
+    assert next(state.model.parameters()).is_cuda
+    assert (tmp_path / "exp" / "model_8.pt").is_file()
+    log = (tmp_path / "exp" / "log_values.jsonl").read_text()
+    assert '"validation/loss"' in log and "NaN" not in log
+    state2, saver2 = train_main.main(["-c", str(path), "--max-steps", "4"])
+    assert state2.step == saver2.global_step == 12
+
+
+def test_capture_with_host_copy_raises(cuda, monkeypatch):
+    """A step that copies from pageable host memory while it runs (here the
+    loss window built from numpy on every call, as before the windows were
+    cached) cannot be captured: building the graphed step raises, and
+    nothing falls back to eager steps."""
+    from ddsp_svc_tpu_torch.models.losses import RSSLoss
+    from ddsp_svc_tpu_torch.ops import spectral
+    from ddsp_svc_tpu_torch.train import graphed as G
+    from ddsp_svc_tpu_torch.train.step import stage
+
+    monkeypatch.setattr(spectral, "hann_window", lambda n, dtype, device:
+                        torch.as_tensor(np.hanning(n + 1)[:n], dtype=dtype,
+                                        device=device))
+    state = _train_state("CombSubFast", False, cuda)
+    x = stage([_train_batch(0)], cuda)
+    with pytest.raises(RuntimeError):
+        G.GraphedTrainSteps(state, RSSLoss(128, 512, n_scale=4), x)
+    torch.cuda.synchronize()

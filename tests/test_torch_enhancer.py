@@ -26,6 +26,7 @@ from ddsp_svc_tpu_torch.nn.layers import lecun_init_
 from ddsp_svc_tpu_torch.nn.nsf_hifigan import generator_from_h
 from ddsp_svc_tpu_torch.ops import spectral
 from ddsp_svc_tpu_torch.ops.resample import resample
+from torch_tmp import tmp_path  # noqa: F401  (removed when each test ends)
 
 torch.set_num_threads(2)
 

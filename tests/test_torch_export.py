@@ -7,6 +7,7 @@ own artifact (`tools/export.py`, `jax.export.deserialize(...).call`); the
 graph's `ddsp_svc` op nodes; `torch.library.opcheck` of the four custom
 ops. Weights from a seed, written by the JAX package's saver."""
 import os
+import shutil
 import sys
 
 import numpy as np
@@ -88,7 +89,8 @@ def exported(request, tmp_path_factory):
     with open(jpath, "rb") as f:
         jprogram = jexport.deserialize(bytearray(f.read()))
     jm = jbuild_model(JDotDict(cfg))
-    return mtype, program, jm, variables, jprogram
+    yield mtype, program, jm, variables, jprogram
+    shutil.rmtree(tmp, ignore_errors=True)
 
 
 def test_exported_program_matches_jax(exported):

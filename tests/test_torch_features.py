@@ -11,6 +11,7 @@ tests/test_torch_enhancer.py::test_resample_matches_jax).
 Inputs from numpy seeds; weights seeded in numpy and written as the torch
 checkpoints the loaders read."""
 import os
+import shutil
 import types
 
 import numpy as np
@@ -31,6 +32,7 @@ from ddsp_svc_tpu_torch.data import features, world_f0
 from ddsp_svc_tpu_torch.nn import crepe, hubert
 from ddsp_svc_tpu_torch.ops import interp, pools, volume
 from ddsp_svc_tpu_torch.utils import convert
+from torch_tmp import tmp_path  # noqa: F401  (removed when each test ends)
 
 torch.set_num_threads(2)
 
@@ -284,7 +286,8 @@ def hubert_ckpt(tmp_path_factory):
     sd = _hubert_torch_sd(np.random.default_rng(10))
     path = tmp_path_factory.mktemp("hubert") / "hubert-soft.pt"
     torch.save(sd, path)
-    return str(path), sd
+    yield str(path), sd
+    shutil.rmtree(path.parent, ignore_errors=True)
 
 
 def _max_rel(got, ref):
@@ -392,7 +395,8 @@ def flax_hubert(tmp_path_factory):
     wav = _sung(16000, 0.4, seed=6)[None]
     ref = np.asarray(jfeatures.UnitsEncoder(
         "hubertbase", str(paths["ckpt"])).encode(wav, 16000, 320))
-    return paths, wav, ref
+    yield paths, wav, ref
+    shutil.rmtree(root, ignore_errors=True)
 
 
 @pytest.mark.parametrize("ext", ["ckpt", "msgpack"])

@@ -15,6 +15,7 @@ one that stores the gradients as its state. The JAX G step runs in float64
 (`jax.enable_x64`), so the port's float32 generator gradients are held to
 JAX's exact ones rather than to JAX's own float32 rounding."""
 import os
+import shutil
 
 import numpy as np
 import jax
@@ -408,7 +409,8 @@ def gan_data(tmp_path_factory):
                   (0.3 * rng.standard_normal(n)).astype(np.float32), SR)
         np.save(str(root / "f0" / spk / f"c{i}.npy"),
                 (150 + 100 * rng.random(n // 256 + 1)).astype(np.float32))
-    return str(root)
+    yield str(root)
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def test_sample_batch_matches_jax(gan_data):

@@ -10,6 +10,7 @@ import contextlib
 import io
 import json
 import os
+import shutil
 
 import numpy as np
 import jax
@@ -27,6 +28,7 @@ from ddsp_svc_tpu_torch.nn.layers import lecun_init_
 from ddsp_svc_tpu_torch.nn.nsf_hifigan import Generator, generator_from_h
 from ddsp_svc_tpu_torch.train.gan_solver import train_gan
 from ddsp_svc_tpu_torch.utils.config import DotDict
+from torch_tmp import tmp_path  # noqa: F401  (removed when each test ends)
 
 torch.set_num_threads(2)
 
@@ -59,7 +61,8 @@ def workspace(tmp_path_factory):
             write_wav(str(adir / f"u{i}.wav"), audio, SR)
             np.save(str(fdir / f"u{i}.npy"),
                     np.full(len(audio) // HOP + 1, f0_hz, np.float32))
-    return root
+    yield root
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def _config(root, expdir, **gan):

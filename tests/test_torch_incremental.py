@@ -8,6 +8,8 @@ against the JAX session on one wav, and a causal + frame_norm checkpoint
 that loads, streams and trains. 16 kHz, block 256, tiny widths; weights
 from seeds, the JAX modules given the same weights by the JAX package's
 own converter."""
+import shutil
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -35,6 +37,7 @@ from ddsp_svc_tpu_torch.nn.pcmer import causal_linear_attention
 from ddsp_svc_tpu_torch.train import __main__ as train_main
 from ddsp_svc_tpu_torch.train.checkpoint import save_checkpoint
 from ddsp_svc_tpu_torch.utils.config import DotDict
+from torch_tmp import tmp_path  # noqa: F401  (removed when each test ends)
 
 torch.set_num_threads(2)
 
@@ -307,7 +310,8 @@ def hubert_ckpt(tmp_path_factory):
     sd["positional_embedding.conv.weight_v"] = w
     path = root / "hubert-soft.pt"
     torch.save(sd, path)
-    return str(path)
+    yield str(path)
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def _hubert_pair(hubert_ckpt):
@@ -396,7 +400,8 @@ def causal_exp(tmp_path_factory, hubert_ckpt):
         {k: dict(v) for k, v in args.items()}))
     model = build_model(args, device="cpu", seed=4)
     save_checkpoint(str(root / "model_0.pt"), 0, model)
-    return root, args
+    yield root, args
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def test_session_replays_through_engine(causal_exp):

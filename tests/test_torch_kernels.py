@@ -15,6 +15,7 @@ from ddsp_svc_tpu_torch.nn.nsf_hifigan import _source_phase
 from ddsp_svc_tpu_torch.ops import kernels as K
 from ddsp_svc_tpu_torch.ops.masking import frame_mask
 from ddsp_svc_tpu_torch.ops.windows import sqrt_hann_window
+from torch_tmp import tmp_path  # noqa: F401  (removed when each test ends)
 
 torch.set_num_threads(2)
 

@@ -13,6 +13,7 @@ from ddsp_svc_tpu import native as jnative
 from ddsp_svc_tpu_torch import native
 from ddsp_svc_tpu_torch.data.features import F0Extractor
 from ddsp_svc_tpu_torch.ops.volume import extract_volume_np
+from torch_tmp import tmp_path  # noqa: F401  (removed when each test ends)
 
 
 def _tone(f0, sr, dur):

@@ -88,7 +88,8 @@ def store(tmp_path_factory):
                   "epochs": 4, "interval_log": 1, "interval_val": 100,
                   "lr": 1e-3, "weight_decay": 0.0, "seed": 0},
     }
-    return root, cfg
+    yield root, cfg
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def _copy(root, name, cfg):

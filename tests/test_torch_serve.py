@@ -8,6 +8,7 @@ of 4 frames; and the HTTP surface (`make_handler`): /healthz, /convert,
 /voiceChangeModel, a 400 on an out-of-range speaker and on a body that is
 no wav, and a wav at another rate. Weights from seeds."""
 import os
+import shutil
 import sys
 import threading
 import urllib.error
@@ -86,7 +87,8 @@ def setup(tmp_path_factory):
     kw = dict(threshold_db=-80.0, overlap_frames=4)
     synth = serve.ExportedSynth(artifact, config, device="cpu", **kw)
     jsynth = jserve.ExportedSynth(jartifact, config, **kw)
-    return synth, jsynth
+    yield synth, jsynth
+    shutil.rmtree(tmp, ignore_errors=True)
 
 
 def test_exported_synth_matches_jax(setup):

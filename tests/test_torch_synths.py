@@ -36,6 +36,7 @@ from ddsp_svc_tpu_torch.train import __main__ as train_main
 from ddsp_svc_tpu_torch.train.step import TrainState, create_optimizer, train_step
 from ddsp_svc_tpu_torch.utils.config import DotDict
 from ddsp_svc_tpu_torch.utils.convert import jax_synth_to_torch
+from torch_tmp import tmp_path  # noqa: F401  (removed when each test ends)
 
 torch.set_num_threads(2)
 

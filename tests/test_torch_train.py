@@ -8,6 +8,7 @@ torch -> flax converter gives the JAX model the same weights, and the JAX
 gradients come back through the port's `jax_synth_to_torch`. Both sides get
 the same noise excitation and the same pinned loss scales."""
 import os
+import shutil
 
 import numpy as np
 import jax
@@ -33,6 +34,7 @@ from ddsp_svc_tpu_torch.train.checkpoint import (
 from ddsp_svc_tpu_torch.train.step import (
     TrainState, create_optimizer, train_step)
 from ddsp_svc_tpu_torch.utils.convert import jax_synth_to_torch
+from torch_tmp import tmp_path  # noqa: F401  (removed when each test ends)
 
 torch.set_num_threads(2)
 
@@ -324,7 +326,8 @@ def data_root(tmp_path_factory):
     root = tmp_path_factory.mktemp("torch_train")
     _write_dataset(str(root / "train"))
     _write_dataset(str(root / "val"), n_files=2)
-    return root
+    yield root
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def test_wav_round_trip_and_loaders_match_jax(data_root):
@@ -377,7 +380,9 @@ def test_train_main_runs_validates_and_resumes(data_root, tmp_path,
                                                monkeypatch):
     """The entry point on the CPU: two steps with a validation pass and a
     checkpoint at step 2, then a second run that resumes from it and takes
-    one more step; unported options raise."""
+    one more step; then the same with all four train options on (two steps
+    per dispatch, the device pool, remat, asynchronous checkpoints), which
+    resumes from its own checkpoint too."""
     import yaml
 
     args = _args(data_root)
@@ -413,10 +418,22 @@ def test_train_main_runs_validates_and_resumes(data_root, tmp_path,
         assert torch.equal(restored["params"][k], v), k
     assert state2.step == 3 and saver2.global_step == 3
 
-    for key, val in (("steps_per_dispatch", 4), ("data_on_device", True)):
-        bad = _args(data_root, **{key: val})
-        bad["env"]["expdir"] = str(tmp_path / f"exp_{key}")
-        cfg_bad = tmp_path / f"{key}.yaml"
-        cfg_bad.write_text(yaml.safe_dump(dict(bad)))
-        with pytest.raises(NotImplementedError, match=key):
-            train_main.main(["-c", str(cfg_bad), "--device", "cpu"])
+    opts = _args(data_root, steps_per_dispatch=2, data_on_device=True,
+                 remat=True, async_save=True)
+    opts["env"]["expdir"] = str(tmp_path / "exp_opts")
+    cfg_opts = tmp_path / "opts.yaml"
+    cfg_opts.write_text(yaml.safe_dump(dict(opts)))
+    state3, saver3 = train_main.main(["-c", str(cfg_opts), "--max-steps", "2",
+                                      "--device", "cpu"])
+    assert state3.step == saver3.global_step == 2
+    assert (tmp_path / "exp_opts" / "model_2.pt").is_file()
+    log = (tmp_path / "exp_opts" / "log_info.txt").read_text()
+    assert " [pool] 3 files" in log and "Real Time Factor" in log
+    saved = {k: v.clone() for k, v in state3.model.state_dict().items()}
+    state4, saver4 = train_main.main(["-c", str(cfg_opts), "--max-steps", "2",
+                                      "--device", "cpu"])
+    assert restored["path"].endswith(os.path.join("exp_opts", "model_2.pt"))
+    for k, v in saved.items():
+        assert torch.equal(restored["params"][k], v), k
+    assert state4.step == saver4.global_step == 4
+    assert (tmp_path / "exp_opts" / "model_4.pt").is_file()

@@ -24,6 +24,7 @@ import yaml
 
 from ddsp_svc_tpu_torch import webui
 from ddsp_svc_tpu_torch.data.wavio import load_audio, write_wav
+from torch_tmp import tmp_path  # noqa: F401  (removed when each test ends)
 
 torch.set_num_threads(2)
 
