@@ -13,7 +13,8 @@ Phases, each printing its own lines:
   3. kernels: each hand-written kernel against its plain PyTorch version at
      the main path's shapes, with error, time (one call at a time, and
      device_ms: calls back to back), plain time and bound (#1 also at B =
-     16; #3 and #8, the sine banks, also against float64, within twice the
+     16, and split into its moments and apply entries, against the single
+     launch and each against its plain version; #3 and #8, the sine banks, also against float64, within twice the
      fp32 plain version's own error, with their registers, spills and
      shared memory, #8 at each of its two shapes; #6, #7 and #9 also per
      row, on rows of unequal scale, against float64, #7 with its registers,
@@ -94,6 +95,17 @@ Phases, each printing its own lines:
      (block stats, the wav written) and one infer job (the port's CLI as
      a subprocess on the card, exited 0, its wav written); walls and
      audio-s/s beside the card's name and power limit;
+  4g. time-parallel conversion (`ddsp_svc_tpu_torch/parallel/`), with the
+     CLI phase's checkpoints on its 13 s wav (dio f0, HuBERT-soft units;
+     1121 frames in the 2048 bucket): ranks spawned on cuda:0, world size
+     1 over NCCL, then 2 over Gloo (NCCL refuses two ranks on one card),
+     each running make_bucketed_synth(mesh=) (noise injected),
+     Enhancer(mesh=).enhance fp32 and staged bf16 at 128 on the unsharded
+     synth's output, and SvcCore(mesh=).infer; every rank's whole output
+     against the unsharded run on the kernels (synth and SvcCore 1e-4 x
+     max|ref|, enhancer fp32 1e-5 x max|ref|, staged rel RMS 2e-2); #1's
+     moments and apply, #2, #3 and #4 launched on every rank, the single
+     #1 never; the walls of each run and of the unsharded one;
   5. offline paths: conversion (`convert_features`) with each synthesizer
      at the full width of its config (CombSubFast from configs/combsub.yaml,
      Sins from configs/sins.yaml, CombSub from configs/combsub-old.yaml) and
@@ -360,6 +372,56 @@ def kernel_phase(torch, K, gen):
         device_ms=dms, bound=attention_bound(b, t, valid), library_ms=None,
         tol="2e-5 x max|ref| (the JAX package's kernel test); B = 1, T = 512 "
             "with 384 valid frames")
+
+    # 1b. #1 split at the key reduction (the time-parallel PCmer's entries),
+    # at the same shapes: the moments over [0, 384) then the apply against
+    # the single launch, and each entry against its plain version with a key
+    # range inside the span ([96, 352)) and over the valid keys
+    def split(q, k, v, proj, valid):
+        return K.performer_attention_apply(
+            q, proj, *K.performer_attention_moments(k, v, proj, 0, valid))
+
+    worst = 0.0
+    for q_, k_, v_, proj_, valid_ in inputs:
+        ref = K.performer_attention(q_, k_, v_, proj_, valid_)[:, :, :valid_]
+        got = split(q_, k_, v_, proj_, valid_)[:, :, :valid_]
+        torch.cuda.synchronize()
+        diff = (got - ref).abs().max().item()
+        if not diff <= 2e-5 * ref.abs().max().item():
+            fail(f"performer_attention moments + apply: max|err| {diff:.3e} "
+                 "against the single launch, over 2e-5 x max|ref|")
+        worst = max(worst, diff)
+    ranges = [(k_, v_, proj_, lo, hi) for (_, k_, v_, proj_, _), (lo, hi) in
+              zip(inputs, ((0, valid), (96, 352), (0, valid)))]
+    err_m, ms_m, pms_m, dms_m = compare(
+        torch, "performer_attention_moments", K.performer_attention_moments,
+        K.performer_attention_moments_plain, ranges, 0.0, 2e-5)
+    moments = [K.performer_attention_moments(*r_) for r_ in ranges]
+    applies = [(q_, proj_, *mo) for (q_, _, _, proj_, _), mo in
+               zip(inputs, moments)]
+    err_a, ms_a, pms_a, dms_a = compare(
+        torch, "performer_attention_apply", K.performer_attention_apply,
+        K.performer_attention_apply_plain, applies, 0.0, 2e-5)
+    for which in ("moments", "apply"):
+        say(f"kernel performer_attention_{which} T={t}: "
+            f"{build_info(K.attention_kernel_info(t, which))}")
+    say(f"kernel performer_attention moments + apply B={b} T={t} valid "
+        f"{valid}: max|err| {worst:.3e} against the single launch (2e-5 x "
+        f"max|ref|; the same tiles and sums, designed bit for bit)")
+    m_flops = b * h * (4 * m * d * valid + 2 * m * valid)
+    m_bytes = 4 * (b * h * (2 * valid * d + m * d + m) + m * d)
+    a_flops = b * h * (4 * m * d * t + 4 * m * t)
+    a_bytes = 4 * (b * h * (2 * t * d + m * d + m) + m * d)
+    for name, e_, ms_, pms_, dms_, bnd, what in (
+            ("performer_attention_moments", err_m, ms_m, pms_m, dms_m,
+             bound(m_bytes, m_flops), "key ranges [0, 384) and [96, 352)"),
+            ("performer_attention_apply", err_a, ms_a, pms_a, dms_a,
+             bound(a_bytes, a_flops), "T = 512 queries")):
+        rows[name] = dict(
+            route="cuda", source="ddsp_svc_tpu_torch/csrc/performer_attention.cu",
+            replaces=f"{TPU_KERNELS}:516", max_abs_err=e_, ms=ms_,
+            plain_ms=pms_, device_ms=dms_, bound=bnd, library_ms=None,
+            tol=f"2e-5 x max|ref| of each output; B = 1, H = 8, {what}")
 
     # 2. CombSubFast spectral chain, 513 frame rows of n_fft 1024
     r, n = 513, 1024
@@ -910,6 +972,10 @@ def plain_kernels(K):
     from ddsp_svc_tpu_torch.nn import nsf_hifigan, pcmer
     from ddsp_svc_tpu_torch.ops import fft_filter, spectral
     swaps = [(pcmer, "performer_attention", K.performer_attention_plain),
+             (pcmer, "performer_attention_moments",
+              K.performer_attention_moments_plain),
+             (pcmer, "performer_attention_apply",
+              K.performer_attention_apply_plain),
              (synths, "combsub_spectral", K.combsub_spectral_plain),
              (synths, "oscillator_bank", K.oscillator_bank_plain),
              (fft_filter, "ltv_fir_convolve", K.ltv_fir_convolve_plain),
@@ -2960,6 +3026,189 @@ def sync(torch, device: str) -> None:
         torch.cuda.synchronize()
 
 
+# the mesh phase: world size 1 over NCCL, then 2 ranks sharing the card over
+# Gloo (NCCL refuses two ranks on one card); each rank's kernels on the
+# time-parallel path, and SvcCore.infer's arguments
+MESH_RUNS = (("nccl", 1), ("gloo", 2))
+MESH_KERNELS = ("performer_attention_moments", "performer_attention_apply",
+                "combsub_spectral", "harmonic_source", "fused_resblocks_inject")
+MESH_INFER = dict(pitch_extractor_type="dio", enhancer_adaptive_key=0)
+MESH_STAGES = ("synth", "enhance fp32", "enhance staged", "SvcCore.infer")
+
+
+def mesh_calls(torch, d: dict, synth, enhancers: dict, core):
+    """The mesh phase's four calls on the job's inputs `d`, each timed on the
+    host around a synchronize: the bucketed synth, the enhancer fp32 and
+    staged bf16 on the reference synth's output, and a whole SvcCore
+    window. Returns ({stage: output on the CPU}, {stage: seconds})."""
+    outs, walls = {}, {}
+    synth_out = torch.as_tensor(d["synth_ref"], device=d["device"])
+
+    def timed(name, fn):
+        sync(torch, d["device"])
+        t0 = time.perf_counter()
+        y = fn()
+        sync(torch, d["device"])
+        walls[name] = time.perf_counter() - t0
+        outs[name] = torch.as_tensor(y).float().cpu().reshape(-1)
+
+    timed("synth", lambda: synth(d["units"], d["f0"], d["volume"], d["spk"],
+                                 noise=d["noise"]))
+    for kind, enh in enhancers.items():
+        timed(f"enhance {kind}", lambda enh=enh: enh.enhance(
+            synth_out, d["sr"], d["f0"], d["block"], adaptive_key=0,
+            rand_ini=d["rand_ini"])[0])
+    core._step = 0
+    timed("SvcCore.infer", lambda: core.infer(d["audio"], d["sr"],
+                                              **MESH_INFER)[0])
+    return outs, walls
+
+
+def mesh_models(d: dict, mesh=None):
+    """The bucketed synth, the two enhancers and a SvcCore of the job's
+    checkpoints, time-sharded over `mesh` (None: unsharded)."""
+    from ddsp_svc_tpu_torch.infer.enhancer import Enhancer
+    from ddsp_svc_tpu_torch.infer.streaming import SvcCore
+    from ddsp_svc_tpu_torch.models.factory import load_model, make_bucketed_synth
+
+    dev = d["device"]
+    model, _ = load_model(d["ckpt"], device=dev)
+    enhancers = {kind: Enhancer("nsf-hifigan", d["nsf"], device=dev,
+                                bf16_min_channels=threshold, mesh=mesh)
+                 for kind, threshold in (("fp32", 0), ("staged", CLI_STAGED))}
+    return (make_bucketed_synth(model, mesh=mesh), enhancers,
+            SvcCore(d["ckpt"], device=dev, mesh=mesh))
+
+
+def mesh_rank(rank: int, world: int, backend: str, port: int, job: str):
+    """One rank of the mesh phase, spawned: joins `world` ranks on the job's
+    device (cuda:0 for every rank) over `backend`, runs mesh_calls once to
+    warm up and once with the launch counts from 0, and saves its outputs,
+    walls and counts."""
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from ddsp_svc_tpu_torch.ops import kernels as K
+    from ddsp_svc_tpu_torch.parallel import init_distributed, make_mesh
+
+    d = torch.load(job, weights_only=False)
+    dev = "cuda:0" if d["device"] == "cuda" else d["device"]
+    init_distributed(f"127.0.0.1:{port}", world, rank, backend=backend,
+                     device=dev)
+    try:
+        models = mesh_models(d, make_mesh(device=dev))
+        mesh_calls(torch, d, *models)
+        K.reset_launch_counts()
+        outs, walls = mesh_calls(torch, d, *models)
+        torch.save({"outs": outs, "walls": walls,
+                    "launches": K.launch_counts()}, f"{job}.{rank}")
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_phase(torch, K, card: str, ckpts: dict, device: str = "cuda"
+               ) -> dict:
+    """One utterance's conversion time-sharded over ranks (parallel/): the
+    CLI phase's 13 s sung wav, its dio f0, volume and HuBERT-soft units, at
+    configs/combsub.yaml's width with H_NSF. Each run spawns its ranks on
+    cuda:0 (world size 1 over NCCL, 2 over Gloo) and holds every rank's
+    whole output against the unsharded run on the kernels: the bucketed
+    synth (1121 frames in the 2048 bucket, noise injected) within 1e-4 x
+    max|ref|, the enhancer on the reference synth output fp32 within 1e-5
+    x max|ref| and staged bf16 at 128 within rel RMS 2e-2, SvcCore.infer's
+    window (synth and fp32 enhancer sharded) within 1e-4 x max|ref|; each
+    rank launched #1's moments and apply, #2, #3 and #4 and never the
+    single #1. Prints the walls of each run (two ranks share one card: a
+    record, no speed-up expected). Returns the ranks' launches, summed.
+    device='cpu' rehearses it on the CPU, on the plain versions, over Gloo
+    only (no kernel launches)."""
+    import torch.multiprocessing as mp
+    import socket
+    from ddsp_svc_tpu_torch.data.features import VolumeExtractor
+
+    work = os.path.join(ROOT, "build", "chip_smoke_mesh")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    d = {"ckpt": ckpts["fp32"], "device": device, "nsf": os.path.join(
+        os.path.dirname(os.path.dirname(ckpts["fp32"])), "nsf", "model")}
+    synth, enhancers, core = mesh_models(d)
+    sr, bs = core.args.data.sampling_rate, core.args.data.block_size
+    audio = sung_wav(sr)
+    f0 = core._f0_extractor("dio", sr, bs, 50, 1100).extract(audio,
+                                                              uv_interp=True)
+    units = core.units_encoder.encode(audio[None], sr, bs)
+    n = units.shape[1]
+    rng = np.random.default_rng(11)
+    ri = rng.random((1, 9)).astype(np.float32)
+    ri[:, 0] = 0.0
+    d.update(sr=sr, block=bs, audio=audio, units=units,
+             f0=f0[None, :n, None].astype(np.float32),
+             volume=VolumeExtractor(bs).extract(audio)[None, :n].astype(
+                 np.float32), spk=np.ones((1, 1), np.int64),
+             noise=(rng.random((1, n * bs)) * 2 - 1).astype(np.float32),
+             rand_ini=ri)
+    d["synth_ref"] = synth(d["units"], d["f0"], d["volume"], d["spk"],
+                           noise=d["noise"]).cpu()
+    mesh_calls(torch, d, synth, enhancers, core)
+    refs, walls = mesh_calls(torch, d, synth, enhancers, core)
+    say(f"{card}: mesh phase: {len(audio) / sr:.3f} s wav, {n} frames in "
+        f"the {max(32, 1 << (n - 1).bit_length())}-frame bucket; unsharded "
+        "(one process, no group) " + ", ".join(
+            f"{k} {v * 1e3:.1f} ms" for k, v in walls.items()))
+    job = os.path.join(work, "job.pt")
+    torch.save(d, job)
+    del synth, enhancers, core
+    total = {}
+    for backend, world in MESH_RUNS:
+        if device != "cuda":
+            backend = "gloo"
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        t0 = time.perf_counter()
+        mp.start_processes(mesh_rank, args=(world, backend, port, job),
+                           nprocs=world, join=True, start_method="spawn")
+        spawn_s = time.perf_counter() - t0
+        for rank in range(world):
+            res = torch.load(f"{job}.{rank}", weights_only=False)
+            label = f"mesh {backend} world size {world} rank {rank}"
+            errs = []
+            for stage, tol in (("synth", 1e-4), ("enhance fp32", 1e-5),
+                               ("SvcCore.infer", 1e-4)):
+                got, ref = res["outs"][stage], refs[stage]
+                if got.shape != ref.shape or not torch.isfinite(got).all():
+                    fail(f"{label}: {stage} gave {tuple(got.shape)} "
+                         f"(expected {tuple(ref.shape)}) or non-finite values")
+                err = ((got - ref).abs().max() / ref.abs().max()).item()
+                if not err <= tol:
+                    fail(f"{label}: {stage} {err:.3e} x max|ref| against the "
+                         f"unsharded run, over {tol}")
+                errs.append(f"{stage} {err:.3e} x max|ref| (<= {tol})")
+            got, ref = res["outs"]["enhance staged"], refs["enhance staged"]
+            rel = (torch.linalg.vector_norm(got - ref)
+                   / torch.linalg.vector_norm(ref)).item()
+            if got.shape != ref.shape or not rel <= 2e-2:
+                fail(f"{label}: enhance staged rel RMS {rel:.3e}, over 2e-2")
+            errs.append(f"enhance staged rel RMS {rel:.3e} (<= 2e-2)")
+            say(f"{label}: " + "; ".join(errs))
+            counts = res["launches"]
+            say(f"{label} launches: {json.dumps(counts)}")
+            for name in MESH_KERNELS if device == "cuda" else ():
+                if counts[name] <= 0:
+                    fail(f"{name} was not launched on {label}")
+            if counts["performer_attention"]:
+                fail(f"{label} launched the single #1 on the sharded path")
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            say(f"{card}: {label} walls: " + ", ".join(
+                f"{k} {v * 1e3:.1f} ms" for k, v in res["walls"].items()))
+        say(f"mesh {backend} world size {world}: {spawn_s:.1f} s with the "
+            "ranks' start")
+    shutil.rmtree(work, ignore_errors=True)
+    return total
+
+
 def serve_phase(torch, K, card: str, ckpts: dict, device: str = "cuda"
                 ) -> dict:
     """Serving at full width with the CLI phase's checkpoints: the three
@@ -3248,10 +3497,13 @@ def main() -> None:
     t0 = time.perf_counter()
     serve_counts = serve_phase(torch, K, smi[0], ckpts)
     say(f"serving paths: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mesh_counts = mesh_phase(torch, K, smi[0], ckpts)
+    say(f"mesh paths: {time.perf_counter() - t0:.1f} s")
     shutil.rmtree(os.path.join(ROOT, "build", "chip_smoke_cli"),
                   ignore_errors=True)
     for counts in (cli_counts, batch_counts, pre_counts, gan_counts,
-                   stream_counts, serve_counts):
+                   stream_counts, serve_counts, mesh_counts):
         for k, v in counts.items():
             launches[k] += v
     for synth, config, expect, full in SYNTHS:

@@ -47,6 +47,17 @@
 // mma.sync ran no faster and doubled the error against the plain version.
 // Any T >= 1 is taken: the TPU kernel's T % 128 and T <= 512 limits were its
 // tiling and VMEM.
+//
+// The same body cut at the reduction, for a sequence sharded over time
+// (parallel/timeparallel.py), where the key sums cross devices:
+//   moments_kernel: phases 1-2 over a key range [key_lo, key_hi) of each
+//     batch row, the summed context and key sums written to device memory
+//     (same clusters, tiles and rank order as favor_kernel, so the range
+//     [0, valid) reproduces its context bit for bit);
+//   apply_kernel: phase 4 from a context and key sums in device memory
+//     (every shard's, all-reduced), one CTA per query tile, no cluster.
+// Nothing new is computed. Bound as above: the moments are the key half of
+// the operations, the apply the query half.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -181,6 +192,175 @@ __device__ __forceinline__ float half_warp_sum(float v) {
   return v;
 }
 
+// Phase 1 over the keys [lo, hi): this CTA's partial context and key sums
+// over its tiles (rank, rank + cs, ... among those that meet the range,
+// tiles aligned to row 0, rows outside the range zero features), stored to
+// s.ctx. The tile `first` is already staged in s.xk / s.v. Context thread
+// (jc, eq) = (tid / 16, tid % 16) owns features jc + 16 q, columns 4 eq..+3.
+__device__ __forceinline__ void key_partials(const float* __restrict__ k,
+                                             const float* __restrict__ v, long long st, int lo,
+                                             int hi, int first, int cs, Smem& s, float dn,
+                                             float ratio) {
+  const int tg = threadIdx.x >> 4, jl = threadIdx.x & 15;
+  const int jc = threadIdx.x >> 4, eq = threadIdx.x & 15;
+  const int n_end = (hi + kTT - 1) / kTT;
+  float4 cacc[kJQ];
+#pragma unroll
+  for (int i = 0; i < kJQ; ++i) cacc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  float ksum[2] = {0.f, 0.f};  // features tid and 256 + tid
+  for (int tile = first; tile < n_end; tile += cs) {
+    const int t0 = tile * kTT, r0 = max(0, lo - t0), r1 = min(kTT, hi - t0);
+    if (tile != first) {
+      stage_rows(k, st, t0, r1, s.xk, kPS);
+      stage_rows(v, st, t0, r1, s.v, kD);
+      cp_async_wait_all();
+      __syncthreads();
+    }
+    float acc[2][kJQ], sq[2];
+    project(s.xk, s.proj, dn, acc, sq);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int t = tg + 16 * r;
+      const float diag = 0.5f * sq[r];
+#pragma unroll
+      for (int i = 0; i < kJQ; ++i) {
+        const int j = jl + 16 * i;
+        s.f[t * kFS + j] =
+            (t >= r0 && t < r1 && j < kM) ? ratio * expf(acc[r][i] - diag + kStabEps) : 0.f;
+      }
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int t = r0; t < r1; ++t) {
+      const float4 vv = *reinterpret_cast<const float4*>(s.v + t * kD + 4 * eq);
+#pragma unroll
+      for (int i = 0; i < kJQ; ++i) fma4(cacc[i], s.f[t * kFS + jc + 16 * i], vv);
+    }
+    for (int t = r0; t < r1; ++t) {
+      ksum[0] += s.f[t * kFS + threadIdx.x];
+      if (threadIdx.x < kMP - kThreads) ksum[1] += s.f[t * kFS + kThreads + threadIdx.x];
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < kJQ; ++i) {
+    *reinterpret_cast<float4*>(s.ctx + (jc + 16 * i) * kD + 4 * eq) = cacc[i];
+  }
+  s.ctx[kMP * kD + threadIdx.x] = ksum[0];
+  if (threadIdx.x < kMP - kThreads) s.ctx[kMP * kD + kThreads + threadIdx.x] = ksum[1];
+}
+
+// The first tile of CTA `rank` among the tiles that meet [lo, ...): the
+// least tile >= lo / kTT that is rank modulo cs.
+__device__ __forceinline__ int first_tile(int lo, int rank, int cs) {
+  const int skip = max(0, lo / kTT - rank);
+  return rank + cs * ((skip + cs - 1) / cs);
+}
+
+// Phase 2: float4 slice `rank` of the context (and key sums) summed over
+// the cluster's CTAs in rank order (deterministic, no atomics), each sum
+// handed to put(i, sum). Call after a cluster barrier.
+template <class Put>
+__device__ __forceinline__ void cluster_slice_sum(cg::cluster_group& cluster, Smem& s, int rank,
+                                                  int cs, int per, Put put) {
+  const int lo = rank * per, hi = min(kCtx4, lo + per);
+  for (int i = lo + threadIdx.x; i < hi; i += kThreads) {
+    float4 part[kMaxCluster];
+#pragma unroll
+    for (int p = 0; p < kMaxCluster; ++p) {
+      if (p < cs) part[p] = reinterpret_cast<const float4*>(cluster.map_shared_rank(s.ctx, p))[i];
+    }
+    float4 sum = part[0];
+#pragma unroll
+    for (int p = 1; p < kMaxCluster; ++p) {
+      if (p < cs) sum = add4(sum, part[p]);
+    }
+    put(i, sum);
+  }
+}
+
+// Phase 4 for one query tile, rows [t0, t0 + n) (staged in s.xq when
+// `staged`), with the whole context and key sums in s.ctx: the features,
+// row maxima and denominators in registers, then the output rows of out_bh
+// ((T, 64) of this batch row and head). Output thread (jh, to, eq) =
+// (tid / 128, tid / 16 % 8, tid % 16) owns rows to + 8 r, columns 4 eq..+3,
+// over features [136 jh, 136 jh + 136).
+__device__ __forceinline__ void query_tile(const float* __restrict__ q, long long st, int t0,
+                                           int n, bool staged, Smem& s, float dn, float ratio,
+                                           float* __restrict__ out_bh) {
+  const int tg = threadIdx.x >> 4, jl = threadIdx.x & 15, eq = threadIdx.x & 15;
+  const int jh = threadIdx.x >> 7, to = (threadIdx.x >> 4) & 7;
+  const float* ksum_s = s.ctx + kMP * kD;
+  if (!staged) {
+    stage_rows(q, st, t0, n, s.xq, kPS);
+    cp_async_wait_all();
+    __syncthreads();
+  }
+  float acc[2][kJQ], sq[2];
+  project(s.xq, s.proj, dn, acc, sq);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = tg + 16 * r;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < kJQ; ++i) {
+      if (jl + 16 * i < kM) mx = fmaxf(mx, acc[r][i]);
+    }
+    mx = half_warp_max(mx);
+    const float diag = 0.5f * sq[r];
+    float den = 0.f;
+#pragma unroll
+    for (int i = 0; i < kJQ; ++i) {
+      const int j = jl + 16 * i;
+      const float f = j < kM ? ratio * (expf(acc[r][i] - diag - mx) + kStabEps) : 0.f;
+      den = fmaf(f, ksum_s[j], den);
+      s.f[t * kFS + j] = f;
+    }
+    den = half_warp_sum(den);
+    if (jl == 0) s.inv[t] = 1.f / (den + kDenEps);
+  }
+  __syncthreads();
+  float4 o[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) o[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int j0 = jh * (kMP / 2);
+#pragma unroll 2
+  for (int j = j0; j < j0 + kMP / 2; j += 4) {
+    float4 c[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) c[u] = *reinterpret_cast<const float4*>(s.ctx + (j + u) * kD + 4 * eq);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float4 f = *reinterpret_cast<const float4*>(s.f + (to + 8 * r) * kFS + j);
+      fma4(o[r], f.x, c[0]);
+      fma4(o[r], f.y, c[1]);
+      fma4(o[r], f.z, c[2]);
+      fma4(o[r], f.w, c[3]);
+    }
+  }
+  if (jh == 1) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      *reinterpret_cast<float4*>(s.v + (to + 8 * r) * kD + 4 * eq) = o[r];
+    }
+  }
+  __syncthreads();
+  if (jh == 0) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int t = to + 8 * r;
+      if (t < n) {
+        const float4 h = *reinterpret_cast<const float4*>(s.v + t * kD + 4 * eq);
+        const float w = s.inv[t];
+        const float4 y = add4(o[r], h);
+        *reinterpret_cast<float4*>(out_bh + ((size_t)t0 + t) * kD + 4 * eq) =
+            make_float4(y.x * w, y.y * w, y.z * w, y.w * w);
+      }
+    }
+  }
+  __syncthreads();
+}
+
 __global__ void __launch_bounds__(kThreads, 1)
 favor_kernel(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const float* __restrict__ proj,
@@ -196,7 +376,6 @@ favor_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int limit = max(0, min(valid != nullptr ? valid[b] : valid_all, T));
   const int n_key = (limit + kTT - 1) / kTT, n_tiles = (T + kTT - 1) / kTT;
   const size_t base = (size_t)b * sb + (size_t)(bh - b * H) * sh;
-  const int tg = threadIdx.x >> 4, jl = threadIdx.x & 15;
 
   // every copy this CTA needs first, in flight together
   stage_proj(proj, s.proj);
@@ -209,71 +388,14 @@ favor_kernel(const float* __restrict__ q, const float* __restrict__ k,
   cp_async_wait_all();
   __syncthreads();
 
-  // 1. keys: the context of this CTA's tiles in registers. Context thread
-  // (jc, eq) = (tid / 16, tid % 16) owns features jc + 16 q, columns 4 eq..+3
-  const int jc = threadIdx.x >> 4, eq = threadIdx.x & 15;
-  float4 cacc[kJQ];
-#pragma unroll
-  for (int i = 0; i < kJQ; ++i) cacc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  float ksum[2] = {0.f, 0.f};  // features tid and 256 + tid
-  for (int tile = rank; tile < n_key; tile += cs) {
-    const int t0 = tile * kTT, n = min(kTT, limit - t0);
-    if (tile != rank) {
-      stage_rows(k + base, st, t0, n, s.xk, kPS);
-      stage_rows(v + base, st, t0, n, s.v, kD);
-      cp_async_wait_all();
-      __syncthreads();
-    }
-    float acc[2][kJQ], sq[2];
-    project(s.xk, s.proj, dn, acc, sq);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int t = tg + 16 * r;
-      const float diag = 0.5f * sq[r];
-#pragma unroll
-      for (int i = 0; i < kJQ; ++i) {
-        const int j = jl + 16 * i;
-        s.f[t * kFS + j] = (t < n && j < kM) ? ratio * expf(acc[r][i] - diag + kStabEps) : 0.f;
-      }
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int t = 0; t < n; ++t) {
-      const float4 vv = *reinterpret_cast<const float4*>(s.v + t * kD + 4 * eq);
-#pragma unroll
-      for (int i = 0; i < kJQ; ++i) fma4(cacc[i], s.f[t * kFS + jc + 16 * i], vv);
-    }
-    for (int t = 0; t < n; ++t) {
-      ksum[0] += s.f[t * kFS + threadIdx.x];
-      if (threadIdx.x < kMP - kThreads) ksum[1] += s.f[t * kFS + kThreads + threadIdx.x];
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < kJQ; ++i) {
-    *reinterpret_cast<float4*>(s.ctx + (jc + 16 * i) * kD + 4 * eq) = cacc[i];
-  }
-  s.ctx[kMP * kD + threadIdx.x] = ksum[0];
-  if (threadIdx.x < kMP - kThreads) s.ctx[kMP * kD + kThreads + threadIdx.x] = ksum[1];
+  // 1. keys: the context of this CTA's tiles
+  key_partials(k + base, v + base, st, 0, limit, rank, cs, s, dn, ratio);
 
-  // 2. slice `rank` of the context summed over the cluster, in rank order
+  // 2. slice `rank` of the context summed over the cluster, into own copy
   cluster.sync();
   float4* own = reinterpret_cast<float4*>(s.ctx);
   const int per = (kCtx4 + cs - 1) / cs;
-  const int lo = rank * per, hi = min(kCtx4, lo + per);
-  for (int i = lo + threadIdx.x; i < hi; i += kThreads) {
-    float4 part[kMaxCluster];
-#pragma unroll
-    for (int p = 0; p < kMaxCluster; ++p) {
-      if (p < cs) part[p] = reinterpret_cast<const float4*>(cluster.map_shared_rank(s.ctx, p))[i];
-    }
-    float4 sum = part[0];
-#pragma unroll
-    for (int p = 1; p < kMaxCluster; ++p) {
-      if (p < cs) sum = add4(sum, part[p]);
-    }
-    own[i] = sum;
-  }
+  cluster_slice_sum(cluster, s, rank, cs, per, [&](int i, float4 sum) { own[i] = sum; });
 
   // 3. the other slices from their owners
   cluster.sync();
@@ -293,89 +415,111 @@ favor_kernel(const float* __restrict__ q, const float* __restrict__ k,
   cluster_arrive();
   __syncthreads();
 
-  // 4. queries. Output thread (jh, to, eq) = (tid / 128, tid / 16 % 8,
-  // tid % 16) owns rows to + 8 r, columns 4 eq..+3, over features
-  // [136 jh, 136 jh + 136)
-  const int jh = threadIdx.x >> 7, to = (threadIdx.x >> 4) & 7;
-  const float* ksum_s = s.ctx + kMP * kD;
+  // 4. queries
+  float* out_bh = out + (size_t)bh * T * kD;
   for (int tile = rank; tile < n_tiles; tile += cs) {
-    const int t0 = tile * kTT, n = min(kTT, T - t0);
-    if (tile != rank) {
-      stage_rows(q + base, st, t0, n, s.xq, kPS);
-      cp_async_wait_all();
-      __syncthreads();
-    }
-    float acc[2][kJQ], sq[2];
-    project(s.xq, s.proj, dn, acc, sq);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int t = tg + 16 * r;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int i = 0; i < kJQ; ++i) {
-        if (jl + 16 * i < kM) mx = fmaxf(mx, acc[r][i]);
-      }
-      mx = half_warp_max(mx);
-      const float diag = 0.5f * sq[r];
-      float den = 0.f;
-#pragma unroll
-      for (int i = 0; i < kJQ; ++i) {
-        const int j = jl + 16 * i;
-        const float f = j < kM ? ratio * (expf(acc[r][i] - diag - mx) + kStabEps) : 0.f;
-        den = fmaf(f, ksum_s[j], den);
-        s.f[t * kFS + j] = f;
-      }
-      den = half_warp_sum(den);
-      if (jl == 0) s.inv[t] = 1.f / (den + kDenEps);
-    }
-    __syncthreads();
-    float4 o[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) o[r] = make_float4(0.f, 0.f, 0.f, 0.f);
-    const int j0 = jh * (kMP / 2);
-#pragma unroll 2
-    for (int j = j0; j < j0 + kMP / 2; j += 4) {
-      float4 c[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) c[u] = *reinterpret_cast<const float4*>(s.ctx + (j + u) * kD + 4 * eq);
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float4 f = *reinterpret_cast<const float4*>(s.f + (to + 8 * r) * kFS + j);
-        fma4(o[r], f.x, c[0]);
-        fma4(o[r], f.y, c[1]);
-        fma4(o[r], f.z, c[2]);
-        fma4(o[r], f.w, c[3]);
-      }
-    }
-    if (jh == 1) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        *reinterpret_cast<float4*>(s.v + (to + 8 * r) * kD + 4 * eq) = o[r];
-      }
-    }
-    __syncthreads();
-    if (jh == 0) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int t = to + 8 * r;
-        if (t < n) {
-          const float4 h = *reinterpret_cast<const float4*>(s.v + t * kD + 4 * eq);
-          const float w = s.inv[t];
-          const float4 y = add4(o[r], h);
-          *reinterpret_cast<float4*>(out + ((size_t)bh * T + t0 + t) * kD + 4 * eq) =
-              make_float4(y.x * w, y.y * w, y.z * w, y.w * w);
-        }
-      }
-    }
-    __syncthreads();
+    const int t0 = tile * kTT;
+    query_tile(q + base, st, t0, min(kTT, T - t0), tile == rank, s, dn, ratio, out_bh);
   }
   cluster_wait();
 }
 
-// The dynamic shared memory, set once per process.
+// The key half of favor_kernel (phases 1-2), for one shard of a
+// time-sharded sequence: the context sum_t kf[t]^T v[t] (266, 64) and key
+// sums sum_t kf[t] (266) over the keys [key_lo, key_hi) of each batch row,
+// written to ctx (B, H, 266, 64) and ksum (B, H, 266). Same cluster size,
+// tiles and rank-order sum as favor_kernel, so the range [0, valid) gives
+// its context bit for bit.
+__global__ void __launch_bounds__(kThreads, 1)
+moments_kernel(const float* __restrict__ k, const float* __restrict__ v,
+               const float* __restrict__ proj, const int* __restrict__ key_lo, int lo_all,
+               const int* __restrict__ key_hi, int hi_all, float* __restrict__ ctx,
+               float* __restrict__ ksum, int H, int T, long long sb, long long sh,
+               long long st, float dn, float ratio) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem& s = *reinterpret_cast<Smem*>(smem_raw);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int cs = (int)cluster.num_blocks();
+  const int bh = blockIdx.y, b = bh / H;
+  const int lo = max(0, min(key_lo != nullptr ? key_lo[b] : lo_all, T));
+  const int hi = max(lo, min(key_hi != nullptr ? key_hi[b] : hi_all, T));
+  const size_t base = (size_t)b * sb + (size_t)(bh - b * H) * sh;
+  const int first = first_tile(lo, rank, cs);
+
+  stage_proj(proj, s.proj);
+  if (first * kTT < hi) {
+    const int n = min(kTT, hi - first * kTT);
+    stage_rows(k + base, st, first * kTT, n, s.xk, kPS);
+    stage_rows(v + base, st, first * kTT, n, s.v, kD);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  key_partials(k + base, v + base, st, lo, hi, first, cs, s, dn, ratio);
+
+  cluster.sync();
+  float* ctx_bh = ctx + (size_t)bh * kM * kD;
+  float* ksum_bh = ksum + (size_t)bh * kM;
+  const int per = (kCtx4 + cs - 1) / cs;
+  cluster_slice_sum(cluster, s, rank, cs, per, [&](int i, float4 sum) {
+    const int e = 4 * i;
+    if (e < kMP * kD) {
+      if (e / kD < kM) *reinterpret_cast<float4*>(ctx_bh + e) = sum;
+    } else {
+      const int j = e - kMP * kD;
+      const float part[4] = {sum.x, sum.y, sum.z, sum.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (j + u < kM) ksum_bh[j + u] = part[u];
+      }
+    }
+  });
+  // no CTA leaves while a peer still reads its shared memory
+  cluster.sync();
+}
+
+// The query half of favor_kernel (phase 4), for one shard: out rows of the
+// query tile blockIdx.x of each (batch row, head) from the context and key
+// sums summed over every shard (moments_kernel's outputs, all-reduced).
+// One CTA a tile, no cluster.
+__global__ void __launch_bounds__(kThreads, 1)
+apply_kernel(const float* __restrict__ q, const float* __restrict__ proj,
+             const float* __restrict__ ctx, const float* __restrict__ ksum,
+             float* __restrict__ out, int H, int T, long long sb, long long sh,
+             long long st, float dn, float ratio) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem& s = *reinterpret_cast<Smem*>(smem_raw);
+  const int tile = blockIdx.x, bh = blockIdx.y, b = bh / H;
+  const size_t base = (size_t)b * sb + (size_t)(bh - b * H) * sh;
+  const int t0 = tile * kTT, n = min(kTT, T - t0);
+
+  stage_proj(proj, s.proj);
+  const float* ctx_bh = ctx + (size_t)bh * kM * kD;
+  for (int i = threadIdx.x; i < kM * (kD / 4); i += kThreads) {
+    cp_async16(s.ctx + 4 * i, ctx_bh + 4 * i);
+  }
+  for (int i = threadIdx.x; i < (kMP - kM) * kD; i += kThreads) s.ctx[kM * kD + i] = 0.f;
+  for (int j = threadIdx.x; j < kMP; j += kThreads) {
+    s.ctx[kMP * kD + j] = j < kM ? ksum[(size_t)bh * kM + j] : 0.f;
+  }
+  stage_rows(q + base, st, t0, n, s.xq, kPS);
+  cp_async_wait_all();
+  __syncthreads();
+
+  query_tile(q + base, st, t0, n, true, s, dn, ratio, out + (size_t)bh * T * kD);
+}
+
+// The dynamic shared memory of the three kernels, set once per process.
 cudaError_t setup() {
-  return cudaFuncSetAttribute(favor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)sizeof(Smem));
+  const void* kernels[] = {(const void*)favor_kernel, (const void*)moments_kernel,
+                           (const void*)apply_kernel};
+  for (const void* fn : kernels) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(Smem));
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 // CTAs per cluster: the least power of two >= the tile count, at most 8.
@@ -386,18 +530,43 @@ int cluster_size(int T) {
   return cs;
 }
 
+// One launch of `kernel` in clusters of cluster_size(T) CTAs along x, one
+// cluster per (batch row, head).
+template <class... Params, class... Args>
+cudaError_t launch_clustered(void (*kernel)(Params...), int BH, int T, void* stream,
+                             Args... args) {
+  const int cs = cluster_size(T);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cs, BH, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = sizeof(Smem);
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cs;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // The cluster size a launch at T takes, then the kernel's registers per
 // thread, local-memory (spilled) bytes per thread and dynamic shared memory
-// per CTA.
-extern "C" int performer_attention_info(int T, int* out) {
+// per CTA. which: 0 the single launch, 1 the moments, 2 the apply kernel.
+extern "C" int performer_attention_info(int T, int which, int* out) {
   static const cudaError_t once = setup();
   if (once != cudaSuccess) return (int)once;
   cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, favor_kernel);
+  const void* fn = which == 1 ? (const void*)moments_kernel
+                 : which == 2 ? (const void*)apply_kernel : (const void*)favor_kernel;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, fn);
   if (err != cudaSuccess) return (int)err;
-  out[0] = cluster_size(T);
+  out[0] = which == 2 ? 1 : cluster_size(T);
   out[1] = attr.numRegs;
   out[2] = (int)attr.localSizeBytes;
   out[3] = (int)sizeof(Smem);
@@ -417,21 +586,39 @@ extern "C" int performer_attention_launch(const float* q, const float* k, const 
   if (once != cudaSuccess) return (int)once;
   if (B * H == 0 || T == 0) return 0;
   if (B * H > 65535) return (int)cudaErrorInvalidValue;
-  const int cs = cluster_size(T);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cs, B * H, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = sizeof(Smem);
-  cfg.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = cs;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  cudaError_t err = cudaLaunchKernelEx(&cfg, favor_kernel, q, k, v, proj, valid, valid_all,
-                                       out, H, T, sb, sh, st, dn, ratio);
-  if (err != cudaSuccess) return (int)err;
+  return (int)launch_clustered(favor_kernel, B * H, T, stream, q, k, v, proj, valid, valid_all,
+                               out, H, T, sb, sh, st, dn, ratio);
+}
+
+// k, v: views as q, k, v above; key_lo / key_hi: (B,) int32 on the card, or
+// null to take lo_all / hi_all for every row (clipped to [0, T], an empty
+// range gives zeros); ctx: (B, H, 266, 64) and ksum (B, H, 266) contiguous,
+// 16-byte aligned.
+extern "C" int performer_attention_moments_launch(
+    const float* k, const float* v, const float* proj, const int* key_lo, int lo_all,
+    const int* key_hi, int hi_all, float* ctx, float* ksum, int B, int H, int T, long long sb,
+    long long sh, long long st, float dn, float ratio, void* stream) {
+  static const cudaError_t once = setup();
+  if (once != cudaSuccess) return (int)once;
+  if (B * H == 0) return 0;
+  if (B * H > 65535) return (int)cudaErrorInvalidValue;
+  return (int)launch_clustered(moments_kernel, B * H, T, stream, k, v, proj, key_lo, lo_all,
+                               key_hi, hi_all, ctx, ksum, H, T, sb, sh, st, dn, ratio);
+}
+
+// q: a view as above; ctx (B, H, 266, 64) and ksum (B, H, 266) contiguous,
+// 16-byte aligned; out: (B, H, T, 64) contiguous.
+extern "C" int performer_attention_apply_launch(const float* q, const float* proj,
+                                                const float* ctx, const float* ksum,
+                                                float* out, int B, int H, int T, long long sb,
+                                                long long sh, long long st, float dn,
+                                                float ratio, void* stream) {
+  static const cudaError_t once = setup();
+  if (once != cudaSuccess) return (int)once;
+  if (B * H == 0 || T == 0) return 0;
+  if (B * H > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((T + kTT - 1) / kTT, B * H, 1);
+  apply_kernel<<<grid, kThreads, sizeof(Smem), (cudaStream_t)stream>>>(
+      q, proj, ctx, ksum, out, H, T, sb, sh, st, dn, ratio);
   return (int)cudaGetLastError();
 }

@@ -52,12 +52,16 @@ class NsfHifiGAN:
     beside it; None draws the weights from `seed`. generator_overrides: the
     Generator's forms (fused_resblocks, fused_inject, fused_stage).
     dtype / bf16_min_channels: the Generator's compute dtype and staged
-    bf16 threshold (0 = off); the parameters stay fp32."""
+    bf16 threshold (0 = off); the parameters stay fp32. mesh (a
+    `parallel.Mesh`; device: its device): each call's mel frames sharded
+    over `mesh_axis` (`parallel.make_time_parallel_enhancer`), every rank
+    called with the same inputs and returning the whole output."""
 
     def __init__(self, model_path: Optional[str], h: Optional[dict] = None,
                  seed: int = 0, device=None,
                  generator_overrides: Optional[dict] = None, dtype=None,
-                 bf16_min_channels: int = 0):
+                 bf16_min_channels: int = 0, mesh=None,
+                 mesh_axis: str = "data"):
         self.device = resolve_device(device)
         if model_path is not None:
             with open(os.path.join(os.path.dirname(model_path),
@@ -82,6 +86,15 @@ class NsfHifiGAN:
             self.model.load_state_dict(
                 {k: _fold_weight_norm(sd, k) for k in self.model.state_dict()})
         self.model = self.model.to(self.device).eval()
+        self._time_parallel = None
+        if mesh is not None:
+            if mesh.device.type != self.device.type:
+                raise ValueError(f"the mesh is on {mesh.device}, the "
+                                 f"enhancer on {self.device}")
+            from ..parallel.timeparallel import make_time_parallel_enhancer
+
+            self._time_parallel = make_time_parallel_enhancer(
+                self, mesh, axis=mesh_axis)
 
     @property
     def sample_rate(self) -> int:
@@ -127,6 +140,9 @@ class NsfHifiGAN:
             if generator is not None:
                 rand_ini[:, 1:] = torch.rand((b, 8), generator=generator,
                                              device=audio.device)
+        if self._time_parallel is not None:
+            return (self._time_parallel(audio, f0_frames, rand_ini),
+                    self.sample_rate)
         mel = self._mel(audio)
         out = self.model(mel, f0_frames[:, :mel.shape[1]], rand_ini)
         return out, self.sample_rate
@@ -136,13 +152,17 @@ class Enhancer:
     def __init__(self, enhancer_type: str, enhancer_ckpt: Optional[str],
                  h: Optional[dict] = None, seed: int = 0, device=None,
                  generator_overrides: Optional[dict] = None,
-                 bf16_min_channels: int = 0):
+                 bf16_min_channels: int = 0, mesh=None,
+                 mesh_axis: str = "data"):
+        """mesh: `enhance`'s generator forward time-sharded over
+        `mesh_axis` (NsfHifiGAN's mesh); `enhance_batch` stays unsharded."""
         if enhancer_type != "nsf-hifigan":
             raise ValueError(f" [x] Unknown enhancer: {enhancer_type}")
         self.enhancer = NsfHifiGAN(enhancer_ckpt, h=h, seed=seed,
                                    device=device,
                                    generator_overrides=generator_overrides,
-                                   bf16_min_channels=bf16_min_channels)
+                                   bf16_min_channels=bf16_min_channels,
+                                   mesh=mesh, mesh_axis=mesh_axis)
         self.enhancer_sample_rate = self.enhancer.sample_rate
         self.enhancer_hop_size = self.enhancer.hop_size
 

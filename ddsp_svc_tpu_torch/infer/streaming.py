@@ -77,21 +77,23 @@ class SvcCore:
     enhancer, on `device` (CUDA unless the caller asks for the CPU)."""
 
     def __init__(self, model_path: str, device=None, mesh=None,
-                 fused_window: bool = False):
+                 mesh_axis: str = "data", fused_window: bool = False):
         """model_path: a checkpoint with its config.yaml beside it
         (`load_model`). The enhancer is built from the config's
         `enhancer.ckpt` and `enhancer.bf16_min_channels`; a missing
         enhancer checkpoint warns and the core converts without it, as the
-        JAX package does. mesh (a time-sharded window over several devices)
-        and fused_window (the window as one program, on CUDA a graph
-        capture) are not ported."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "SvcCore(mesh=...): the multi-device window is not ported")
+        JAX package does. mesh (a `parallel.Mesh`; device: its device):
+        each window's synth and enhancer run time-sharded over `mesh_axis`
+        (`make_bucketed_synth(mesh=)`, `Enhancer(mesh=)`), every rank
+        converting the same window and returning the whole output.
+        fused_window (the window as one program, on CUDA a graph capture)
+        is not ported; the JAX package runs it on one device only, never
+        with a mesh."""
         if fused_window:
             raise NotImplementedError(
                 "SvcCore(fused_window=True) is not ported")
         self.device = resolve_device(device)
+        self.mesh, self.mesh_axis = mesh, mesh_axis
         self.model, self.args = load_model(model_path, device=self.device)
         data = self.args.data
         self.units_encoder = UnitsEncoder(
@@ -104,7 +106,8 @@ class SvcCore:
             try:
                 self.enhancer = Enhancer(
                     enh.type, enh.ckpt, device=self.device,
-                    bf16_min_channels=int(enh.bf16_min_channels or 0))
+                    bf16_min_channels=int(enh.bf16_min_channels or 0),
+                    mesh=mesh, mesh_axis=mesh_axis)
             except FileNotFoundError:
                 warnings.warn(
                     f" [!] enhancer checkpoint not found: {enh.ckpt} - "
@@ -125,7 +128,8 @@ class SvcCore:
         key = tuple(sorted(spk_mix_dict.items())) if spk_mix_dict else None
         if key not in self._synth_cache:
             self._synth_cache[key] = make_bucketed_synth(
-                self.model, spk_mix_dict=spk_mix_dict)
+                self.model, spk_mix_dict=spk_mix_dict, mesh=self.mesh,
+                mesh_axis=self.mesh_axis)
         return self._synth_cache[key]
 
     def _f0_extractor(self, *key) -> F0Extractor:

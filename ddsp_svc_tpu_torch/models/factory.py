@@ -86,7 +86,8 @@ def bucket_frames(n: int) -> int:
 
 
 def make_bucketed_synth(model: nn.Module,
-                        spk_mix_dict: Optional[Dict[int, float]] = None):
+                        spk_mix_dict: Optional[Dict[int, float]] = None,
+                        mesh=None, mesh_axis: str = "data"):
     """Segment synth with power-of-two frame buckets.
 
     Segments are padded to max(32, next_pow2(n)) frames: f0 by edge
@@ -98,14 +99,33 @@ def make_bucketed_synth(model: nn.Module,
     noise=None, generator=None) -> signal (1, F*block) on the model's
     device. The arrays are numpy; noise optionally injects the uniform(-1, 1)
     excitation (1, F*block), otherwise it is drawn from `generator`.
+
+    mesh (a `parallel.Mesh` on the model's device): each segment's frames
+    sharded over `mesh_axis` (`parallel.make_time_parallel_forward`), the
+    make_jitted_synth(mesh=) counterpart. The axis size is a power of two
+    and the bucket at least that size; the padding stays masked. Every rank
+    calls run with the same segment and returns the whole signal; the noise
+    is drawn over the bucket before the forward, as the unsharded model
+    draws it, so `generator` (or `noise`) must be the same on every rank.
     """
     block = int(model.block_size)
     device = next(model.parameters()).device
+    min_frames, sharded = MIN_BUCKET_FRAMES, None
+    if mesh is not None:
+        from ..parallel.timeparallel import make_time_parallel_forward
+
+        size = mesh.size(mesh_axis)
+        if size & (size - 1):
+            raise ValueError(f"mesh axis '{mesh_axis}' size {size} must be "
+                             "a power of two to match the frame buckets")
+        min_frames = max(min_frames, size)
+        sharded = make_time_parallel_forward(model, mesh, axis=mesh_axis,
+                                             spk_mix_dict=spk_mix_dict)
 
     @torch.no_grad()
     def run(units, f0, volume, spk_id, noise=None, generator=None):
         n = units.shape[1]
-        pad = bucket_frames(n) - n
+        pad = max(min_frames, bucket_frames(n)) - n
         if pad:
             units = np.pad(units, ((0, 0), (0, pad), (0, 0)))
             f0 = np.pad(f0, ((0, 0), (0, pad), (0, 0)), mode="edge")
@@ -116,12 +136,22 @@ def make_bucketed_synth(model: nn.Module,
         def dev(a, dtype=torch.float32):
             return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
-        signal, _, _ = model(
-            dev(units), dev(f0), dev(volume), dev(spk_id, torch.int64),
-            spk_mix_dict=spk_mix_dict, infer=True,
-            noise=None if noise is None else dev(noise),
-            valid_frames=n if pad else None, generator=generator,
-        )
+        inputs = (dev(units), dev(f0), dev(volume), dev(spk_id, torch.int64))
+        noise = None if noise is None else dev(noise)
+        valid = n if pad else None
+        if sharded is None:
+            signal, _, _ = model(*inputs, spk_mix_dict=spk_mix_dict,
+                                 infer=True, noise=noise, valid_frames=valid,
+                                 generator=generator)
+        else:
+            if noise is None:
+                if generator is None:
+                    raise ValueError("a time-parallel synth draws its noise "
+                                     "from a generator seeded alike on every "
+                                     "rank: pass generator= or noise=")
+                noise = torch.rand((len(units), (n + pad) * block),
+                                   generator=generator, device=device) * 2 - 1
+            signal = sharded(*inputs, noise, valid_frames=valid)
         return signal[:, :n * block]
 
     return run

@@ -62,6 +62,15 @@ def _sample_mask(n_samples: int, valid_frames, block: int, like):
                       like.dtype, like.device)
 
 
+def _filter_radius(n_mags: int, block: int) -> int:
+    """Frames on either side of a block that `frequency_filter`'s output
+    there depends on: the centred impulse response (2 (n_mags - 1) taps)
+    reaches ir // 2 samples each way, and each sample is summed from the
+    frames of its block and the next, each with its own control frame."""
+    ir = 2 * (n_mags - 1)
+    return -(-(ir // 2) // block) + 1
+
+
 def _allpass(group_delay: torch.Tensor) -> torch.Tensor:
     """exp(j * cumsum(group_delay)) over the frequency axis."""
     angle = torch.cumsum(group_delay, dim=-1)
@@ -93,7 +102,7 @@ class Sins(nn.Module):
                 initial_phase: Optional[torch.Tensor] = None,
                 infer: bool = True, max_upsample_dim: int = 32,
                 noise: Optional[torch.Tensor] = None, valid_frames=None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, shard=None):
         """As CombSubFast.forward; max_upsample_dim is the plain oscillator
         bank's harmonic chunk. Returns (signal, phase (B, T, 1) [rad],
         (harmonic, noise))."""
@@ -103,7 +112,8 @@ class Sins(nn.Module):
         phase_frames = phase[:, ::bs]
         ctrls = self.unit2ctrl(units_frames, f0_frames, phase_frames,
                                volume_frames, spk_id, spk_mix_dict=spk_mix_dict,
-                               infer=infer, valid_frames=valid_frames)
+                               infer=infer, valid_frames=valid_frames,
+                               shard=shard)
         amplitudes_frames = torch.exp(ctrls["amplitudes"]) / 128.0
         group_delay = np.pi * torch.tanh(ctrls["group_delay"])
         noise_param = torch.exp(ctrls["noise_magnitude"]) / 128.0
@@ -123,6 +133,17 @@ class Sins(nn.Module):
             noise = noise * smask
         noise = frequency_filter(noise, noise_param, hann_windowed=True)
         return harmonic + noise, phase[..., None], (harmonic, noise)
+
+    def receptive_radius(self) -> int:
+        """Frames on either side of a block that its output depends on: the
+        controls' radius, then the bank (the next frame's f0 and
+        amplitudes, lerped) through the all-pass filter, or the noise
+        filter."""
+        n = self.unit2ctrl.output_splits
+        bs = self.block_size
+        return self.unit2ctrl.receptive_radius() + max(
+            1 + _filter_radius(n["group_delay"], bs),
+            _filter_radius(n["noise_magnitude"], bs))
 
 
 class CombSubFast(nn.Module):
@@ -149,12 +170,14 @@ class CombSubFast(nn.Module):
                 initial_phase: Optional[torch.Tensor] = None,
                 infer: bool = True, noise: Optional[torch.Tensor] = None,
                 valid_frames=None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, shard=None):
         """units (B, F, n_unit), f0 (B, F, 1) [Hz], volume (B, F), spk_id
         (B,) or (B, 1). noise: the uniform(-1, 1) excitation (B, F*block),
         drawn from `generator` when None. valid_frames: the true length of
-        bucket-padded inputs. Returns (signal (B, F*block), phase_frames
-        (B, F, 1), (signal, signal))."""
+        bucket-padded inputs. shard: the inputs are a time shard's window
+        (`parallel.timeparallel`, which slices them, starts the phase and
+        keeps the owned samples). Returns (signal (B, F*block),
+        phase_frames (B, F, 1), (signal, signal))."""
         bs = self.block_size
         f0 = upsample_frames(f0_frames, bs)[..., 0]
         rot = f0_to_rot_upsampled(f0_frames[..., 0], bs, self.sampling_rate,
@@ -162,7 +185,8 @@ class CombSubFast(nn.Module):
         phase_frames = 2.0 * np.pi * rot[:, ::bs]
         ctrls = self.unit2ctrl(units_frames, f0_frames, phase_frames,
                                volume_frames, spk_id, spk_mix_dict=spk_mix_dict,
-                               infer=infer, valid_frames=valid_frames)
+                               infer=infer, valid_frames=valid_frames,
+                               shard=shard)
         tooth = combtooth(rot, f0, self.sampling_rate)
         if noise is None:
             noise = _uniform_noise(tooth, generator)
@@ -193,6 +217,13 @@ class CombSubFast(nn.Module):
         signal = overlap_add_half(signal_frames, bs)[:, bs:-bs]
         return signal, phase_frames[..., None], (signal, signal)
 
+    def receptive_radius(self) -> int:
+        """Frames on either side of a block that its output depends on: the
+        controls' radius, plus one for the 50 %-overlap frames (a block
+        sums its own frame and the next, each with its own control frame)
+        and one for the excitation (the next frame's f0, lerped)."""
+        return self.unit2ctrl.receptive_radius() + 2
+
 
 class CombSub(nn.Module):
     """Combtooth subtractive synthesizer with an LTV-FIR cascade (the "old"
@@ -222,7 +253,7 @@ class CombSub(nn.Module):
                 initial_phase: Optional[torch.Tensor] = None,
                 infer: bool = True, noise: Optional[torch.Tensor] = None,
                 valid_frames=None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, shard=None):
         """As CombSubFast.forward. Returns (signal, phase_frames (B, F, 1),
         (harmonic, noise))."""
         bs = self.block_size
@@ -232,7 +263,8 @@ class CombSub(nn.Module):
         phase_frames = 2.0 * np.pi * rot[:, ::bs]
         ctrls = self.unit2ctrl(units_frames, f0_frames, phase_frames,
                                volume_frames, spk_id, spk_mix_dict=spk_mix_dict,
-                               infer=infer, valid_frames=valid_frames)
+                               infer=infer, valid_frames=valid_frames,
+                               shard=shard)
         group_delay = np.pi * torch.tanh(ctrls["group_delay"])
         src_param = torch.exp(ctrls["harmonic_magnitude"])
         noise_param = torch.exp(ctrls["noise_magnitude"]) / 128.0
@@ -257,3 +289,15 @@ class CombSub(nn.Module):
             noise = noise * smask
         noise = frequency_filter(noise, noise_param, hann_windowed=True)
         return harmonic + noise, phase_frames[..., None], (harmonic, noise)
+
+    def receptive_radius(self) -> int:
+        """Frames on either side of a block that its output depends on: the
+        controls' radius, then the comb (the next frame's f0, lerped)
+        through the all-pass and the magnitude filter in cascade, or the
+        noise filter."""
+        n = self.unit2ctrl.output_splits
+        bs = self.block_size
+        return self.unit2ctrl.receptive_radius() + max(
+            1 + _filter_radius(n["group_delay"], bs)
+            + _filter_radius(n["harmonic_magnitude"], bs),
+            _filter_radius(n["noise_magnitude"], bs))

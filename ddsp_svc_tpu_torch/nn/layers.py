@@ -55,7 +55,11 @@ class GroupNorm(nn.Module):
     """torch.nn.GroupNorm on (B, T, C): statistics per channel group over
     (T, C//G), eps 1e-5. `valid_frames` restricts the statistics to each
     item's first N frames, so a bucket-padded forward normalises exactly as
-    the same input does at its true length."""
+    the same input does at its true length. On a time shard (`shard`, a
+    `parallel.timeparallel.TimeShard`, x its window) the statistics are
+    taken over the frames every shard owns (and valid ones), in two passes
+    as here: the sums and counts all-reduced, then the squared deviations
+    from the global mean all-reduced."""
 
     def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5):
         super().__init__()
@@ -64,11 +68,22 @@ class GroupNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(num_channels))
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
-    def forward(self, x: torch.Tensor, valid_frames=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, valid_frames=None,
+                shard=None) -> torch.Tensor:
         b, t, c = x.shape
         g = self.num_groups
         xg = x.reshape(b, t, g, c // g)
-        if valid_frames is None:
+        if shard is not None:
+            m = shard.owned_mask(t, valid_frames, x.dtype,
+                                 x.device)[:, :, None, None]
+            count = m.sum(dim=(1, 3), keepdim=True).expand(b, 1, 1, 1)
+            total, count = shard.all_reduce(
+                (xg * m).sum(dim=(1, 3), keepdim=True), count * (c // g))
+            mean = total / count
+            var, = shard.all_reduce(
+                (((xg - mean) * m) ** 2).sum(dim=(1, 3), keepdim=True))
+            var = var / count
+        elif valid_frames is None:
             mean = xg.mean(dim=(1, 3), keepdim=True)
             var = ((xg - mean) ** 2).mean(dim=(1, 3), keepdim=True)
         else:
@@ -87,9 +102,10 @@ class FrameGroupNorm(GroupNorm):
     model built with it depends on no future frame (the exact incremental
     engine, models/incremental.py, needs that). Padding cannot leak into
     the statistics, so `valid_frames` is a no-op. The parameters carry
-    GroupNorm's names."""
+    GroupNorm's names. Nothing crosses a time shard either."""
 
-    def forward(self, x: torch.Tensor, valid_frames=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, valid_frames=None,
+                shard=None) -> torch.Tensor:
         b, t, c = x.shape
         xg = x.reshape(b, t, self.num_groups, c // self.num_groups)
         mean = xg.mean(dim=3, keepdim=True)

@@ -68,11 +68,14 @@ def _source_phase(f0_frames: torch.Tensor, upp: int, sr: int,
 def harmonic_source_fused(f0_frames: torch.Tensor, upp: int, sr: int,
                           rand_ini: torch.Tensor, w: torch.Tensor,
                           b: torch.Tensor, harmonic_num: int = 8,
-                          sine_amp: float = 0.1) -> torch.Tensor:
+                          sine_amp: float = 0.1, phase=None) -> torch.Tensor:
     """Sine source + SourceModuleHnNSF merge, (B, F) f0 -> (B, F*upp, 1).
     The frame-rate phase scan stays plain torch; the per-sample part is
-    the harmonic_source kernel on the card."""
-    start, rad = _source_phase(f0_frames, upp, sr, rand_ini, harmonic_num)
+    the harmonic_source kernel on the card. phase: `_source_phase`'s
+    (start, rad) taken already (a time shard's frames of the whole f0's),
+    in place of the scan of f0_frames."""
+    start, rad = phase if phase is not None else _source_phase(
+        f0_frames, upp, sr, rand_ini, harmonic_num)
     return harmonic_source(start.contiguous(), rad.contiguous(), w, b, upp,
                            sine_amp)[..., None]
 
@@ -196,8 +199,31 @@ class Generator(nn.Module):
                 x = x.float()
         return x
 
+    def receptive_radius(self) -> int:
+        """Mel frames on either side of a frame that its output samples
+        depend on through the convolutions (zero-padded at a window's edge):
+        conv_pre, then per stage the transposed conv, the source's
+        injection conv and the widest ResBlock1, then conv_post, each in
+        samples at its own rate, summed in frames and rounded up. The sine
+        source is exact on any window of the whole f0's phase."""
+        def reach(conv) -> int:  # input samples a conv's output reaches
+            k, pad = conv.kernel_size[0], conv.padding[0]
+            return -(-max(pad, k - 1 - pad) // conv.stride[0])
+
+        frames, rate = float(reach(self.conv_pre)), 1
+        n_k = len(self.resblock_kernel_sizes)
+        for i, u in enumerate(self.upsample_rates):
+            frames += reach(self.ups[i]) / rate
+            rate *= u
+            trio = max(sum((rb.kernel_size - 1) // 2 * (d + 1)
+                           for d in rb.dilation)
+                       for rb in self.resblocks[i * n_k:(i + 1) * n_k])
+            frames += (reach(self.noise_convs[i]) + trio) / rate
+        return math.ceil(frames + reach(self.conv_post) / rate)
+
     def forward(self, mel: torch.Tensor, f0_frames: torch.Tensor,
-                rand_ini: torch.Tensor, valid_frames=None) -> torch.Tensor:
+                rand_ini: torch.Tensor, valid_frames=None,
+                source_phase=None) -> torch.Tensor:
         """mel (B, F, num_mels); f0_frames (B, F); rand_ini (B, 9).
         Returns (B, F * prod(upsample_rates)), fp32.
 
@@ -206,7 +232,9 @@ class Generator(nn.Module):
         are zeroed past each item's length, each conv sees the zero padding
         an exact-length forward sees, and the output past it is exactly 0;
         the trio kernels take the per-row sample counts, the fused stage is
-        not used (as in JAX)."""
+        not used (as in JAX). source_phase: the sine source's (start, rad)
+        of these frames, taken from the whole f0 (a time shard's window,
+        `parallel/timeparallel.py`); None takes them from f0_frames."""
         upp = math.prod(self.upsample_rates)
         masks = {}
 
@@ -223,7 +251,8 @@ class Generator(nn.Module):
         lin = self.m_source.l_linear
         # the sine source stays fp32: phase accuracy matters
         har = harmonic_source_fused(f0_frames, upp, self.sampling_rate,
-                                    rand_ini, lin.weight[0], lin.bias)
+                                    rand_ini, lin.weight[0], lin.bias,
+                                    phase=source_phase)
         if valid_frames is not None:
             har = har * mask(upp).transpose(1, 2)
         if self.dtype is not None:

@@ -29,7 +29,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.kernels import performer_attention, performer_attention_plain
+from ..ops.kernels import (performer_attention, performer_attention_apply,
+                           performer_attention_moments,
+                           performer_attention_plain)
 from ..ops.masking import frame_mask
 from .layers import Conv1d, glu, linear
 
@@ -79,15 +81,26 @@ def softmax_kernel(data: torch.Tensor, projection: torch.Tensor,
     return out.to(data.dtype)
 
 
-def linear_attention(q: torch.Tensor, k: torch.Tensor,
-                     v: torch.Tensor) -> torch.Tensor:
-    """Non-causal linear attention. q, k (B, H, T, m); v (B, H, T, d). The
-    key sums and denominators are fp32 whatever the inputs' dtype."""
-    k_sum = k.float().sum(dim=-2)
+def attention_moments(k: torch.Tensor, v: torch.Tensor):
+    """The key moments of non-causal linear attention: k (B, H, T, m)
+    features, v (B, H, T, d) -> (context (B, H, m, d), k_sum (B, H, m)),
+    the key sums fp32 whatever the inputs' dtype."""
+    return torch.einsum("...nd,...ne->...de", k, v), k.float().sum(dim=-2)
+
+
+def attention_apply(q: torch.Tensor, context: torch.Tensor,
+                    k_sum: torch.Tensor) -> torch.Tensor:
+    """Query features q (B, H, T, m) against the key moments -> (B, H, T,
+    d); the denominators fp32 whatever the inputs' dtype."""
     d_inv = 1.0 / (torch.einsum("...nd,...d->...n", q.float(), k_sum) + 1e-8)
-    context = torch.einsum("...nd,...ne->...de", k, v)
     return torch.einsum("...de,...nd,...n->...ne", context, q,
                         d_inv.to(q.dtype))
+
+
+def linear_attention(q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor) -> torch.Tensor:
+    """Non-causal linear attention. q, k (B, H, T, m); v (B, H, T, d)."""
+    return attention_apply(q, *attention_moments(k, v))
 
 
 def causal_linear_attention(q: torch.Tensor, k: torch.Tensor,
@@ -159,9 +172,13 @@ class SelfAttention(nn.Module):
         self.to_out = nn.Linear(inner, dim)
 
     def forward(self, x: torch.Tensor, infer: bool = False,
-                valid_frames=None) -> torch.Tensor:
+                valid_frames=None, shard=None) -> torch.Tensor:
         """valid_frames: zero the key features past each item's true length,
-        so padded frames feed neither the context nor the denominator."""
+        so padded frames feed neither the context nor the denominator.
+        shard (a `parallel.timeparallel.TimeShard`, x its window): the key
+        moments of the frames the shard owns, all-reduced over its group,
+        then the queries of the whole window against them; the moments and
+        apply kernels on the card, their plain versions on the CPU."""
         b, n, _ = x.shape
         dt = self.compute_dtype
 
@@ -171,7 +188,17 @@ class SelfAttention(nn.Module):
 
         q, k, v = (split_heads(f) for f in (self.to_q, self.to_k, self.to_v))
         proj = self.fast_attention.projection_matrix
-        if self.causal:
+        if shard is not None:
+            if self.causal:
+                raise NotImplementedError(
+                    "causal attention on a time-sharded window is not ported")
+            # fp32 on both devices, as the attention kernel takes it
+            context, k_sum = performer_attention_moments(
+                k.float(), v.float(), proj, *shard.key_range(valid_frames))
+            context, k_sum = shard.all_reduce(context, k_sum)
+            out = performer_attention_apply(q.float(), proj, context,
+                                            k_sum).to(q.dtype)
+        elif self.causal:
             qf = softmax_kernel(q, proj, is_query=True)
             kf = softmax_kernel(k, proj, is_query=False)
             if valid_frames is not None:
@@ -235,8 +262,9 @@ class PCmerLayer(nn.Module):
                                                compute_dtype=compute_dtype)
 
     def forward(self, x: torch.Tensor, infer: bool = False,
-                valid_frames=None) -> torch.Tensor:
-        x = x + self.attn(self.norm(x), infer=infer, valid_frames=valid_frames)
+                valid_frames=None, shard=None) -> torch.Tensor:
+        x = x + self.attn(self.norm(x), infer=infer, valid_frames=valid_frames,
+                          shard=shard)
         return x + self.local_mixer(x, valid_frames=valid_frames)
 
 
@@ -253,7 +281,7 @@ class PCmer(nn.Module):
         )
 
     def forward(self, x: torch.Tensor, infer: bool = False,
-                valid_frames=None) -> torch.Tensor:
+                valid_frames=None, shard=None) -> torch.Tensor:
         for layer in self.net:
-            x = layer(x, infer=infer, valid_frames=valid_frames)
+            x = layer(x, infer=infer, valid_frames=valid_frames, shard=shard)
         return x

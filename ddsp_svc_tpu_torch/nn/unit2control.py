@@ -64,13 +64,16 @@ class Unit2Control(nn.Module):
                 phase: torch.Tensor, volume: torch.Tensor,
                 spk_id: Optional[torch.Tensor] = None,
                 spk_mix_dict: Optional[Dict[int, float]] = None,
-                infer: bool = False, valid_frames=None
+                infer: bool = False, valid_frames=None, shard=None
                 ) -> Dict[str, torch.Tensor]:
         """units (B, F, C), f0 (B, F, 1) [Hz], phase (B, F) [rad],
         volume (B, F), spk_id (B,) or (B, 1), 1-based. valid_frames: the true
         length of bucket-padded inputs; statistics, attention and convs are
         masked to it, and the control tail past it repeats the last valid
-        frame. Returns {name: (B, F, size)}."""
+        frame. shard (a `parallel.timeparallel.TimeShard`): the inputs are
+        its window, valid_frames counted from the window's first frame; the
+        GroupNorm statistics and the attention's key moments are summed
+        over the frames every shard owns. Returns {name: (B, F, size)}."""
         prenet = self.unit_prenet
         fmask = None
         if valid_frames is not None:
@@ -78,7 +81,7 @@ class Unit2Control(nn.Module):
                                units.device)[:, :, None]
             units = units * fmask
         x = prenet["1"](units)
-        x = leaky_relu(prenet["2"](x, valid_frames=valid_frames))
+        x = leaky_relu(prenet["2"](x, valid_frames=valid_frames, shard=shard))
         if fmask is not None:
             x = x * fmask
         x = prenet["4"](x)
@@ -92,12 +95,21 @@ class Unit2Control(nn.Module):
             if spk_id.ndim == 1:
                 spk_id = spk_id[:, None]
             x = x + self.spk_embed(spk_id - 1)
-        x = self.dec_post["0"](x, infer=infer, valid_frames=valid_frames)
+        x = self.dec_post["0"](x, infer=infer, valid_frames=valid_frames,
+                               shard=shard)
         e = self.dec_post["2"](self.dec_post["1"](x))
         if valid_frames is not None:
             idx = torch.minimum(
                 torch.arange(e.shape[1], device=e.device)[None, :],
                 valid_col(valid_frames, torch.int64, e.device) - 1,
-            )
+            ).clamp(min=0)  # a shard's window may lie wholly past the end
             e = torch.take_along_dim(e, idx[:, :, None], dim=1)
         return split_to_dict(e, self.output_splits)
+
+    def receptive_radius(self) -> int:
+        """Frames on either side of a frame that its controls depend on
+        through the convolutions (the prenet's two and each PCmer layer's
+        depthwise conv, in sequence). GroupNorm's statistics and the
+        attention reach every frame and cross shards as sums instead."""
+        return sum(max(m.time_pad) for m in self.modules()
+                   if isinstance(m, Conv1d))

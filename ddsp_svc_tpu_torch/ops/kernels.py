@@ -3,6 +3,9 @@
 Counterpart of `ddsp_svc_tpu/ops/pallas_kernels.py`:
 
     performer_attention      <- performer_attention_pallas (masked form)
+    performer_attention_moments, performer_attention_apply
+                             <- performer_attention_pallas cut at the key
+                                reduction (time-sharded sequences)
     combsub_spectral         <- combsub_spectral_pallas (forward)
     combsub_spectral_bwd     <- combsub_spectral_pallas (backward,
                                 _combsub_spectral_bwd_impl)
@@ -79,7 +82,11 @@ _F = ctypes.c_float
 
 _SIGNATURES = {
     "performer_attention_launch": [_P] * 6 + [_I] * 4 + [_L] * 3 + [_F, _F, _P],
-    "performer_attention_info": [_I, ctypes.POINTER(_I)],
+    "performer_attention_moments_launch": [_P] * 4 + [_I, _P, _I, _P, _P]
+    + [_I] * 3 + [_L] * 3 + [_F, _F, _P],
+    "performer_attention_apply_launch": [_P] * 5 + [_I] * 3 + [_L] * 3
+    + [_F, _F, _P],
+    "performer_attention_info": [_I, _I, ctypes.POINTER(_I)],
     "combsub_spectral_launch": [_P] * 7 + [_I, _I, _P],
     "combsub_spectral_bwd_launch": [_P] * 12 + [_I, _I, _P],
     "combsub_spectral_bwd_info": [_I, ctypes.POINTER(_I)],
@@ -314,16 +321,97 @@ def performer_attention(q, k, v, projection, valid_frames=None):
     return performer_attention_op(q, k, v, projection, lengths, valid_all)
 
 
-def attention_kernel_info(t: int) -> dict:
-    """The attention kernel on the current card: the cluster size a launch
-    at T frames takes, registers per thread, local-memory (spilled) bytes
-    per thread and dynamic shared memory per CTA."""
+def attention_kernel_info(t: int, which: str = "single") -> dict:
+    """An attention kernel on the current card ('single', 'moments' or
+    'apply'): the cluster size a launch at T frames takes, registers per
+    thread, local-memory (spilled) bytes per thread and dynamic shared
+    memory per CTA."""
     out = (_I * 4)()
-    err = _c_function("performer_attention", "performer_attention_info")(t, out)
+    err = _c_function("performer_attention", "performer_attention_info")(
+        t, ("single", "moments", "apply").index(which), out)
     if err != 0:
         raise RuntimeError(f"performer_attention_info failed: CUDA error {err}")
     return dict(cluster=out[0], registers=out[1], spill_bytes=out[2],
                 smem_bytes=out[3])
+
+
+def key_range_mask(t: int, key_lo, key_hi, dtype=None, device=None):
+    """0/1 mask of the positions in [key_lo, key_hi): (1, t) for ints or
+    0-d tensors, (B, t) for (B,) tensors; key_hi None is t."""
+    inside = frame_mask(t, t if key_hi is None else key_hi, device=device)
+    inside = inside & ~frame_mask(t, key_lo, device=device)
+    return inside if dtype is None else inside.to(dtype)
+
+
+def performer_attention_moments_plain(k, v, projection, key_lo=0,
+                                      key_hi=None):
+    """The key moments of non-causal FAVOR+ over the keys [key_lo, key_hi)
+    of each batch row: (context (B, H, m, d), k_sum (B, H, m)) fp32, the key
+    features summed over that range only (a shard's keys). No key feature
+    carries a global maximum, so moments summed over shards equal the
+    moments of the whole sequence."""
+    from ..nn.pcmer import attention_moments, softmax_kernel
+
+    kf = softmax_kernel(k, projection, is_query=False)
+    kf = kf * key_range_mask(k.shape[2], key_lo, key_hi, kf.dtype,
+                             kf.device)[:, None, :, None]
+    return attention_moments(kf, v)
+
+
+def performer_attention_apply_plain(q, projection, context, k_sum):
+    """The query half of non-causal FAVOR+: the query features (their max
+    stabiliser) against the moments of every key, the 1e-8 denominator.
+    (B, H, T, d) fp32."""
+    from ..nn.pcmer import attention_apply, softmax_kernel
+
+    return attention_apply(softmax_kernel(q, projection, is_query=True),
+                           context, k_sum)
+
+
+def performer_attention_moments(k, v, projection, key_lo=0, key_hi=None):
+    """#1's key half on a shard: (context (B, H, 266, 64), k_sum (B, H,
+    266)) over the keys [key_lo, key_hi) of each row (ints, 0-d or (B,)
+    tensors, clipped to [0, T]; key_hi None is T; an empty range gives
+    zeros). k, v: (B, H, T, 64) fp32, contiguous or views with one set of
+    strides, as performer_attention takes them. One clustered launch; the
+    range [0, valid) gives the single launch's moments bit for bit."""
+    if k.device.type == "cpu":
+        return performer_attention_moments_plain(k, v, projection, key_lo,
+                                                 key_hi)
+    b, h, t, d = k.shape
+    m, strides = _attention_checks(k, k, v, projection)
+    lo, lo_all = attention_lengths(key_lo, b, t, k.device)
+    hi, hi_all = attention_lengths(key_hi, b, t, k.device)
+    context = torch.empty((b, h, m, d), dtype=torch.float32, device=k.device)
+    k_sum = torch.empty((b, h, m), dtype=torch.float32, device=k.device)
+    _launch("performer_attention", "performer_attention_moments_launch",
+            k.data_ptr(), v.data_ptr(), projection.data_ptr(), _ptr(lo),
+            lo_all, _ptr(hi), hi_all, context.data_ptr(), k_sum.data_ptr(),
+            b, h, t, *strides, d ** -0.25, m ** -0.5, _stream(k))
+    performer_attention_moments.launches += 1
+    return context, k_sum
+
+
+def performer_attention_apply(q, projection, context, k_sum):
+    """#1's query half on a shard: q (B, H, T, 64) fp32 (a view as
+    performer_attention takes it) against the moments of every shard
+    (context (B, H, 266, 64), k_sum (B, H, 266), contiguous) -> (B, H, T,
+    64) contiguous. One CTA per 32-row query tile."""
+    if q.device.type == "cpu":
+        return performer_attention_apply_plain(q, projection, context, k_sum)
+    b, h, t, d = q.shape
+    m, strides = _attention_checks(q, q, q, projection)
+    _check(context, "context", (b, h, m, d), q.device)
+    _check(k_sum, "k_sum", (b, h, m), q.device)
+    if context.data_ptr() & 15:
+        raise ValueError("context is not 16-byte aligned")
+    out = torch.empty((b, h, t, d), dtype=torch.float32, device=q.device)
+    _launch("performer_attention", "performer_attention_apply_launch",
+            q.data_ptr(), projection.data_ptr(), context.data_ptr(),
+            k_sum.data_ptr(), out.data_ptr(), b, h, t, *strides, d ** -0.25,
+            m ** -0.5, _stream(q))
+    performer_attention_apply.launches += 1
+    return out
 
 
 # ------------------------------ combsub spectral ----------------------------
@@ -1219,7 +1307,8 @@ def ltv_fir_convolve(a_frames, ir_frames, n_fft: int):
     return _LtvFirConvolveFn.apply(a_frames, ir_frames, n_fft)
 
 
-KERNELS = (performer_attention, combsub_spectral, harmonic_source,
+KERNELS = (performer_attention, performer_attention_moments,
+           performer_attention_apply, combsub_spectral, harmonic_source,
            fused_resblocks_inject, fused_resblocks, dft_magnitude,
            combsub_spectral_bwd, oscillator_bank, ltv_fir_convolve,
            fused_resblock_chain, fused_stage)

@@ -115,6 +115,22 @@ def frame_inner(a: torch.Tensor, slope: torch.Tensor, block: int,
     return ((s + 1.0) * a[..., None] + tri * slope[..., None]) / sr
 
 
+def frame_carry(f0_frames: torch.Tensor, block: int, sr: int
+                ) -> torch.Tensor:
+    """The wrapped rotation before each frame's first sample: the exclusive
+    prefix sum of the frame totals (the next frame's f0 lerped), as the
+    compensated scan gives it. (B, F) [Hz] -> (B, F) [turns]. A time
+    shard's window starts its phase at this (`parallel/timeparallel.py`)."""
+    a = f0_frames
+    nxt = torch.cat([a[:, 1:], a[:, -1:]], dim=1)
+    s_hi, s_lo = frame_totals(a, nxt, block, sr)
+    # exclusive prefix via zero-prepend
+    zeros = torch.zeros_like(s_hi[:, :1])
+    shifted_hi = torch.cat([zeros, s_hi[:, :-1]], dim=1)
+    shifted_lo = torch.cat([zeros, s_lo[:, :-1]], dim=1)
+    return _cumsum_mod1_compensated(shifted_hi, dim=1, x_lo=shifted_lo)
+
+
 def f0_to_rot_upsampled(f0_frames: torch.Tensor, block: int, sr: int,
                         initial_phase: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
@@ -127,12 +143,7 @@ def f0_to_rot_upsampled(f0_frames: torch.Tensor, block: int, sr: int,
     """
     a = f0_frames
     nxt = torch.cat([a[:, 1:], a[:, -1:]], dim=1)
-    s_hi, s_lo = frame_totals(a, nxt, block, sr)
-    # exclusive prefix via zero-prepend
-    zeros = torch.zeros_like(s_hi[:, :1])
-    shifted_hi = torch.cat([zeros, s_hi[:, :-1]], dim=1)
-    shifted_lo = torch.cat([zeros, s_lo[:, :-1]], dim=1)
-    carry = _cumsum_mod1_compensated(shifted_hi, dim=1, x_lo=shifted_lo)
+    carry = frame_carry(a, block, sr)
     inner = frame_inner(a, nxt - a, block, sr)
     rot = _wrap(_wrap(inner) + carry[..., None])
     if initial_phase is not None:

@@ -105,6 +105,124 @@ def test_performer_attention_kernel_reads_split_heads(cuda):
         *views, proj, torch.tensor(250, device=cuda)))
 
 
+def _moment_ranges(b, t):
+    """Key ranges at the span's edges: all, the first and the last frame, a
+    range inside, an empty one, and per-row tensors with an empty row."""
+    dev = "cuda"
+    return [(0, None), (0, 1), (t - 1, t), (t // 5, t - t // 3), (t // 2, t // 2),
+            (torch.tensor([0, t // 3, t - 7][:b], device=dev),
+             torch.tensor([t // 2, t // 3, t][:b], device=dev))]
+
+
+@pytest.mark.parametrize("b,t", [(1, 512), (3, 100), (2, 1000), (1, 31)])
+def test_attention_moments_and_apply_kernels(cuda, b, t):
+    """#1's split (performer_attention_moments / _apply, the entries a
+    time-sharded PCmer layer runs) against their plain versions, key ranges
+    at the span's edges and empty: the context and key sums each within
+    2e-5 of its max |ref| (exactly 0 for an empty range), the output within
+    2e-5 of max |ref|."""
+    q, k, v, proj = _attention_case(cuda, b, t)
+    for lo, hi in _moment_ranges(b, t):
+        refs = K.performer_attention_moments_plain(k, v, proj, lo, hi)
+        gots = K.performer_attention_moments(k, v, proj, lo, hi)
+        for got, ref in zip(gots, refs):
+            assert got.shape == ref.shape and got.is_contiguous()
+            if not ref.any():
+                assert not got.any()
+                continue
+            assert (got - ref).abs().max() <= 2e-5 * ref.abs().max()
+        ref = K.performer_attention_apply_plain(q, proj, *refs)
+        got = K.performer_attention_apply(q, proj, *gots)
+        assert (got - ref).abs().max() <= 2e-5 * ref.abs().max()
+
+
+@pytest.mark.parametrize("b,t,valid", [(1, 512, 384), (3, 1000, [1000, 0, 700]),
+                                       (16, 128, None)])
+def test_attention_split_matches_single_launch(cuda, b, t, valid):
+    """Moments over [0, valid) then apply, and moments summed over four
+    shards' key ranges then apply, against the single clustered launch:
+    within 2e-5 of max |ref| on the valid rows (the unsplit moments take
+    the single launch's tiles and sums, designed to agree bit for bit)."""
+    q, k, v, proj = _attention_case(cuda, b, t)
+    ref = K.performer_attention(q, k, v, proj, valid)
+    hi = None if valid is None else torch.tensor(
+        np.broadcast_to(valid, (b,)).copy(), dtype=torch.int32, device=cuda)
+    got = K.performer_attention_apply(
+        q, proj, *K.performer_attention_moments(k, v, proj, 0, hi))
+    _assert_attention_close(got, ref, t, valid)
+    cuts = [0, t // 4, t // 2 + 3, 3 * t // 4, t]
+    parts = [K.performer_attention_moments(
+        k, v, proj, lo, up if hi is None else torch.clamp(hi, max=up))
+        for lo, up in zip(cuts, cuts[1:])]
+    moments = [sum(p[i] for p in parts) for i in range(2)]
+    _assert_attention_close(K.performer_attention_apply(q, proj, *moments),
+                            ref, t, valid)
+
+
+def test_time_parallel_gloo_on_card_matches_world_size_1(cuda, tmp_path):
+    """The time-parallel synth (CombSubFast at configs/combsub.yaml's width,
+    256 frames, 200 valid) and enhancer (H_NSF-like 16 kHz geometry) at
+    world size 2 over Gloo, both ranks on this card, against world size 1
+    over NCCL: 1e-4 of max |ref| for the synth, 1e-5 for the enhancer
+    (fp32, TF32 off); every rank returns the whole output and launched #1's
+    moments and apply, #2, #3 and #4."""
+    from torch_parallel_worker import start_ranks
+
+    from ddsp_svc_tpu_torch.infer.enhancer import NsfHifiGAN
+    from ddsp_svc_tpu_torch.models.factory import build_model
+    from ddsp_svc_tpu_torch.ops import build
+    from ddsp_svc_tpu_torch.utils.config import DotDict
+
+    build.build()  # here, not in each rank at once
+
+    rng = np.random.default_rng(0)
+    args = {"data": {"sampling_rate": 44100, "block_size": 512,
+                     "encoder_out_channels": 256},
+            "model": {"type": "CombSubFast", "n_spk": 2}}
+    model = build_model(DotDict(args), device="cpu", seed=3)
+    f = 256
+    synth = dict(args=args, state=model.state_dict(),
+                 units=torch.tensor(rng.standard_normal((1, f, 256)),
+                                    dtype=torch.float32),
+                 f0=torch.tensor(150 + 300 * rng.random((1, f, 1)),
+                                 dtype=torch.float32),
+                 volume=torch.tensor(rng.random((1, f)), dtype=torch.float32),
+                 spk_id=torch.ones((1, 1), dtype=torch.int64),
+                 noise=torch.tensor(rng.random((1, f * 512)) * 2 - 1,
+                                    dtype=torch.float32),
+                 valid_frames=200)
+    h = {"sampling_rate": 16000, "num_mels": 16, "n_fft": 512, "win_size": 512,
+         "hop_size": 128, "fmin": 40, "fmax": 8000, "upsample_rates": [4, 4, 8],
+         "upsample_kernel_sizes": [8, 8, 16], "upsample_initial_channel": 128,
+         "resblock_kernel_sizes": [3, 7, 11],
+         "resblock_dilation_sizes": [[1, 3, 5]] * 3}
+    nsf = NsfHifiGAN(None, h=h, seed=4, device="cpu")
+    ri = torch.tensor(rng.random((1, 9)), dtype=torch.float32)
+    ri[:, 0] = 0
+    enh = dict(h=h, state=nsf.model.state_dict(),
+               audio=torch.tensor(0.1 * rng.standard_normal((1, 200 * 128)),
+                                  dtype=torch.float32),
+               f0_frames=torch.tensor(150 + 300 * rng.random((1, 201)),
+                                      dtype=torch.float32), rand_ini=ri)
+    jobs = [("synth", "synth_forward", synth), ("enh", "enhancer_forward", enh)]
+    one = start_ranks(jobs, 1, str(tmp_path / "w1"), "cuda", "nccl",
+                      timeout=300).wait()
+    two = start_ranks(jobs, 2, str(tmp_path / "w2"), "cuda", "gloo",
+                      timeout=300).wait()
+    for name, tol in (("synth", 1e-4), ("enh", 1e-5)):
+        ref = one[0][name]
+        assert torch.isfinite(ref).all()
+        for rank in two:
+            assert (rank[name] - ref).abs().max() <= tol * ref.abs().max()
+    for rank in one + two:
+        counts = rank["_launches"]
+        for name in ("performer_attention_moments", "performer_attention_apply",
+                     "combsub_spectral", "harmonic_source",
+                     "fused_resblocks_inject"):
+            assert counts[name] > 0, (name, counts)
+        assert counts["performer_attention"] == 0
+
+
 @pytest.mark.parametrize("n_fft,rows", [(64, 3), (1024, 9), (4096, 5)])
 def test_combsub_spectral_kernel(cuda, n_fft, rows):
     """2e-5 of max |ref|, the JAX package's kernel tolerance."""
@@ -849,7 +967,10 @@ def test_wrappers_count_launches(cuda):
     w, b = _randn(g, 9), _randn(g, 1)
     K.harmonic_source_plain(start.contiguous(), rad.contiguous(), w, b, 64)
     K.harmonic_source(start.contiguous(), rad.contiguous(), w, b, 64)
-    assert K.launch_counts() == {"performer_attention": 0, "combsub_spectral": 0,
+    assert K.launch_counts() == {"performer_attention": 0,
+                                 "performer_attention_moments": 0,
+                                 "performer_attention_apply": 0,
+                                 "combsub_spectral": 0,
                                  "harmonic_source": 1,
                                  "fused_resblocks_inject": 0,
                                  "fused_resblocks": 0,

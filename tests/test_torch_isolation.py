@@ -7,7 +7,8 @@ synthesizers, `load_model`, `run_inference`, `run_inference_batch`, the
 CLI, the preprocess entry, the streaming entry, the GAN entry, `SvcCore`,
 `IncrementalSession.from_checkpoint`, `UnitsEncoder`, the torch f0
 extractors, the export entry, the server's `ExportedSynth` and entry, the
-API's entry and the web panel's among them, never fall back to the CPU."""
+API's entry, the web panel's, `init_distributed`, `make_mesh` and
+`SvcCore(mesh=)` among them, never fall back to the CPU."""
 import ast
 import os
 import pathlib
@@ -106,6 +107,7 @@ from ddsp_svc_tpu_torch.api import main as api_main
 from ddsp_svc_tpu_torch.export import main as export_main
 from ddsp_svc_tpu_torch.serve import ExportedSynth, main as serve_main
 from ddsp_svc_tpu_torch.webui import main as webui_main
+from ddsp_svc_tpu_torch.parallel import init_distributed, make_mesh
 ckpt = os.path.join(os.path.dirname(cfg), "model_0.pt")
 gan_cfg = os.path.join(os.path.dirname(cfg), "gan.yaml")
 with open(gan_cfg, "w") as f:
@@ -131,7 +133,8 @@ for make in (lambda: build_model(args), lambda: build_model(others[0]),
              lambda: preprocess_main(["-c", pre_cfg]),
              lambda: cli_main(["-m", ckpt, "-i", "in.wav", "-o", "out.wav"]),
              lambda: stream_main(["-m", ckpt, "-i", "in.wav", "-o", "out.wav"]),
-             lambda: SvcCore(ckpt),
+             lambda: SvcCore(ckpt), lambda: SvcCore(ckpt, mesh=object()),
+             lambda: init_distributed(), lambda: make_mesh(),
              lambda: IncrementalSession.from_checkpoint(ckpt),
              lambda: gan_main(["-c", gan_cfg]),
              lambda: UnitsEncoder("hubertsoft", None),

@@ -356,8 +356,9 @@ def test_pipelined_session_matches_sequential(core):
 
 def test_svc_core_options(exp, tmp_path):
     """A missing enhancer checkpoint warns and the core converts raw (the
-    JAX package's behaviour); mesh and fused_window are not ported; a
-    speaker id out of range raises before the device sees it."""
+    JAX package's behaviour); fused_window is not ported, with a mesh
+    (tests/test_torch_parallel.py runs the mesh) or without; a speaker id
+    out of range raises before the device sees it."""
     d = tmp_path / "exp"
     d.mkdir()
     args = yaml.safe_load((exp / "exp" / "config.yaml").read_text())
@@ -369,7 +370,8 @@ def test_svc_core_options(exp, tmp_path):
     assert raw.enhancer is None
     out, sr = raw.infer(_sung(0.5), SR)
     assert sr == SR and out.shape == (32 * BLOCK,) and np.isfinite(out).all()
-    for kw in (dict(mesh=object()), dict(fused_window=True)):
+    for kw in (dict(mesh=object(), fused_window=True),
+               dict(fused_window=True)):
         with pytest.raises(NotImplementedError):
             SvcCore(str(exp / "exp" / "model_0.pt"), device="cpu", **kw)
     for kw in (dict(spk_id=N_SPK + 1),
