@@ -106,6 +106,21 @@ Phases, each printing its own lines:
      max|ref|, enhancer fp32 1e-5 x max|ref|, staged rel RMS 2e-2); #1's
      moments and apply, #2, #3 and #4 launched on every rank, the single
      #1 never; the walls of each run and of the unsharded one;
+  4h. training on a mesh (`parallel/sharding.py`, `train_step(mesh=)`):
+     configs/combsub.yaml's CombSubFast at full width, batch 24 x 172
+     frames of a synthetic store, ranks spawned on cuda:0 (world size 1
+     over NCCL, then 2 over Gloo), cuDNN deterministic: data-parallel and
+     tensor-parallel (1 x 2) steps, fp32 and DP bf16 (#2, #7), each one
+     step from the same weights, batch, noise and loss scales as a
+     single-process eager step here (loss rtol 2e-4; parameters' 99th
+     percentile of |diff| over all entries < 1e-4, max < 4e-3 x lr /
+     1e-3), then timed steps with the idle share; the graphed K = 4
+     dispatch under DP Gloo 2 against 4 eager DP steps; a DP GAN D + G
+     step at H_NSF (#3, #4) against the single-process one (losses 1e-4
+     relative, generator atol 1e-5 + rtol 1e-4); a causal + frame_norm
+     CombSubFast time-sharded on 1024 frames against its unsharded
+     forward (1e-5 x max|ref|); each rank's launches (#6 on every step)
+     and peak memory;
   5. offline paths: conversion (`convert_features`) with each synthesizer
      at the full width of its config (CombSubFast from configs/combsub.yaml,
      Sins from configs/sins.yaml, CombSub from configs/combsub-old.yaml) and
@@ -3209,6 +3224,506 @@ def mesh_phase(torch, K, card: str, ckpts: dict, device: str = "cuda"
     return total
 
 
+# the mesh-training phase: data- and tensor-parallel steps at combsub.yaml's
+# full width, each rank set spawned once (NCCL at world size 1, then 2 Gloo
+# ranks sharing the card), all of its cases run in it
+MT_CASES = {
+    "nccl": (("dp fp32", "step", (1, 1), False),
+             ("dp bf16", "step", (1, 1), True)),
+    "gloo": (("dp fp32", "step", (2, 1), False),
+             ("tp fp32", "step", (1, 2), False),
+             ("dp bf16", "step", (2, 1), True),
+             ("graphed K=4", "graphed", (2, 1), False),
+             ("gan", "gan", (2, 1), False),
+             ("causal", "causal", (2, 1), False))}
+MT_MORE = 4           # timed steps after the gated first one
+MT_GRAPH_K = 4
+MT_GAN_BATCH, MT_GAN_FRAMES = 8, 32
+MT_CAUSAL_FRAMES = 1024
+# each parameter tensor's 99th percentile of |diff| < MT_Q99, and every
+# entry's < MT_MAX x (lr / 1e-3)
+MT_LOSS_RTOL, MT_Q99, MT_MAX = 2e-4, 1e-4, 4e-3
+MT_GAN_LOSS_RTOL, MT_GAN_ATOL, MT_GAN_RTOL = 1e-4, 1e-5, 1e-4
+MT_CAUSAL_TOL = 1e-5
+# the gated first step's loss eps: the well-conditioned regime in which
+# tests/test_train_parity.py and tests/test_torch_train.py compare steps.
+# At the config's 1e-7 the loss's log of near-zero bins turns any change of
+# summation order into gradient differences of up to ~3e-2 relative (the
+# row-split floor that tools/rss_row_split_floor.py reads: one process, its
+# batch as two halves), which AdamW's first step turns into whole-lr moves
+MT_GATE_EPS = 1e-3
+# the DP GAN steps' gradients against the single-process ones: a sound run
+# reads rel 6.9e-4 (float noise of the split batch), a copy whose G step
+# skips the gradient all-reduce rel 0.75, cos 0.80 (PERF.md)
+MT_GAN_GRAD_REL, MT_GAN_GRAD_COS = 5e-3, 1 - 1e-4
+# the kernels each case must launch on every rank (on the card)
+MT_EXPECT = {"step": ("dft_magnitude",),
+             "step bf16": ("dft_magnitude", "combsub_spectral",
+                           "combsub_spectral_bwd"),
+             "graphed": ("dft_magnitude",),
+             "gan": ("harmonic_source", "fused_resblocks_inject"),
+             "causal": ("combsub_spectral",)}
+
+
+def _mt_state(torch, d, device, mesh, bf16: bool, eps: float = 1e-7):
+    """A TrainState of combsub.yaml's model from seed 0 (bf16: model.bf16)
+    on `device`, cut to this rank's slices of the mesh (None: whole), and
+    its RSS loss (at `eps`)."""
+    from ddsp_svc_tpu_torch.models.factory import build_model
+    from ddsp_svc_tpu_torch.models.losses import RSSLoss
+    from ddsp_svc_tpu_torch.parallel import shard_train_state
+    from ddsp_svc_tpu_torch.train.step import TrainState, create_optimizer
+    from ddsp_svc_tpu_torch.utils.config import load_config
+
+    args = load_config(d["cfg16" if bf16 else "cfg"])
+    model = build_model(args, device=device, seed=0)
+    st = TrainState(0, model, create_optimizer(
+        model, float(args.train.lr), float(args.train.weight_decay or 0)))
+    if mesh is not None:
+        shard_train_state(st, mesh)
+    return st, RSSLoss(int(args.loss.fft_min), int(args.loss.fft_max),
+                       int(args.loss.n_scale), eps=eps)
+
+
+def _host(torch, t):
+    """A float32 copy on the host (never a view of the live tensor)."""
+    return t.detach().to("cpu", torch.float32, copy=True)
+
+
+def _mt_timed(torch, fn, n: int) -> float:
+    """Median ms of n calls of fn, each ended by a synchronize."""
+    walls = []
+    for _ in range(n):
+        sync(torch, "cuda" if torch.cuda.is_available() else "cpu")
+        t0 = time.perf_counter()
+        fn()
+        sync(torch, "cuda" if torch.cuda.is_available() else "cpu")
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(walls))
+
+
+def mt_step(torch, d, mesh, bf16: bool) -> dict:
+    """One step from seed-0 weights on the job's global batch (this rank's
+    rows), its noise and loss scales pinned and the loss at MT_GATE_EPS,
+    then MT_MORE timed steps at the config's loss drawing their own; the
+    loss, the gathered parameters after step 1 (on every rank), ms a step
+    and the idle share."""
+    from ddsp_svc_tpu_torch.parallel import full_state_dicts, shard_batch
+    from ddsp_svc_tpu_torch.train.step import (batch_to_device, train_step,
+                                               warm_up_buckets)
+
+    st, gate_rss = _mt_state(torch, d, mesh.device, mesh, bf16, MT_GATE_EPS)
+    rss = _mt_state(torch, d, "cpu", None, bf16)[1]
+    batch = batch_to_device(shard_batch(d["batch"], mesh), mesh.device)
+    noise = torch.as_tensor(d["noise"], device=mesh.device)
+    loss = train_step(st, batch, gate_rss, noise=noise,
+                      loss_idx=PINNED_LOSS_IDX, mesh=mesh)
+    params = {k: _host(torch, v)
+              for k, v in full_state_dicts(st.model)[0].items()}
+    warm_up_buckets(st, batch, rss, mesh=mesh)
+    ms = _mt_timed(torch, lambda: train_step(st, batch, rss, mesh=mesh),
+                   MT_MORE)
+    idle = (profile_dispatch(torch, lambda: train_step(st, batch, rss,
+                                                       mesh=mesh), 1)[2]
+            if torch.cuda.is_available() else float("nan"))
+    return {"loss": float(loss), "params": params, "ms": ms, "idle": idle}
+
+
+def mt_graphed(torch, d, mesh, bf16: bool) -> dict:
+    """MT_GRAPH_K eager data-parallel steps against one graphed dispatch of
+    MT_GRAPH_K (train/graphed.py under the mesh) from the same weights and
+    batches: the largest loss and parameter differences, bit for bit, and
+    ms a step graphed (a further dispatch)."""
+    from ddsp_svc_tpu_torch.parallel import shard_batch
+    from ddsp_svc_tpu_torch.train.graphed import GraphedTrainSteps
+    from ddsp_svc_tpu_torch.train.step import stage, train_steps
+
+    staged = stage([shard_batch(b, mesh) for b in d["batches"]], mesh.device)
+    eager, rss = _mt_state(torch, d, mesh.device, mesh, bf16)
+    le = train_steps(eager, staged, rss, mesh=mesh)
+    graphed, _ = _mt_state(torch, d, mesh.device, mesh, bf16)
+    steps = GraphedTrainSteps(graphed, rss, staged, mesh=mesh)
+    lg = steps(staged)
+    rel = ((lg - le).abs() / le.abs()).max().item()
+    worst = max(((p - q).abs().max() / q.abs().max()).item() for p, q in zip(
+        graphed.model.parameters(), eager.model.parameters()))
+    bitwise = torch.equal(lg, le) and all(torch.equal(p, q) for p, q in zip(
+        graphed.model.parameters(), eager.model.parameters()))
+    ms = _mt_timed(torch, lambda: steps(staged), 2) / MT_GRAPH_K
+    return {"loss_rel": rel, "param_rel": worst, "bitwise": bitwise,
+            "loss": float(lg[-1]), "ms": ms}
+
+
+def _mt_gan(torch, d, device, mesh=None):
+    """The GAN trainer over H_NSF from seeded weights (mesh: data-parallel)
+    and the job's batch (this rank's rows, the mel of each)."""
+    from ddsp_svc_tpu_torch.nn.layers import lecun_init_
+    from ddsp_svc_tpu_torch.nn.nsf_hifigan import generator_from_h
+    from ddsp_svc_tpu_torch.parallel import shard_batch
+    from ddsp_svc_tpu_torch.train.gan import GanTrainer, mel_of
+
+    h = d["h"]
+    gen = lecun_init_(generator_from_h(h), torch.Generator().manual_seed(0))
+    trainer = GanTrainer(h, mesh=mesh)
+    st = trainer.create_state(gen.to(device), seed=1)
+    rows = d["gan_batch"] if mesh is None else shard_batch(d["gan_batch"],
+                                                           mesh)
+    batch = {k: torch.as_tensor(v, device=device) for k, v in rows.items()}
+    batch["mel"] = mel_of(h, batch["audio"]).transpose(1, 2)
+    ri = {k: torch.as_tensor(d[k], device=device) for k in ("ri_d", "ri_g")}
+    return trainer, st, batch, ri
+
+
+def _gan_grads(torch, st) -> dict:
+    """The G step's generator gradients and the D step's discriminator
+    gradients (left in .grad), on the host."""
+    return {f"{part}.{k}": _host(torch, p.grad) for part, module in (
+        ("g", st.generator), ("mpd", st.mpd), ("msd", st.msd))
+        for k, p in module.named_parameters()}
+
+
+def mt_gan(torch, d, mesh, bf16: bool) -> dict:
+    """One data-parallel D and G step (rand_ini the whole batch's): the
+    losses, the generator (every rank) and the steps' gradients (rank 0),
+    then ms a D + G step."""
+    import torch.distributed as dist
+    trainer, st, batch, ri = _mt_gan(torch, d, mesh.device, mesh)
+    logs = trainer.step_d(st, batch, rand_ini=ri["ri_d"])
+    logs.update(trainer.step_g(st, batch, rand_ini=ri["ri_g"]))
+    gen = {k: _host(torch, v) for k, v in st.generator.state_dict().items()}
+    grads = _gan_grads(torch, st) if dist.get_rank() == 0 else None
+    ms = _mt_timed(torch, lambda: (trainer.step_d(st, batch, ri["ri_d"]),
+                                   trainer.step_g(st, batch, ri["ri_g"])), 2)
+    return {"logs": {k: float(v) for k, v in logs.items()},
+            "generator": gen, "grads": grads, "ms": ms}
+
+
+def _mt_causal_model(torch, d, device):
+    from ddsp_svc_tpu_torch.models.factory import build_model
+    from ddsp_svc_tpu_torch.utils.config import load_config
+    return build_model(load_config(d["cfg_causal"]), device=device, seed=3)
+
+
+def mt_causal(torch, d, mesh, bf16: bool) -> dict:
+    """The causal + frame_norm model's inference forward time-sharded over
+    the mesh's data axis (make_time_parallel_forward): the whole signal and
+    ms a call."""
+    from ddsp_svc_tpu_torch.parallel import make_time_parallel_forward
+    fwd = make_time_parallel_forward(_mt_causal_model(torch, d, mesh.device),
+                                     mesh)
+    x = [torch.as_tensor(d["causal"][k], device=mesh.device)
+         for k in ("units", "f0", "volume", "spk_id", "noise")]
+    out = fwd(*x).cpu()
+    return {"signal": out, "ms": _mt_timed(torch, lambda: fwd(*x), 3)}
+
+
+MT_RUN = {"step": mt_step, "graphed": mt_graphed, "gan": mt_gan,
+          "causal": mt_causal}
+
+
+def mesh_train_rank(rank: int, world: int, backend: str, port: int,
+                    job: str):
+    """One rank of the mesh-training phase, spawned: joins `world` ranks
+    on the job's device (cuda:0 for every rank) over `backend`, runs the
+    backend's cases (each on its (n_data, n_model) mesh, its launch counts
+    from 0 and its peak memory), and saves their results."""
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    from ddsp_svc_tpu_torch.ops import kernels as K
+    from ddsp_svc_tpu_torch.parallel import init_distributed, make_mesh
+
+    d = torch.load(job, weights_only=False)
+    on_card = d["device"] == "cuda"
+    dev = "cuda:0" if on_card else "cpu"
+    if not on_card:
+        torch.set_num_threads(1)  # ranks share the host's cores
+    init_distributed(f"127.0.0.1:{port}", world, rank, backend=backend,
+                     device=dev)
+    try:
+        meshes, out = {}, {}
+        for name, kind, shape, bf16 in MT_CASES[backend]:
+            if kind == "graphed" and not on_card:
+                continue
+            if shape not in meshes:
+                meshes[shape] = make_mesh(*shape, device=dev)
+            if on_card:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            K.reset_launch_counts()
+            res = MT_RUN[kind](torch, d, meshes[shape], bf16)
+            res["launches"] = K.launch_counts()
+            res["peak_gib"] = (torch.cuda.max_memory_allocated() / 2 ** 30
+                               if on_card else 0.0)
+            out[name] = res
+        torch.save(out, f"{job}.{backend}.{rank}")
+    finally:
+        dist.destroy_process_group()
+
+
+def mt_job(device: str = "cuda") -> tuple:
+    """The mesh-training phase's inputs: configs/combsub.yaml over a
+    synthetic store in build/chip_smoke_mesh_train (copies of it as fp32,
+    bf16 and causal + frame_norm configs there), the loader's first
+    MT_GRAPH_K batches, the step's noise, the GAN's batch and rand_ini and
+    the causal forward's inputs, drawn from seed 19. Returns (args, work,
+    job)."""
+    import yaml
+    from ddsp_svc_tpu_torch.data.dataset import get_data_loaders
+    from ddsp_svc_tpu_torch.train.step import BATCH_KEYS
+    from ddsp_svc_tpu_torch.utils.config import load_config
+
+    args = load_config(os.path.join(ROOT, "configs", "combsub.yaml"))
+    d = args.data
+    work = os.path.join(ROOT, "build", "chip_smoke_mesh_train")
+    shutil.rmtree(work, ignore_errors=True)
+    write_dataset(os.path.join(work, "train"), 2, 3, 4.0, d.sampling_rate,
+                  d.block_size, d.encoder_out_channels, 0)
+    args["data"].update(train_path=os.path.join(work, "train"),
+                        valid_path=os.path.join(work, "train"))
+    job = {"device": device, "h": H_NSF}
+    for key, model in (("cfg", {}), ("cfg16", {"bf16": True}),
+                       ("cfg_causal", {"c": True, "frame_norm": True})):
+        cfg = json.loads(json.dumps(args))
+        cfg["model"].update(model)
+        job[key] = os.path.join(work, key + ".yaml")
+        with open(job[key], "w") as f:
+            yaml.safe_dump(cfg, f)
+    loader, _ = get_data_loaders(load_config(job["cfg"]))
+    batches = [{k: b[k] for k in BATCH_KEYS}
+               for e in range(MT_GRAPH_K) for b in loader.epoch(e)]
+    rng = np.random.default_rng(19)
+    n_rows, n_frames = batches[0]["f0"].shape[:2]
+    gan_t = MT_GAN_FRAMES * H_NSF["hop_size"]
+    tt = np.arange(gan_t) / H_NSF["sampling_rate"]
+    f0 = 150.0 + 250.0 * rng.random((MT_GAN_BATCH, 1))
+    ri = rng.random((2, MT_GAN_BATCH, 9)).astype(np.float32)
+    ri[:, :, 0] = 0.0
+    cf = MT_CAUSAL_FRAMES
+    job.update(
+        batch=batches[0], batches=batches[:MT_GRAPH_K],
+        noise=(rng.random((n_rows, n_frames * d.block_size)) * 2 - 1
+               ).astype(np.float32),
+        gan_batch={"audio": (0.3 * np.sin(2 * np.pi * f0 * tt)
+                             + 0.01 * rng.standard_normal((MT_GAN_BATCH, gan_t))
+                             ).astype(np.float32),
+                   "f0": np.repeat(f0, MT_GAN_FRAMES, 1).astype(np.float32)},
+        ri_d=ri[0], ri_g=ri[1],
+        causal={"units": rng.standard_normal(
+                    (1, cf, d.encoder_out_channels)).astype(np.float32),
+                "f0": (200 * rng.random((1, cf, 1)) + 80).astype(np.float32),
+                "volume": rng.random((1, cf)).astype(np.float32),
+                "spk_id": np.ones((1, 1), np.int64),
+                "noise": (rng.random((1, cf * d.block_size)) * 2 - 1
+                          ).astype(np.float32)})
+    return args, work, job
+
+
+def mesh_train_phase(torch, K, card: str, device: str = "cuda") -> dict:
+    """Training on a mesh (parallel/sharding.py, train/step.py's mesh=) at
+    configs/combsub.yaml's full width: CombSubFast (44.1 kHz, block 512,
+    256 units, PCmer 3 x 8 heads x 256), batch 24 of 2 s crops (172
+    frames) from a synthetic store (mt_job), RSS 256..2048 x 4 scales;
+    H_NSF for the GAN (batch 8 x 32 frames); a causal + frame_norm
+    CombSubFast on 1024 frames. Ranks spawned on cuda:0 (world size 1 over
+    NCCL, then 2 over Gloo), cuDNN deterministic on every side. Each step
+    case: one step from seed-0 weights and the same batch, noise and
+    pinned loss scales as a single-process eager step made here, its loss
+    within rtol 2e-4 and its gathered parameters, tensor by tensor, at the
+    99th percentile of |diff| < 1e-4 and at most 4e-3 x (lr / 1e-3); under
+    DP every rank's parameters bit for bit rank 0's; then the warm-up over
+    every loss bucket and MT_MORE timed steps. DP and TP (1 x 2: 4 heads
+    and 256 conv channels a rank; dense_out's 1539 columns replicated),
+    fp32 and DP bf16 (#2, #7); the graphed K = 4 dispatch under DP against
+    4 eager DP steps (loss 1e-5 relative, parameters 1e-4 x max|param|); a
+    DP GAN D + G step (#3, #4) against the single-process one (losses 1e-4
+    relative, the steps' gradients rel < MT_GAN_GRAD_REL, every rank's
+    generator bit for bit rank 0's); the causal model time-sharded against
+    its unsharded forward (1e-5 x max|ref|). Prints each case's ms, each
+    rank's launch counts and peak memory. Returns the ranks' launches,
+    summed. device='cpu' runs it over Gloo only, without the graphed case
+    (for a small rehearsal on the CPU, tests/test_torch_mesh_train.py)."""
+    import socket
+    import torch.multiprocessing as mp
+    from ddsp_svc_tpu_torch.train.step import (batch_to_device, train_step,
+                                               warm_up_buckets)
+
+    on_card = device == "cuda"
+    args, work, job = mt_job(device)
+    d = args.data
+    n_rows, n_frames = job["batch"]["f0"].shape[:2]
+    cf = MT_CAUSAL_FRAMES
+    lr = float(args.train.lr)
+    say(f"mesh training phase: {d.sampling_rate} Hz block {d.block_size}, "
+        f"batch {n_rows} x {n_frames} frames, RSS {args.loss.fft_min}.."
+        f"{args.loss.fft_max} x {args.loss.n_scale} scales, lr {lr}; GAN "
+        f"H_NSF batch {MT_GAN_BATCH} x {MT_GAN_FRAMES} frames; causal "
+        f"CombSubFast on {cf} frames; cuDNN deterministic")
+
+    # the single-process references, here, from the same weights and inputs
+    torch.backends.cudnn.deterministic = True
+    refs = {}
+
+    class _One:  # the job's device as a mesh of one rank with no group
+        device = torch.device("cuda", torch.cuda.current_device()) \
+            if on_card else torch.device("cpu")
+
+    batch = batch_to_device(job["batch"], _One.device)
+    noise = torch.as_tensor(job["noise"], device=_One.device)
+    for bf16 in (False, True):
+        st, rss = _mt_state(torch, job, _One.device, None, bf16)
+        gate_rss = _mt_state(torch, job, "cpu", None, bf16, MT_GATE_EPS)[1]
+        loss = train_step(st, batch, gate_rss, noise=noise,
+                          loss_idx=PINNED_LOSS_IDX)
+        refs[bf16] = (float(loss), {k: _host(torch, v) for k, v in
+                                    st.model.state_dict().items()})
+        warm_up_buckets(st, batch, rss)
+        ms = _mt_timed(torch, lambda: train_step(st, batch, rss), MT_MORE)
+        say(f"mesh training: single-process eager {'bf16' if bf16 else 'fp32'}"
+            f" step {ms:.2f} ms (median of {MT_MORE})")
+        del st
+    trainer, st, batch, ri = _mt_gan(torch, job, _One.device)
+    logs = trainer.step_d(st, batch, rand_ini=ri["ri_d"])
+    logs.update(trainer.step_g(st, batch, rand_ini=ri["ri_g"]))
+    refs["gan"] = ({k: float(v) for k, v in logs.items()},
+                   {k: _host(torch, v)
+                    for k, v in st.generator.state_dict().items()},
+                   _gan_grads(torch, st))
+    del trainer, st
+    with torch.no_grad():
+        x = [torch.as_tensor(job["causal"][k], device=_One.device)
+             for k in ("units", "f0", "volume", "spk_id", "noise")]
+        refs["causal"] = _mt_causal_model(torch, job, _One.device)(
+            *x[:4], noise=x[4], infer=True)[0].cpu()
+    torch.backends.cudnn.deterministic = False
+    path = os.path.join(work, "job.pt")
+    torch.save(job, path)
+
+    total = {}
+    for backend, world in (("nccl", 1), ("gloo", 2)):
+        if not on_card and backend == "nccl":
+            continue
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        t0 = time.perf_counter()
+        mp.start_processes(mesh_train_rank, args=(world, backend, port, path),
+                           nprocs=world, join=True, start_method="spawn")
+        say(f"mesh training {backend} world size {world}: "
+            f"{time.perf_counter() - t0:.1f} s with the ranks' start")
+        ranks = [torch.load(f"{path}.{backend}.{r}", weights_only=False)
+                 for r in range(world)]
+        for name, kind, shape, bf16 in MT_CASES[backend]:
+            if name not in ranks[0]:
+                continue  # the graphed case, on the card only
+            label = (f"mesh training {backend} world size {world} {name} "
+                     f"({shape[0]} x {shape[1]})")
+            res = ranks[0][name]
+            if kind == "step":
+                ref_loss, ref_params = refs[bf16]
+                rel = abs(res["loss"] - ref_loss) / abs(ref_loss)
+                # each tensor's 99th percentile and its largest entry
+                q99s, worst = {}, 0.0
+                for k, v in ref_params.items():
+                    if not k.endswith("projection_matrix"):
+                        diff = (res["params"][k] - v).abs().flatten().double()
+                        q99s[k] = torch.quantile(diff, 0.99).item()
+                        worst = max(worst, diff.max().item())
+                top = max(q99s, key=q99s.get)
+                gate = MT_MAX * lr / 1e-3
+                same = all(all(torch.equal(r[name]["params"][k], v)
+                               for k, v in res["params"].items())
+                           for r in ranks[1:])
+                say(f"{label}: step-1 loss {res['loss']:.6f} rel "
+                    f"{rel:.3e} (<= {MT_LOSS_RTOL}) at loss eps "
+                    f"{MT_GATE_EPS}; parameters, {len(q99s)} tensors: the "
+                    f"largest 99th percentile of |diff| {q99s[top]:.3e} "
+                    f"({top}, {res['params'][top].numel()} entries; < "
+                    f"{MT_Q99}), max {worst:.3e} (< {gate:.1e})"
+                    + (f"; every rank's parameters bit for bit rank 0's "
+                       f"{same}" if shape[0] > 1 else "")
+                    + f"; {res['ms']:.2f} ms a step (median of {MT_MORE}), "
+                    f"device idle share {res['idle']:.3f} (torch.profiler, "
+                    "one further step)")
+                if not (rel <= MT_LOSS_RTOL and q99s[top] < MT_Q99
+                        and worst < gate):
+                    fail(f"{label}: disagrees with the single-process step")
+                if shape[0] > 1 and not same:
+                    fail(f"{label}: the data-parallel ranks' parameters "
+                         "differ")
+                expect = MT_EXPECT["step bf16" if bf16 else "step"]
+            elif kind == "graphed":
+                say(f"{label}: {MT_GRAPH_K} graphed steps against as many "
+                    f"eager ones: losses rel {res['loss_rel']:.3e} (<= "
+                    f"{GRAPH_LOSS_RTOL}), parameters {res['param_rel']:.3e} "
+                    f"x max|param| (<= {GRAPH_PARAM_TOL}), bit for bit "
+                    f"{res['bitwise']}; {res['ms']:.2f} ms a step graphed")
+                if not (res["loss_rel"] <= GRAPH_LOSS_RTOL
+                        and res["param_rel"] <= GRAPH_PARAM_TOL):
+                    fail(f"{label}: disagrees with the eager DP steps")
+                expect = MT_EXPECT["graphed"]
+            elif kind == "gan":
+                ref_logs, ref_gen, ref_grads = refs["gan"]
+                rel = max(abs(res["logs"][k] - v) / abs(v)
+                          for k, v in ref_logs.items())
+                outside = sum(int(((res["generator"][k] - v).abs()
+                                   > MT_GAN_ATOL + MT_GAN_RTOL * v.abs()
+                                   ).sum()) for k, v in ref_gen.items())
+                n_gen = sum(v.numel() for v in ref_gen.values())
+                g_rel, g_cos = 0.0, 1.0
+                for k, r in ref_grads.items():
+                    g, r = res["grads"][k].double(), r.double()
+                    nr = r.norm().item()
+                    g_rel = max(g_rel, (g - r).norm().item() / (nr + 1e-12))
+                    if nr > 1e-10:
+                        g_cos = min(g_cos, ((g * r).sum() / (
+                            g.norm() * nr + 1e-30)).item())
+                say(f"{label}: D + G losses rel {rel:.3e} (<= "
+                    f"{MT_GAN_LOSS_RTOL}); the steps' gradients against the "
+                    f"single-process ones worst rel {g_rel:.3e} (< "
+                    f"{MT_GAN_GRAD_REL}), cos {g_cos:.7f} (> "
+                    f"{MT_GAN_GRAD_COS}); generator entries outside atol "
+                    f"{MT_GAN_ATOL} + rtol {MT_GAN_RTOL}: {outside} of "
+                    f"{n_gen} (AdamW's first step on the gradients' float "
+                    f"noise); {res['ms']:.1f} ms a D + G step")
+                same = all(all(torch.equal(r[name]["generator"][k], v)
+                               for k, v in res["generator"].items())
+                           for r in ranks[1:])
+                say(f"{label}: every rank's generator bit for bit rank 0's "
+                    f"{same}")
+                if not (rel <= MT_GAN_LOSS_RTOL and g_rel < MT_GAN_GRAD_REL
+                        and g_cos > MT_GAN_GRAD_COS and same):
+                    fail(f"{label}: disagrees with the single-process GAN "
+                         "steps")
+                expect = MT_EXPECT["gan"]
+            else:
+                ref = refs["causal"]
+                errs = [((r[name]["signal"] - ref).abs().max()
+                         / ref.abs().max()).item() for r in ranks]
+                say(f"{label}: every rank's whole signal against the "
+                    f"unsharded causal forward, max {max(errs):.3e} x "
+                    f"max|ref| (<= {MT_CAUSAL_TOL}); {res['ms']:.1f} ms a "
+                    "call")
+                if not max(errs) <= MT_CAUSAL_TOL:
+                    fail(f"{label}: disagrees with the unsharded forward")
+                expect = MT_EXPECT["causal"]
+            for r, rank in enumerate(ranks):
+                counts = rank[name]["launches"]
+                say(f"{label} rank {r}: peak memory "
+                    f"{rank[name]['peak_gib']:.3f} GiB, launches "
+                    f"{json.dumps({k: v for k, v in counts.items() if v})}")
+                for kname in expect if on_card else ():
+                    if counts[kname] <= 0:
+                        fail(f"{kname} was not launched on {label} rank {r}")
+                if kind == "causal" and counts["performer_attention"]:
+                    fail(f"{label}: a causal layer launched #1")
+                for k, v in counts.items():
+                    total[k] = total.get(k, 0) + v
+    shutil.rmtree(work, ignore_errors=True)
+    return total
+
 def serve_phase(torch, K, card: str, ckpts: dict, device: str = "cuda"
                 ) -> dict:
     """Serving at full width with the CLI phase's checkpoints: the three
@@ -3500,10 +4015,14 @@ def main() -> None:
     t0 = time.perf_counter()
     mesh_counts = mesh_phase(torch, K, smi[0], ckpts)
     say(f"mesh paths: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mesh_train_counts = mesh_train_phase(torch, K, smi[0])
+    say(f"mesh training paths: {time.perf_counter() - t0:.1f} s")
     shutil.rmtree(os.path.join(ROOT, "build", "chip_smoke_cli"),
                   ignore_errors=True)
     for counts in (cli_counts, batch_counts, pre_counts, gan_counts,
-                   stream_counts, serve_counts, mesh_counts):
+                   stream_counts, serve_counts, mesh_counts,
+                   mesh_train_counts):
         for k, v in counts.items():
             launches[k] += v
     for synth, config, expect, full in SYNTHS:

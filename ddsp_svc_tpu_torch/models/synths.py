@@ -108,7 +108,8 @@ class Sins(nn.Module):
         (harmonic, noise))."""
         bs = self.block_size
         phase = 2.0 * np.pi * f0_to_rot_upsampled(
-            f0_frames[..., 0], bs, self.sampling_rate, initial_phase)
+            f0_frames[..., 0], bs, self.sampling_rate, initial_phase,
+            carry=None if shard is None else shard.phase_carry)
         phase_frames = phase[:, ::bs]
         ctrls = self.unit2ctrl(units_frames, f0_frames, phase_frames,
                                volume_frames, spk_id, spk_mix_dict=spk_mix_dict,
@@ -181,7 +182,8 @@ class CombSubFast(nn.Module):
         bs = self.block_size
         f0 = upsample_frames(f0_frames, bs)[..., 0]
         rot = f0_to_rot_upsampled(f0_frames[..., 0], bs, self.sampling_rate,
-                                  initial_phase)
+                                  initial_phase, carry=None if shard is None
+                                  else shard.phase_carry)
         phase_frames = 2.0 * np.pi * rot[:, ::bs]
         ctrls = self.unit2ctrl(units_frames, f0_frames, phase_frames,
                                volume_frames, spk_id, spk_mix_dict=spk_mix_dict,
@@ -259,7 +261,8 @@ class CombSub(nn.Module):
         bs = self.block_size
         f0 = upsample_frames(f0_frames, bs)[..., 0]
         rot = f0_to_rot_upsampled(f0_frames[..., 0], bs, self.sampling_rate,
-                                  initial_phase)
+                                  initial_phase, carry=None if shard is None
+                                  else shard.phase_carry)
         phase_frames = 2.0 * np.pi * rot[:, ::bs]
         ctrls = self.unit2ctrl(units_frames, f0_frames, phase_frames,
                                volume_frames, spk_id, spk_mix_dict=spk_mix_dict,

@@ -124,11 +124,16 @@ class WeightNormDense(nn.Module):
         self.weight_v = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = nn.Parameter(torch.zeros(out_features))
         nn.init.normal_(self.weight_v, std=in_features ** -0.5)
+        # a `parallel.sharding.ModelShard` once the output columns are cut
+        # over the mesh's model axis (each column's norm stays local)
+        self.tp = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         norm = torch.linalg.vector_norm(self.weight_v, dim=1, keepdim=True)
         w = self.weight_v * (self.weight_g / (norm + 1e-12))
-        return F.linear(x, w, self.bias)
+        if self.tp is None:
+            return F.linear(x, w, self.bias)
+        return self.tp.gather(F.linear(self.tp.enter(x), w, self.bias))
 
 
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.01) -> torch.Tensor:

@@ -105,7 +105,8 @@ def linear_attention(q: torch.Tensor, k: torch.Tensor,
 
 def causal_linear_attention(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, chunk: int = 128,
-                            eps: float = 1e-6) -> torch.Tensor:
+                            eps: float = 1e-6, carry=None,
+                            start: int = 0) -> torch.Tensor:
     """Causal linear attention as a chunked prefix scan. q, k (B, H, T, m)
     features; v (B, H, T, d) -> (B, H, T, d):
 
@@ -119,18 +120,26 @@ def causal_linear_attention(q: torch.Tensor, k: torch.Tensor,
     the chunk; padded positions have q = k = 0, so their denominator is 0,
     and they divide by 1 instead, which keeps the backward free of NaNs
     (real positions always have a positive denominator: FAVOR+ features
-    are positive)."""
+    are positive). carry: (S_0 (B, H, m, d), K_0 (B, H, m)), the sums of the
+    frames before the first (a time shard's window), else zeros; start: the
+    first frame's index in the whole sequence, whose chunk grid the window
+    then keeps (zero frames in front), so its sums group as the whole
+    sequence's do."""
     b, h, t, m = q.shape
-    pad = (-t) % chunk
-    if pad:
-        q, k, v = (F.pad(x, (0, 0, 0, pad)) for x in (q, k, v))
+    front = start % chunk
+    pad = (-(t + front)) % chunk
+    if pad or front:
+        q, k, v = (F.pad(x, (0, 0, front, pad)) for x in (q, k, v))
     mask = torch.tril(torch.ones((chunk, chunk), dtype=q.dtype,
                                  device=q.device))
-    s = torch.zeros((b, h, m, v.shape[-1]), dtype=torch.float32,
-                    device=q.device)
-    ksum = torch.zeros((b, h, m), dtype=torch.float32, device=q.device)
+    if carry is None:
+        s = torch.zeros((b, h, m, v.shape[-1]), dtype=torch.float32,
+                        device=q.device)
+        ksum = torch.zeros((b, h, m), dtype=torch.float32, device=q.device)
+    else:
+        s, ksum = (c.float() for c in carry)
     outs = []
-    for lo in range(0, t + pad, chunk):
+    for lo in range(0, front + t + pad, chunk):
         qi, ki, vi = (x[:, :, lo:lo + chunk] for x in (q, k, v))
         attn = torch.einsum("bhim,bhjm->bhij", qi, ki) * mask
         num = (torch.einsum("bhij,bhjd->bhid", attn, vi)
@@ -141,7 +150,7 @@ def causal_linear_attention(q: torch.Tensor, k: torch.Tensor,
         outs.append((num.float() / safe[..., None]).to(qi.dtype))
         s = s + torch.einsum("bhjm,bhjd->bhmd", ki, vi).float()
         ksum = ksum + ki.float().sum(dim=-2)
-    return torch.cat(outs, dim=2)[:, :, :t]
+    return torch.cat(outs, dim=2)[:, :, front:front + t]
 
 
 class FastAttention(nn.Module):
@@ -170,6 +179,9 @@ class SelfAttention(nn.Module):
         self.to_k = nn.Linear(dim, inner)
         self.to_v = nn.Linear(dim, inner)
         self.to_out = nn.Linear(inner, dim)
+        # a `parallel.sharding.ModelShard` once the heads are cut over the
+        # mesh's model axis (shard_train_state): self.heads is then local
+        self.tp = None
 
     def forward(self, x: torch.Tensor, infer: bool = False,
                 valid_frames=None, shard=None) -> torch.Tensor:
@@ -178,9 +190,15 @@ class SelfAttention(nn.Module):
         shard (a `parallel.timeparallel.TimeShard`, x its window): the key
         moments of the frames the shard owns, all-reduced over its group,
         then the queries of the whole window against them; the moments and
-        apply kernels on the card, their plain versions on the CPU."""
+        apply kernels on the card, their plain versions on the CPU; a
+        causal layer carries in the moments of the frames before its
+        window (`window_carry`). Sharded over the model axis (self.tp),
+        this rank's heads, the output projection's partial sums
+        all-reduced before its bias."""
         b, n, _ = x.shape
         dt = self.compute_dtype
+        if self.tp is not None:
+            x = self.tp.enter(x)
 
         def split_heads(layer):  # a (B, H, T, d) view, read in place
             t = linear(x, layer.weight, layer.bias, dt)
@@ -188,23 +206,23 @@ class SelfAttention(nn.Module):
 
         q, k, v = (split_heads(f) for f in (self.to_q, self.to_k, self.to_v))
         proj = self.fast_attention.projection_matrix
-        if shard is not None:
-            if self.causal:
-                raise NotImplementedError(
-                    "causal attention on a time-sharded window is not ported")
+        if self.causal:
+            qf = softmax_kernel(q, proj, is_query=True)
+            kf = softmax_kernel(k, proj, is_query=False)
+            if valid_frames is not None:
+                kf = kf * frame_mask(n, valid_frames, kf.dtype,
+                                     kf.device)[:, None, :, None]
+            out = (causal_linear_attention(qf, kf, v) if shard is None
+                   else causal_linear_attention(
+                       qf, kf, v, carry=window_carry(kf, v, shard),
+                       start=shard.lo))
+        elif shard is not None:
             # fp32 on both devices, as the attention kernel takes it
             context, k_sum = performer_attention_moments(
                 k.float(), v.float(), proj, *shard.key_range(valid_frames))
             context, k_sum = shard.all_reduce(context, k_sum)
             out = performer_attention_apply(q.float(), proj, context,
                                             k_sum).to(q.dtype)
-        elif self.causal:
-            qf = softmax_kernel(q, proj, is_query=True)
-            kf = softmax_kernel(k, proj, is_query=False)
-            if valid_frames is not None:
-                kf = kf * frame_mask(n, valid_frames, kf.dtype,
-                                     kf.device)[:, None, :, None]
-            out = causal_linear_attention(qf, kf, v)
         elif infer:
             # the attention kernel takes fp32 only: bf16 q, k, v are cast up
             # for it (the JAX kernel feeds its matrix unit bf16 here instead)
@@ -213,8 +231,26 @@ class SelfAttention(nn.Module):
         else:
             out = performer_attention_plain(q, k, v, proj, valid_frames)
         out = out.transpose(1, 2).reshape(b, n, self.heads * self.dim_head)
-        return linear(out, self.to_out.weight, self.to_out.bias,
-                      dt).to(x.dtype)
+        if self.tp is None:
+            return linear(out, self.to_out.weight, self.to_out.bias,
+                          dt).to(x.dtype)
+        y = self.tp.reduce(linear(out, self.to_out.weight, None, dt).float())
+        return (y + self.to_out.bias).to(x.dtype)
+
+
+def window_carry(kf: torch.Tensor, v: torch.Tensor, shard):
+    """The causal prefix sums (S_0, K_0) at the first frame of a time
+    shard's window (kf, v (B, H, T, .) the window's key features and
+    values): each rank's moments over its owned frames go into its own row
+    of one all-reduce (`TimeShard.carry`), the lower ranks' sum is the
+    carry at its first owned frame, and the window's frames before that
+    (the halo) take it less their own moments, so the prefix sums at every
+    owned frame are the whole sequence's."""
+    a, c = shard.own_lo - shard.lo, shard.own_hi - shard.lo
+    own = attention_moments(kf[:, :, a:c], v[:, :, a:c])
+    halo = attention_moments(kf[:, :, :a], v[:, :, :a])
+    s0, k0 = shard.carry(own[0].float(), own[1])
+    return s0 - halo[0].float(), k0 - halo[1]
 
 
 class ConformerConvModule(nn.Module):
@@ -233,12 +269,17 @@ class ConformerConvModule(nn.Module):
                         groups=inner, compute_dtype=compute_dtype),
             "6": nn.Conv1d(inner, dim, 1),
         })
+        # a `parallel.sharding.ModelShard` once the channels are cut over
+        # the mesh's model axis (shard_train_state)
+        self.tp = None
 
     def forward(self, x: torch.Tensor, valid_frames=None) -> torch.Tensor:
         net = self.net
         dt = self.compute_dtype
         in_dtype = x.dtype
         x = net["0"](x)
+        if self.tp is not None:
+            x = self.tp.enter(x)
         x = glu(linear(x, net["2"].weight[:, :, 0], net["2"].bias, dt))
         if valid_frames is not None:
             # zero pad frames: the depthwise conv then sees exactly the zeros
@@ -246,8 +287,12 @@ class ConformerConvModule(nn.Module):
             x = x * frame_mask(x.shape[1], valid_frames, x.dtype,
                                x.device)[:, :, None]
         x = F.silu(net["4"](x))
-        return linear(x, net["6"].weight[:, :, 0], net["6"].bias,
-                      dt).to(in_dtype)
+        if self.tp is None:
+            return linear(x, net["6"].weight[:, :, 0], net["6"].bias,
+                          dt).to(in_dtype)
+        y = self.tp.reduce(linear(x, net["6"].weight[:, :, 0], None,
+                                  dt).float())
+        return (y + net["6"].bias).to(in_dtype)
 
 
 class PCmerLayer(nn.Module):

@@ -132,18 +132,22 @@ def frame_carry(f0_frames: torch.Tensor, block: int, sr: int
 
 
 def f0_to_rot_upsampled(f0_frames: torch.Tensor, block: int, sr: int,
-                        initial_phase: Optional[torch.Tensor] = None
+                        initial_phase: Optional[torch.Tensor] = None,
+                        carry: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
     """Wrapped rotations (-0.5, 0.5] of the linearly upsampled f0.
 
     (B, F) [Hz] -> (B, F*block). Within a frame the prefix sum of the
     upsampled f0 is an arithmetic series with a closed form; only the
     per-frame totals go through the compensated scan, as exact double-single
-    pairs.
+    pairs. carry: (B, F) [turns], each frame's rotation before its first
+    sample taken from a longer sequence's `frame_carry` (a time shard's
+    window of it), in place of these frames' own prefix sums.
     """
     a = f0_frames
     nxt = torch.cat([a[:, 1:], a[:, -1:]], dim=1)
-    carry = frame_carry(a, block, sr)
+    if carry is None:
+        carry = frame_carry(a, block, sr)
     inner = frame_inner(a, nxt - a, block, sr)
     rot = _wrap(_wrap(inner) + carry[..., None])
     if initial_phase is not None:

@@ -11,15 +11,21 @@ module does that work itself, by overlap-and-discard:
     widened by R frames on each side, clipped to the sequence: the window
     [lo, hi). R is the model's `receptive_radius()`, computed from its
     convolutions, so the owned frames come out exact;
-  - the window's phase starts where the whole sequence's phase is at its
-    first frame (each rank scans the whole f0: `ops.phase.frame_carry`,
-    the enhancer's `_source_phase`); noise and SineGen draws are the
-    whole sequence's, sliced;
+  - each window frame's phase carry is the whole sequence's (each rank
+    scans the whole f0: `ops.phase.frame_carry`, handed to the synth on the
+    `TimeShard`; the enhancer's `_source_phase`), so the owned frames'
+    phases are the unsharded ones bit for bit; noise and SineGen draws are
+    the whole sequence's, sliced;
   - three things cross ranks, each an all-reduce over the axis's group:
     GroupNorm's statistics (sums and counts, then squared deviations) and
     the FAVOR+ key moments of each PCmer layer (context and key sums), each
     over the owned and valid frames only (`TimeShard`), and the output, the
-    owned samples added into a zero buffer.
+    owned samples added into a zero buffer. A causal layer needs the
+    moments of the frames before its own instead: each rank's go into its
+    own row of a (ranks, ...) buffer, and the lower ranks' rows summed are
+    the carry at its first owned frame (`TimeShard.carry`,
+    `nn/pcmer.py::window_carry`), so a streamable (causal, frame_norm)
+    model runs sharded too.
 Only all-reduce crosses ranks, so the same code runs on NCCL (one rank a
 card) and on Gloo (CPU tensors, or CUDA tensors of ranks sharing a card).
 """
@@ -28,7 +34,6 @@ from __future__ import annotations
 import math
 from typing import Optional, Tuple
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -49,14 +54,19 @@ def time_span(n: int, parts: int, index: int, radius: int
 
 class TimeShard:
     """One rank's window [lo, hi) of a sequence sharded over time, owning
-    [own_lo, own_hi) (global frame indices), with the process group its
-    sums cross (None: the default group). The model's layers see only the
-    window; valid_frames reach them counted from the window's first frame."""
+    [own_lo, own_hi) (global frame indices), the `index` of `parts` ranks
+    on its axis, with the process group its sums cross (None: the default
+    group). The model's layers see only the window; valid_frames reach
+    them counted from the window's first frame. phase_carry: (B, hi - lo)
+    [turns], the whole sequence's `frame_carry` of the window's frames."""
 
     def __init__(self, group: Optional[dist.ProcessGroup], lo: int, hi: int,
-                 own_lo: int, own_hi: int):
+                 own_lo: int, own_hi: int, parts: int = 1, index: int = 0,
+                 phase_carry: Optional[torch.Tensor] = None):
         self.group = group
         self.lo, self.hi, self.own_lo, self.own_hi = lo, hi, own_lo, own_hi
+        self.parts, self.index = parts, index
+        self.phase_carry = phase_carry
 
     def key_range(self, valid_frames=None):
         """The owned frames that are valid, [key_lo, key_hi) in window
@@ -83,6 +93,22 @@ class TimeShard:
             at += t.numel()
         return tuple(out)
 
+    def carry(self, *tensors: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """The sums of `tensors` over the ranks before this one (its
+        `index` of `parts`; zeros on the first), fp32: one all-reduce of a
+        (parts, n) buffer in which each rank fills its own row, then the
+        lower rows summed in rank order."""
+        flat = torch.cat([t.reshape(-1).float() for t in tensors])
+        buf = flat.new_zeros((self.parts, flat.numel()))
+        buf[self.index] = flat
+        dist.all_reduce(buf, group=self.group)
+        pre = buf[:self.index].sum(dim=0)
+        out, at = [], 0
+        for t in tensors:
+            out.append(pre[at:at + t.numel()].reshape(t.shape))
+            at += t.numel()
+        return tuple(out)
+
 
 def _axis(mesh, axis: str):
     return mesh.group(axis), mesh.size(axis), mesh.index(axis)
@@ -105,12 +131,12 @@ def make_time_parallel_forward(model, mesh, axis: str = "data",
     def forward(units, f0, volume, spk_id, noise, valid_frames=None):
         b, n = units.shape[:2]
         lo, hi, own_lo, own_hi = time_span(n, parts, index, radius)
-        shard = TimeShard(group, lo, hi, own_lo, own_hi)
-        phase0 = 2.0 * np.pi * frame_carry(f0[..., 0], block, sr)[:, lo]
+        shard = TimeShard(group, lo, hi, own_lo, own_hi, parts, index,
+                          frame_carry(f0[..., 0], block, sr)[:, lo:hi])
         valid = None if valid_frames is None else valid_frames - lo
         signal, _, _ = model(
             units[:, lo:hi], f0[:, lo:hi], volume[:, lo:hi], spk_id,
-            spk_mix_dict=spk_mix_dict, initial_phase=phase0, infer=True,
+            spk_mix_dict=spk_mix_dict, infer=True,
             noise=noise[:, lo * block:hi * block], valid_frames=valid,
             shard=shard)
         out = signal.new_zeros((b, n * block))

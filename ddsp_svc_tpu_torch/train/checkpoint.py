@@ -6,7 +6,12 @@ policy (the highest numbered checkpoint, else the best one) and the same
 asynchronous writer (`AsyncCheckpointer`, train.async_save). The JAX
 package's msgpack `.ckpt` files are a different format and are not read
 here; the distinct suffix keeps the two apart in one experiment directory.
-Writes are atomic (a temporary file, then a rename).
+Writes are atomic (a temporary file, then a rename). A model sharded over
+a mesh's 'model' axis is saved whole: `host_payload` gathers the
+single-device state dict and optimizer state from the ranks' slices
+(collective: every rank calls it), so a run saved under one mesh resumes
+on one device and under any other mesh (restore, then
+`parallel.shard_train_state`).
 """
 from __future__ import annotations
 
@@ -17,6 +22,8 @@ import threading
 from typing import Optional
 
 import torch
+
+from ..parallel.sharding import full_state_dicts
 
 
 def _host_copy(obj):
@@ -50,14 +57,13 @@ def _host_copy(obj):
 def host_payload(step: int, model: torch.nn.Module,
                  optimizer: Optional[torch.optim.Optimizer] = None) -> dict:
     """The checkpoint's payload, copied to the host on the caller's
-    thread."""
-    return _host_copy({
-        "global_step": int(step), "model": model.state_dict(),
-        "optimizer": optimizer.state_dict() if optimizer is not None else {},
-    })
+    thread; a model sharded over 'model' gathered whole first."""
+    model_sd, opt_sd = full_state_dicts(model, optimizer)
+    return _host_copy({"global_step": int(step), "model": model_sd,
+                       "optimizer": opt_sd})
 
 
-def _write_payload(path: str, payload: dict) -> None:
+def write_payload(path: str, payload: dict) -> None:
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tmp = path + ".tmp"
     torch.save(payload, tmp)
@@ -66,7 +72,7 @@ def _write_payload(path: str, payload: dict) -> None:
 
 def save_checkpoint(path: str, step: int, model: torch.nn.Module,
                     optimizer: Optional[torch.optim.Optimizer] = None) -> None:
-    _write_payload(path, host_payload(step, model, optimizer))
+    write_payload(path, host_payload(step, model, optimizer))
 
 
 class AsyncCheckpointer:
@@ -90,7 +96,7 @@ class AsyncCheckpointer:
             try:
                 if item is None:
                     return
-                _write_payload(*item)
+                write_payload(*item)
             except Exception as e:  # surfaced on the next save() / wait()
                 self._err = e
             finally:
@@ -103,8 +109,12 @@ class AsyncCheckpointer:
 
     def save(self, path: str, step: int, model: torch.nn.Module,
              optimizer: Optional[torch.optim.Optimizer] = None) -> None:
+        self.put(path, host_payload(step, model, optimizer))
+
+    def put(self, path: str, payload: dict) -> None:
+        """Queue a host payload (`host_payload`) for writing."""
         self._check()
-        self._q.put((path, host_payload(step, model, optimizer)))
+        self._q.put((path, payload))
 
     def wait(self) -> None:
         self._q.join()

@@ -14,10 +14,19 @@ A step updates the state's modules in place and returns its loss terms as
 0-d tensors on the device. The generator's SineGen rotations (`rand_ini`,
 (B, 9) uniform with column 0 at 0) are drawn from the state's
 torch.Generator unless the caller passes them (tests inject JAX's).
+
+With a mesh (`GanTrainer(..., mesh=, mesh_axis="data")`, JAX's mesh= in
+the port's form) the D and G steps run data-parallel: each rank's batch is
+its rows of the global batch, rand_ini is drawn for the whole batch (every
+rank the same draw) and sliced to them, and each step's gradients and loss
+terms are averaged over the axis in one all-reduce before the step: the
+parameters' .grad are views of one flat buffer per optimizer
+(`parallel.GradBuffer`, its trailing slots the logged terms; every term is
+a per-item mean). Parameters and both optimizers stay replicated.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, Optional
 
 import torch
@@ -27,6 +36,7 @@ from ..nn.discriminators import (MultiPeriodDiscriminator,
                                  feature_loss, generator_loss)
 from ..nn.layers import lecun_init_
 from ..ops.spectral import log_mel_spectrogram
+from ..parallel.sharding import GradBuffer, batch_rows
 
 # optax.adamw's default, which the JAX GanTrainer inherits (torch's is 1e-2)
 WEIGHT_DECAY = 1e-4
@@ -54,6 +64,9 @@ class GanState:
     g_opt: torch.optim.Optimizer
     d_opt: torch.optim.Optimizer
     rand_gen: torch.Generator
+    # on a mesh, each optimizer's flat gradient buffer (made at its first
+    # step)
+    grads: Dict[str, GradBuffer] = field(default_factory=dict)
 
     def d_parameters(self):
         return [*self.mpd.parameters(), *self.msd.parameters()]
@@ -61,11 +74,12 @@ class GanState:
 
 class GanTrainer:
     def __init__(self, h: dict, lr: float = 2e-4, mel_weight: float = 45.0,
-                 fm_weight: float = 2.0):
+                 fm_weight: float = 2.0, mesh=None, mesh_axis: str = "data"):
         self.h = h
         self.lr = lr
         self.mel_weight = mel_weight
         self.fm_weight = fm_weight
+        self.mesh, self.mesh_axis = mesh, mesh_axis
 
     def create_state(self, generator: torch.nn.Module, seed: int = 0
                      ) -> GanState:
@@ -85,23 +99,44 @@ class GanTrainer:
             rand_gen=torch.Generator(device=device).manual_seed(seed))
 
     def _rand_ini(self, state: GanState, batch) -> torch.Tensor:
-        ri = torch.rand((batch["mel"].shape[0], 9), generator=state.rand_gen,
+        b = batch["mel"].shape[0]
+        if self.mesh is not None:
+            b *= self.mesh.size(self.mesh_axis)
+        ri = torch.rand((b, 9), generator=state.rand_gen,
                         device=batch["mel"].device)
         ri[:, 0] = 0.0
         return ri
 
     def _generate(self, state: GanState, batch, rand_ini) -> torch.Tensor:
+        """rand_ini: the whole batch's on a mesh (sliced to this rank's
+        rows); drawn from the state's generator when None."""
         if rand_ini is None:
             rand_ini = self._rand_ini(state, batch)
+        if self.mesh is not None:
+            rand_ini = rand_ini[batch_rows(self.mesh, rand_ini.shape[0],
+                                             self.mesh_axis)]
         return state.generator(batch["mel"], batch["f0"], rand_ini)
 
-    @staticmethod
-    def _apply(optimizer: torch.optim.Optimizer, params, loss) -> None:
-        """One optimizer step on the gradients of loss with respect to
-        params alone (left in their .grad)."""
-        for p, g in zip(params, torch.autograd.grad(loss, params)):
-            p.grad = g
-        optimizer.step()
+    def _apply(self, state: GanState, part: str, params, loss,
+               logs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """One step of the part's optimizer ('d' or 'g') on the gradients
+        of loss with respect to params alone (left in their .grad); on a
+        mesh the gradients and the logged terms averaged over its axis in
+        one all-reduce first. Returns the logs."""
+        logs = {k: v.detach() for k, v in logs.items()}
+        if self.mesh is None:
+            for p, g in zip(params, torch.autograd.grad(loss, params)):
+                p.grad = g
+        else:
+            if part not in state.grads:
+                state.grads[part] = GradBuffer(params, n_terms=len(logs))
+            grads = state.grads[part]
+            grads.attach()
+            loss.backward(inputs=params)
+            logs = dict(zip(logs, grads.reduce(
+                self.mesh, *logs.values(), axis=self.mesh_axis).clone()))
+        (state.d_opt if part == "d" else state.g_opt).step()
+        return logs
 
     def step_d(self, state: GanState, batch: Dict[str, torch.Tensor],
                rand_ini: Optional[torch.Tensor] = None
@@ -115,9 +150,10 @@ class GanTrainer:
         rs_s, gs_s, _, _ = state.msd(y, y_hat)
         loss = discriminator_loss(rs_p, gs_p)[0] + discriminator_loss(
             rs_s, gs_s)[0]
-        self._apply(state.d_opt, state.d_parameters(), loss)
+        logs = self._apply(state, "d", state.d_parameters(), loss,
+                           {"d_loss": loss})
         state.step += 1
-        return {"d_loss": loss.detach()}
+        return logs
 
     def step_g(self, state: GanState, batch: Dict[str, torch.Tensor],
                rand_ini: Optional[torch.Tensor] = None
@@ -139,6 +175,6 @@ class GanTrainer:
                 ) * self.fm_weight
         l_adv = generator_loss(gs_p)[0] + generator_loss(gs_s)[0]
         total = l_mel + l_fm + l_adv
-        self._apply(state.g_opt, list(state.generator.parameters()), total)
-        return {"g_loss": total.detach(), "mel": l_mel.detach(),
-                "fm": l_fm.detach(), "adv": l_adv.detach()}
+        return self._apply(state, "g", list(state.generator.parameters()),
+                           total, {"g_loss": total, "mel": l_mel,
+                                   "fm": l_fm, "adv": l_adv})

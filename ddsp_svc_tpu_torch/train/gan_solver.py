@@ -8,7 +8,15 @@ the newest checkpoint, and exports an enhancer checkpoint that
 `infer/enhancer.py::NsfHifiGAN` (and the JAX package's) loads. The config
 block is the JAX package's (`train.gan`: expdir, lr, mel_weight, fm_weight,
 batch_size, crop_frames, interval_log, interval_val, max_steps, h,
-data_on_device); `train.gan.data_parallel` is not ported yet and raises.
+data_on_device, data_parallel).
+
+`train.gan.data_parallel: true` (or `train_gan(..., mesh=)`) runs the D and
+G steps data-parallel over the ranks of the joined process group, one
+process a rank (the port's form of JAX's "all local devices";
+`parallel.init_distributed` first, e.g. the entry's --num-processes): each
+rank draws the same global batch (or clip-pool starts) from the seeded
+generator and takes its rows, the gradients are averaged over the ranks
+(train/gan.py), and rank 0 alone validates, writes checkpoints and exports.
 
 Files under the GAN expdir:
     gan_{step}.pt                  {global_step, generator, discriminators
@@ -27,10 +35,13 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.wavio import load_audio
 from ..nn.layers import lecun_init_
 from ..nn.nsf_hifigan import generator_from_h
+from ..parallel.mesh import make_mesh
+from ..parallel.sharding import batch_rows
 from ..utils.device import resolve_device
 from .gan import GanState, GanTrainer, mel_of
 
@@ -202,16 +213,26 @@ def _export(expdir: str, h: dict, generator: torch.nn.Module, step: int,
 
 
 def train_gan(args, max_steps: Optional[int] = None, device=None,
-              rand_hook: Optional[Callable[[int, str], np.ndarray]] = None
-              ) -> Tuple[GanState, str]:
+              rand_hook: Optional[Callable[[int, str], np.ndarray]] = None,
+              mesh=None) -> Tuple[GanState, str]:
     """Run the fine-tuning loop; returns (state, expdir). device: CUDA
     unless given. rand_hook(step, "d" or "g") -> (B, 9) optionally injects
-    each step's rand_ini (step: the D steps taken before it)."""
+    each step's rand_ini (step: the D steps taken before it; the whole
+    batch's on a mesh). mesh: a `parallel.Mesh` to run data-parallel over
+    its 'data' axis; made from the joined process group when the config
+    sets train.gan.data_parallel (which raises if none is joined)."""
     gan_cfg = args.train.gan
-    if gan_cfg and gan_cfg.data_parallel:
-        raise NotImplementedError(
-            "train.gan.data_parallel (multi-device GAN) is not ported yet")
     device = resolve_device(device)
+    if mesh is None and gan_cfg and gan_cfg.data_parallel:
+        if not dist.is_initialized():
+            raise RuntimeError(
+                "train.gan.data_parallel runs one process a rank: join the "
+                "process group first (parallel.init_distributed; the "
+                "entry's --num-processes, --coordinator, --process-id)")
+        mesh = make_mesh(device=device)
+    if mesh is not None:
+        device = mesh.device
+    writer = mesh is None or dist.get_rank() == 0
     h = _resolve_h(args)
     expdir = (gan_cfg and gan_cfg.expdir) or os.path.join(
         args.env.expdir or "exp", "gan")
@@ -236,7 +257,7 @@ def train_gan(args, max_steps: Optional[int] = None, device=None,
     else:
         lecun_init_(generator, torch.Generator().manual_seed(seed))
     trainer = GanTrainer(h, lr=lr, mel_weight=mel_weight,
-                         fm_weight=fm_weight)
+                         fm_weight=fm_weight, mesh=mesh)
     state = trainer.create_state(generator.to(device), seed=seed)
 
     data_sr, data_hop = int(args.data.sampling_rate), int(args.data.block_size)
@@ -247,20 +268,23 @@ def train_gan(args, max_steps: Optional[int] = None, device=None,
     # too, so that each step's crops are the JAX loop's
     train_set.sample_batch(rng, batch_size, crop_frames)
 
+    say = print if writer else (lambda *a, **k: None)
     resume = latest_gan_checkpoint(expdir)
     if resume:
-        print(f" [*] restoring GAN checkpoint: {resume}")
+        say(f" [*] restoring GAN checkpoint: {resume}")
         restore_gan_checkpoint(resume, state)
 
     pool = None
     if (gan_cfg and gan_cfg.data_on_device) or args.train.data_on_device:
         pool = ClipPool(train_set, crop_frames, device)
-        print(f" [pool] {len(train_set.clips)} clips, "
-              f"{pool.audio_bytes / 1e6:.0f} MB audio staged in device "
-              "memory")
+        say(f" [pool] {len(train_set.clips)} clips, "
+            f"{pool.audio_bytes / 1e6:.0f} MB audio staged in device memory")
 
-    def to_device(batch_np) -> Dict[str, torch.Tensor]:
-        batch = {k: torch.as_tensor(v, device=device)
+    # this rank's rows of every global batch (the data axis divides it)
+    rows = slice(None) if mesh is None else batch_rows(mesh, batch_size)
+
+    def to_device(batch_np, rows=slice(None)) -> Dict[str, torch.Tensor]:
+        batch = {k: torch.as_tensor(v[rows], device=device)
                  for k, v in batch_np.items()}
         batch["mel"] = mel_of(h, batch["audio"]).transpose(1, 2)
         return batch
@@ -280,18 +304,18 @@ def train_gan(args, max_steps: Optional[int] = None, device=None,
     start = state.step
     for _ in range(start, max_steps):
         with torch.no_grad():
-            batch = (pool.gather(pool.starts(rng, batch_size)) if pool
-                     else to_device(train_set.sample_batch(
-                         rng, batch_size, crop_frames)))
+            batch = (pool.gather(pool.starts(rng, batch_size)[rows])
+                     if pool else to_device(train_set.sample_batch(
+                         rng, batch_size, crop_frames), rows))
         logs = trainer.step_d(state, batch, hook("d"))
         logs.update(trainer.step_g(state, batch, hook("g")))
         n = state.step
         if n % interval_log == 0:
             sps = (n - start) / max(time.time() - t0, 1e-9)
             msg = " | ".join(f"{k}: {float(v):.4f}" for k, v in logs.items())
-            print(f"gan step {n}/{max_steps} | {msg} | {sps:.2f} it/s",
-                  flush=True)
-        if n % interval_val == 0 or n >= max_steps:
+            say(f"gan step {n}/{max_steps} | {msg} | {sps:.2f} it/s",
+                flush=True)
+        if writer and (n % interval_val == 0 or n >= max_steps):
             v = validate(state.generator, h, val)
             print(f" --- <gan validation> --- mel-L1: {v:.4f}", flush=True)
             save_gan_checkpoint(os.path.join(expdir, f"gan_{n}.pt"), state)

@@ -34,17 +34,31 @@ in Python, which a replay never runs: each graph's launches are recorded
 at its capture (`kernels.captured_launches`) and added on every replay
 (`kernels.add_launches`). A capture that fails raises; nothing falls back
 to eager steps.
+
+On a mesh (`mesh=`, train/step.py's data- and tensor-parallel step) C is
+cut in two: C1, the backward into the flat gradient buffer
+(`parallel.sharding.GradBuffer`, captured as every parameter's .grad),
+then, eagerly between the replays, the one all-reduce of the gradients
+and the loss over 'data', then C2, the AdamW update. The data-parallel
+all-reduce stays outside the graphs, so it runs over NCCL and Gloo alike
+(two Gloo ranks may share one card). The noise is drawn for the whole
+batch into one buffer whose rows for this rank are the forward's input.
+With more than one rank on the 'model' axis the tensor-parallel
+collectives sit inside the captured forward and backward, which only NCCL
+can capture: over Gloo the constructor raises.
 """
 from __future__ import annotations
 
 from typing import Dict, List
 
 import torch
+import torch.distributed as dist
 
 from ..models.losses import sss_loss
 from ..ops import kernels
+from ..parallel.sharding import batch_rows
 from .step import (TrainState, draw_loss_idx, draw_noise, forward_signal,
-                   noise_generator)
+                   grad_buffer, noise_generator)
 
 
 def bucket_loss_grad(signal: torch.Tensor, audio: torch.Tensor, n_fft: int,
@@ -99,15 +113,29 @@ class GraphedTrainSteps:
     captured at construction from the first staged item's shapes."""
 
     def __init__(self, state: TrainState, rss, staged: Dict[str, torch.Tensor],
-                 pool=None, remat: bool = False):
+                 pool=None, remat: bool = False, mesh=None):
         model, opt = state.model, state.optimizer
         if not all(g["capturable"] for g in opt.param_groups):
             raise ValueError("the graphed step needs a capturable optimizer "
                              "(train/step.py::create_optimizer on the card)")
-        self.state, self.rss, self.pool = state, rss, pool
+        if (mesh is not None and mesh.size("model") > 1
+                and dist.get_backend(mesh.group("model")) != "nccl"):
+            raise ValueError(
+                "a tensor-parallel step (n_model > 1) under a CUDA graph "
+                "needs NCCL: its collectives sit inside the captured "
+                "forward and backward, and Gloo's run on the host, which a "
+                "graph cannot capture")
+        self.state, self.rss, self.pool, self.mesh = state, rss, pool, mesh
         self.inputs = {k: v[0].clone() for k, v in staged.items()}
         self.scale = torch.full((), 1.0 / rss.n_scale,
                                 device=self.inputs["spk_id"].device)
+        f0 = self._f0()
+        rows = f0.shape[0] * (1 if mesh is None else mesh.size("data"))
+        self.noise_all = torch.empty((rows, f0.shape[1] * model.block_size),
+                                     device=f0.device)
+        self.noise = (self.noise_all if mesh is None
+                      else self.noise_all[batch_rows(mesh, rows)])
+        self.grads = None if mesh is None else grad_buffer(state)
         model.train()
 
         def forward():
@@ -120,8 +148,12 @@ class GraphedTrainSteps:
                                     rss.eps, self.scale)
 
         def backward():
-            self.signal.backward(self.grad_signal)
-            opt.step()
+            if self.grads is None:
+                self.signal.backward(self.grad_signal)
+                opt.step()
+            else:  # C1: into the flat buffer, AdamW apart (C2)
+                self.grads.flat.zero_()
+                self.signal.backward(self.grad_signal)
 
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
@@ -139,8 +171,14 @@ class GraphedTrainSteps:
             self.buckets.append(g)
         self.grad_signal = torch.zeros_like(self.signal)
         opt.zero_grad(set_to_none=True)
+        if self.grads is not None:
+            self.grads.attach()
         self.bwd = _Graph(pool=self.fwd.graph.pool())
         self.bwd.capture(backward)
+        self.adamw = (None if self.grads is None
+                      else _Graph(pool=self.fwd.graph.pool()))
+        if self.adamw is not None:
+            self.adamw.capture(opt.step)
 
     def _warm_up(self, forward, bucket, backward) -> None:
         """Every part once, eagerly; then the parameters and the optimizer
@@ -149,14 +187,19 @@ class GraphedTrainSteps:
         params = [p.detach().clone() for p in model.parameters()]
         saved = {p: {k: v.clone() for k, v in st.items()}
                  for p, st in opt.state.items()}
-        self.noise = draw_noise(model, self._f0(), noise_generator(
-            self.state, self.scale.device))
+        draw_noise(model, self._f0(), noise_generator(
+            self.state, self.scale.device), out=self.noise_all, mesh=self.mesh)
         self.batch, self.signal = forward()
         self.grad_signal = torch.zeros_like(self.signal)
         for n_fft in self.rss.buckets:
             self.grad_signal.add_(bucket(n_fft)[1])
         opt.zero_grad(set_to_none=True)
+        if self.grads is not None:
+            self.grads.attach()
         backward()
+        if self.grads is not None:
+            self.grads.reduce(self.mesh, self.grad_signal.sum())
+            opt.step()
         opt.zero_grad(set_to_none=True)
         with torch.no_grad():
             for p, v in zip(model.parameters(), params):
@@ -183,13 +226,16 @@ class GraphedTrainSteps:
                 self.inputs[name].copy_(v[k])
             draw_noise(state.model, self._f0(),
                        noise_generator(state, self.noise.device),
-                       out=self.noise)
+                       out=self.noise_all, mesh=self.mesh)
             idx = draw_loss_idx(state, self.rss)
             self.fwd.replay()
             for i in idx:
                 self.buckets[i].replay()
-            losses.append(combine_buckets(self.outs, idx, n,
-                                          self.grad_signal))
+            loss = combine_buckets(self.outs, idx, n, self.grad_signal)
             self.bwd.replay()
+            if self.adamw is not None:
+                loss = self.grads.reduce(self.mesh, loss)[0].clone()
+                self.adamw.replay()
+            losses.append(loss)
             state.step += 1
         return torch.stack(losses)

@@ -21,6 +21,16 @@ The train options, as JAX runs them:
   async_save            checkpoints written by a worker thread
                         (train/checkpoint.py::AsyncCheckpointer).
 Validation stays eager.
+
+On a mesh (`train(..., mesh=)`, `parallel/`), as the JAX loop runs under
+its batch_transform: every rank iterates the same seeded loader (or makes
+the same pool draws) and takes its rows of each global batch
+(`parallel.shard_batch`; the pool's index arrays likewise, the pool itself
+replicated on every rank); each step averages the gradients over 'data'
+(train/step.py); every rank runs validation (a tensor-parallel forward's
+collectives pair up across ranks) and takes the ranks' mean loss; rank 0
+alone writes logs and checkpoints, which hold the gathered single-device
+state (train/checkpoint.py).
 """
 from __future__ import annotations
 
@@ -31,8 +41,10 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.device_pool import DevicePool
+from ..parallel.sharding import shard_batch
 from .graphed import GraphedTrainSteps
 from .saver import Saver
 from .step import (BATCH_KEYS, TrainState, batch_to_device, eval_step, stage,
@@ -97,10 +109,17 @@ def test(args, model: torch.nn.Module, rss, dataset_valid,
 
 
 def train(args, initial_global_step: int, state: TrainState, rss,
-          loader_train, dataset_valid, max_steps: Optional[int] = None):
+          loader_train, dataset_valid, max_steps: Optional[int] = None,
+          mesh=None):
     """The epoch x batch loop; returns (state, saver) after max_steps steps
-    (or all epochs)."""
-    saver = Saver(args, initial_global_step=initial_global_step)
+    (or all epochs). mesh: a `parallel.Mesh` whose 'data' axis divides
+    train.batch_size; the state already cut to this rank
+    (`parallel.shard_train_state`)."""
+    if mesh is not None and int(args.train.batch_size) % mesh.size("data"):
+        raise ValueError(
+            f"batch_size {args.train.batch_size} must divide by the "
+            f"data-parallel axis ({mesh.size('data')})")
+    saver = Saver(args, initial_global_step=initial_global_step, mesh=mesh)
     device = next(state.model.parameters()).device
     k_dispatch = int(args.train.steps_per_dispatch or 1)
     remat = bool(args.train.remat)
@@ -119,11 +138,12 @@ def train(args, initial_global_step: int, state: TrainState, rss,
         nonlocal steps
         staged = stage(items, device)
         if not graphed:
-            return train_steps(state, staged, rss, pool=pool, remat=remat)
+            return train_steps(state, staged, rss, pool=pool, remat=remat,
+                               mesh=mesh)
         if steps is None:
             t0 = time.time()
             steps = GraphedTrainSteps(state, rss, staged, pool=pool,
-                                      remat=remat)
+                                      remat=remat, mesh=mesh)
             saver.log_info(f" [graph] the step captured in "
                            f"{time.time() - t0:.2f} s")
         return steps(staged)
@@ -148,8 +168,9 @@ def train(args, initial_global_step: int, state: TrainState, rss,
         epoch_iter = (pool_epoch(epoch) if pool is not None
                       else loader_train.epoch(epoch))
         for batch_idx, data in enumerate(epoch_iter):
-            micro.append(data if pool is not None
-                         else {k: data[k] for k in BATCH_KEYS})
+            data = data if pool is not None else {k: data[k]
+                                                  for k in BATCH_KEYS}
+            micro.append(data if mesh is None else shard_batch(data, mesh))
             if len(micro) < k_dispatch:
                 continue
             loss = dispatch(micro)[-1]
@@ -170,6 +191,11 @@ def train(args, initial_global_step: int, state: TrainState, rss,
 
             if saver.global_step % args.train.interval_val == 0:
                 test_loss = test(args, state.model, rss, dataset_valid, saver)
+                if mesh is not None:  # one decision on every rank
+                    agreed = torch.tensor([test_loss], dtype=torch.float64,
+                                          device=device)
+                    dist.all_reduce(agreed)
+                    test_loss = agreed.item() / dist.get_world_size()
                 saver.log_info(f" --- <validation> --- \nloss: {test_loss:.3f}. ")
                 saver.log_value({"validation/loss": test_loss})
                 saver.save_model(state.model, state.optimizer,

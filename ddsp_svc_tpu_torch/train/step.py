@@ -20,6 +20,16 @@ another forward. `train_steps` runs K steps over K staged microbatches
 the device first (`make_train_step_pool*`). On the card those K steps are
 replays of a captured CUDA graph (`train/graphed.py`); `train_steps` is the
 CPU's form.
+
+With a mesh (`parallel/`; `mesh=`), a step is data- and tensor-parallel:
+the batch is this rank's rows of the global batch (`parallel.shard_batch`),
+the noise is drawn for the whole batch from the step's seed and sliced to
+those rows (every rank makes the same draw), the loss buckets are drawn on
+the host from the same seed, and the gradients and the loss, views of one
+flat buffer (`parallel.sharding.GradBuffer`), are averaged over 'data' in
+one all-reduce before AdamW. The tensor-parallel collectives run inside
+the sharded layers; under remat their recompute calls them again, in the
+same order on every rank.
 """
 from __future__ import annotations
 
@@ -31,6 +41,8 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.sharding import GradBuffer, batch_rows
+
 BATCH_KEYS = ("audio", "f0", "volume", "units", "spk_id")
 
 
@@ -40,6 +52,7 @@ class TrainState:
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     seed: int = 0
+    grads: Optional[GradBuffer] = None  # made by the first mesh step
 
 
 def create_optimizer(model: torch.nn.Module, lr: float,
@@ -73,16 +86,21 @@ def draw_loss_idx(state: TrainState, rss) -> list:
 
 def draw_noise(model: torch.nn.Module, f0: torch.Tensor,
                generator: torch.Generator,
-               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+               out: Optional[torch.Tensor] = None, mesh=None) -> torch.Tensor:
     """The forward's uniform(-1, 1) noise excitation, (B, F * block) fp32:
     the one draw the synthesizers make from their generator
     (`models/synths.py::_uniform_noise`), made before the forward. out: a
-    buffer to draw into (the graphed step's static input)."""
+    buffer to draw into (the graphed step's static input). mesh: f0 holds
+    this rank's rows; the whole batch's noise is drawn and its rows
+    returned (out, if given, is the whole batch's buffer)."""
     b, f = f0.shape[:2]
+    if mesh is not None:
+        b *= mesh.size("data")
     shape = (b, f * model.block_size)
     if out is None:
-        return torch.rand(shape, generator=generator, dtype=torch.float32,
-                          device=f0.device) * 2 - 1
+        noise = torch.rand(shape, generator=generator, dtype=torch.float32,
+                           device=f0.device) * 2 - 1
+        return noise if mesh is None else noise[batch_rows(mesh, b)]
     torch.rand(shape, generator=generator, out=out)
     return out.mul_(2).sub_(1)
 
@@ -129,31 +147,49 @@ def forward_signal(model: torch.nn.Module, batch: Dict[str, torch.Tensor],
     return _signal(model, *args)
 
 
+def grad_buffer(state: TrainState) -> GradBuffer:
+    """The state's flat gradient buffer (made at the first call)."""
+    if state.grads is None:
+        state.grads = GradBuffer(state.model.parameters())
+    return state.grads
+
+
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor], rss,
                noise: Optional[torch.Tensor] = None,
                loss_idx: Optional[Sequence[int]] = None,
-               remat: bool = False) -> torch.Tensor:
+               remat: bool = False, mesh=None) -> torch.Tensor:
     """One optimizer step on a device batch; returns the loss (a 0-d tensor
     on the device, not synchronised). `noise` and `loss_idx` pin the step's
-    randomness (tests); otherwise both are drawn from the step's seeds."""
+    randomness (tests); otherwise both are drawn from the step's seeds.
+    mesh: batch is this rank's rows, `noise` (if given) the whole batch's;
+    the returned loss is the whole batch's."""
     model = state.model
     if noise is None:
         noise = draw_noise(model, batch["f0"],
-                           noise_generator(state, batch["f0"].device))
+                           noise_generator(state, batch["f0"].device),
+                           mesh=mesh)
+    elif mesh is not None:
+        noise = noise[batch_rows(mesh, noise.shape[0])]
     if loss_idx is None:
         loss_idx = draw_loss_idx(state, rss)
     model.train()
     signal = forward_signal(model, batch, noise, remat)
     loss = rss(signal, batch["audio"], idx=loss_idx)
-    state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
+    if mesh is None:
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+    else:
+        grads = grad_buffer(state)
+        grads.attach()
+        loss.backward()
+        loss = grads.reduce(mesh, loss)[0].clone()
     state.optimizer.step()
     state.step += 1
     return loss.detach()
 
 
 def train_steps(state: TrainState, staged: Dict[str, torch.Tensor], rss,
-                pool=None, remat: bool = False) -> torch.Tensor:
+                pool=None, remat: bool = False, mesh=None) -> torch.Tensor:
     """K steps over K staged microbatches ((K, ...) tensors, `stage`), or
     with a DevicePool over K staged index dicts, each step gathering its
     crops on the device: the losses, (K,). Step k draws what the k-th of K
@@ -162,17 +198,19 @@ def train_steps(state: TrainState, staged: Dict[str, torch.Tensor], rss,
     for k in range(next(iter(staged.values())).shape[0]):
         item = {name: v[k] for name, v in staged.items()}
         batch = pool.gather(item) if pool is not None else item
-        losses.append(train_step(state, batch, rss, remat=remat))
+        losses.append(train_step(state, batch, rss, remat=remat,
+                                 mesh=mesh))
     return torch.stack(losses)
 
 
 def warm_up_buckets(state: TrainState, batch: Dict[str, torch.Tensor],
-                    rss) -> None:
+                    rss, mesh=None) -> None:
     """Steps whose pinned scales cover every loss bucket once, so that no
     cuFFT plan is made inside a later timed or traced step."""
     idx = list(range(len(rss.buckets)))
     for i in range(0, len(idx), rss.n_scale):
-        train_step(state, batch, rss, loss_idx=idx[i:i + rss.n_scale])
+        train_step(state, batch, rss, loss_idx=idx[i:i + rss.n_scale],
+                   mesh=mesh)
 
 
 @torch.no_grad()

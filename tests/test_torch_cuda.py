@@ -223,6 +223,100 @@ def test_time_parallel_gloo_on_card_matches_world_size_1(cuda, tmp_path):
         assert counts["performer_attention"] == 0
 
 
+def _mesh_train_jobs():
+    """A CombSubFast at configs/combsub.yaml's width (44.1 kHz, block 512,
+    256 units), a batch of 4 x 48 frames and its noise, and a K = 2
+    staging of two batches, for the mesh-training cases of
+    tests/torch_parallel_worker.py."""
+    from ddsp_svc_tpu_torch.models.factory import build_model
+    from ddsp_svc_tpu_torch.train.step import stage
+    from ddsp_svc_tpu_torch.utils.config import DotDict
+
+    args = {"data": {"sampling_rate": 44100, "block_size": 512,
+                     "encoder_out_channels": 256},
+            "model": {"type": "CombSubFast", "n_spk": 2}}
+    model = build_model(DotDict(args), device="cpu", seed=5)
+
+    def batch(seed):
+        rng = np.random.default_rng(seed)
+        return {"audio": torch.tensor(0.3 * rng.standard_normal((4, 48 * 512)),
+                                      dtype=torch.float32),
+                "f0": torch.tensor(110 + 330 * rng.random((4, 48, 1)),
+                                   dtype=torch.float32),
+                "volume": torch.tensor(rng.random((4, 48)),
+                                       dtype=torch.float32),
+                "units": torch.tensor(rng.standard_normal((4, 48, 256)),
+                                      dtype=torch.float32),
+                "spk_id": torch.tensor([[1], [2], [1], [2]])}
+
+    noise = torch.tensor(np.random.default_rng(9).random((4, 48 * 512)) * 2
+                         - 1, dtype=torch.float32)
+    step = dict(args=args, state=model.state_dict(), batches=[batch(0)],
+                noises=[noise], loss_idx=(3, 9))
+    staged = stage([{k: v.numpy() for k, v in batch(s).items()}
+                    for s in (1, 2)], "cpu")
+    return args, model, step, staged
+
+
+def test_mesh_train_gloo_on_card_matches_single_process(cuda, tmp_path):
+    """Training on a mesh with 2 Gloo ranks sharing this card: a DP (2 x 1)
+    and a TP (1 x 2) step against the single-process step on the card from
+    the same weights, batch, noise and loss scales (loss within 2e-4
+    relative; parameters at the 99th percentile of |diff| < 1e-4 and at
+    most 4e-3, tests/test_parallel.py's bounds; the DP ranks' parameters
+    the same bit for bit); a graphed K = 2 dispatch
+    under DP against 2 eager DP steps, bit for bit with cuDNN
+    deterministic; a graphed dispatch under TP over Gloo raises (its
+    collectives would sit inside the captured graphs)."""
+    from torch_parallel_worker import _RSS, start_ranks
+
+    from ddsp_svc_tpu_torch.ops import build
+    from ddsp_svc_tpu_torch.train.step import (TrainState, create_optimizer,
+                                               train_step)
+
+    build.build()  # here, not in each rank at once
+    args, model, step, staged = _mesh_train_jobs()
+    jobs = [("dp", "mesh_steps", step, (2, 1)),
+            ("tp", "mesh_steps", step, (1, 2)),
+            ("graphed", "graphed_steps", dict(
+                args=args, state=model.state_dict(), staged=staged, seed=4),
+             (2, 1)),
+            ("tp graphed", "graphed_steps", dict(
+                args=args, state=model.state_dict(), staged=staged), (1, 2))]
+    ranks = start_ranks(jobs, 2, str(tmp_path / "w2"), "cuda", "gloo",
+                        timeout=600).wait()
+    single = model.to(cuda)
+    st = TrainState(0, single, create_optimizer(single, 1e-3))
+    loss = float(train_step(st, {k: v.to(cuda) for k, v in
+                                 step["batches"][0].items()}, _RSS,
+                            noise=step["noises"][0].to(cuda),
+                            loss_idx=step["loss_idx"]))
+    ref = {k: v.cpu() for k, v in single.state_dict().items()}
+    for name in ("dp", "tp"):
+        res = ranks[0][name]
+        assert abs(res["losses"][0] - loss) <= 2e-4 * abs(loss), name
+        for k, v in ref.items():
+            diff = (res["full"]["model"][k] - v).abs().flatten().double()
+            assert torch.quantile(diff, 0.99) < 1e-4, (name, k)
+            assert diff.max() < 4e-3, (name, k)
+    for k, v in ranks[0]["dp"]["local"].items():  # the DP replicas agree
+        assert torch.equal(ranks[1]["dp"]["local"][k], v), k
+    for rank in ranks:
+        res = rank["graphed"]
+        assert res["bitwise"], (res["eager"], res["graphed"])
+        assert "NCCL" in rank["tp graphed"]["error"]
+        assert rank["_launches"]["dft_magnitude"] > 0
+
+
+def test_nccl_takes_one_rank_a_card(cuda):
+    """NCCL with more local ranks than cards (a 1 x 2 mesh on this one
+    card) raises before joining; Gloo is the way to share a card."""
+    from ddsp_svc_tpu_torch.parallel import init_distributed
+    with pytest.raises(ValueError, match="one rank a card"):
+        init_distributed("127.0.0.1:1", torch.cuda.device_count() + 1, 1,
+                         backend="nccl", device="cuda")
+
+
 @pytest.mark.parametrize("n_fft,rows", [(64, 3), (1024, 9), (4096, 5)])
 def test_combsub_spectral_kernel(cuda, n_fft, rows):
     """2e-5 of max |ref|, the JAX package's kernel tolerance."""

@@ -171,13 +171,14 @@ def test_clip_pool_hook_and_log_lines(trained):
 
 def test_entry_device_policy(workspace, tmp_path):
     """CUDA unless asked: without a card and without --device the entry
-    raises; train.gan.data_parallel is not ported and raises."""
+    raises; train.gan.data_parallel runs one process a rank and raises
+    when no process group is joined."""
     args = DotDict(_config(workspace, tmp_path / "g"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train_gan(args, max_steps=1)
     args["train"]["gan"]["data_parallel"] = True
-    with pytest.raises(NotImplementedError, match="data_parallel"):
+    with pytest.raises(RuntimeError, match="data_parallel"):
         train_gan(args, max_steps=1, device="cpu")
 
 

@@ -8,7 +8,8 @@ CLI, the preprocess entry, the streaming entry, the GAN entry, `SvcCore`,
 `IncrementalSession.from_checkpoint`, `UnitsEncoder`, the torch f0
 extractors, the export entry, the server's `ExportedSynth` and entry, the
 API's entry, the web panel's, `init_distributed`, `make_mesh` and
-`SvcCore(mesh=)` among them, never fall back to the CPU."""
+`SvcCore(mesh=)` among them, and the trainer's and the GAN entry's mesh
+flags, never fall back to the CPU."""
 import ast
 import os
 import pathlib
@@ -137,6 +138,13 @@ for make in (lambda: build_model(args), lambda: build_model(others[0]),
              lambda: init_distributed(), lambda: make_mesh(),
              lambda: IncrementalSession.from_checkpoint(ckpt),
              lambda: gan_main(["-c", gan_cfg]),
+             lambda: gan_main(["-c", gan_cfg, "--num-processes", "2",
+                               "--coordinator", "127.0.0.1:1",
+                               "--process-id", "1", "--backend", "gloo"]),
+             lambda: train_main(["-c", cfg, "--num-processes", "2",
+                                 "--coordinator", "127.0.0.1:1",
+                                 "--process-id", "1", "--n-model", "2",
+                                 "--backend", "gloo"]),
              lambda: UnitsEncoder("hubertsoft", None),
              lambda: F0Extractor("crepe"), lambda: F0Extractor("parselmouth"),
              lambda: export_main(["-m", ckpt, "-o", "m.pt2"]),

@@ -405,7 +405,8 @@ def test_mesh_arguments_raise():
     """NCCL is for CUDA only; make_mesh needs a process group; a bucketed
     synth's mesh axis is a power of two and draws its noise only from a
     generator (or takes it injected), so that ranks agree; a causal layer
-    on a shard is not ported."""
+    on a shard starts from the carry its shard gives (zeros on the first
+    rank, where it is the unsharded attention)."""
     with pytest.raises(ValueError, match="CUDA"):
         init_distributed(backend="nccl", device="cpu")
     with pytest.raises(ValueError, match="coordinator"):
@@ -424,6 +425,13 @@ def test_mesh_arguments_raise():
     seg.pop("noise")
     with pytest.raises(ValueError, match="generator"):
         make_bucketed_synth(model, mesh=mesh(2))(**seg)
+
+    class FirstRank(TimeShard):  # nothing before it on its axis
+        def carry(self, *tensors):
+            return tuple(torch.zeros_like(t) for t in tensors)
+
     attn = SelfAttention(256, causal=True)
-    with pytest.raises(NotImplementedError, match="causal"):
-        attn(torch.zeros((1, 8, 256)), shard=TimeShard(None, 0, 8, 0, 4))
+    x = torch.randn((1, 8, 256), generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        assert torch.equal(attn(x, shard=FirstRank(None, 0, 8, 0, 8)),
+                           attn(x))

@@ -1,18 +1,20 @@
-"""One rank of the port's time-parallel tests.
+"""One rank of the port's multi-rank tests: time-parallel conversion and
+mesh training.
 
-Run by tests/test_torch_parallel.py (the CPU over Gloo) and
-tests/test_torch_cuda.py (the card, over Gloo or NCCL) as a fresh process
-per rank:
+Run by tests/test_torch_parallel.py and tests/test_torch_mesh_train.py
+(the CPU over Gloo) and tests/test_torch_cuda.py (the card, over Gloo or
+NCCL) as a fresh process per rank:
 
     python tests/torch_parallel_worker.py JOB WORLD RANK PORT OUT DEVICE BACKEND
 
-JOB is a torch.save'd list of (name, case, kwargs). Each rank joins a
-BACKEND group of WORLD ranks at 127.0.0.1:PORT, builds a data-axis mesh on
-DEVICE, runs every case in order (the same on every rank, so their
-collectives pair up) with its tensors moved to DEVICE, and saves {name:
-result} (on the CPU) and its kernel launch counts under '_launches' to OUT
-with its rank appended. Imports torch and the port only, so that a rank
-starts fast.
+JOB is a torch.save'd list of (name, case, kwargs) or (name, case, kwargs,
+(n_data, n_model)). Each rank joins a BACKEND group of WORLD ranks at
+127.0.0.1:PORT, runs every case in order (the same on every rank, so their
+collectives pair up) on the case's mesh on DEVICE (all ranks on the data
+axis when no shape is given; each shape's mesh made once) with its tensors
+moved to DEVICE, and saves {name: result} (on the CPU) and its kernel
+launch counts under '_launches' to OUT with its rank appended. Imports
+torch and the port only, so that a rank starts fast.
 """
 import os
 import socket
@@ -25,8 +27,19 @@ from ddsp_svc_tpu_torch.infer.enhancer import Enhancer, NsfHifiGAN
 from ddsp_svc_tpu_torch.infer.streaming import SvcCore
 from ddsp_svc_tpu_torch.models.factory import build_model, make_bucketed_synth
 from ddsp_svc_tpu_torch.ops import kernels as K
-from ddsp_svc_tpu_torch.parallel import (init_distributed, make_mesh,
-                                         make_time_parallel_forward)
+from ddsp_svc_tpu_torch.data.device_pool import gather_batch
+from ddsp_svc_tpu_torch.models.losses import RSSLoss
+from ddsp_svc_tpu_torch.nn.nsf_hifigan import generator_from_h
+from ddsp_svc_tpu_torch.parallel import (full_state_dicts, init_distributed,
+                                         make_mesh,
+                                         make_time_parallel_forward,
+                                         shard_batch, shard_train_state)
+from ddsp_svc_tpu_torch.train.checkpoint import (host_payload,
+                                                 restore_checkpoint,
+                                                 write_payload)
+from ddsp_svc_tpu_torch.train.gan import GanTrainer
+from ddsp_svc_tpu_torch.train.step import (TrainState, create_optimizer,
+                                           stage, train_step, train_steps)
 from ddsp_svc_tpu_torch.utils.config import DotDict
 
 
@@ -81,8 +94,123 @@ def svc_window(mesh, model_path, audio, sample_rate, infer_kw):
     return out
 
 
+def _train_state(mesh, args, state, lr, resume=None):
+    """A TrainState of the model from `state` (or a checkpoint `resume`),
+    cut to this rank's slices of the mesh."""
+    model = _synth(mesh, args, state)
+    st = TrainState(0, model, create_optimizer(model, lr))
+    if resume is not None:
+        st.step = restore_checkpoint(resume, model, st.optimizer)
+    shard_train_state(st, mesh)
+    return st
+
+
+def _full(st):
+    """The gathered single-device state (collective), on rank 0 only."""
+    sd, opt = full_state_dicts(st.model, st.optimizer)
+    if torch.distributed.get_rank():
+        return None
+    return {"model": sd, "opt": opt}
+
+
+def mesh_steps(mesh, args, state, batches, noises, loss_idx, lr=1e-3,
+               remat=False, save=None, resume=None):
+    """train_step(mesh=) on each global batch (its rows cut here) with its
+    whole-batch noise and the pinned loss buckets; save=(after step n,
+    path) writes the gathered checkpoint from rank 0 there; resume: a
+    checkpoint to start from (restored whole, then cut). Returns the
+    losses, the gathered state (rank 0) and this rank's slices."""
+    st = _train_state(mesh, args, state, lr, resume)
+    losses = []
+    for i, (batch, noise) in enumerate(zip(batches, noises)):
+        losses.append(float(train_step(st, shard_batch(batch, mesh), _RSS,
+                                       noise=noise, loss_idx=loss_idx,
+                                       remat=remat, mesh=mesh)))
+        if save is not None and save[0] == i + 1:
+            payload = host_payload(st.step, st.model, st.optimizer)
+            if torch.distributed.get_rank() == 0:
+                write_payload(save[1], payload)
+    return {"losses": losses, "full": _full(st),
+            "local": dict(st.model.state_dict()), "step": st.step}
+
+
+class _Pool:
+    """The device pool's gather over given arrays (data/device_pool.py)."""
+
+    def __init__(self, arrays, crop_frames, block):
+        self.arrays = arrays
+        self.frames = torch.arange(crop_frames, device=arrays["f0"].device)
+        self.samples = torch.arange(crop_frames * block,
+                                    device=arrays["f0"].device)
+
+    def gather(self, idx):
+        return gather_batch(self.arrays, idx, self.frames, self.samples)
+
+
+def pool_steps(mesh, args, state, arrays, staged, crop_frames, lr=1e-3,
+               seed=0):
+    """One K-step dispatch (train_steps, the CPU's form) over the pool's
+    staged (K, B) index arrays, this rank's rows cut on axis 1, the noise
+    and loss buckets drawn from the step seeds."""
+    st = _train_state(mesh, args, state, lr)
+    st.seed = seed
+    pool = _Pool(arrays, crop_frames, int(args["data"]["block_size"]))
+    losses = train_steps(st, shard_batch(staged, mesh, batch_axis=1), _RSS,
+                         pool=pool, mesh=mesh)
+    return {"losses": losses, "full": _full(st)}
+
+
+def graphed_steps(mesh, args, state, staged, lr=1e-3, seed=0):
+    """(The card.) K eager steps of train_steps(mesh=) against one graphed
+    dispatch (GraphedTrainSteps(mesh=)) from the same weights, batches and
+    seeds, cuDNN deterministic: both runs' losses and gathered parameters,
+    and whether they agree bit for bit; or the error the capture raised."""
+    from ddsp_svc_tpu_torch.train.graphed import GraphedTrainSteps
+
+    torch.backends.cudnn.deterministic = True
+    local = shard_batch(staged, mesh, batch_axis=1)
+    eager = _train_state(mesh, args, state, lr)
+    graphed = _train_state(mesh, args, state, lr)
+    eager.seed = graphed.seed = seed
+    try:
+        steps = GraphedTrainSteps(graphed, _RSS, local, mesh=mesh)
+    except ValueError as e:
+        return {"error": str(e)}
+    le = train_steps(eager, local, _RSS, mesh=mesh)
+    lg = steps(local)
+    bitwise = torch.equal(le, lg) and all(
+        torch.equal(p, q) for p, q in zip(eager.model.parameters(),
+                                          graphed.model.parameters()))
+    return {"eager": le, "graphed": lg, "bitwise": bitwise,
+            "params": [p.detach().cpu() for p in eager.model.parameters()],
+            "graphed_params": [p.detach().cpu()
+                               for p in graphed.model.parameters()]}
+
+
+def gan_steps(mesh, h, g_state, mpd_state, msd_state, batch, ri_d, ri_g,
+              lr=2e-4):
+    """One data-parallel D and one G step (GanTrainer(mesh=)) from the
+    given weights on this rank's rows, rand_ini the whole batch's."""
+    gen = generator_from_h(h).to(mesh.device)
+    gen.load_state_dict(g_state)
+    trainer = GanTrainer(h, lr=lr, mesh=mesh)
+    st = trainer.create_state(gen, seed=0)
+    st.mpd.load_state_dict(mpd_state)
+    st.msd.load_state_dict(msd_state)
+    rows = shard_batch(batch, mesh)
+    logs = trainer.step_d(st, rows, rand_ini=ri_d)
+    logs.update(trainer.step_g(st, rows, rand_ini=ri_g))
+    return {"logs": {k: float(v) for k, v in logs.items()},
+            "generator": dict(st.generator.state_dict())}
+
+
+# the mesh-training cases' loss: tests/test_parallel.py's RSS range, two
+# scales (pinned by the cases that pass loss_idx)
+_RSS = RSSLoss(128, 512, n_scale=2)
+
 CASES = {f.__name__: f for f in (synth_forward, bucketed, enhancer_forward,
-                                 enhance, svc_window)}
+                                 enhance, svc_window, mesh_steps, pool_steps,
+                                 graphed_steps, gan_steps)}
 
 
 class Ranks:
@@ -144,6 +272,8 @@ def _to(x, device):
         return x.to(device)
     if isinstance(x, dict):
         return {k: _to(v, device) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_to(v, device) for v in x)
     return x
 
 
@@ -155,11 +285,15 @@ def main(job: str, world: int, rank: int, port: int, out: str, device: str,
         torch.backends.cudnn.allow_tf32 = False
     init_distributed(f"127.0.0.1:{port}", world, rank, backend=backend,
                      device=device)
-    mesh = make_mesh(device=device)
+    meshes = {}
     K.reset_launch_counts()
     results = {}
-    for name, case, kwargs in torch.load(job, weights_only=False):
-        kwargs = {k: v if k == "state" else _to(v, mesh.device)
+    for name, case, kwargs, *shape in torch.load(job, weights_only=False):
+        shape = tuple(shape[0]) if shape else (world, 1)
+        if shape not in meshes:  # collective: every rank, in job order
+            meshes[shape] = make_mesh(*shape, device=device)
+        mesh = meshes[shape]
+        kwargs = {k: v if k.endswith("state") else _to(v, mesh.device)
                   for k, v in kwargs.items()}
         results[name] = _to(CASES[case](mesh, **kwargs), "cpu")
         print(f"rank {rank}: {name} done", flush=True)
