@@ -21,7 +21,13 @@ Phases, each printing its own lines:
      spills and shared memory; #4, #5, #10 and #11, all
      on the tensor-core conv core, with their registers, spills and shared
      memory; #10's three chains beside #5 and the cuDNN chain, #11 beside
-     the cuDNN ConvTranspose followed by #4);
+     the cuDNN ConvTranspose followed by #4); the bf16-input forms of #4
+     (the three narrow stages, har fp32, and C = 64 with bf16 har), #5 (C
+     = 64) and #6 (the 16 RSS sizes and the staged mel's 430 x 2048), each
+     against its plain version on the same bf16 inputs (the trio within
+     one bf16 ulp), its library call beside it (the bf16 cuDNN chain; cuFFT
+     on the upcast frames); the keyshift/speed mel and HubertDiscrete on
+     the card against their CPU runs;
   4. the CLI path: `python -m ddsp_svc_tpu_torch.infer`'s main on a 13 s
      44.1 kHz wav of three sung phrases (wav in, checkpoint in, wav out) at
      configs/combsub.yaml's full width: a `model_0.pt` from a seed, a
@@ -59,7 +65,9 @@ Phases, each printing its own lines:
      6 and 2 steps on the device clip pool (checkpoints, exports,
      config.json, #3/#4 at 1/3 a generator forward); the exported
      model_best.pt converting the CLI phase's wav through the CLI (#3/#4 at
-     1/3 a segment);
+     1/3 a segment); the G step's three worst gradient leaves against the
+     plain versions and a float64 step, with #3 and #4 each alone on its
+     plain version;
   4e. streaming, with the CLI phase's checkpoints: a 10.8 s sung 44.1 kHz
      wav through `python -m ddsp_svc_tpu_torch.stream`'s session at
      gui.py's defaults (SOLA: 0.9 s windows of 78 frames in the 128-frame
@@ -67,8 +75,13 @@ Phases, each printing its own lines:
      pipeline_depth 0, at depth 1 (bit for bit depth 0's blocks, one
      late) and on the plain versions (each window within 1e-3 x max|ref|,
      the spliced blocks where the SOLA shifts agree); #1/#2/#3/#4 at
-     3/1/1/3 a window; the block walls (p50/p95/max against 300 ms) and a
-     warm window's stages; then a causal + frame_norm model_0.pt from a seed
+     3/1/1/3 a window; the block walls (p50/p95/max against 300 ms); the
+     stream at adaptive key 0 through the eager core and through
+     SvcCore(fused_window=True) (one CUDA graph per window shape), cuDNN
+     deterministic: each fused window within 1e-6 x max|ref| of the eager
+     one, #1-#4 counted 3/1/1/3 at each replay, both cores' block walls,
+     one window's launch calls and idle share, the capture's time; a warm
+     window's stages; then a causal + frame_norm model_0.pt from a seed
      through IncrementalSession (26 frames a block, dio): its replay
      through the engine (atol 2e-5), the engine against the batch forward
      on 64 frames (1e-3 x max|ref|; #2 once, #1 never), the block walls
@@ -135,7 +148,13 @@ Phases, each printing its own lines:
      B=1 wall; Enhancer.enhance_batch at B = 16 on a 512-frame bucket of
      mixed lengths (default and fused_inject=False), each item against its
      own enhance call with the tail past it exactly 0; one enhance with
-     adaptive key 2 (44.1 <-> 49.5 kHz);
+     adaptive key 2 (44.1 <-> 49.5 kHz); H_NSF staged at 64 (the C = 64
+     stage on #4's bf16-input form; with fused_inject=False on #5's) and in
+     full bf16 (the three narrow stages), each mel on #6's bf16-input
+     form: launches a segment, rel RMS to the fp32 forward (2e-2) and to
+     the same form on the plain versions (2e-3, or twice the plain form's
+     spread on a one-ulp move of the audio), with #3 and #4 each alone on
+     its plain version, and the walls;
   7. training paths: the port's trainer (`python -m ddsp_svc_tpu_torch.train`
      main) on a synthetic dataset in the AudioDataset layout at each
      config's full width (batch 24, 2-s crops, RSS loss 256..2048 x 4
@@ -219,6 +238,22 @@ ENHANCER_FORMS = (("default", {}, ENHANCER_KERNELS),
                    ("harmonic_source", "fused_resblocks")),
                   ("fused_stage=True", {"fused_stage": True},
                    ("harmonic_source", "fused_stage")))
+# the bf16-input trio on the enhancer: (label, NsfHifiGAN keywords, the
+# launches of one segment's enhance); staged at 64 only the C = 64 stage is
+# bf16 (its trio #4's bf16-input form, or with fused_inject=False #5's),
+# the full-bf16 Generator's three narrow stages are; every mel takes #6's
+# bf16-input form
+ENHANCER_BF16 = (
+    ("staged bf16 (64)", {"bf16_min_channels": 64},
+     {"fused_resblocks_inject_bf16": 1, "fused_resblocks_inject": 2,
+      "dft_magnitude_bf16": 1, "harmonic_source": 1}),
+    ("full bf16", {"dtype": "bfloat16"},
+     {"fused_resblocks_inject_bf16": 3, "fused_resblocks_inject": 0,
+      "dft_magnitude_bf16": 1, "harmonic_source": 1}),
+    ("staged bf16 (64), fused_inject=False",
+     {"bf16_min_channels": 64, "generator_overrides": {"fused_inject": False}},
+     {"fused_resblocks_bf16": 1, "fused_resblocks": 2,
+      "dft_magnitude_bf16": 1, "harmonic_source": 1}))
 # enhance_batch: 16 items of these lengths in one 512-frame bucket
 BATCH_FRAMES = (512, 384, 300, 200, 511, 450, 128, 333, 256, 500, 64, 400,
                 280, 350, 199, 417)
@@ -979,6 +1014,224 @@ def kernel_phase(torch, K, gen):
     return rows
 
 
+# one bf16 ulp: a bf16-input form and its plain version upcast exactly and
+# compute in fp32, so only the output's rounding to bf16 may flip
+BF16_ULP = (2e-5, 2.0 ** -7)  # (atol, rtol)
+
+
+def bf16_forms_phase(torch, K, gen) -> dict:
+    """The bf16-input forms against their plain versions on the same bf16
+    inputs, at the main path's shapes: the trio with the injection (#4) at
+    a 512-frame segment's narrow stages (x bf16, har fp32 as the staged
+    Generator gives it; bf16 har at C = 64 as the full-bf16 one does), the
+    trio alone (#5) at C = 64, and #6 at the 16 RSS sizes and the staged
+    mel's 430 x 2048. The trio's bound counts bf16 bytes for x and out; its
+    library time is the bf16 cuDNN conv chain the Generator ran there
+    before; #6's is cuFFT on the upcast frames. Returns {name: row}."""
+    from ddsp_svc_tpu_torch.models.losses import default_buckets
+
+    dev, bf16 = "cuda", torch.bfloat16
+    rows = {}
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def build_info(info):
+        return (f"{info['registers']} registers, {info['spill_bytes']} bytes "
+                f"spilled, {info['smem_bytes']} bytes of shared memory")
+
+    def cudnn_bf16(x, har, ncw, ncb, ws, bs, s, dils, valid=None):
+        """The bf16 stage's trio as the Generator ran it on cuDNN: the
+        injection conv and the 18 convs in bf16 on weights cast per call."""
+        xc = x.transpose(1, 2)
+        if har is not None:
+            xc = xc + K.noise_conv_cf(har.transpose(1, 2).to(bf16),
+                                      ncw.to(bf16), ncb.to(bf16), s,
+                                      xc.shape[-1])
+        acc = sum(K.resblock1_cf(xc, w.to(bf16), b.to(bf16), w.shape[-1],
+                                 dils) for w, b in zip(ws, bs))
+        return (acc / len(ws)).transpose(1, 2)
+
+    t_final = 512 * H_NSF["hop_size"]
+
+    def trio_inputs(c, s, inject=True, har_dtype=torch.float32):
+        t_s = t_final // s
+        ws = [randn(3, 2, c, c, k, scale=(2.0 / (k * c)) ** 0.5)
+              for k in TRIO_K]
+        bs = [randn(3, 2, c, scale=0.01) for _ in range(3)]
+        ksrc = 2 * s if s > 1 else 1
+        har = (randn(1, t_final, 1, scale=0.1).to(har_dtype) if inject
+               else None)
+        return (randn(1, t_s, c).to(bf16), har, randn(c, 1, ksrc, scale=0.2),
+                randn(c, scale=0.05), ws, bs, s, (1, 3, 5), None)
+
+    def trio_bytes_flops(c, s, inject, har_bytes=4):
+        t_s = t_final // s
+        ksrc = 2 * s if s > 1 else 1
+        flops = 2 * c * c * 6 * (3 + 7 + 11) * t_s
+        n_b = 2 * 2 * c * t_s + 4 * (6 * c * c * 21 + 18 * c)
+        if inject:
+            flops += 2 * c * ksrc * t_s
+            n_b += har_bytes * t_final
+        return n_b, flops
+
+    atol, rtol = BF16_ULP
+    tol = (f"one bf16 ulp (atol {atol:g} + rtol 2^-7) against the plain "
+           "version on the same bf16 inputs")
+    for name, cases in (
+            ("fused_resblocks_inject_bf16",
+             [(c, s, True, torch.float32) for c, s in TRIO_STAGES]
+             + [(64, 4, True, bf16)]),
+            ("fused_resblocks_bf16", [(64, 4, False, torch.float32)])):
+        err = ms_sum = pms_sum = dms_sum = lms_sum = n_bytes = flops = 0.0
+        timed = [cs for cs in cases if cs[3] is torch.float32]
+        for c, s, inject, har_dtype in cases:
+            inputs = [trio_inputs(c, s, inject, har_dtype) for _ in range(2)]
+            kern = (K.fused_resblocks_inject_bf16 if inject else
+                    (lambda x, har, ncw, ncb, ws, bs, s, dils, valid:
+                     K.fused_resblocks_bf16(x, ws, bs, dils, valid)))
+            label = f"{name} C={c}" + (" har bf16" if har_dtype is bf16
+                                       else "")
+            e, ms, pms, dms = compare(
+                torch, label, kern, K.resblocks_inject_plain, inputs, atol,
+                0.0, tol_rtol=rtol, select=lambda y: y.float())
+            lms = time_ms(torch, cudnn_bf16, inputs)
+            info = K.trio_kernel_info(c, bf16=True,
+                                      har_bf16=har_dtype is bf16)
+            b_n, f_n = trio_bytes_flops(c, s, inject,
+                                        2 if har_dtype is bf16 else 4)
+            say(f"kernel {label} T={t_final // s} ({TRIO_ROUTE}; "
+                f"{build_info(info)}): max|err| {e:.3e} ({tol}), {ms:.3f} "
+                f"ms, device_ms {dms:.3f}, plain (fp32 cuDNN chain on the "
+                f"upcast) {pms:.3f} ms, library (bf16 cuDNN chain) {lms:.3f} "
+                f"ms, bound {bound_3xtf32(b_n, f_n)[0]:.4f} ms in 3xTF32")
+            err = max(err, e)
+            if (c, s, inject, har_dtype) in timed:
+                ms_sum += ms
+                pms_sum += pms
+                dms_sum += dms
+                lms_sum += lms
+                n_bytes += b_n
+                flops += f_n
+        rows[name] = dict(
+            route="cuda", source="ddsp_svc_tpu_torch/csrc/resblocks.cu",
+            replaces=f"{TPU_KERNELS}:" + ("1373" if "inject" in name
+                                         else "1315"),
+            max_abs_err=err, ms=ms_sum, plain_ms=pms_sum, device_ms=dms_sum,
+            bound=bound_3xtf32(n_bytes, flops), library_ms=lms_sum,
+            tol=tol + ("; times are the sum of the three narrow stages (C = "
+                       "64, 32, 16), har fp32" if "inject" in name else
+                       "; the C = 64 stage without the injection")
+            + "; library: the bf16 cuDNN conv chain")
+
+    # 6. the bf16-input form at the 16 RSS sizes (a training batch's rows)
+    # and at the staged mel's 430 x 2048
+    err = ms_sum = pms_sum = dms_sum = lms_sum = flops = n_bytes = 0.0
+
+    def library_mag(x, n):
+        return torch.abs(torch.fft.rfft(x.float(), n))
+
+    n, hop = H_NSF["n_fft"], H_NSF["hop_size"]
+    pad = (n - hop) // 2 + max((n - hop + 1) // 2, hop)
+    mel_rows = (int(5.0 * H_NSF["sampling_rate"]) + pad - n) // hop + 1
+    sizes = [(m, 24 * ((TRAIN_CROP_SAMPLES - m) // m + 1))
+             for m in default_buckets(256, 2048)] + [(n, mel_rows)]
+    for i, (m, rows_m) in enumerate(sizes):
+        win = torch.hann_window(m, periodic=True, device=dev)
+        inputs = [((randn(rows_m, m, scale=0.1) * win).to(bf16), m)
+                  for _ in range(2)]
+        e, ms, pms, dms = compare(torch, f"dft_magnitude_bf16 n={m}",
+                                  K.dft_magnitude_bf16, K.dft_magnitude_plain,
+                                  inputs, 2e-3, 0.0)
+        lms = time_ms(torch, library_mag, inputs)
+        bins = m // 2 + 1
+        f_m = rows_m * (2.5 * m * math.log2(m) + 4 * bins)
+        b_m = rows_m * (2 * m + 4 * bins)
+        mel = i == len(sizes) - 1
+        say(f"kernel dft_magnitude_bf16 n={m} rows={rows_m}"
+            + (" (the staged mel)" if mel else "")
+            + f": max|err| {e:.3e} (atol 2e-3), {ms:.4f} ms, device_ms "
+            f"{dms:.4f}, plain {pms:.4f} ms, library (cuFFT on the upcast) "
+            f"{lms:.4f} ms, bound {bound(b_m, f_m)[0]:.4f} ms")
+        err = max(err, e)
+        if not mel:
+            ms_sum, pms_sum, dms_sum, lms_sum = (ms_sum + ms, pms_sum + pms,
+                                                 dms_sum + dms, lms_sum + lms)
+            flops += f_m
+            n_bytes += b_m
+    rows["dft_magnitude_bf16"] = dict(
+        route="cuda", source="ddsp_svc_tpu_torch/csrc/dft_magnitude.cu",
+        replaces=f"{TPU_KERNELS}:241", max_abs_err=err, ms=ms_sum,
+        plain_ms=pms_sum, device_ms=dms_sum, bound=bound(n_bytes, flops),
+        library_ms=lms_sum,
+        tol="atol 2e-3 (the JAX package's kernel test) against the plain "
+            "version on the same bf16 frames, also at the staged mel's shape;"
+            " times are the sum of one call at each of the 16 bucket sizes; "
+            "library: cuFFT on the upcast frames")
+    return rows
+
+
+def keyshift_units_phase(torch, card: str) -> None:
+    """The keyshift/speed mel at H_NSF's geometry and HubertDiscrete
+    (HuBERT's layer 7 from a seed, 100 centres drawn near its features) on
+    the card, each against its own run on the CPU: the mel of 1 s of noise
+    (0.2 RMS, as tests/test_torch_ops.py's) within atol 2e-4 (the fp32
+    mel's bound); on 2 s of a sung wav, whose quiet bands a log magnifies,
+    the card and the CPU each against the mel in float64 (the card at most
+    twice the CPU's error + 2e-4); the ids equal wherever the CPU's nearest
+    centre beats the second by more than 1e-5 relative."""
+    from ddsp_svc_tpu_torch.nn.hubert import (HubertDiscrete, HubertSoft,
+                                              init_hubert_)
+    from ddsp_svc_tpu_torch.ops.spectral import log_mel_spectrogram
+
+    sr = H_NSF["sampling_rate"]
+    noise = torch.from_numpy((np.random.default_rng(7).standard_normal(
+        (1, sr)) * 0.2).astype(np.float32))
+    sung = torch.from_numpy(sung_wav(sr, seed=4, phrases=(2.0,)))[None]
+    geo = tuple(H_NSF[k] for k in ("sampling_rate", "n_fft", "hop_size",
+                                   "win_size", "num_mels", "fmin", "fmax"))
+    for keyshift, speed in ((2, 1.0), (-3, 1.0), (0, 1.25)):
+        def mel(x):
+            return log_mel_spectrogram(x, *geo, keyshift=keyshift,
+                                       speed=speed)
+
+        err = (mel(noise.cuda()).cpu() - mel(noise)).abs().max().item()
+        t0 = time.perf_counter()
+        got = mel(sung.cuda())
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        ref = mel(sung.double())
+        e_card = (got.cpu().double() - ref).abs().max().item()
+        e_cpu = (mel(sung).double() - ref).abs().max().item()
+        say(f"keyshift mel keyshift={keyshift} speed={speed}: on noise the "
+            f"card vs the CPU max|err| {err:.3e} (atol 2e-4); on the sung "
+            f"wav {tuple(got.shape)}, against float64 the card {e_card:.3e}, "
+            f"the CPU {e_cpu:.3e} (card <= 2 x CPU + 2e-4), {ms:.1f} ms")
+        if not (err <= 2e-4 and e_card <= 2 * e_cpu + 2e-4):
+            fail(f"the keyshift mel ({keyshift}, {speed}) disagrees")
+    model = init_hubert_(HubertSoft(output_layer=7, proj_dim=None),
+                         torch.Generator().manual_seed(3))
+    wav = sung_wav(16000, seed=5, phrases=(4.0,))[None]
+    with torch.no_grad():
+        feats = model(torch.from_numpy(wav))[0]
+    centers = feats[::2][:100] + 0.3 * torch.randn(
+        (100, 768), generator=torch.Generator().manual_seed(4))
+    cpu = HubertDiscrete(model, centers.numpy(), device="cpu").units(wav)[0]
+    card_units = HubertDiscrete(model, centers.numpy(), device="cuda")
+    t0 = time.perf_counter()
+    ids = card_units.units(wav)[0].cpu()
+    ms = (time.perf_counter() - t0) * 1e3
+    d = ((feats[:, None] - centers[None]) ** 2).sum(-1).sort(1).values
+    clear = (d[:, 1] - d[:, 0]) > 1e-5 * d[:, 0]
+    same = bool(torch.equal(ids[clear], cpu[clear]))
+    say(f"{card}: HubertDiscrete on the card ({len(ids)} frames of 4 s, 100 "
+        f"centres): {ms:.1f} ms; ids equal to the CPU's on the "
+        f"{int(clear.sum())} frames with a clear nearest centre: {same} "
+        f"({int((ids == cpu).sum())} of {len(ids)} equal in all)")
+    if not (same and clear.float().mean() > 0.9):
+        fail("HubertDiscrete on the card disagrees with the CPU")
+
+
 @contextmanager
 def plain_kernels(K):
     """Route the port's modules through the plain versions (the reference
@@ -995,6 +1248,7 @@ def plain_kernels(K):
              (synths, "oscillator_bank", K.oscillator_bank_plain),
              (fft_filter, "ltv_fir_convolve", K.ltv_fir_convolve_plain),
              (spectral, "dft_magnitude", K.dft_magnitude_plain),
+             (spectral, "dft_magnitude_bf16", K.dft_magnitude_plain),
              (nsf_hifigan, "harmonic_source", K.harmonic_source_plain),
              (nsf_hifigan, "fused_resblocks_inject",
               K.resblocks_inject_plain),
@@ -1149,7 +1403,7 @@ def main_path_phase(torch, K, synth: str, config: str, expect,
     return launches
 
 
-def enhancer_phase(torch, K, segments) -> dict:
+def enhancer_phase(torch, K, segments, card: str) -> dict:
     """The enhancer in each form on the offline path's segments, batched
     enhance and the adaptive key; returns the summed launch counts."""
     from ddsp_svc_tpu_torch.infer.enhancer import Enhancer
@@ -1196,6 +1450,84 @@ def enhancer_phase(torch, K, segments) -> dict:
             f"({seg_audio_s:.3f} audio-s): kernels vs plain versions max|err| "
             f"{err:.3e} x max|ref| (tolerance 1e-3); {dt * 1e3:.1f} ms median "
             f"of 3: {seg_audio_s / dt:.1f} audio-s/s")
+        if label == "default":
+            fp32_outs = outs
+
+    # the trio's bf16-input form: H_NSF staged at 64 and in full bf16 on the
+    # kernels, against the fp32 forward (rel RMS 2e-2, the JAX package's
+    # staged bound) and against the same form on the plain versions (rel
+    # RMS 2e-3, or where more twice the plain form's own spread: its
+    # distance from itself on the audio moved by one fp32 ulp, since a bf16
+    # Generator turns any fp32 difference into flipped bf16 roundings
+    # downstream), each with its launches a segment; then #3 and #4 swapped
+    # apart, to show which kernel the difference comes from
+    from ddsp_svc_tpu_torch.infer.enhancer import NsfHifiGAN
+
+    def rel_rms(a, b):
+        return ((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt()).item()
+
+    for label, kw, per_seg in ENHANCER_BF16:
+        enh = Enhancer("nsf-hifigan", None, h=H_NSF, seed=1, device="cuda")
+        enh.enhancer = NsfHifiGAN(None, h=H_NSF, seed=1, device="cuda", **{
+            k: getattr(torch, v) if k == "dtype" else v
+            for k, v in kw.items()})
+
+        def run():
+            outs = [enh.enhance(a, sr, f0, hop, rand_ini=ri)[0]
+                    for a, sr, f0, hop, ri in segments]
+            torch.cuda.synchronize()
+            return outs
+
+        K.reset_launch_counts()
+        outs = run()
+        counts = path_launches(K, f"enhancer ({label})",
+                               [k for k, v in per_seg.items() if v])
+        add(counts)
+        for name, per in per_seg.items():
+            if counts[name] != per * len(segments):
+                fail(f"enhancer ({label}) launched {name} {counts[name]} "
+                     f"times, expected {per} a segment")
+        with plain_kernels(K):
+            refs = run()
+            moved = [enh.enhance(torch.nextafter(a, a + 1), sr, f0, hop,
+                                 rand_ini=ri)[0]
+                     for a, sr, f0, hop, ri in segments]
+        from ddsp_svc_tpu_torch.nn import nsf_hifigan
+        split_runs = {}
+        for name, pair in (("#3 plain", (nsf_hifigan, "harmonic_source",
+                                         K.harmonic_source_plain)),
+                           ("#4 plain", (nsf_hifigan, "fused_resblocks_inject",
+                                         K.resblocks_inject_plain))):
+            with swapped([pair]):
+                split_runs[name] = max(rel_rms(o, r) for o, r in
+                                       zip(run(), refs))
+        to_fp32 = max(rel_rms(o, r) for o, r in zip(outs, fp32_outs))
+        to_plain = max(rel_rms(o, r) for o, r in zip(outs, refs))
+        spread = max(rel_rms(m, r) for m, r in zip(moved, refs))
+        if not (all(torch.isfinite(o).all() for o in outs)
+                and to_fp32 < 2e-2 and to_plain < max(2e-3, 2 * spread)):
+            fail(f"enhancer ({label}): rel RMS {to_fp32:.3e} to fp32, "
+                 f"{to_plain:.3e} to the plain versions (their own spread "
+                 f"{spread:.3e})")
+        walls = {}
+        for name, ctx in (("kernels", nullcontext()),
+                          ("plain", plain_kernels(K))):
+            times = []
+            with ctx:
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    run()
+                    times.append(time.perf_counter() - t0)
+            walls[name] = float(np.median(times))
+        say(f"enhancer ({label}) B=1 on {len(segments)} segments "
+            f"({seg_audio_s:.3f} audio-s): vs fp32 worst rel RMS "
+            f"{to_fp32:.3e} (< 2e-2), vs the same form on the plain versions "
+            f"{to_plain:.3e} (< 2e-3, or 2 x the plain form's spread on a "
+            f"one-ulp move of the audio, {spread:.3e}); with #3 alone on its "
+            f"plain version {split_runs['#3 plain']:.3e}, #4 alone "
+            f"{split_runs['#4 plain']:.3e}; {walls['kernels'] * 1e3:.1f} ms median "
+            f"of 3 ({seg_audio_s / walls['kernels']:.1f} audio-s/s), plain "
+            f"versions {walls['plain'] * 1e3:.1f} ms; {card}")
 
     # enhance_batch: 16 segments of mixed lengths in one 512-frame bucket at
     # the enhancer's own rate, each against its own enhance call
@@ -1308,6 +1640,68 @@ def write_dataset(root: str, n_spk: int, files_per_spk: int, seconds: float,
             np.save(os.path.join(root, "volume", str(spk), name + ".npy"),
                     np.full((n_frames,), 0.15, np.float32))
     np.save(os.path.join(root, "f0_stats.npy"), stats, allow_pickle=True)
+
+
+@contextmanager
+def swapped(pairs):
+    """Route (module, name) to fn for each (module, name, fn) of pairs."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in pairs]
+    for mod, name, fn in pairs:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def g_step_leaves(torch, K, G, fresh, batch, rand_ini, generator_from_h, h,
+                  warm) -> None:
+    """Which generator leaf the GAN G step on the kernels reads worst
+    against the plain versions, and which kernel moves it: the step with
+    #3 on its plain version and #4 on the kernel, and the other way round,
+    each leaf's gradient against the plain run's and against a float64 G
+    step (the plain versions in float64 on the card; the kernels take fp32
+    only), from the same state, batch and rand_ini. Prints the three worst
+    leaves of each run."""
+    from ddsp_svc_tpu_torch.nn import nsf_hifigan
+
+    src = (nsf_hifigan, "harmonic_source", K.harmonic_source_plain)
+    trio = (nsf_hifigan, "fused_resblocks_inject", K.resblocks_inject_plain)
+    grads = {}
+    for label, ctx in (("kernels", nullcontext()),
+                       ("#3 plain, #4 kernel", swapped([src])),
+                       ("#3 kernel, #4 plain", swapped([trio])),
+                       ("plain", plain_kernels(K))):
+        with ctx:
+            trainer, st = fresh()
+            trainer.step_g(st, batch, rand_ini)
+        grads[label] = {n: p.grad.double()
+                        for n, p in st.generator.named_parameters()}
+        del trainer, st
+    g64 = generator_from_h(h)
+    g64.load_state_dict(warm)
+    trainer = G.GanTrainer(h)
+    st = trainer.create_state(g64.double().to("cuda"), seed=0)
+    st.mpd.double()
+    st.msd.double()
+    with plain_kernels(K):
+        trainer.step_g(st, {k: v.double() for k, v in batch.items()},
+                       rand_ini.double())
+    grads["float64"] = {n: p.grad for n, p in st.generator.named_parameters()}
+    del trainer, st
+
+    def rel(a, b):
+        return ((a - b).norm() / (b.norm() + 1e-30)).item()
+
+    for label in ("kernels", "#3 plain, #4 kernel", "#3 kernel, #4 plain",
+                  "plain"):
+        for ref in (("plain", "float64") if label != "plain"
+                    else ("float64",)):
+            worst = sorted(((rel(g, grads[ref][n]), n)
+                            for n, g in grads[label].items()), reverse=True)
+            say(f"GAN G step, {label} vs {ref}: worst leaves "
+                + ", ".join(f"{n} {r:.3e}" for r, n in worst[:3]))
 
 
 def grads_agree(label, model_k, model_p, tol_rel: float, tol_cos: float):
@@ -1800,12 +2194,12 @@ def graph_phase(torch, K, cfg_path: str, label: str, expect,
 
 
 # the CLI phase: the kernels each segment of the offline path launches; the
-# staged-bf16 run's mel also takes #6, as JAX's takes dft_magnitude_pallas
-# on the TPU
+# staged-bf16 run's mel also takes #6's bf16-input form, as JAX's takes
+# dft_magnitude_pallas(mxu_bf16=True) on the TPU
 CLI_PER_SEGMENT = {"performer_attention": 3, "combsub_spectral": 1,
                    "harmonic_source": 1, "fused_resblocks_inject": 3,
-                   "dft_magnitude": 0}
-CLI_STAGED_PER_SEGMENT = dict(CLI_PER_SEGMENT, dft_magnitude=1)
+                   "dft_magnitude": 0, "dft_magnitude_bf16": 0}
+CLI_STAGED_PER_SEGMENT = dict(CLI_PER_SEGMENT, dft_magnitude_bf16=1)
 CLI_STAGED = 128  # the staged-bf16 threshold of the second CLI run
 
 
@@ -1941,22 +2335,30 @@ def cli_phase(torch, K, card: str) -> dict:
     if not rel < 2e-2:
         fail("the staged-bf16 CLI run is not within 2e-2 of fp32")
 
-    # the staged mel (#6 on the card) against the fp32 route's (cuFFT) on
-    # each segment at H_NSF's geometry: the linear mel within rel RMS 1e-4
+    # the staged mel (#6's bf16-input form on the card) against the same
+    # bf16 route on the plain version (cuFFT of the bf16-rounded frames) on
+    # each segment at H_NSF's geometry: the linear mel within rel RMS 1e-4;
+    # the bf16 route's distance from the fp32 route (cuFFT of fp32 frames)
+    # beside it (JAX's bf16 route reads alike: the frames' rounding)
     geo = tuple(H_NSF[k] for k in ("sampling_rate", "n_fft", "hop_size",
                                    "win_size", "num_mels", "fmin", "fmax"))
-    mel_rel = mel_dlog = 0.0
+    mel_rel = mel_dlog = mel_mean = 0.0
     for _, a in split(audio, sr, bs):
         x = torch.as_tensor(a, device="cuda")[None]
         m16 = log_mel_spectrogram(x, *geo, mxu_bf16=True).double()
+        with plain_kernels(K):
+            m_p = log_mel_spectrogram(x, *geo, mxu_bf16=True).double()
         m32 = log_mel_spectrogram(x, *geo).double()
-        mel_rel = max(mel_rel, ((m16.exp() - m32.exp()).pow(2).mean()
-                                / m32.exp().pow(2).mean()).sqrt().item())
+        mel_rel = max(mel_rel, ((m16.exp() - m_p.exp()).pow(2).mean()
+                                / m_p.exp().pow(2).mean()).sqrt().item())
         mel_dlog = max(mel_dlog, (m16 - m32).abs().max().item())
-    say(f"CLI staged mel (dft_magnitude) vs fp32 mel (cuFFT): rel RMS "
-        f"{mel_rel:.3e} (tolerance 1e-4), max|d log mel| {mel_dlog:.3e}")
+        mel_mean = max(mel_mean, (m16 - m32).abs().mean().item())
+    say(f"CLI staged mel (dft_magnitude_bf16) vs the same route on the plain "
+        f"version: rel RMS {mel_rel:.3e} (tolerance 1e-4); the bf16 route vs "
+        f"the fp32 mel (cuFFT): max|d log mel| {mel_dlog:.3e}, worst "
+        f"segment's mean {mel_mean:.3e}")
     if not mel_rel < 1e-4:
-        fail("the staged mel disagrees with the fp32 mel")
+        fail("the staged mel disagrees with its plain version")
 
     # parselmouth's candidate stage runs on the card: against its CPU run
     # (dio and harvest are host numpy whatever the device; their walls below)
@@ -2073,7 +2475,7 @@ def batch_phase(torch, K, card: str, ckpts: dict) -> dict:
     def expect(label, counts, staged):
         want = {k: v * chunks for k, v in {**SYNTH_PER_CHUNK,
                                             **ENHANCE_PER_CALL}.items()}
-        want["dft_magnitude"] = chunks if staged else 0
+        want["dft_magnitude_bf16"] = chunks if staged else 0
         bad = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
         say(f"batch {label} launches: {json.dumps(counts)}")
         if bad:
@@ -2520,6 +2922,9 @@ def gan_phase(torch, K, card: str, ckpts: dict, device: str = "cuda"
     if any(p.grad is not None for p in kg.d_parameters()):
         fail("the GAN G step formed gradients of the discriminators")
     del runs, pd, pg, kd, kg
+    if on_card:
+        g_step_leaves(torch, K, G, fresh, batch, rand_ini, generator_from_h,
+                      h, warm)
 
     # ms per step on the kernels (host clock around synchronised steps)
     trainer, st = fresh()
@@ -2803,6 +3208,8 @@ def stream_phase(torch, K, card: str, ckpts: dict, device: str = "cuda"
         f"(tolerance 1e-3)")
     if not (err <= 1e-3 and splice_err <= 1e-3 * scale):
         fail("the SOLA path disagrees with the plain versions")
+    fused_counts = fused_window_runs(torch, K, card, cfg, audio, core, infer,
+                                     noise_hook, rand_hook, device)
 
     # one warm window's stages (host clock, the device synchronised at each)
     walls = {}
@@ -2917,7 +3324,100 @@ def stream_phase(torch, K, card: str, ckpts: dict, device: str = "cuda"
         f"torch.profiler: {runtime} launch and copy calls on the host = "
         f"{runtime / INC_FRAMES_PER_BLOCK:.1f} a frame, {kernels} device "
         f"events = {kernels / INC_FRAMES_PER_BLOCK:.1f} a frame")
-    return {k: counts0[k] + counts1[k] for k in counts0}
+    return {k: counts0[k] + counts1[k] + fused_counts[k] for k in counts0}
+
+
+def fused_window_runs(torch, K, card, cfg, audio, core, infer, noise_hook,
+                      rand_hook, device) -> dict:
+    """The SOLA stream again, at adaptive key 0, through the eager core and
+    a SvcCore(fused_window=True) (one CUDA graph per window shape), both
+    with cuDNN deterministic and the same noise and SineGen phases: each
+    fused window within 1e-6 x max|ref| of the eager one (the spread of
+    two eager runs without cuDNN deterministic printed beside it); #1-#4
+    counted 3/1/1/3 at each replay; the block walls, the capture's time,
+    and one window's launch calls and idle share (torch.profiler) of both.
+    Returns the fused run's launch counts."""
+    from ddsp_svc_tpu_torch.infer.streaming import StreamingSession, SvcCore
+
+    fused = SvcCore(cfg.checkpoint_path, device=device, fused_window=True)
+    kw = dict(cfg.session_kwargs(), enhancer_adaptive_key=0,
+              pipeline_depth=0)
+
+    def stream(c, call):
+        c._step = 0
+        windows, walls = [], []
+        sess = StreamingSession(c, noise_hook=noise_hook,
+                                enhancer_rand_hook=rand_hook, **kw)
+
+        def recording(*a, **k):
+            out = call(*a, **k)
+            windows.append(out[0].copy())
+            return out
+
+        c.infer = recording
+        bf = sess.block_frame
+        K.reset_launch_counts()
+        try:
+            for i in range(len(audio) // bf):
+                t0 = time.perf_counter()
+                sess.process_block(audio[i * bf:(i + 1) * bf])
+                walls.append(time.perf_counter() - t0)
+        finally:
+            del c.infer
+        torch.cuda.synchronize()
+        return windows, walls, K.launch_counts(), sess
+
+    saved = core.infer
+    del core.infer  # the recording wrapper of the SOLA runs
+    det = torch.backends.cudnn.deterministic
+    try:
+        torch.backends.cudnn.deterministic = False
+        spread_a, _, _, _ = stream(core, core.infer)
+        torch.backends.cudnn.deterministic = True
+        ref, walls_e, _, sess = stream(core, core.infer)
+        got, walls_f, counts, _ = stream(fused, fused.infer)
+        spread_b, _, _, _ = stream(core, core.infer)
+        torch.backends.cudnn.deterministic = False
+        spread_c, _, _, _ = stream(core, core.infer)
+        torch.backends.cudnn.deterministic = True
+        window_kw = dict(safe_prefix_pad_length=sess.safe_prefix_pad_length,
+                         **{k: v for k, v in kw.items()
+                            if k not in STREAM_SESSION_KEYS})
+        prof = {}
+        for label, c in (("eager", core), ("fused", fused)):
+            prof[label] = profile_dispatch(
+                torch, lambda: c.infer(sess.input_wav, cfg.samplerate,
+                                       **window_kw), 1)
+    finally:
+        torch.backends.cudnn.deterministic = det
+        core.infer = saved
+    n = len(ref)
+    err = max(float(np.abs(g - r).max() / np.abs(r).max())
+              for g, r in zip(got, ref))
+    det_spread = max(float(np.abs(g - r).max() / np.abs(r).max())
+                     for g, r in zip(spread_b, ref))
+    spread = max(float(np.abs(g - r).max() / np.abs(r).max())
+                 for g, r in zip(spread_a, spread_c))
+    bad = {k: counts[k] for k, per in STREAM_PER_WINDOW.items()
+           if counts[k] != per * n}
+    captures = [p.capture_s for p in fused._windows.values()]
+    say(f"{card}: SOLA fused window (SvcCore(fused_window=True), adaptive "
+        f"key 0, one CUDA graph per window shape: {len(captures)} shape(s), "
+        f"capture {', '.join(f'{t * 1e3:.1f}' for t in captures)} ms with "
+        f"its warm-up): {n} windows vs the eager core's, cuDNN "
+        f"deterministic: max|err| {err:.3e} x max|ref| (tolerance 1e-6); "
+        f"two eager runs deterministic {det_spread:.3e}, default cuDNN "
+        f"{spread:.3e}; launches {json.dumps(counts)}")
+    say(f"{card}: SOLA block walls, eager {_percentiles(walls_e[1:])}; "
+        f"fused {_percentiles(walls_f[1:])} (first {walls_f[0] * 1e3:.1f} "
+        "ms, the capture)")
+    for label, (calls, copies, idle) in prof.items():
+        say(f"{card}: SOLA one window, {label}: {calls:.0f} CUDA launch calls"
+            f", {copies:.0f} memcpy calls, device idle share {idle:.3f} "
+            "(torch.profiler)")
+    if bad or not err <= 1e-6:
+        fail(f"the fused window: err {err:.3e}, launches off {bad}")
+    return counts
 
 
 # the serving phase: the synthesizers exported at 512 frames and the op
@@ -3986,6 +4486,8 @@ def main() -> None:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = kernel_phase(torch, K, gen)
+    rows.update(bf16_forms_phase(torch, K, gen))
+    keyshift_units_phase(torch, smi[0])
     for name, row in rows.items():
         t_b, by = row["bound"]
         say(f"kernel {name}: max|err| {row['max_abs_err']:.3e} ({row['tol']}), "
@@ -4031,7 +4533,7 @@ def main() -> None:
         runs = [main_path_phase(torch, K, synth, config, expect, batched=full,
                                 segments_out=segments)]
         if full:
-            runs.append(enhancer_phase(torch, K, segments))
+            runs.append(enhancer_phase(torch, K, segments, smi[0]))
         runs.append(train_phase(torch, K, synth, config, expect, full=full))
         say(f"{synth} paths: {time.perf_counter() - t0:.1f} s")
         for counts in runs:

@@ -44,7 +44,14 @@
 // product and the chirps ride on the passes' loads and stores, and rows
 // too short to fill 256 threads share a block (256 / (m / 16) rows), so
 // that the 1032-8256 rows of a training batch fill the card's 132 SMs.
+//
+// The bf16-input form (dft_magnitude_pallas(mxu_bf16=True), the staged-bf16
+// enhancer's mel): the rows are bf16, read by the first pass's load and
+// upcast exactly; the FFT, the tables and the 1e-12 floor stay fp32. JAX
+// rounds its DFT matrices to bf16 too, which an FFT has no use for, so the
+// two agree to JAX's own bf16-vs-fp32 bound, not bit for bit.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -53,6 +60,9 @@
 namespace {
 
 constexpr int kThreads = 256;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 __device__ __forceinline__ float magnitude(float2 v) {
   return sqrtf(v.x * v.x + v.y * v.y + 1e-12f);
@@ -66,9 +76,9 @@ __host__ __device__ constexpr int block_threads(int m) {
   return row_threads(m) > kThreads ? row_threads(m) : kThreads;
 }
 
-template <int M>
+template <int M, typename T>
 __global__ void __launch_bounds__(block_threads(M))
-dft_magnitude_kernel(const float* __restrict__ frames, float* __restrict__ out,
+dft_magnitude_kernel(const T* __restrict__ frames, float* __restrict__ out,
                      const float2* __restrict__ chirp,
                      const float2* __restrict__ bhat, int rows, int n, int l) {
   extern __shared__ float2 smem[];
@@ -77,14 +87,15 @@ dft_magnitude_kernel(const float* __restrict__ frames, float* __restrict__ out,
   const int t = threadIdx.x - slot * tpr;
   const int row = blockIdx.x * (blockDim.x / tpr) + slot;
   const bool live = row < rows;  // a spare slot still takes part in the syncs
-  const float* x = frames + (size_t)(live ? row : 0) * n;
+  const T* x = frames + (size_t)(live ? row : 0) * n;
   const int bins = n / 2 + 1;
   float* o = out + (size_t)row * bins;
   float2* s = smem + slot * padded(M);
   const bool split = 2 * l == n;
 
   auto sample = [&](int i) {
-    return split ? make_float2(x[2 * i], x[2 * i + 1]) : make_float2(x[i], 0.f);
+    return split ? make_float2(to_f32(x[2 * i]), to_f32(x[2 * i + 1]))
+                 : make_float2(to_f32(x[i]), 0.f);
   };
   if (M == l) {
     fft_pow2<M, false>(s, t, sample, [s](int i, float2 v) { s[pad(i)] = v; });
@@ -118,22 +129,22 @@ dft_magnitude_kernel(const float* __restrict__ frames, float* __restrict__ out,
   }
 }
 
-template <int M>
-int launch(const float* frames, float* out, const float2* chirp,
+template <int M, typename T>
+int launch(const T* frames, float* out, const float2* chirp,
            const float2* bhat, int rows, int n, int l, cudaStream_t stream) {
   constexpr int per_block = block_threads(M) / row_threads(M);
   constexpr size_t smem = (size_t)per_block * padded(M) * sizeof(float2);
   cudaError_t err = cudaFuncSetAttribute(
-      dft_magnitude_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      dft_magnitude_kernel<M, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (rows + per_block - 1) / per_block;
-  dft_magnitude_kernel<M><<<blocks, block_threads(M), smem, stream>>>(
+  dft_magnitude_kernel<M, T><<<blocks, block_threads(M), smem, stream>>>(
       frames, out, chirp, bhat, rows, n, l);
   return (int)cudaGetLastError();
 }
 
-template <int M>
-int launch_m(int m, const float* frames, float* out, const float2* chirp,
+template <int M, typename T>
+int launch_m(int m, const T* frames, float* out, const float2* chirp,
              const float2* bhat, int rows, int n, int l, cudaStream_t stream) {
   if (m == M) return launch<M>(frames, out, chirp, bhat, rows, n, l, stream);
   if constexpr (M < 16384) {
@@ -154,4 +165,15 @@ extern "C" int dft_magnitude_launch(const float* frames, float* out,
   return launch_m<1>(m, frames, out, static_cast<const float2*>(chirp),
                      static_cast<const float2*>(bhat), rows, n, l,
                      (cudaStream_t)stream);
+}
+
+// The bf16-input form: frames (rows, n) bf16, the rest as
+// dft_magnitude_launch.
+extern "C" int dft_magnitude_bf16_launch(const void* frames, float* out,
+                                         const void* chirp, const void* bhat,
+                                         int rows, int n, int l, int m, void* stream) {
+  if (rows == 0) return 0;
+  return launch_m<1>(m, static_cast<const __nv_bfloat16*>(frames), out,
+                     static_cast<const float2*>(chirp), static_cast<const float2*>(bhat),
+                     rows, n, l, (cudaStream_t)stream);
 }

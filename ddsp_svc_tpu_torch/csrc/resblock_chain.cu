@@ -44,7 +44,8 @@ __global__ void __launch_bounds__(kThreads, 1) resblock_chain_kernel(Args a) {
   const int bi = blockIdx.y;
   const int g0 = blockIdx.x * G::kTile - kHalo;  // sequence index of column 0
   zero_buffers<C>(h, t);
-  fill_x0<C>(h, a.x + (size_t)bi * C * a.T, nullptr, nullptr, nullptr, a.T, 0, 0, 0, g0, a.T);
+  fill_x0<C, float, float>(h, a.x + (size_t)bi * C * a.T, nullptr, nullptr, nullptr, a.T, 0, 0,
+                          0, g0, a.T);
   __syncthreads();
   run_chain<C, K>(h, t, s_w, a.w, a.b, a.dil[0], a.dil[1], a.dil[2], g0, a.T);
   store_interior<C>(h, a.out + (size_t)bi * C * a.T, g0, a.T);

@@ -53,6 +53,7 @@
 // mean, so that read needs no barrier.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -106,6 +107,10 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 __device__ __forceinline__ float leaky(float v) { return fmaxf(v, 0.1f * v); }
+
+// An activation read from device memory, upcast exactly to fp32.
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 // x = hi + lo: hi is x rounded to tf32 (to nearest, ties away, as
 // cvt.rna.tf32.f32, which sm_90 runs as four instructions), lo the exact
@@ -360,9 +365,11 @@ __device__ __forceinline__ void accumulate_mean(const float* h, float* out, int 
 // conv: kernel ksrc (2 s_src, or 1), stride s_src, padding s_src / 2, over
 // har (T_final,), weights wnc (C, ksrc) and bnc (C,). Each thread takes one
 // column and a group of channels, so that it reads the column's window of
-// har once for the group, 8 taps at a time. x: (C, T) of this batch row.
-template <int C>
-__device__ void fill_x0(float* h, const float* x, const float* har, const float* wnc,
+// har once for the group, 8 taps at a time. x: (C, T) of this batch row. x
+// and har are fp32 or bf16 (XT, HT), each upcast exactly on its load: the
+// tile and everything after it are fp32.
+template <int C, typename XT, typename HT>
+__device__ void fill_x0(float* h, const XT* x, const HT* har, const float* wnc,
                         const float* bnc, int T, int t_final, int s_src, int ksrc, int g0,
                         int limit) {
   using G = Geometry<C>;
@@ -390,7 +397,7 @@ __device__ void fill_x0(float* h, const float* x, const float* har, const float*
 #pragma unroll
         for (int tau = 0; tau < kWin; ++tau) {
           const int hi = h0 + t0 + tau;
-          win[tau] = t0 + tau < ksrc && hi >= 0 && hi < t_final ? har[hi] : 0.f;
+          win[tau] = t0 + tau < ksrc && hi >= 0 && hi < t_final ? to_f32(har[hi]) : 0.f;
         }
 #pragma unroll
         for (int c = 0; c < kCh; ++c) {
@@ -401,10 +408,10 @@ __device__ void fill_x0(float* h, const float* x, const float* har, const float*
         }
       }
     }
-    const float* xc = x + (size_t)c0 * T + g;
+    const XT* xc = x + (size_t)c0 * T + g;
 #pragma unroll
-    for (int c = 0; c < kCh; ++c) hc[c * G::S] = har != nullptr ? xc[(size_t)c * T] + sum[c]
-                                                                : xc[(size_t)c * T];
+    for (int c = 0; c < kCh; ++c) hc[c * G::S] = har != nullptr ? to_f32(xc[(size_t)c * T]) + sum[c]
+                                                                : to_f32(xc[(size_t)c * T]);
   }
 }
 

@@ -16,7 +16,7 @@ from __future__ import annotations
 import json
 import math
 import os
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 from ..nn.layers import lecun_init_
 from ..nn.nsf_hifigan import generator_from_h
-from ..ops.resample import resample
+from ..ops.resample import resample, resampled_length
 from ..ops.spectral import log_mel_spectrogram, mel_reflect_pad
 from ..utils.convert import jax_nsf_to_torch
 from ..utils.device import resolve_device
@@ -134,18 +134,38 @@ class NsfHifiGAN:
         """audio (B, T), f0_frames (B, F) on the enhancer's device.
         rand_ini (B, 9): the SineGen initial rotations (column 0 is 0);
         drawn from `generator` when given, zeros otherwise."""
-        b = audio.shape[0]
         if rand_ini is None:
-            rand_ini = torch.zeros((b, 9), device=audio.device)
-            if generator is not None:
-                rand_ini[:, 1:] = torch.rand((b, 8), generator=generator,
-                                             device=audio.device)
+            rand_ini = self.draw_rand_ini(audio.shape[0], generator,
+                                          audio.device)
         if self._time_parallel is not None:
             return (self._time_parallel(audio, f0_frames, rand_ini),
                     self.sample_rate)
         mel = self._mel(audio)
         out = self.model(mel, f0_frames[:, :mel.shape[1]], rand_ini)
         return out, self.sample_rate
+
+
+    @staticmethod
+    def draw_rand_ini(b: int, generator: Optional[torch.Generator], device
+                      ) -> torch.Tensor:
+        """SineGen's initial rotations (B, 9): column 0 zero, the others
+        uniform from `generator` (all zeros without one)."""
+        rand_ini = torch.zeros((b, 9), device=device)
+        if generator is not None:
+            rand_ini[:, 1:] = torch.rand((b, 8), generator=generator,
+                                         device=device)
+        return rand_ini
+
+
+class EnhancePlan(NamedTuple):
+    """The host side of one `Enhancer.enhance` call: the rates, the
+    silence-front cut and pad in samples, and the f0 on the enhancer's
+    frame grid (1, frames) fp32."""
+    sample_rate: int
+    adaptive_sample_rate: int
+    cut: int
+    pad: int
+    f0_res: np.ndarray
 
 
 class Enhancer:
@@ -182,38 +202,63 @@ class Enhancer:
                       ) * np.arange(n_frames)
         return np.interp(time_frame, time_org, f0, left=f0[0], right=f0[-1])
 
+    def plan(self, n_samples: int, sample_rate: int, f0: np.ndarray,
+             hop_size: int, adaptive_key=0, silence_front: float = 0
+             ) -> EnhancePlan:
+        """The host side of `enhance` for n_samples of audio: the
+        silence-front frames skipped, the adaptive rate (a numeric key, or
+        'auto' from max f0 against 760 Hz) and the f0 re-grid."""
+        start_frame = int(silence_front * sample_rate / hop_size)
+        real_silence_front = start_frame * hop_size / sample_rate
+        cut = int(np.round(real_silence_front * sample_rate))
+        f0 = f0[:, start_frame:, :]
+        if adaptive_key == "auto":
+            adaptive_key = 12.0 * np.log2(float(np.max(f0)) / 760.0)
+            adaptive_key = max(0, np.ceil(adaptive_key))
+        adaptive_sample_rate, real_factor = self._adaptive_rate(adaptive_key)
+        n_res = resampled_length(n_samples - cut, sample_rate,
+                                 adaptive_sample_rate)
+        n_frames = int(n_res // self.enhancer_hop_size + 1)
+        f0_res = self._regrid_f0(f0, sample_rate, hop_size, real_factor,
+                                 n_frames)[None, :].astype(np.float32)
+        pad = (int(np.round(self.enhancer_sample_rate * real_silence_front))
+               if start_frame > 0 else 0)
+        return EnhancePlan(sample_rate, adaptive_sample_rate, cut, pad, f0_res)
+
+    def apply(self, audio: torch.Tensor, plan: EnhancePlan,
+              f0_res: torch.Tensor, rand_ini: torch.Tensor) -> torch.Tensor:
+        """The device side of `enhance`: audio (1, T) cut, resampled to the
+        adaptive rate, through the generator with f0_res (1, frames) and
+        rand_ini (1, 9) on the enhancer's device, back to the enhancer's
+        rate and padded. No host work: a CUDA graph can capture it."""
+        audio = audio[:, plan.cut:]
+        audio_res = resample(audio.to(self.enhancer.device), plan.sample_rate,
+                             plan.adaptive_sample_rate)
+        enhanced, enhancer_sr = self.enhancer(audio_res, f0_res,
+                                              rand_ini=rand_ini)
+        enhanced = resample(enhanced, plan.adaptive_sample_rate, enhancer_sr)
+        if plan.pad:
+            enhanced = F.pad(enhanced, (plan.pad, 0))
+        return enhanced
+
     def enhance(self, audio: torch.Tensor, sample_rate: int, f0: np.ndarray,
                 hop_size: int, adaptive_key=0, silence_front: float = 0,
                 rand_ini: Optional[np.ndarray] = None,
                 generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, int]:
         """audio (1, T) tensor at `sample_rate`; f0 (1, n_frames, 1) numpy
-        on the `hop_size` grid. Returns ((1, T') tensor, enhancer rate)."""
-        start_frame = int(silence_front * sample_rate / hop_size)
-        real_silence_front = start_frame * hop_size / sample_rate
-        audio = audio[:, int(np.round(real_silence_front * sample_rate)):]
-        f0 = f0[:, start_frame:, :]
-
-        if adaptive_key == "auto":
-            adaptive_key = 12.0 * np.log2(float(np.max(f0)) / 760.0)
-            adaptive_key = max(0, np.ceil(adaptive_key))
-        adaptive_sample_rate, real_factor = self._adaptive_rate(adaptive_key)
-
+        on the `hop_size` grid. rand_ini (1, 9), else drawn from
+        `generator` (zeros without one). Returns ((1, T') tensor, enhancer
+        rate)."""
+        plan = self.plan(audio.shape[-1], sample_rate, f0, hop_size,
+                         adaptive_key, silence_front)
         dev = self.enhancer.device
-        audio_res = resample(audio.to(dev), sample_rate, adaptive_sample_rate)
-        n_frames = int(audio_res.shape[-1] // self.enhancer_hop_size + 1)
-        f0_res = self._regrid_f0(f0, sample_rate, hop_size, real_factor,
-                                 n_frames)[None, :].astype(np.float32)
-        ri = None if rand_ini is None else torch.as_tensor(
-            np.asarray(rand_ini, np.float32), device=dev)
-        enhanced, enhancer_sr = self.enhancer(
-            audio_res, torch.as_tensor(f0_res, device=dev), rand_ini=ri,
-            generator=generator)
-        enhanced = resample(enhanced, adaptive_sample_rate, enhancer_sr)
-        if start_frame > 0:
-            pad = int(np.round(enhancer_sr * real_silence_front))
-            enhanced = F.pad(enhanced, (pad, 0))
-        return enhanced, enhancer_sr
+        ri = (self.enhancer.draw_rand_ini(1, generator, dev)
+              if rand_ini is None else
+              torch.as_tensor(np.asarray(rand_ini, np.float32), device=dev))
+        return (self.apply(audio, plan, torch.as_tensor(plan.f0_res,
+                                                        device=dev), ri),
+                self.enhancer_sample_rate)
 
     def enhance_batch(self, audios: Sequence, sample_rate: int,
                       f0s: Sequence[np.ndarray], hop_size: int,

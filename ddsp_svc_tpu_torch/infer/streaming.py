@@ -6,7 +6,9 @@ it from a wav file or a sound card):
 
   - SvcCore: the model, the units encoder and the enhancer, and one
     whole-window conversion (f0 with silence_front skipping, the volume
-    threshold mask, units, the bucketed synth, the enhancer);
+    threshold mask, units, the bucketed synth, the enhancer); with
+    fused_window=True the window's device work is one program
+    (`infer/window_graph.py`: on the card one CUDA graph per window shape);
   - StreamingSession: the sliding input window of `input_frames` samples,
     one window converted per block, the new chunk aligned against the
     carried `sola_buffer` (normalised cross-correlation argmax) and spliced
@@ -33,6 +35,7 @@ from ..ops.resample import resample
 from ..utils.device import resolve_device
 from .enhancer import Enhancer
 from .offline import response_mask
+from .window_graph import WindowProgram, draw_noise, pad_to_bucket, plan_key
 
 
 def phase_vocoder(a: torch.Tensor, b: torch.Tensor, fade_out: torch.Tensor,
@@ -86,12 +89,19 @@ class SvcCore:
         each window's synth and enhancer run time-sharded over `mesh_axis`
         (`make_bucketed_synth(mesh=)`, `Enhancer(mesh=)`), every rank
         converting the same window and returning the whole output.
-        fused_window (the window as one program, on CUDA a graph capture)
-        is not ported; the JAX package runs it on one device only, never
-        with a mesh."""
-        if fused_window:
-            raise NotImplementedError(
-                "SvcCore(fused_window=True) is not ported")
+        fused_window: the window's device work as one program per window
+        shape (`infer/window_graph.py`; on CUDA one captured graph per
+        shape, replayed), where the enhancer is off or its adaptive key is
+        numeric; it equals the default window. It excludes a mesh, as in
+        the JAX package (whose core drops fused_window there quietly; this
+        one raises)."""
+        if fused_window and mesh is not None:
+            raise ValueError(
+                "SvcCore: fused_window and mesh are exclusive (the fused "
+                "window is one program on one device; a mesh shards the "
+                "synth and the enhancer instead)")
+        self.fused_window = bool(fused_window)
+        self._windows: Dict = {}
         self.device = resolve_device(device)
         self.mesh, self.mesh_axis = mesh, mesh_axis
         self.model, self.args = load_model(model_path, device=self.device)
@@ -170,7 +180,7 @@ class SvcCore:
         drawn from a torch.Generator seeded with the step. walls, when
         given, accumulates each stage's host-clock seconds (the device
         synchronised at each stage's end): 'f0 + volume', 'units', 'synth',
-        'enhance'."""
+        'enhance'; with the fused window 'f0 + volume' and 'window'."""
         t_stage = time.perf_counter()
 
         def stage_done(name: str) -> None:
@@ -204,10 +214,22 @@ class SvcCore:
 
         self._step += 1
         step = self._step
+        generator = torch.Generator(device=self.device).manual_seed(step)
+        enh_on = use_enhancer and self.enhancer is not None
+        if self.fused_window and not (enh_on
+                                      and enhancer_adaptive_key == "auto"):
+            out, out_sr = self._infer_fused(
+                audio, sample_rate, f0, volume, mask, spk_id,
+                spk_mix_dict if use_spk_mix else None, enh_on,
+                enhancer_adaptive_key, silence_front, step, generator,
+                noise_hook, enhancer_rand_hook)
+            stage_done("window")
+            if not materialize:
+                return out[0], out_sr
+            return out[0].cpu().numpy(), out_sr
         units = self.units_encoder.encode(audio[None, :], sample_rate,
                                           hop_size)
         stage_done("units")
-        generator = torch.Generator(device=self.device).manual_seed(step)
         noise = None
         if noise_hook is not None:
             noise = np.asarray(noise_hook(step, (1, units.shape[1] * block)),
@@ -221,7 +243,7 @@ class SvcCore:
                                     device=self.device)
         stage_done("synth")
         out_sr = model_sr
-        if use_enhancer and self.enhancer is not None:
+        if enh_on:
             rand_ini = (None if enhancer_rand_hook is None
                         else enhancer_rand_hook(step))
             out, out_sr = self.enhancer.enhance(
@@ -232,6 +254,47 @@ class SvcCore:
         if not materialize:
             return out[0], out_sr
         return out[0].cpu().numpy(), out_sr
+
+    def _infer_fused(self, audio, sample_rate, f0, volume, mask, spk_id,
+                     spk_mix_dict, enh_on, adaptive_key, silence_front,
+                     step, generator, noise_hook, enhancer_rand_hook):
+        """The window through its WindowProgram: the host inputs made here,
+        the noise and SineGen's rotations drawn from the step's generator
+        in the default window's order (or taken from the hooks)."""
+        data = self.args.data
+        block, model_sr = int(data.block_size), int(data.sampling_rate)
+        n = f0.shape[1]
+        plan = None
+        if enh_on:
+            plan = self.enhancer.plan(n * block, model_sr, f0, block,
+                                      adaptive_key, silence_front)
+        mix = tuple(sorted(spk_mix_dict.items())) if spk_mix_dict else None
+        key = (int(sample_rate), mix, plan_key(plan), len(audio))
+        if key not in self._windows:
+            self._windows[key] = WindowProgram(self, sample_rate, spk_mix_dict,
+                                               plan, len(audio))
+        prog = self._windows[key]
+        f0_p, vol_p = pad_to_bucket(f0, volume, prog.bucket)
+        if noise_hook is not None:
+            noise = np.pad(np.asarray(noise_hook(step, (1, n * block)),
+                                      np.float32),
+                           ((0, 0), (0, (prog.bucket - n) * block)))
+        else:
+            noise = draw_noise((1, prog.bucket * block), generator,
+                               self.device)
+        f0_res = rand_ini = None
+        if plan is not None:
+            f0_res = plan.f0_res
+            rand_ini = (self.enhancer.enhancer.draw_rand_ini(1, generator,
+                                                             self.device)
+                        if enhancer_rand_hook is None else
+                        np.asarray(enhancer_rand_hook(step), np.float32))
+        out = prog(audio=np.asarray(audio, np.float32)[None, :], f0=f0_p,
+                   volume=vol_p, mask=mask[:, :n * block],
+                   spk_id=np.asarray([[int(spk_id)]], dtype=np.int64),
+                   noise=noise, f0_res=f0_res, rand_ini=rand_ini)
+        return out, (self.enhancer.enhancer_sample_rate if plan is not None
+                     else model_sr)
 
 
 class StreamingSession:

@@ -58,8 +58,10 @@ def _sample_mask(n_samples: int, valid_frames, block: int, like):
     """Sample-rate mask of the valid frames, or None without valid_frames."""
     if valid_frames is None:
         return None
-    return frame_mask(n_samples, torch.as_tensor(valid_frames) * block,
-                      like.dtype, like.device)
+    if not isinstance(valid_frames, (int, np.integer)):
+        valid_frames = torch.as_tensor(valid_frames)
+    return frame_mask(n_samples, valid_frames * block, like.dtype,
+                      like.device)
 
 
 def _filter_radius(n_mags: int, block: int) -> int:

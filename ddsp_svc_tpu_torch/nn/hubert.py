@@ -13,10 +13,17 @@ kernel computes any of it: it runs on stock PyTorch ops.
 Module names are those of the bshall HuBERT-soft checkpoint, with the
 positional conv's weight norm folded: `load_hubert_state_dict` reads that
 layout and the fairseq one (HuBERT-base, ContentVec).
+
+Also here: `compute_mask`, the SpecAugment span mask of HuBERT's training
+(the JAX package's `compute_mask`), and `HubertDiscrete`, layer-7 features
+quantised to the nearest k-means centre (its `HubertDiscrete`). No
+conversion path uses either.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Sequence, Union
+
+import numpy as np
 
 import torch
 import torch.nn as nn
@@ -138,6 +145,14 @@ class HubertSoft(nn.Module):
         output_layer, proj_dim, pad = VARIANTS[encoder]
         return cls(output_layer=output_layer, proj_dim=proj_dim, pad_input=pad)
 
+    def frames(self, n_samples: int) -> int:
+        """Frames of forward's output for n_samples of input: the feature
+        extractor's convs (k10 s5, k3 s2 x4, k2 s2 x2) on the padded input."""
+        n = int(n_samples) + (80 if self.pad_input else 0)
+        for k, s in ((10, 5),) + ((3, 2),) * 4 + ((2, 2),) * 2:
+            n = (n - k) // s + 1
+        return n
+
     def forward(self, wav: torch.Tensor) -> torch.Tensor:
         if self.pad_input:
             wav = F.pad(wav, (40, 40))
@@ -147,6 +162,79 @@ class HubertSoft(nn.Module):
         for layer in self.encoder.layers:
             x = layer(x)
         return x if self.proj is None else self.proj(x)
+
+
+def span_mask(starts: torch.Tensor, t: int, mask_length: int) -> torch.Tensor:
+    """The bool (B, T) mask of spans [s, s + mask_length) from the (B, N)
+    span starts (spans may overlap), as the JAX package's compute_mask
+    scatters them."""
+    idx = starts[..., None] + torch.arange(mask_length, device=starts.device)
+    mask = torch.zeros((starts.shape[0], t), dtype=torch.bool,
+                       device=starts.device)
+    return mask.scatter_(1, idx.reshape(starts.shape[0], -1), True)
+
+
+def compute_mask(shape: Sequence[int], mask_prob: float = 0.8,
+                 mask_length: int = 10, min_masks: int = 2,
+                 generator: Optional[torch.Generator] = None,
+                 device=None) -> torch.Tensor:
+    """SpecAugment span mask of HuBERT's training (the reference model's
+    _compute_mask): round(mask_prob T / mask_length) spans a row, at most
+    T // mask_length and at least min_masks, each starting uniformly in
+    [0, T - mask_length]. The starts come from `generator` (the JAX package
+    draws them from a jax.random key: the same distribution, other
+    numbers). Returns bool (B, T) on `device`."""
+    b, t = (int(n) for n in shape)
+    if mask_length > t:
+        raise ValueError("mask_length must be <= sequence_length")
+    num_spans = int(mask_prob * t / mask_length + 0.5)
+    num_spans = max(min(num_spans, t // mask_length), min_masks)
+    starts = torch.randint(0, t - mask_length + 1, (b, num_spans),
+                           generator=generator, device=device)
+    return span_mask(starts, t, mask_length)
+
+
+class HubertDiscrete:
+    """Discrete units: HuBERT's layer-7 features (768 wide, no projection)
+    quantised to the nearest k-means centre, the reference's
+    HubertDiscrete. model_or_state: a HubertSoft or a HuBERT state dict
+    (`load_hubert_state_dict`'s layouts; layers past 7 and the projection
+    are not used); cluster_centers: (K, 768), or the reference's codebook
+    dict ({'n_features_in_', 'cluster_centers_'}). CUDA unless the caller
+    asks for the CPU."""
+
+    # the (frames, K, 768) fp32 differences of one distance chunk
+    CHUNK_BYTES = 256 * 2 ** 20
+
+    def __init__(self, model_or_state: Union[nn.Module, Mapping],
+                 cluster_centers, device=None):
+        from ..utils.device import resolve_device
+
+        self.device = resolve_device(device)
+        sd = (model_or_state.state_dict()
+              if isinstance(model_or_state, nn.Module) else model_or_state)
+        model = HubertSoft(output_layer=7, proj_dim=None)
+        self.model = load_hubert_state_dict(model, sd).to(self.device).eval()
+        if isinstance(cluster_centers, Mapping):
+            cluster_centers = cluster_centers["cluster_centers_"]
+        self.centers = torch.as_tensor(np.asarray(cluster_centers, np.float32),
+                                       device=self.device)
+        k, d = self.centers.shape
+        self.chunk = max(1, self.CHUNK_BYTES // (4 * k * d))
+
+    @torch.no_grad()
+    def units(self, wav) -> torch.Tensor:
+        """(B, T) 16 kHz audio -> (B, Frame) int64 ids of the nearest
+        centre, by sum((f - c)^2) over the features as the JAX package
+        computes it (not |f|^2 - 2 f.c + |c|^2, which cancels), in chunks
+        of frames."""
+        x = self.model(torch.as_tensor(np.asarray(wav, np.float32)
+                                       if not torch.is_tensor(wav) else wav,
+                                       device=self.device))
+        feats = x.reshape(-1, x.shape[-1])
+        ids = [((f[:, None, :] - self.centers[None]) ** 2).sum(-1).argmin(1)
+               for f in feats.split(self.chunk)]
+        return torch.cat(ids).reshape(x.shape[0], x.shape[1])
 
 
 @torch.no_grad()

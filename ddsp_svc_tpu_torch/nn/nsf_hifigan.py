@@ -26,9 +26,13 @@ transposed conv, injection conv (the source cast to bf16 inside it) and
 ResBlocks in bf16 on cuDNN, parameters fp32 and cast per call; the last
 bf16 stage hands fp32 to the first fp32 stage, whose kernels run as
 before; the output is fp32. `dtype=torch.bfloat16` runs every conv in
-bf16. A bf16 stage of C <= 64 is where JAX runs its bf16-input trio
-kernel, which is not ported: on CUDA it raises, on the CPU it runs the
-bf16 conv chain, as JAX does off the TPU.
+bf16, the source too. A bf16 stage of C <= 64 (staged at a threshold of
+64 or less, or full bf16) runs its transposed conv in bf16 and its trio,
+the injection folded in, in the bf16-input form of the trio kernel, as
+JAX's does: x (and a bf16 source) upcast at the kernel's input, the fp32
+weights, fp32 sums, the output rounded once to bf16; on the CPU the plain
+version of that form. The fused stage (#11) takes fp32 stages only, as
+JAX's gate does.
 """
 from __future__ import annotations
 
@@ -169,19 +173,19 @@ class Generator(nn.Module):
         self.conv_post = nn.Conv1d(ch, 1, 7, padding=3)
 
     def _use_fused(self, ch: int) -> bool:
-        """The JAX package's gate for its fp32 trio kernel (C <= 64, three
-        resblocks sharing one dilation schedule), narrowed to the widths and
-        kernel sizes the kernel instantiates."""
+        """The JAX package's gate for its trio kernel (C <= 64 on an fp32 or
+        a bf16 stage, three resblocks sharing one dilation schedule),
+        narrowed to the widths and kernel sizes the kernel instantiates."""
         return (bool(self.fused_resblocks) and ch in TRIO_CHANNELS
                 and self.resblock_kernel_sizes == TRIO_KERNEL_SIZES
                 and len(set(self.resblock_dilation_sizes)) == 1)
 
-    def _stage_fusable(self, c_in: int, u: int, k: int) -> bool:
-        """The JAX package's gate for its fused stage (k = 2u, C_in a
-        multiple of 8, u dividing the 64-sample tile halo), narrowed to the
-        rates the kernel takes; decided from the geometry alone."""
-        return (bool(self.fused_stage) and k == 2 * u and c_in % 8 == 0
-                and u in STAGE_RATES)
+    def _stage_fusable(self, c_in: int, u: int, k: int, stage_dtype) -> bool:
+        """The JAX package's gate for its fused stage (an fp32 stage, k =
+        2u, C_in a multiple of 8, u dividing the 64-sample tile halo),
+        narrowed to the rates the kernel takes."""
+        return (bool(self.fused_stage) and stage_dtype is None
+                and k == 2 * u and c_in % 8 == 0 and u in STAGE_RATES)
 
     def _stage_dtype(self, ch: int):
         """The compute dtype of a stage of ch channels (None: fp32)."""
@@ -225,7 +229,7 @@ class Generator(nn.Module):
                 rand_ini: torch.Tensor, valid_frames=None,
                 source_phase=None) -> torch.Tensor:
         """mel (B, F, num_mels); f0_frames (B, F); rand_ini (B, 9).
-        Returns (B, F * prod(upsample_rates)), fp32.
+        Returns (B, F * prod(upsample_rates)), fp32 (float64 for a float64 one).
 
         valid_frames (int, 0-d or (B,)): the true frame counts of a
         bucket-padded batch. The mel, the source and every stage boundary
@@ -268,7 +272,9 @@ class Generator(nn.Module):
                             None if valid_frames is None else vf)
             x = self._finish_stage(x, i, stage_dtype)
         x = _conv(F.leaky_relu(x, 0.01), self.conv_post, padding=3)
-        out = torch.tanh(x.float())[:, 0, :]
+        # fp32 out of a bf16 forward (float64 stays float64)
+        out = torch.tanh(x.to(torch.promote_types(x.dtype, torch.float32))
+                         )[:, 0, :]
         if valid_frames is not None:
             # conv_post's bias makes the pad region a nonzero constant
             out = out * mask(upp)[:, 0, :]
@@ -287,19 +293,12 @@ class Generator(nn.Module):
         rbs = self.resblocks[i * n_k:(i + 1) * n_k]
         ch = x.shape[1] // 2
         fused = self._use_fused(ch)
-        if stage_dtype is not None and fused:
-            if x.is_cuda:
-                raise NotImplementedError(
-                    f"a bf16 stage of {ch} channels runs the bf16-input form "
-                    "of the trio kernel (fused_resblocks_inject_pallas), "
-                    "which is not ported (ROADMAP.md queue 2, forms not yet "
-                    "ported); use bf16_min_channels > 64 or "
-                    "fused_resblocks=False")
-            fused = False
         if fused:
+            # fp32 weights on an fp32 or a bf16 stage (the bf16-input form)
             stacks = [rb.stacked() for rb in rbs]
             ws, bs = [w for w, _ in stacks], [b for _, b in stacks]
-            if vf is None and self._stage_fusable(x.shape[1], u, k):
+            if vf is None and self._stage_fusable(x.shape[1], u, k,
+                                                  stage_dtype):
                 return fused_stage(x.transpose(1, 2), har, up.weight,
                                    up.bias, nc.weight, nc.bias, ws, bs, u, s,
                                    dils).transpose(1, 2)

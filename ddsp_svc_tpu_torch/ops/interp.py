@@ -19,11 +19,16 @@ def upsample_frames(signal: torch.Tensor, factor: int) -> torch.Tensor:
     return out.reshape(b, n_frames * factor, feat)
 
 
+def nearest_indices(n_frames: int, ratio: float, n_units: int) -> np.ndarray:
+    """The encoder frame of each of n_frames synth frames: round(ratio i)
+    (half to even, in float64 on the host), clipped to [0, n_units)."""
+    return np.clip(np.round(ratio * np.arange(n_frames)).astype(np.int64),
+                   0, n_units - 1)
+
+
 def nearest_align(units: torch.Tensor, n_frames: int, ratio: float
                   ) -> torch.Tensor:
     """Nearest-neighbour alignment of encoder frames to synth frames:
-    (B, RawFrame, Feat) -> (B, n_frames, Feat), frame i taking encoder frame
-    round(ratio i) (half to even, in float64 on the host), clipped."""
-    idx = np.clip(np.round(ratio * np.arange(n_frames)).astype(np.int64),
-                  0, units.shape[1] - 1)
+    (B, RawFrame, Feat) -> (B, n_frames, Feat) (nearest_indices)."""
+    idx = nearest_indices(n_frames, ratio, units.shape[1])
     return units[:, torch.as_tensor(idx, device=units.device), :]

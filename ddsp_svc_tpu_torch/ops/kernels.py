@@ -13,9 +13,13 @@ Counterpart of `ddsp_svc_tpu/ops/pallas_kernels.py`:
     fused_resblocks_inject   <- fused_resblocks_inject_pallas
     fused_resblocks          <- fused_resblocks_pallas (the same kernel
                                 without the injection)
+    fused_resblocks_inject_bf16, fused_resblocks_bf16
+                             <- the same on a bf16 stage (bf16 x upcast at
+                                the input, the output rounded to bf16)
     fused_resblock_chain     <- fused_resblock_chain_pallas
     fused_stage              <- fused_stage_pallas
     dft_magnitude            <- dft_magnitude_pallas
+    dft_magnitude_bf16       <- dft_magnitude_pallas(mxu_bf16=True)
     oscillator_bank          <- oscillator_bank_pallas
     ltv_fir_convolve         <- ltv_fir_convolve_pallas
 
@@ -91,10 +95,13 @@ _SIGNATURES = {
     "combsub_spectral_bwd_launch": [_P] * 12 + [_I, _I, _P],
     "combsub_spectral_bwd_info": [_I, ctypes.POINTER(_I)],
     "dft_magnitude_launch": [_P] * 4 + [_I] * 4 + [_P],
+    "dft_magnitude_bf16_launch": [_P] * 4 + [_I] * 4 + [_P],
     "harmonic_source_launch": [_P] * 5 + [_I, _I, _I, _F, _P],
     "harmonic_source_info": [ctypes.POINTER(_I)],
     "resblocks_launch": [_P] * 12 + [_I] * 9 + [_P],
     "resblocks_info": [_I, ctypes.POINTER(_I)],
+    "resblocks_bf16_launch": [_P, _P, _I] + [_P] * 11 + [_I] * 9 + [_P],
+    "resblocks_bf16_info": [_I, _I, ctypes.POINTER(_I)],
     "oscillator_bank_launch": [_P] * 3 + [_I] * 4 + [_P],
     "oscillator_bank_info": [_I, ctypes.POINTER(_I)],
     "ltv_fir_convolve_launch": [_P] * 3 + [_I] * 4 + [_P],
@@ -573,7 +580,10 @@ DFT_MAX_N = 8192
 
 def dft_magnitude_plain(frames, n_fft: int):
     """sqrt(re^2 + im^2 + 1e-12) of rfft(frames, n_fft): (R, n_fft) ->
-    (R, n_fft//2+1), for any n_fft."""
+    (R, n_fft//2+1), for any n_fft; bf16 frames are upcast exactly first
+    (the bf16-input form), the result is fp32."""
+    if frames.dtype == torch.bfloat16:
+        frames = frames.float()
     spec = torch.fft.rfft(frames, n_fft)
     return torch.sqrt(spec.real ** 2 + spec.imag ** 2 + 1e-12)
 
@@ -625,15 +635,18 @@ def _dft_magnitude_launch(frames, n_fft: int):
     if not 2 <= n_fft <= DFT_MAX_N:
         raise ValueError(f"dft_magnitude takes n_fft in [2, {DFT_MAX_N}], "
                          f"got {n_fft}")
-    _check(frames, "frames", (rows, n_fft), frames.device)
+    bf16 = frames.dtype == torch.bfloat16
+    _check(frames, "frames", (rows, n_fft), frames.device,
+           torch.bfloat16 if bf16 else torch.float32)
     l, m = dft_plan(n_fft)
     chirp, bhat = dft_tables(n_fft, frames.device) or (None, None)
     out = torch.empty((rows, n_fft // 2 + 1), dtype=torch.float32,
                       device=frames.device)
-    _launch("dft_magnitude", "dft_magnitude_launch", frames.data_ptr(),
-            out.data_ptr(), _ptr(chirp), _ptr(bhat), rows, n_fft, l, m,
-            _stream(out))
-    dft_magnitude.launches += 1
+    _launch("dft_magnitude",
+            "dft_magnitude_bf16_launch" if bf16 else "dft_magnitude_launch",
+            frames.data_ptr(), out.data_ptr(), _ptr(chirp), _ptr(bhat), rows,
+            n_fft, l, m, _stream(out))
+    (dft_magnitude_bf16 if bf16 else dft_magnitude).launches += 1
     return out
 
 
@@ -668,12 +681,23 @@ class _DftMagnitudeFn(torch.autograd.Function):
 
 def dft_magnitude(frames, n_fft: int):
     """|rfft(frames, n_fft)| with the 1e-12 floor inside the root, for any
-    n_fft up to 8192: frames (R, n_fft) fp32 -> (R, n_fft//2+1). Per row an
-    FFT in shared memory (Bluestein where dft_plan's l is not a power of
-    two); differentiable."""
+    n_fft up to 8192: frames (R, n_fft) fp32 -> (R, n_fft//2+1) fp32. Per
+    row an FFT in shared memory (Bluestein where dft_plan's l is not a
+    power of two); differentiable. bf16 frames take the bf16-input form,
+    whose launches dft_magnitude_bf16 counts."""
     if frames.device.type == "cpu":
         return dft_magnitude_plain(frames, n_fft)
     return _DftMagnitudeFn.apply(frames, n_fft)
+
+
+def dft_magnitude_bf16(frames, n_fft: int):
+    """The bf16-input form (dft_magnitude_pallas(mxu_bf16=True), the
+    staged-bf16 mel): dft_magnitude of bf16 frames, each read upcast, the
+    transform fp32. Its launches are counted here."""
+    if frames.dtype != torch.bfloat16:
+        raise TypeError(f"frames has dtype {frames.dtype}, expected "
+                        "torch.bfloat16")
+    return dft_magnitude(frames, n_fft)
 
 
 # ------------------------------ harmonic source -----------------------------
@@ -811,7 +835,14 @@ def resblocks_inject_plain(x_up, har, nc_weight, nc_bias, weights, biases,
     x_up (B, T, C); har (B, T_final, 1) or None (no injection); nc_weight
     (C, 1, ksrc); weights[r] (n_dil, 2, C, C, k_r); biases[r] (n_dil, 2, C);
     valid (optional sample counts) masks every conv input and zeroes the
-    output past it. Returns (B, T, C)."""
+    output past it. Returns (B, T, C). bf16 x_up (the bf16-input form): x_up
+    and har upcast exactly, every conv fp32 on the fp32 weights, the output
+    rounded once to bf16."""
+    if x_up.dtype == torch.bfloat16:
+        return resblocks_inject_plain(
+            x_up.float(), None if har is None else har.float(), nc_weight,
+            nc_bias, weights, biases, s_src, dilations, valid
+        ).to(torch.bfloat16)
     x = x_up.transpose(1, 2)
     t = x.shape[-1]
     if har is not None:
@@ -918,12 +949,15 @@ def _check_trio(weights, biases, c: int, dev) -> None:
         _check(bias, "bias", (3, 2, c), dev)
 
 
-def _injection(har, nc_weight, nc_bias, bsz: int, c: int, dev):
+def _injection(har, nc_weight, nc_bias, bsz: int, c: int, dev,
+               har_dtypes=(torch.float32,)):
     """har (B, T_final, 1) and the injection conv's weight as the kernels
-    read them: ((B, T_final), (C, ksrc), (C,), T_final, ksrc)."""
+    read them: ((B, T_final), (C, ksrc), (C,), T_final, ksrc). har's dtype
+    is one of har_dtypes (the bf16-input trio also reads bf16)."""
     t_final, ksrc = har.shape[1], nc_weight.shape[-1]
     har2 = har.reshape(bsz, t_final)
-    _check(har2, "har", (bsz, t_final), dev)
+    _check(har2, "har", (bsz, t_final), dev,
+           har.dtype if har.dtype in har_dtypes else har_dtypes[0])
     _check(nc_weight, "nc_weight", (c, 1, ksrc), dev)
     _check(nc_bias, "nc_bias", (c,), dev)
     return har2, nc_weight.reshape(c, ksrc), nc_bias, t_final, ksrc
@@ -937,24 +971,42 @@ def _trio_launch(x_up, har, nc_weight, nc_bias, weights, biases, s_src: int,
         raise ValueError(f"fused_resblocks_inject takes C in {TRIO_CHANNELS}, "
                          f"got C={c}")
     dils = _check_dilations(dilations)
+    # fp32 x, or the bf16-input form: bf16 x with bf16 or fp32 har
+    bf16 = x_up.dtype == torch.bfloat16
     x_cf = x_up.transpose(1, 2).contiguous()
-    _check(x_cf, "x_up", (bsz, c, t), dev)
+    _check(x_cf, "x_up", (bsz, c, t), dev,
+           torch.bfloat16 if bf16 else torch.float32)
     _check_trio(weights, biases, c, dev)
     har2 = wnc = bnc = None
     t_final = ksrc = 0
     if har is not None:
-        har2, wnc, bnc, t_final, ksrc = _injection(har, nc_weight, nc_bias,
-                                                   bsz, c, dev)
+        har2, wnc, bnc, t_final, ksrc = _injection(
+            har, nc_weight, nc_bias, bsz, c, dev,
+            (torch.float32, torch.bfloat16) if bf16 else (torch.float32,))
     vl = None if valid is None else _lengths(valid, bsz, t, dev)
     w_k = mma_fragments(weights)
     out = torch.empty_like(x_cf)
-    _launch("resblocks", "resblocks_launch",
-            x_cf.data_ptr(), _ptr(har2), _ptr(wnc), _ptr(bnc),
-            *(w.data_ptr() for w in w_k), *(b.data_ptr() for b in biases),
-            _ptr(vl), out.data_ptr(), bsz, c, t, t_final, s_src, ksrc,
-            *dils, _stream(out))
-    # the no-injection form is the fused_resblocks_pallas kernel: counted apart
-    (fused_resblocks if har is None else fused_resblocks_inject).launches += 1
+    tail = (*(w.data_ptr() for w in w_k), *(b.data_ptr() for b in biases),
+            _ptr(vl))
+    sizes = (bsz, c, t, t_final, s_src, ksrc, *dils, _stream(out))
+    if bf16:
+        # the trio mean's partial sums stay fp32 (the output is rounded once)
+        acc = torch.empty(x_cf.shape, dtype=torch.float32, device=dev)
+        _launch("resblocks", "resblocks_bf16_launch", x_cf.data_ptr(),
+                _ptr(har2), int(har2 is not None
+                                and har2.dtype == torch.bfloat16),
+                _ptr(wnc), _ptr(bnc), *tail, acc.data_ptr(), out.data_ptr(),
+                *sizes)
+        counter = fused_resblocks_bf16 if har is None \
+            else fused_resblocks_inject_bf16
+    else:
+        _launch("resblocks", "resblocks_launch", x_cf.data_ptr(),
+                _ptr(har2), _ptr(wnc), _ptr(bnc), *tail, out.data_ptr(),
+                *sizes)
+        counter = fused_resblocks if har is None else fused_resblocks_inject
+    # the no-injection form is the fused_resblocks_pallas kernel and the
+    # bf16-input forms run apart: each is counted apart
+    counter.launches += 1
     return out.transpose(1, 2)
 
 
@@ -963,7 +1015,9 @@ def fused_resblocks_inject(x_up, har, nc_weight, nc_bias, weights, biases,
     """The narrow-stage trio in one kernel: injection conv, three ResBlock1
     chains (k = 3/7/11) and their mean, on time tiles held in shared
     memory. Same arguments and result as resblocks_inject_plain; har=None
-    runs the trio alone (the fused_resblocks_pallas form). Differentiable
+    runs the trio alone (the fused_resblocks_pallas form). x_up fp32 (har
+    fp32), or bf16 (har bf16 or fp32): the bf16-input form, whose launches
+    fused_resblocks_inject_bf16 / fused_resblocks_bf16 count. Differentiable
     (the backward re-runs the plain version) except with valid=."""
     if x_up.device.type == "cpu":
         return resblocks_inject_plain(x_up, har, nc_weight, nc_bias, weights,
@@ -989,6 +1043,32 @@ def fused_resblocks(x, weights, biases, dilations=(1, 3, 5), valid=None):
                                   dilations, valid)
 
 
+def _require_bf16(x, name: str) -> None:
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"{name} has dtype {x.dtype}, expected "
+                        "torch.bfloat16")
+
+
+def fused_resblocks_inject_bf16(x_up, har, nc_weight, nc_bias, weights,
+                                biases, s_src: int, dilations=(1, 3, 5),
+                                valid=None):
+    """The bf16-input form of fused_resblocks_inject (a bf16 stage of the
+    Generator): x_up bf16, har bf16 or fp32, both upcast on the kernel's
+    load, the weights, the convs and the trio's sums fp32, the output
+    rounded once to bf16. Its launches are counted here."""
+    _require_bf16(x_up, "x_up")
+    return fused_resblocks_inject(x_up, har, nc_weight, nc_bias, weights,
+                                  biases, s_src, dilations, valid)
+
+
+def fused_resblocks_bf16(x, weights, biases, dilations=(1, 3, 5),
+                         valid=None):
+    """The bf16-input form of fused_resblocks; its launches are counted
+    here."""
+    _require_bf16(x, "x")
+    return fused_resblocks(x, weights, biases, dilations, valid)
+
+
 def _kernel_info(lib_name: str, symbol: str, *args) -> dict:
     out = (_I * 3)()
     err = _c_function(lib_name, symbol)(*args, out)
@@ -997,10 +1077,14 @@ def _kernel_info(lib_name: str, symbol: str, *args) -> dict:
     return dict(registers=out[0], spill_bytes=out[1], smem_bytes=out[2])
 
 
-def trio_kernel_info(c: int) -> dict:
+def trio_kernel_info(c: int, bf16: bool = False, har_bf16: bool = False
+                     ) -> dict:
     """The compiled trio kernel at width C on the current card: registers
     per thread, local-memory (spilled) bytes per thread and dynamic shared
-    memory per block."""
+    memory per block; bf16: the bf16-input form (har_bf16: with bf16 har)."""
+    if bf16:
+        return _kernel_info("resblocks", "resblocks_bf16_info", c,
+                            int(har_bf16))
     return _kernel_info("resblocks", "resblocks_info", c)
 
 
@@ -1309,7 +1393,8 @@ def ltv_fir_convolve(a_frames, ir_frames, n_fft: int):
 
 KERNELS = (performer_attention, performer_attention_moments,
            performer_attention_apply, combsub_spectral, harmonic_source,
-           fused_resblocks_inject, fused_resblocks, dft_magnitude,
-           combsub_spectral_bwd, oscillator_bank, ltv_fir_convolve,
+           fused_resblocks_inject, fused_resblocks,
+           fused_resblocks_inject_bf16, fused_resblocks_bf16, dft_magnitude,
+           dft_magnitude_bf16, combsub_spectral_bwd, oscillator_bank, ltv_fir_convolve,
            fused_resblock_chain, fused_stage)
 reset_launch_counts()

@@ -2,10 +2,16 @@
 tensor (one length for the whole batch) or a (B,) tensor (one per item)."""
 from __future__ import annotations
 
+import numbers
+
 import torch
 
 
 def _as_col(valid_frames, device) -> torch.Tensor:
+    """valid_frames as a (B?, 1) tensor on `device`. An int is filled on the
+    device (no host-to-device copy, which a captured CUDA graph forbids)."""
+    if isinstance(valid_frames, numbers.Integral):
+        return torch.full((1, 1), int(valid_frames), device=device)
     return torch.as_tensor(valid_frames, device=device).reshape(-1, 1)
 
 

@@ -5,8 +5,9 @@ Counterpart of `ddsp_svc_tpu/ops/resample.py` (torchaudio
 128, rolloff 0.99). After reducing the rate pair by its gcd, each of the
 `new` output phases gets a Hann-windowed sinc sampled at the input
 positions; the filter bank is built on the host in float64, cached per rate
-pair, and applied as one F.conv1d of stride `orig` (a plain large product,
-which the JAX package also leaves to XLA).
+pair (and as a tensor per rate pair, dtype and device, so that a captured
+CUDA graph holds no copy of it), and applied as one F.conv1d of stride
+`orig` (a plain large product, which the JAX package also leaves to XLA).
 """
 from __future__ import annotations
 
@@ -37,18 +38,48 @@ def _sinc_kernel(orig_freq: int, new_freq: int,
     return kernel.astype(np.float32), width, orig, new
 
 
+_KERNELS: dict = {}
+
+
+def _kernel_tensor(orig_freq: int, new_freq: int, width: int, dtype, device):
+    """_sinc_kernel's bank as a (new, 1, taps) tensor on `device`, made once
+    per (rates, width, dtype, device) (afresh under torch.compile).
+    Read-only."""
+    def make():
+        return torch.as_tensor(_sinc_kernel(orig_freq, new_freq, width)[0],
+                               dtype=dtype, device=device)[:, None, :]
+
+    if torch.compiler.is_compiling():
+        return make()
+    key = (orig_freq, new_freq, width, dtype, torch.device(device))
+    if key not in _KERNELS:
+        _KERNELS[key] = make()
+    return _KERNELS[key]
+
+
+def resampled_length(length: int, orig_freq: int, new_freq: int) -> int:
+    """The output length of resample: ceil(length * new / orig), the rates
+    reduced by their gcd."""
+    if orig_freq == new_freq:
+        return int(length)
+    g = math.gcd(int(orig_freq), int(new_freq))
+    return int(math.ceil(int(new_freq) // g * int(length) / (int(orig_freq)
+                                                              // g)))
+
+
 def resample(x: torch.Tensor, orig_freq: int, new_freq: int,
              lowpass_filter_width: int = 128) -> torch.Tensor:
     """Resample a batch of waveforms on x's device: (B, T) ->
     (B, ceil(T * new_freq / orig_freq))."""
     if orig_freq == new_freq:
         return x
-    kernel_np, width, orig, new = _sinc_kernel(orig_freq, new_freq,
-                                               lowpass_filter_width)
-    kernel = torch.as_tensor(kernel_np, dtype=x.dtype, device=x.device)
+    _, width, orig, new = _sinc_kernel(orig_freq, new_freq,
+                                       lowpass_filter_width)
+    kernel = _kernel_tensor(orig_freq, new_freq, lowpass_filter_width,
+                            x.dtype, x.device)
     b, length = x.shape
     target_len = int(math.ceil(new * length / orig))
     xp = F.pad(x, (width, width + orig))
-    out = F.conv1d(xp[:, None, :], kernel[:, None, :], stride=orig)
+    out = F.conv1d(xp[:, None, :], kernel, stride=orig)
     # interleave the phases: (B, new, steps) -> (B, steps * new)
     return out.transpose(1, 2).reshape(b, -1)[:, :target_len]

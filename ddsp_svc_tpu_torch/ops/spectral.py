@@ -5,9 +5,12 @@ Transforms go through torch.fft (cuFFT on the card), except two
 magnitudes, which go through the dft_magnitude kernel on the card as the
 JAX package routes them through dft_magnitude_pallas on the TPU: the loss
 spectrogram's (it takes any n_fft) and the staged-bf16 enhancer's mel
-(`mxu_bf16`). The mel filterbank is a numpy copy of
-`ddsp_svc_tpu/ops/spectral.py::mel_filterbank` (librosa slaney parity), so
-both packages share one basis bit for bit.
+(`mxu_bf16`: the bf16-input form). The keyshift/speed mel takes
+torch.fft.rfft of its non-power-of-two size (JAX's `rfft_any`, a DFT
+product XLA runs, not a Pallas kernel). The mel filterbank is a numpy copy
+of `ddsp_svc_tpu/ops/spectral.py::mel_filterbank` (librosa slaney parity),
+so both packages share one basis bit for bit; on a device it is made once
+per (geometry, device), so that a captured CUDA graph holds no copy of it.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .kernels import dft_magnitude
+from .kernels import dft_magnitude, dft_magnitude_bf16
 from .windows import hann_window
 
 
@@ -158,6 +161,45 @@ def mel_reflect_pad(x: torch.Tensor, win_length: int, hop: int
     return F.pad(x[:, None, :], (pad_l, pad_r), mode="reflect")[:, 0, :]
 
 
+_BASIS: dict = {}
+
+
+def mel_basis(sr: int, n_fft: int, n_mels: int, fmin: float, fmax: float,
+              device) -> torch.Tensor:
+    """mel_filterbank as a tensor on `device`, made once per (geometry,
+    device). Read-only."""
+    key = (sr, n_fft, n_mels, fmin, fmax, torch.device(device))
+    if torch.compiler.is_compiling():
+        return torch.as_tensor(mel_filterbank(sr, n_fft, n_mels, fmin, fmax),
+                               device=device)
+    if key not in _BASIS:
+        _BASIS[key] = torch.as_tensor(
+            mel_filterbank(sr, n_fft, n_mels, fmin, fmax), device=device)
+    return _BASIS[key]
+
+
+def bf16_frames_magnitude(x: torch.Tensor, n_fft: int, hop: int,
+                          win: torch.Tensor) -> torch.Tensor:
+    """JAX's bf16 DFT route of the mel (dft_magnitude_pallas(mxu_bf16=True)):
+    the Hann-windowed frames rounded to bf16, then |rfft| with the 1e-12
+    floor inside the root, fp32. (B, T) padded audio -> (B, F, n_fft//2+1);
+    on the card the dft_magnitude kernel's bf16-input form, on the CPU its
+    plain version."""
+    frames = windowed_frames(x, n_fft, hop, win).to(torch.bfloat16)
+    b, f, _ = frames.shape
+    return dft_magnitude_bf16(frames.reshape(b * f, n_fft), n_fft).reshape(
+        b, f, n_fft // 2 + 1)
+
+
+def _log_mel(mag: torch.Tensor, sr: int, n_fft: int, n_mels: int,
+             fmin: float, fmax: float, clip_val: float) -> torch.Tensor:
+    """(B, F, n_fft//2+1) magnitudes -> (B, n_mels, F) log mel (the basis
+    in mag's dtype)."""
+    basis = mel_basis(sr, n_fft, n_mels, fmin, fmax, mag.device).to(mag.dtype)
+    mel = torch.einsum("mf,btf->bmt", basis, mag)
+    return torch.log(torch.clamp(mel, min=clip_val))
+
+
 def log_mel_spectrogram(x: torch.Tensor, sr: int, n_fft: int, hop: int,
                         win_length: int, n_mels: int, fmin: float, fmax: float,
                         clip_val: float = 1e-5, mxu_bf16: bool = False,
@@ -168,27 +210,53 @@ def log_mel_spectrogram(x: torch.Tensor, sr: int, n_fft: int, hop: int,
     STFT, magnitude sqrt(re^2 + im^2 + 1e-9), slaney mel, log(clamp).
     (B, T) -> (B, n_mels, n_frames). pre_padded=True: the caller already
     applied that padding (each item of a mixed-length batch its own
-    reflection, `Enhancer.enhance_batch`). mxu_bf16 asks for JAX's DFT
-    route, which JAX takes on its accelerator (the TPU's "mxu" magnitude
-    backend) and not on the CPU. Here likewise: on the card the magnitude
-    is the dft_magnitude kernel's (fp32, its 1e-12 floor inside the root;
-    JAX's bf16-input form is not ported), on the CPU the fp32 FFT route's."""
+    reflection, `Enhancer.enhance_batch`). mxu_bf16 asks for JAX's bf16
+    DFT route, which JAX takes on its accelerator (the TPU's "mxu"
+    magnitude backend) and not on the CPU. Here likewise: on the card the
+    frames are rounded to bf16 and the magnitude is the dft_magnitude
+    kernel's bf16-input form (`bf16_frames_magnitude`), on the CPU the fp32
+    FFT route's. keyshift / speed: `_log_mel_keyshift`."""
     if keyshift != 0 or speed != 1:
-        raise NotImplementedError(
-            "keyshift/speed mel analysis is not ported yet"
-        )
+        return _log_mel_keyshift(x, sr, n_fft, hop, win_length, n_mels, fmin,
+                                 fmax, clip_val, keyshift, speed)
     if not pre_padded:
         x = mel_reflect_pad(x, win_length, hop)
     win = hann_window(win_length, dtype=x.dtype, device=x.device)
     if mxu_bf16 and x.is_cuda:
-        frames = windowed_frames(x, n_fft, hop, win)
-        b, f, _ = frames.shape
-        mag = dft_magnitude(frames.reshape(b * f, n_fft), n_fft).reshape(
-            b, f, n_fft // 2 + 1)
+        mag = bf16_frames_magnitude(x, n_fft, hop, win)
     else:
         spec = stft(x, n_fft, hop, win)
         mag = torch.sqrt(spec.real ** 2 + spec.imag ** 2 + 1e-9)
-    basis = torch.as_tensor(mel_filterbank(sr, n_fft, n_mels, fmin, fmax),
-                            device=x.device)
-    mel = torch.einsum("mf,btf->bmt", basis, mag)
-    return torch.log(torch.clamp(mel, min=clip_val))
+    return _log_mel(mag, sr, n_fft, n_mels, fmin, fmax, clip_val)
+
+
+def _log_mel_keyshift(x: torch.Tensor, sr: int, n_fft: int, hop: int,
+                      win_length: int, n_mels: int, fmin: float, fmax: float,
+                      clip_val: float, keyshift: float, speed: float
+                      ) -> torch.Tensor:
+    """The keyshift/speed mel (nvSTFT.get_mel with keyshift != 0; the JAX
+    package's `_log_mel_keyshift`): n_fft and the window scale by
+    2^(keyshift/12), rounded, the hop by `speed`; reflect padding, constant
+    where the right pad reaches the whole input; the windowed rFFT of the
+    new size with sqrt(re^2 + im^2 + 1e-9); the spectrum padded with zeros
+    or truncated back to n_fft//2+1 bins and rescaled by win / win_new
+    (keyshift != 0 only); the unscaled basis of n_fft."""
+    factor = 2.0 ** (keyshift / 12.0)
+    n_fft_new = int(np.round(n_fft * factor))
+    win_new = int(np.round(win_length * factor))
+    hop_new = int(np.round(hop * speed))
+    t = x.shape[-1]
+    pad_l = (win_new - hop_new) // 2
+    pad_r = max((win_new - hop_new + 1) // 2, win_new - t - pad_l)
+    mode = "reflect" if pad_r < t else "constant"
+    x = F.pad(x[:, None, :], (pad_l, pad_r), mode=mode)[:, 0, :]
+    win = hann_window(win_new, dtype=x.dtype, device=x.device)
+    spec = stft(x, n_fft_new, hop_new, win)
+    mag = torch.sqrt(spec.real ** 2 + spec.imag ** 2 + 1e-9)
+    if keyshift != 0:
+        size = n_fft // 2 + 1
+        bins = mag.shape[-1]
+        if bins < size:
+            mag = F.pad(mag, (0, size - bins))
+        mag = mag[..., :size] * (win_length / win_new)
+    return _log_mel(mag, sr, n_fft, n_mels, fmin, fmax, clip_val)

@@ -103,9 +103,12 @@ def test_bf16_generator_matches_jax_and_fp32(kw):
 
 
 def test_staged_casts_fall_on_the_wide_stages(monkeypatch):
-    """At threshold 16 every conv of the C = 32 and 16 stages (transposed
-    conv, injection conv, 18 ResBlock convs each) runs on bf16 inputs and
-    weights; conv_pre, conv_post and the narrow stages run fp32."""
+    """At threshold 16 the C = 32 and 16 stages are bf16: their transposed
+    convs run on bf16 inputs and weights, and their injection conv and 18
+    ResBlock convs run in the trio's bf16-input form (JAX's
+    fused_resblocks_inject_pallas on a bf16 stage), here its plain version:
+    fp32 convs on the upcast input and the fp32 weights. conv_pre,
+    conv_post and the narrow stages run fp32."""
     seen = []
     conv1d, convt = F.conv1d, F.conv_transpose1d
 
@@ -126,9 +129,13 @@ def test_staged_casts_fall_on_the_wide_stages(monkeypatch):
     bf16 = [s for s in seen if s[1] == torch.bfloat16]
     assert all(s[2] == torch.bfloat16 for s in bf16)
     assert sorted({s[3] for s in bf16}) == [16, 32]
-    assert len(bf16) == 2 * (1 + 1 + 18)
+    assert [s[0] for s in bf16] == ["up", "up"]
     fp32 = [s for s in seen if s[1] == torch.float32]
-    assert all(s[3] < THRESHOLD or s[3] in (1, 64) for s in fp32), fp32
+    assert all(s[2] == torch.float32 for s in fp32)
+    trio = [s for s in fp32 if s[0] == "conv" and s[3] in (16, 32)]
+    assert len(trio) == 2 * (1 + 18), trio
+    assert all(s[3] < THRESHOLD or s[3] in (1, 16, 32, 64)
+               for s in fp32), fp32
 
 
 def test_log_mel_mxu_bf16_takes_the_fp32_route():

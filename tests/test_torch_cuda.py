@@ -539,6 +539,66 @@ def test_resblocks_kernel_at_path_shape(cuda, valid):
         assert not got[0, valid[0]:].any()
 
 
+# one bf16 ulp: kernel and plain version upcast exactly and compute in
+# fp32; only the output's rounding to bf16 may flip
+BF16_ULP = dict(rtol=2.0 ** -7, atol=2e-5)
+
+
+@pytest.mark.parametrize("c,t,s_src,valid,har", [
+    (64, 700, 4, None, "fp32"), (32, 1500, 2, [1400, 600], "bf16"),
+    (16, 3000, 1, None, "bf16"), (8, 5000, 1, 4000, "fp32"),
+    (64, 333, 1, None, None), (64, 65536, 8, None, "fp32")])
+def test_resblocks_bf16_kernel(cuda, c, t, s_src, valid, har):
+    """The trio's bf16-input form (x bf16; har fp32 as a staged stage gets
+    it, bf16 as the full-bf16 Generator's, or none: #5's form) against its
+    plain version on the same inputs: bf16 out, within one bf16 ulp, the
+    tail past a row's length exactly 0, the launch counted on the form
+    (fused_resblocks_inject_bf16 / fused_resblocks_bf16), none on the fp32
+    form's counts."""
+    g = torch.Generator(device=cuda).manual_seed(c * t + 1)
+    ksrc = 2 * s_src if s_src > 1 else 1
+    ws = [_randn(g, 3, 2, c, c, k, scale=(2.0 / (k * c)) ** 0.5)
+          for k in (3, 7, 11)]
+    bs = [_randn(g, 3, 2, c, scale=0.01) for _ in range(3)]
+    h = None if har is None else _randn(g, 2, t * s_src, 1, scale=0.1)
+    if har == "bf16":
+        h = h.to(torch.bfloat16)
+    args = (_randn(g, 2, t, c).to(torch.bfloat16), h,
+            _randn(g, c, 1, ksrc, scale=0.2), _randn(g, c, scale=0.05), ws,
+            bs, s_src)
+    ref = K.resblocks_inject_plain(*args, valid=valid)
+    K.reset_launch_counts()
+    got = K.fused_resblocks_inject(*args, valid=valid)
+    counts = K.launch_counts()
+    form = "fused_resblocks_bf16" if har is None \
+        else "fused_resblocks_inject_bf16"
+    assert counts[form] == 1 and sum(counts.values()) == 1, counts
+    assert got.dtype == ref.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), ref.float(), **BF16_ULP)
+    if valid is not None:
+        for i, n in enumerate(np.broadcast_to(valid, (2,))):
+            assert not got[i, n:].any()
+
+
+def test_resblocks_bf16_kernel_backward(cuda):
+    """The bf16 form's backward (the plain form replayed) against autograd
+    of the plain version, at the C = 32 stage: within one bf16 ulp (the
+    replay and autograd run the same operations; cuDNN's backward may sum
+    in another order)."""
+    g = torch.Generator(device=cuda).manual_seed(32)
+    ws, bs = _trio(g, 32)
+    x = _randn(g, 1, 900, 32).to(torch.bfloat16).requires_grad_()
+    har = _randn(g, 1, 3600, 1, scale=0.1)
+    nw, nb = _randn(g, 32, 1, 8, scale=0.2), _randn(g, 32, scale=0.05)
+    up = _randn(g, 1, 900, 32).to(torch.bfloat16)
+    grads = []
+    for fn in (K.fused_resblocks_inject, K.resblocks_inject_plain):
+        x.grad = None
+        (fn(x, har, nw, nb, ws, bs, 4).float() * up.float()).sum().backward()
+        grads.append(x.grad.float())
+    torch.testing.assert_close(grads[0], grads[1], **BF16_ULP)
+
+
 @pytest.mark.parametrize("kernel", ["trio", "chain", "stage"])
 @pytest.mark.parametrize("c", [64, 16])
 def test_resblocks_kernel_wide_range(cuda, c, kernel):
@@ -1068,7 +1128,10 @@ def test_wrappers_count_launches(cuda):
                                  "harmonic_source": 1,
                                  "fused_resblocks_inject": 0,
                                  "fused_resblocks": 0,
+                                 "fused_resblocks_inject_bf16": 0,
+                                 "fused_resblocks_bf16": 0,
                                  "dft_magnitude": 0,
+                                 "dft_magnitude_bf16": 0,
                                  "combsub_spectral_bwd": 0,
                                  "oscillator_bank": 0,
                                  "ltv_fir_convolve": 0,
@@ -1076,14 +1139,20 @@ def test_wrappers_count_launches(cuda):
                                  "fused_stage": 0}
 
 
-def test_staged_bf16_generator_on_card(cuda):
+def test_staged_bf16_generator_on_card(cuda, monkeypatch):
     """Staged bf16 at threshold 128 (stages of 128 channels in bf16 on
     cuDNN, 64/32/16/8 fp32 on the trio kernel): fp32 output within rel RMS
     2e-2 of the fp32 forward on the same weights (the JAX package's own
-    bound), #4 launched once per fp32 stage; a bf16 stage of <= 64
-    channels with the fused trio raises (its bf16-input form is not
-    ported), and runs on cuDNN with fused_resblocks=False or where the
-    trio would not be chosen."""
+    bound), #4 launched once per fp32 stage. At threshold 64 the C = 64
+    stage runs the trio's bf16-input form (once) and the full-bf16
+    Generator every narrow stage (4): each within rel RMS 2e-2 of the fp32
+    forward and 2e-3 of the same form on the plain versions, or, where
+    more, twice the plain form's own spread: its distance from itself run
+    on the f0 moved by one fp32 ulp (a bf16 Generator turns any fp32
+    difference into flipped bf16 roundings downstream; the mel itself is
+    cast to bf16 first in full bf16, where a one-ulp move vanishes); with
+    fused_resblocks=False, or where the trio would not be chosen, bf16
+    stages of <= 64 channels run on cuDNN."""
     from ddsp_svc_tpu_torch.nn import nsf_hifigan
     from ddsp_svc_tpu_torch.nn.layers import lecun_init_
 
@@ -1109,8 +1178,38 @@ def test_staged_bf16_generator_on_card(cuda):
         assert y16.dtype == torch.float32 and bool(torch.isfinite(y16).all())
         rel = ((y16 - y32).pow(2).mean().sqrt() / y32.pow(2).mean().sqrt()).item()
         assert 1e-5 < rel < 2e-2, rel
-        with pytest.raises(NotImplementedError, match="bf16"):
-            make(bf16_min_channels=64)(mel, f0, ri)
+        for kw, n_bf16, n_fp32 in (({"bf16_min_channels": 64}, 1, 3),
+                                   ({"dtype": torch.bfloat16}, 4, 0)):
+            gen = make(**kw)
+            K.reset_launch_counts()
+            y = gen(mel, f0, ri)
+            counts = K.launch_counts()
+            assert counts["fused_resblocks_inject_bf16"] == n_bf16, counts
+            assert counts["fused_resblocks_inject"] == n_fp32, counts
+            assert counts["fused_stage"] == 0, counts
+            with monkeypatch.context() as m:
+                m.setattr(nsf_hifigan, "fused_resblocks_inject",
+                          K.resblocks_inject_plain)
+                m.setattr(nsf_hifigan, "harmonic_source",
+                          K.harmonic_source_plain)
+                y_p = gen(mel, f0, ri)
+                y_pp = gen(mel, torch.nextafter(f0, f0 + 1), ri)
+
+            def rel_rms(a, b):
+                return ((a - b).pow(2).mean().sqrt()
+                        / b.pow(2).mean().sqrt()).item()
+
+            assert y.dtype == torch.float32 and bool(torch.isfinite(y).all())
+            assert rel_rms(y, y32) < 2e-2, (kw, rel_rms(y, y32))
+            floor = rel_rms(y_pp, y_p)
+            assert rel_rms(y, y_p) < max(2e-3, 2 * floor), (
+                kw, rel_rms(y, y_p), floor)
+        # a bf16 stage never takes the fused stage (#11 is fp32 only)
+        K.reset_launch_counts()
+        make(bf16_min_channels=64, fused_stage=True)(mel, f0, ri)
+        counts = K.launch_counts()
+        assert counts["fused_stage"] == 3, counts
+        assert counts["fused_resblocks_inject_bf16"] == 1, counts
         y = make(bf16_min_channels=64, fused_resblocks=False)(mel, f0, ri)
         rel = ((y - y32).pow(2).mean().sqrt() / y32.pow(2).mean().sqrt()).item()
         assert rel < 2e-2, rel
@@ -1144,11 +1243,15 @@ def test_parselmouth_f0_on_card_matches_cpu(cuda):
     assert np.abs(1200 * np.log2(got[v] / ref[v])).max() < 1.0
 
 
-def test_staged_mel_runs_the_dft_kernel(cuda):
+def test_staged_mel_runs_the_dft_kernel(cuda, monkeypatch):
     """The staged-bf16 enhancer's mel (mxu_bf16=True) on the card takes the
-    dft_magnitude kernel, once a call, as JAX's takes dft_magnitude_pallas
-    on the TPU, and agrees with the fp32 route's (cuFFT) at H_NSF's
-    geometry: the linear mel within rel RMS 1e-4."""
+    dft_magnitude kernel's bf16-input form, once a call, as JAX's takes
+    dft_magnitude_pallas(mxu_bf16=True) on the TPU, and agrees with the
+    same bf16 route on the plain version (cuFFT of the bf16-rounded frames)
+    at H_NSF's geometry: the linear mel within rel RMS 1e-4. (The route
+    rounds the frames to bf16 as JAX's does; tests/test_torch_bf16_forms.py
+    holds it to JAX's bf16 route on the CPU.)"""
+    from ddsp_svc_tpu_torch.ops import spectral
     from ddsp_svc_tpu_torch.ops.spectral import log_mel_spectrogram
 
     g = torch.Generator(device=cuda).manual_seed(21)
@@ -1158,13 +1261,21 @@ def test_staged_mel_runs_the_dft_kernel(cuda):
     geo = (44100, 2048, 512, 2048, 128, 40, 16000)
     K.reset_launch_counts()
     m16 = log_mel_spectrogram(x, *geo, mxu_bf16=True).double()
-    assert K.launch_counts()["dft_magnitude"] == 1
-    m32 = log_mel_spectrogram(x, *geo).double()
-    assert K.launch_counts()["dft_magnitude"] == 1
-    assert m16.shape == m32.shape
-    rel = ((m16.exp() - m32.exp()).pow(2).mean()
-           / m32.exp().pow(2).mean()).sqrt().item()
+    assert K.launch_counts()["dft_magnitude_bf16"] == 1
+    monkeypatch.setattr(spectral, "dft_magnitude_bf16", K.dft_magnitude_plain)
+    m_p = log_mel_spectrogram(x, *geo, mxu_bf16=True).double()
+    counts = K.launch_counts()
+    assert counts["dft_magnitude_bf16"] == 1 and counts["dft_magnitude"] == 0
+    assert m16.shape == m_p.shape
+    rel = ((m16.exp() - m_p.exp()).pow(2).mean()
+           / m_p.exp().pow(2).mean()).sqrt().item()
     assert rel < 1e-4, rel
+    frames = (x[:, :8192].unfold(-1, 2048, 512)
+              * torch.hann_window(2048, device=cuda)).reshape(-1, 2048)
+    frames = frames.to(torch.bfloat16).contiguous()
+    got, ref = K.dft_magnitude(frames, 2048), K.dft_magnitude_plain(frames,
+                                                                   2048)
+    assert (got - ref).abs().max().item() <= 2e-5 * ref.abs().max().item()
 
 
 def _plain_swaps():
@@ -1296,8 +1407,8 @@ def test_enhance_batch_mixed_lengths_on_kernels(cuda, monkeypatch, staged):
     mel, against the same call on the plain versions. fp32: 1e-4 of max
     |ref| per item; staged (C = 256/128 in bf16): rel RMS 2e-2 per item, the
     JAX package's staged bound, as the kernels' fp32 rounding flips bf16
-    roundings. #3 once, #4 once per fp32 stage of <= 64 channels (4), #6
-    once when staged."""
+    roundings. #3 once, #4 once per fp32 stage of <= 64 channels (4), #6's
+    bf16-input form once when staged."""
     from ddsp_svc_tpu_torch.infer.enhancer import Enhancer
     from ddsp_svc_tpu_torch.nn import nsf_hifigan
     from ddsp_svc_tpu_torch.ops import spectral
@@ -1333,11 +1444,11 @@ def test_enhance_batch_mixed_lengths_on_kernels(cuda, monkeypatch, staged):
     counts = K.launch_counts()
     assert counts["harmonic_source"] == 1, counts
     assert counts["fused_resblocks_inject"] == 4, counts
-    assert counts["dft_magnitude"] == (1 if staged else 0), counts
+    assert counts["dft_magnitude_bf16"] == (1 if staged else 0), counts
     monkeypatch.setattr(nsf_hifigan, "harmonic_source", K.harmonic_source_plain)
     monkeypatch.setattr(nsf_hifigan, "fused_resblocks_inject",
                         K.resblocks_inject_plain)
-    monkeypatch.setattr(spectral, "dft_magnitude", K.dft_magnitude_plain)
+    monkeypatch.setattr(spectral, "dft_magnitude_bf16", K.dft_magnitude_plain)
     ref = run()
     for i, (g_i, r_i) in enumerate(zip(got, ref)):
         assert g_i.shape == r_i.shape and bool(torch.isfinite(g_i).all())
@@ -1535,6 +1646,102 @@ def test_sola_window_launches_and_pipeline_on_card(cuda, tmp_path,
     assert len(piped) == len(plain_run) + 1 and not piped[0].any()
     for a, b in zip(plain_run, piped[1:]):
         np.testing.assert_array_equal(a, b)
+
+
+def test_fused_window_on_card_matches_eager(cuda, tmp_path, monkeypatch):
+    """SvcCore(fused_window=True) on the card, gui.py's window at 16 kHz
+    with its silence front: one CUDA graph per window shape, captured at
+    its first window and replayed for the next; with cuDNN deterministic
+    each window within 1e-6 x max|ref| of the eager core's (enhancer on at
+    adaptive keys 0 and 2, and off); #1/#2/#3/#4 counted 3/1/1/3 at each
+    replay (3/1/0/0 raw); a replay's output survives the next replay; a
+    capture that meets a host-to-device copy raises."""
+    from ddsp_svc_tpu_torch.infer import window_graph
+    from ddsp_svc_tpu_torch.infer.streaming import StreamingSession, SvcCore
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    path, audio = _stream_exp(tmp_path)
+    eager = SvcCore(path, device=cuda)
+    fused = SvcCore(path, device=cuda, fused_window=True)
+    sess = StreamingSession(eager, samplerate=16000, block_time=0.3,
+                            crossfade_time=0.04, buffer_num=2)
+    n = sess.input_frames
+    kw = dict(pitch_extractor_type="dio",
+              safe_prefix_pad_length=sess.safe_prefix_pad_length)
+    per = {True: {"performer_attention": 3, "combsub_spectral": 1,
+                  "harmonic_source": 1, "fused_resblocks_inject": 3},
+           False: {"performer_attention": 3, "combsub_spectral": 1,
+                   "harmonic_source": 0, "fused_resblocks_inject": 0}}
+    for enh, key in ((True, 0), (True, 2), (False, 0)):
+        kept = []
+        for step in range(3):
+            x = audio[step * 4800: step * 4800 + n]
+            ref, sr_r = eager.infer(x, 16000, use_enhancer=enh,
+                                    enhancer_adaptive_key=key, **kw)
+            K.reset_launch_counts()
+            got, sr_g = fused.infer(x, 16000, use_enhancer=enh,
+                                    enhancer_adaptive_key=key,
+                                    materialize=False, **kw)
+            counts = K.launch_counts()
+            for name, want in per[enh].items():
+                assert counts[name] == want, (enh, key, step, counts)
+            kept.append((got, ref))
+            assert sr_g == sr_r and got.shape == ref.shape
+        for got, ref in kept:
+            err = np.abs(got.cpu().numpy() - ref).max()
+            assert err <= 1e-6 * np.abs(ref).max(), (enh, key, err)
+    assert len(fused._windows) == 3
+    assert all(p.graph is not None for p in fused._windows.values())
+
+    def with_copy(self, *args):
+        out = forward(self, *args)
+        return out * torch.tensor(1.0, device=out.device)
+
+    forward = window_graph.WindowProgram.forward
+    monkeypatch.setattr(window_graph.WindowProgram, "forward", with_copy)
+    fresh = SvcCore(path, device=cuda, fused_window=True)
+    with pytest.raises(RuntimeError):
+        fresh.infer(audio[:n], 16000, use_enhancer=False, **kw)
+    torch.cuda.synchronize()
+
+
+def test_keyshift_mel_on_card_matches_cpu(cuda):
+    """The keyshift/speed mel on the card (cuFFT of the scaled size)
+    against the same on the CPU at atol 2e-4, the fp32 mel's bound."""
+    from ddsp_svc_tpu_torch.ops.spectral import log_mel_spectrogram
+
+    x = torch.from_numpy((np.random.default_rng(7).standard_normal(
+        (2, 44100)) * 0.2).astype(np.float32))
+    geo = (44100, 2048, 512, 2048, 128, 40, 16000)
+    for keyshift, speed in ((2, 1.0), (-3, 1.0), (0, 1.25)):
+        ref = log_mel_spectrogram(x, *geo, keyshift=keyshift, speed=speed)
+        got = log_mel_spectrogram(x.to(cuda), *geo, keyshift=keyshift,
+                                  speed=speed).cpu()
+        torch.testing.assert_close(got, ref, atol=2e-4, rtol=0)
+
+
+def test_hubert_discrete_on_card_matches_cpu(cuda):
+    """HubertDiscrete.units on the card against the CPU on the same seeded
+    weights and centres: the ids equal wherever the CPU's nearest centre
+    beats the second by more than 1e-5 relative."""
+    from ddsp_svc_tpu_torch.nn.hubert import (HubertDiscrete, HubertSoft,
+                                              init_hubert_)
+
+    model = init_hubert_(HubertSoft(output_layer=7, proj_dim=None),
+                         torch.Generator().manual_seed(3))
+    wav = (0.1 * np.random.default_rng(8).standard_normal((1, 32000))
+           ).astype(np.float32)
+    with torch.no_grad():
+        feats = model(torch.from_numpy(wav))[0]
+    centers = feats[::2][:40] + 0.3 * torch.randn(
+        (40, 768), generator=torch.Generator().manual_seed(4))
+    cpu = HubertDiscrete(model, centers.numpy(), device="cpu")
+    card = HubertDiscrete(model, centers.numpy(), device=cuda)
+    ref, got = cpu.units(wav)[0], card.units(wav)[0].cpu()
+    d = ((feats[:, None] - centers[None]) ** 2).sum(-1).sort(1).values
+    clear = (d[:, 1] - d[:, 0]) > 1e-5 * d[:, 0]
+    assert clear.float().mean() > 0.9
+    assert torch.equal(got[clear], ref[clear])
 
 
 def test_stream_entry_on_card(cuda, tmp_path):

@@ -7,9 +7,10 @@ synthesizers, `load_model`, `run_inference`, `run_inference_batch`, the
 CLI, the preprocess entry, the streaming entry, the GAN entry, `SvcCore`,
 `IncrementalSession.from_checkpoint`, `UnitsEncoder`, the torch f0
 extractors, the export entry, the server's `ExportedSynth` and entry, the
-API's entry, the web panel's, `init_distributed`, `make_mesh` and
-`SvcCore(mesh=)` among them, and the trainer's and the GAN entry's mesh
-flags, never fall back to the CPU."""
+API's entry, the web panel's, `init_distributed`, `make_mesh`,
+`SvcCore(mesh=)`, `SvcCore(fused_window=True)` and `HubertDiscrete` among
+them, and the trainer's and the GAN entry's mesh flags, never fall back to
+the CPU."""
 import ast
 import os
 import pathlib
@@ -109,6 +110,7 @@ from ddsp_svc_tpu_torch.export import main as export_main
 from ddsp_svc_tpu_torch.serve import ExportedSynth, main as serve_main
 from ddsp_svc_tpu_torch.webui import main as webui_main
 from ddsp_svc_tpu_torch.parallel import init_distributed, make_mesh
+from ddsp_svc_tpu_torch.nn.hubert import HubertDiscrete
 ckpt = os.path.join(os.path.dirname(cfg), "model_0.pt")
 gan_cfg = os.path.join(os.path.dirname(cfg), "gan.yaml")
 with open(gan_cfg, "w") as f:
@@ -135,6 +137,8 @@ for make in (lambda: build_model(args), lambda: build_model(others[0]),
              lambda: cli_main(["-m", ckpt, "-i", "in.wav", "-o", "out.wav"]),
              lambda: stream_main(["-m", ckpt, "-i", "in.wav", "-o", "out.wav"]),
              lambda: SvcCore(ckpt), lambda: SvcCore(ckpt, mesh=object()),
+             lambda: SvcCore(ckpt, fused_window=True),
+             lambda: HubertDiscrete({}, np.zeros((2, 768), np.float32)),
              lambda: init_distributed(), lambda: make_mesh(),
              lambda: IncrementalSession.from_checkpoint(ckpt),
              lambda: gan_main(["-c", gan_cfg]),

@@ -132,8 +132,25 @@ def test_mel_filterbank_and_log_mel():
     got = spectral.log_mel_spectrogram(_t(x), *args).numpy()
     assert got.shape == ref.shape
     np.testing.assert_allclose(got, ref, atol=2e-4)
-    with pytest.raises(NotImplementedError):
-        spectral.log_mel_spectrogram(_t(x), *args, keyshift=2)
+
+
+@pytest.mark.parametrize("keyshift,speed,n", [
+    (2, 1.0, 5000), (-3, 1.0, 5000), (0, 1.25, 5000), (2, 1.0, 200)],
+    ids=["keyshift+2", "keyshift-3", "speed1.25", "constant-pad"])
+def test_log_mel_keyshift_matches_jax(keyshift, speed, n):
+    """The keyshift/speed mel (`_log_mel_keyshift`) against JAX's at atol
+    2e-4, the fp32 mel's bound: +2 (n_fft 512 -> 575, bins truncated), -3
+    (431, bins padded), speed 1.25 (hop 160), and an input of 200 samples,
+    whose right pad reaches past it (constant padding)."""
+    x = (np.random.default_rng(7).standard_normal((2, n)) * 0.2
+         ).astype(np.float32)
+    args = (16000, 512, 128, 512, 32, 40.0, 8000.0)
+    ref = np.asarray(jspectral.log_mel_spectrogram(
+        jnp.asarray(x), *args, keyshift=keyshift, speed=speed))
+    got = spectral.log_mel_spectrogram(_t(x), *args, keyshift=keyshift,
+                                       speed=speed).numpy()
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, atol=2e-4)
 
 
 def test_config():

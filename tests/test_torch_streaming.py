@@ -356,9 +356,10 @@ def test_pipelined_session_matches_sequential(core):
 
 def test_svc_core_options(exp, tmp_path):
     """A missing enhancer checkpoint warns and the core converts raw (the
-    JAX package's behaviour); fused_window is not ported, with a mesh
-    (tests/test_torch_parallel.py runs the mesh) or without; a speaker id
-    out of range raises before the device sees it."""
+    JAX package's behaviour); fused_window with a mesh raises ValueError
+    (the two are exclusive; tests/test_torch_parallel.py runs the mesh,
+    test_fused_window_matches_default_window the fused window); a speaker
+    id out of range raises before the device sees it."""
     d = tmp_path / "exp"
     d.mkdir()
     args = yaml.safe_load((exp / "exp" / "config.yaml").read_text())
@@ -370,14 +371,54 @@ def test_svc_core_options(exp, tmp_path):
     assert raw.enhancer is None
     out, sr = raw.infer(_sung(0.5), SR)
     assert sr == SR and out.shape == (32 * BLOCK,) and np.isfinite(out).all()
-    for kw in (dict(mesh=object(), fused_window=True),
-               dict(fused_window=True)):
-        with pytest.raises(NotImplementedError):
-            SvcCore(str(exp / "exp" / "model_0.pt"), device="cpu", **kw)
+    with pytest.raises(ValueError, match="exclusive"):
+        SvcCore(str(exp / "exp" / "model_0.pt"), device="cpu",
+                mesh=object(), fused_window=True)
     for kw in (dict(spk_id=N_SPK + 1),
                dict(use_spk_mix=True, spk_mix_dict={1: 0.5, 0: 0.5})):
         with pytest.raises(ValueError, match="out of range"):
             raw.infer(_sung(0.5), SR, **kw)
+
+
+@pytest.fixture(scope="module")
+def cores(exp):
+    """The default core and the fused-window core on the same checkpoint."""
+    ckpt = str(exp / "exp" / "model_0.pt")
+    return (SvcCore(ckpt, device="cpu"),
+            SvcCore(ckpt, device="cpu", fused_window=True))
+
+
+@pytest.mark.parametrize("enhance,key", [(False, 0), (True, 0), (True, 2)],
+                         ids=["raw", "enhancer-key0", "enhancer-key2"])
+def test_fused_window_matches_default_window(cores, enhance, key):
+    """SvcCore(fused_window=True) against the default window with the same
+    step, noise and SineGen rotations (the JAX package's
+    tests/test_streaming.py cases: enhancer off, on at adaptive keys 0 and
+    2), on gui.py's window with its silence front: within 1e-6 x max|ref|
+    (both run the same operations, so the CPU gives the same bits), over
+    two windows of one program (the second through its cached key); with
+    'auto' the fused core takes the default window, as JAX's does."""
+    core, fused = cores
+    sess = StreamingSession(core, **SESSION)
+    window = np.concatenate([_sung(0.6, seed=3), _sung(0.3, seed=4)])
+    window = window[:sess.input_frames]
+    kw = dict(INFER, use_enhancer=enhance, enhancer_adaptive_key=key,
+              safe_prefix_pad_length=sess.safe_prefix_pad_length)
+    keys = set(fused._windows)
+    for step in range(2):
+        x = np.roll(window, 137 * step)
+        ref, sr_r = core.infer(x, SR, **kw)
+        got, sr_g = fused.infer(x, SR, **kw)
+        assert sr_g == sr_r and got.shape == ref.shape
+        err = float(np.abs(got - ref).max())
+        assert err <= 1e-6 * float(np.abs(ref).max()), err
+    assert len(set(fused._windows) - keys) == 1
+    if enhance:
+        before = dict(fused._windows)
+        got, _ = fused.infer(x, SR, **dict(kw, enhancer_adaptive_key="auto"))
+        ref, _ = core.infer(x, SR, **dict(kw, enhancer_adaptive_key="auto"))
+        assert fused._windows == before
+        np.testing.assert_array_equal(got, ref)
 
 
 # ----------------------------------------------- profiles and entry ----
