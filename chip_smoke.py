@@ -27,7 +27,21 @@ Phases, each printing its own lines:
      against its plain version on the same bf16 inputs (the trio within
      one bf16 ulp), its library call beside it (the bf16 cuDNN chain; cuFFT
      on the upcast frames); the keyshift/speed mel and HubertDiscrete on
-     the card against their CPU runs;
+     the card against their CPU runs; the bf16-operand forms (mxu_bf16:
+     #1 and its split on bf16 q, k, v, #2, #7, the trio #4/#5 on fp32 and
+     bf16 stages, #10, #11), each against its plain form (the same bf16
+     rounding points: max|err| 2^-8 x max|ref|, 2^-7 on a bf16 output,
+     rel RMS 1e-3, 2e-3 for the conv core) and float64 (the plain form in
+     float64 with the same roundings, within the same bounds), with the
+     library call beside each (the
+     bf16 cuDNN chain for the conv core);
+  4a. the slice's path (the bf16-operand forms): configs/combsub.yaml's
+     CombSubFast with model.bf16 and the H_NSF enhancer with
+     generator_overrides {"fused_mxu_bf16": True} (its default,
+     fused_inject=False and fused_stage=True forms) converting the offline
+     path's three segments: #1's, #2's and the conv core's forms counted,
+     no fp32 form, the audio against the same run on the plain forms (rel
+     RMS 5e-2, the JAX package's bf16 bound) and beside the fp32 run;
   4. the CLI path: `python -m ddsp_svc_tpu_torch.infer`'s main on a 13 s
      44.1 kHz wav of three sung phrases (wav in, checkpoint in, wav out) at
      configs/combsub.yaml's full width: a `model_0.pt` from a seed, a
@@ -118,7 +132,9 @@ Phases, each printing its own lines:
      against the unsharded run on the kernels (synth and SvcCore 1e-4 x
      max|ref|, enhancer fp32 1e-5 x max|ref|, staged rel RMS 2e-2); #1's
      moments and apply, #2, #3 and #4 launched on every rank, the single
-     #1 never; the walls of each run and of the unsharded one;
+     #1 never; a model.bf16 synth on the same weights sharded against
+     unsharded (rel RMS 5e-2; the split's and #2's bf16-operand forms on
+     every rank); the walls of each run and of the unsharded one;
   4h. training on a mesh (`parallel/sharding.py`, `train_step(mesh=)`):
      configs/combsub.yaml's CombSubFast at full width, batch 24 x 172
      frames of a synthetic store, ranks spawned on cuda:0 (world size 1
@@ -183,6 +199,7 @@ Phases, each printing its own lines:
 The last two lines are the kernels JSON and {"ok": true, "device": ...}.
 Any failed check exits non-zero before them. Without a GPU it fails.
 """
+import functools
 import json
 import math
 import os
@@ -197,6 +214,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_FP32_FLOPS = 67e12   # H100 SXM, fp32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12  # H100 SXM, TF32 on the tensor cores, dense
+PEAK_BF16_FLOPS = 989e12  # H100 SXM, bf16 on the tensor cores, dense
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 
 # the 44.1 kHz community NSF-HiFiGAN geometry (bench.py's H_NSF)
@@ -225,6 +243,28 @@ TRIO_STAGES = ((64, 4), (32, 2), (16, 1))  # (C, source-conv stride)
 TRIO_K = (3, 7, 11)
 TPU_KERNELS = "ddsp_svc_tpu/ops/pallas_kernels.py"
 TRIO_ROUTE = "tensor cores: mma.sync tf32, 3xTF32, fp32 re-accumulation"
+MXU_ROUTE = ("tensor cores: mma.sync.m16n8k16 bf16, fp32 accumulation and "
+             "re-accumulation")
+# the bf16-operand forms (mxu_bf16=True) of the kernels a model.bf16
+# CombSubFast runs: what each fp32 form's count becomes under model.bf16
+MXU_FORMS = {"performer_attention": "performer_attention_mxu_bf16",
+             "performer_attention_moments":
+                 "performer_attention_moments_mxu_bf16",
+             "performer_attention_apply": "performer_attention_apply_mxu_bf16",
+             "combsub_spectral": "combsub_spectral_mxu_bf16",
+             "combsub_spectral_bwd": "combsub_spectral_bwd_mxu_bf16"}
+# a form's kernel against its plain form (the same bf16 rounding points):
+# max |err| <= 2^-8 x max|ref| (2^-7 on a bf16 output, whose rounding may
+# flip by one ulp) and rel RMS <= 1e-3; the conv core's 18-conv chains
+# cascade flipped roundings to up to 9.5e-4 (tests/test_torch_cuda.py), so
+# its rel RMS gate is 2e-3
+MXU_MAX, MXU_BF16_OUT_MAX, MXU_REL_RMS, MXU_CONV_REL_RMS = (
+    2.0 ** -8, 2.0 ** -7, 1e-3, 2e-3)
+
+
+def bf16_names(names, bf16: bool = True) -> tuple:
+    """The kernels' names as a model.bf16 run counts them (MXU_FORMS)."""
+    return tuple(MXU_FORMS.get(n, n) if bf16 else n for n in names)
 # each synthesizer's config and the kernels its offline path runs (the
 # enhancer's harmonic source and trio included); its training path runs the
 # same synth kernels, dft_magnitude in the loss, and the attention kernel in
@@ -1019,6 +1059,390 @@ def kernel_phase(torch, K, gen):
 BF16_ULP = (2e-5, 2.0 ** -7)  # (atol, rtol)
 
 
+def cudnn_bf16_trio(torch, K, x, har, ncw, ncb, ws, bs, s, dils,
+                    valid=None):
+    """A stage's trio as the Generator ran a bf16 stage on cuDNN: x cast to
+    bf16, the injection conv and the 18 convs in bf16 on weights cast per
+    call (the library yardstick of the bf16 forms)."""
+    bf16 = torch.bfloat16
+    xc = x.transpose(1, 2).to(bf16)
+    if har is not None:
+        xc = xc + K.noise_conv_cf(har.transpose(1, 2).to(bf16), ncw.to(bf16),
+                                  ncb.to(bf16), s, xc.shape[-1])
+    acc = sum(K.resblock1_cf(xc, w.to(bf16), b.to(bf16), w.shape[-1], dils)
+              for w, b in zip(ws, bs))
+    return (acc / len(ws)).transpose(1, 2)
+
+
+def to_f64(torch, args) -> list:
+    """A kernel's arguments with every tensor (and tensor list) in float64."""
+    return [[x.double() for x in a] if isinstance(a, list)
+            else a.double() if torch.is_tensor(a) and a.is_floating_point()
+            else a for a in args]
+
+
+def mxu_compare(torch, name, kern, plain, inputs, rel_rms=MXU_REL_RMS,
+                select=lambda y: y):
+    """A bf16-operand form's kernel against its plain form on every input
+    set, each output apart: max |err| <= MXU_MAX x max|ref| (MXU_BF16_OUT_MAX
+    on a bf16 output) and rel RMS <= rel_rms; on the first set, each fp32
+    output against float64 (the plain form evaluated in float64, with the
+    same bf16 roundings) within the same bounds. Not "twice the fp32 plain
+    form's error": a flipped bf16 rounding of a dominant term moves an
+    output by up to 2^-8 of itself, so either fp32 side's largest error
+    against float64 is a draw of a few flips (tests/test_torch_cuda.py's
+    card test of #1 read the kernel at 2.2e-3 x max|ref|, the plain form at
+    3.6e-4). Returns (max_abs_err, ms, plain_ms, device_ms, worst rel RMS,
+    kernel and plain errors against float64 / max|f64|)."""
+    err = worst = 0.0
+    for args in inputs:
+        refs, gots = plain(*args), kern(*args)
+        torch.cuda.synchronize()
+        if not isinstance(refs, tuple):
+            refs, gots = (refs,), (gots,)
+        for ref, got in zip(refs, gots):
+            limit = MXU_BF16_OUT_MAX if got.dtype == torch.bfloat16 \
+                else MXU_MAX
+            ref, got = select(ref).float(), select(got).float()
+            if not torch.isfinite(got).all():
+                fail(f"{name}: non-finite kernel output")
+            diff = (got - ref).abs().max().item()
+            rel = ((got - ref).pow(2).mean() / ref.pow(2).mean()).sqrt().item()
+            if not (diff <= limit * ref.abs().max().item() and rel <= rel_rms):
+                fail(f"{name}: max|err| {diff:.3e}, rel RMS {rel:.3e} against "
+                     f"its plain form, over {limit:g} x max|ref| or {rel_rms}")
+            err, worst = max(err, diff), max(worst, rel)
+    args = inputs[0]
+    refs, gots, f64s = plain(*args), kern(*args), plain(*to_f64(torch, args))
+    if not isinstance(refs, tuple):
+        refs, gots, f64s = (refs,), (gots,), (f64s,)
+    e64 = p64 = None  # None: every output bf16 (rounded once more)
+    for ref, got, f64 in zip(refs, gots, f64s):
+        if got.dtype == torch.bfloat16:
+            continue
+        ref, got, f64 = select(ref), select(got), select(f64)
+        scale = f64.abs().max().item()
+        d = got.double() - f64
+        e_k = d.abs().max().item() / scale
+        e_p = (ref.double() - f64).abs().max().item() / scale
+        rel = (d.pow(2).mean() / f64.pow(2).mean()).sqrt().item()
+        if not (e_k <= MXU_MAX and rel <= rel_rms):
+            fail(f"{name}: {e_k:.3e} x max|ref|, rel RMS {rel:.3e} against "
+                 f"float64, over {MXU_MAX:g} or {rel_rms}")
+        e64, p64 = max(e64 or 0.0, e_k), max(p64 or 0.0, e_p)
+    return (err, time_ms(torch, kern, inputs), time_ms(torch, plain, inputs),
+            device_ms(torch, kern, inputs), worst, e64, p64)
+
+
+def mxu_forms_phase(torch, K, gen) -> dict:
+    """The bf16-operand forms (JAX's mxu_bf16=True) against their plain
+    forms at the main path's shapes (mxu_compare): #1 and its split on the
+    bf16 q, k, v a model.bf16 PCmer gives (B = 1, T = 512, 384 valid), #2
+    at the offline rows and #7 at the training rows, the trio (#4) at a
+    512-frame segment's three narrow fp32 stages (and C = 64 on bf16 x and
+    har), #5 at C = 64, #10's three chains and #11's three stages. The
+    bounds count the products at the bf16 tensor-core rate; the conv core's
+    library time is the bf16 cuDNN chain (the stage's: the fp32 cuDNN
+    ConvTranspose, then that chain). Returns {name: row}."""
+    dev, bf16 = "cuda", torch.bfloat16
+    rows = {}
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale + shift
+
+    def build_info(info):
+        return (f"{info['registers']} registers, {info['spill_bytes']} bytes "
+                f"spilled, {info['smem_bytes']} bytes of shared memory")
+
+    def report(name, label, res, bnd, lms, extra=""):
+        e, ms, pms, dms, rel, e64, p64 = res
+        f64 = ("not held (a bf16 output)" if e64 is None else
+               f"{e64:.3e} x max|ref|, the plain form {p64:.3e}")
+        say(f"kernel {label}{extra}: max|err| {e:.3e}, rel RMS {rel:.3e} "
+            f"against the plain form; against float64 {f64}; {ms:.4f} ms, "
+            f"device_ms {dms:.4f}, "
+            f"plain {pms:.4f} ms, library "
+            + ("none" if lms is None else f"{lms:.4f} ms")
+            + f", bound {bnd[0]:.4f} ms ({bnd[1]})")
+
+    # 1. one PCmer layer's attention at a 512-frame bucket holding a
+    # 384-frame segment, bf16 q, k, v; then the split at the same shapes
+    b, h, t, d, m, valid = 1, 8, 512, 64, 266, 384
+    from ddsp_svc_tpu_torch.nn.pcmer import gaussian_orthogonal_random_matrix
+    proj = torch.from_numpy(gaussian_orthogonal_random_matrix(m, d, 0)).to(dev)
+    inputs = [(randn(b, h, t, d).to(bf16), randn(b, h, t, d).to(bf16),
+               randn(b, h, t, d).to(bf16), proj, valid) for _ in range(3)]
+    plain = functools.partial(K.performer_attention_plain, mxu_bf16=True)
+    res = mxu_compare(torch, "performer_attention_mxu_bf16",
+                      K.performer_attention_mxu_bf16, plain, inputs,
+                      select=lambda y: y[:, :, :valid])
+    flops = b * h * (2 * m * d * (2 * t + 2 * valid) + 4 * m * t)
+    bnd = bound(2 * b * h * d * (t + 2 * valid) + 4 * (b * h * t * d + m * d),
+                flops, PEAK_BF16_FLOPS)
+    info = K.attention_kernel_info(t, mxu_bf16=True, in_bf16=True)
+    report("performer_attention_mxu_bf16", "performer_attention_mxu_bf16",
+           res, bnd, None, f" T={t} valid {valid}, bf16 q, k, v (clusters of "
+           f"{info['cluster']} CTAs; {build_info(info)}; the products on the "
+           "CUDA cores, exact on bf16 operands)")
+    rows["performer_attention_mxu_bf16"] = dict(
+        route="cuda", source="ddsp_svc_tpu_torch/csrc/performer_attention.cu",
+        replaces=f"{TPU_KERNELS}:516", max_abs_err=res[0], ms=res[1],
+        plain_ms=res[2], device_ms=res[3], bound=bnd, library_ms=None,
+        tol="2^-8 x max|ref| and rel RMS 1e-3 against the plain form (the "
+            "same bf16 roundings) and against float64; B = 1, T = 512, 384 "
+            "valid, bf16 q, k, v")
+    ranges = [(k_, v_, proj_, lo, hi) for (_, k_, v_, proj_, _), (lo, hi) in
+              zip(inputs, ((0, valid), (96, 352), (0, valid)))]
+    res_m = mxu_compare(
+        torch, "performer_attention_moments_mxu_bf16",
+        K.performer_attention_moments_mxu_bf16,
+        functools.partial(K.performer_attention_moments_plain, mxu_bf16=True),
+        ranges)
+    applies = [(q_, proj_, *K.performer_attention_moments_mxu_bf16(*r_))
+               for (q_, _, _, proj_, _), r_ in zip(inputs, ranges)]
+    res_a = mxu_compare(
+        torch, "performer_attention_apply_mxu_bf16",
+        K.performer_attention_apply_mxu_bf16,
+        functools.partial(K.performer_attention_apply_plain, mxu_bf16=True),
+        applies)
+    for q_, k_, v_, proj_, valid_ in inputs:
+        ref = K.performer_attention_mxu_bf16(q_, k_, v_, proj_, valid_)
+        got = K.performer_attention_apply_mxu_bf16(
+            q_, proj_, *K.performer_attention_moments_mxu_bf16(
+                k_, v_, proj_, 0, valid_))
+        diff = (got - ref)[:, :, :valid_].abs().max().item()
+        if not diff <= 1e-5 * ref[:, :, :valid_].abs().max().item():
+            fail(f"performer_attention moments + apply (bf16 operands): "
+                 f"max|err| {diff:.3e} against the single launch")
+    m_flops = b * h * (4 * m * d * valid + 2 * m * valid)
+    a_flops = b * h * (4 * m * d * t + 4 * m * t)
+    for name, r_, bnd_ in (
+            ("performer_attention_moments_mxu_bf16", res_m,
+             bound(2 * b * h * 2 * valid * d + 4 * (b * h * (m * d + m)
+                                                    + m * d), m_flops,
+                   PEAK_BF16_FLOPS)),
+            ("performer_attention_apply_mxu_bf16", res_a,
+             bound(2 * b * h * t * d + 4 * (b * h * (t * d + m * d + m)
+                                            + m * d), a_flops,
+                   PEAK_BF16_FLOPS))):
+        report(name, name, r_, bnd_, None, f" T={t}")
+        rows[name] = dict(
+            route="cuda",
+            source="ddsp_svc_tpu_torch/csrc/performer_attention.cu",
+            replaces=f"{TPU_KERNELS}:516", max_abs_err=r_[0], ms=r_[1],
+            plain_ms=r_[2], device_ms=r_[3], bound=bnd_, library_ms=None,
+            tol="2^-8 x max|ref| and rel RMS 1e-3 of each output against the"
+                " plain form; bf16 k, v (key ranges [0, 384), [96, 352)) and "
+                "q; the split within 1e-5 x max|ref| of the single launch")
+
+    # 2. the spectral chain at the offline rows (513 x 1024) and 7. its
+    # adjoint at the training rows (24 x 173 x 1024); the transforms stay
+    # fp32, so each holds the fp32 forms' 2e-5 x max|ref|
+    r, n = 513, 1024
+    bins = n // 2 + 1
+    win = K.combsub_window(n, dev)
+    inputs = [(randn(r, n) * win, randn(r, n) * win,
+               randn(r, bins, scale=0.3), randn(r, bins),
+               randn(r, bins, scale=0.3, shift=-3.0), n) for _ in range(3)]
+    err, ms, pms, dms = compare(
+        torch, "combsub_spectral_mxu_bf16", K.combsub_spectral_mxu_bf16,
+        functools.partial(K.combsub_spectral_plain, mxu_bf16=True), inputs,
+        0.0, 2e-5)
+    bnd = bound(4 * (r * (3 * n + 3 * bins) + n),
+                r * (2 * 5 * n * math.log2(n) + 30 * bins))
+    say(f"kernel combsub_spectral_mxu_bf16 {r} x {n}: max|err| {err:.3e} "
+        f"(2e-5 x max|ref|), {ms:.4f} ms, device_ms {dms:.4f}, plain "
+        f"{pms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+    rows["combsub_spectral_mxu_bf16"] = dict(
+        route="cuda", source="ddsp_svc_tpu_torch/csrc/combsub_spectral.cu",
+        replaces=f"{TPU_KERNELS}:703", max_abs_err=err, ms=ms, plain_ms=pms,
+        device_ms=dms, bound=bnd, library_ms=None,
+        tol="2e-5 x max|ref| against the plain form (the frames rounded to "
+            "bf16 on both; the transforms fp32)")
+    r = 24 * 173
+    inputs = [(randn(r, n, scale=1e-3), randn(r, n) * win, randn(r, n) * win,
+               randn(r, bins, scale=0.3), randn(r, bins),
+               randn(r, bins, scale=0.3, shift=-3.0), n) for _ in range(2)]
+    err, ms, pms, dms = compare(
+        torch, "combsub_spectral_bwd_mxu_bf16",
+        K.combsub_spectral_bwd_mxu_bf16,
+        functools.partial(K.combsub_spectral_bwd_plain, mxu_bf16=True),
+        inputs, 0.0, 2e-5)
+    bnd = bound(4 * (r * (5 * n + 6 * bins) + n),
+                r * (5 * 2.5 * n * math.log2(n) + 40 * bins))
+    say(f"kernel combsub_spectral_bwd_mxu_bf16 {r} x {n}: max|err| {err:.3e}"
+        f" (2e-5 x max|ref| per gradient), {ms:.4f} ms, device_ms {dms:.4f},"
+        f" plain {pms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+    rows["combsub_spectral_bwd_mxu_bf16"] = dict(
+        route="cuda", source="ddsp_svc_tpu_torch/csrc/combsub_spectral_bwd.cu",
+        replaces=f"{TPU_KERNELS}:781", max_abs_err=err, ms=ms, plain_ms=pms,
+        device_ms=dms, bound=bnd, library_ms=None,
+        tol="2e-5 x max|ref| per gradient against the plain form (g * window"
+            " and the frames rounded to bf16 on both)")
+
+    # 4, 5. the trio at a 512-frame segment's narrow stages
+    t_final = 512 * H_NSF["hop_size"]
+
+    def trio_inputs(c, s, inject=True, x_dtype=torch.float32,
+                    har_dtype=torch.float32):
+        t_s = t_final // s
+        ws = [randn(3, 2, c, c, k, scale=(2.0 / (k * c)) ** 0.5)
+              for k in TRIO_K]
+        bs = [randn(3, 2, c, scale=0.01) for _ in range(3)]
+        ksrc = 2 * s if s > 1 else 1
+        har = (randn(1, t_final, 1, scale=0.1).to(har_dtype) if inject
+               else None)
+        return (randn(1, t_s, c).to(x_dtype), har,
+                randn(c, 1, ksrc, scale=0.2), randn(c, scale=0.05), ws, bs,
+                s, (1, 3, 5), None)
+
+    def trio_work(c, s, inject=True):
+        t_s, ksrc = t_final // s, (2 * s if s > 1 else 1)
+        flops = 2 * c * c * 6 * 21 * t_s
+        nbytes = 4 * (2 * c * t_s + 6 * c * c * 21 + 18 * c)
+        if inject:
+            flops += 2 * c * ksrc * t_s
+            nbytes += 4 * (t_final + c * ksrc + c)
+        return nbytes, flops
+
+    def library(x, har, ncw, ncb, ws, bs, s, dils, valid):
+        return cudnn_bf16_trio(torch, K, x, har, ncw, ncb, ws, bs, s, dils)
+
+    plain_trio = functools.partial(K.resblocks_inject_plain, mxu_bf16=True)
+    for name, cases in (
+            ("fused_resblocks_inject_mxu_bf16",
+             [(c, s, True, torch.float32, torch.float32)
+              for c, s in TRIO_STAGES] + [(64, 4, True, bf16, bf16)]),
+            ("fused_resblocks_mxu_bf16",
+             [(64, 4, False, torch.float32, torch.float32)])):
+        err = ms_sum = pms_sum = dms_sum = lms_sum = n_b = n_f = 0.0
+        for c, s, inject, x_dt, har_dt in cases:
+            inputs = [trio_inputs(c, s, inject, x_dt, har_dt)
+                      for _ in range(2)]
+            kern = (K.fused_resblocks_inject_mxu_bf16 if inject else
+                    (lambda x, har, ncw, ncb, ws, bs, s, dils, valid:
+                     K.fused_resblocks_mxu_bf16(x, ws, bs, dils, valid)))
+            label = f"{name} C={c}" + (" x and har bf16" if x_dt is bf16
+                                       else "")
+            res = mxu_compare(torch, label, kern, plain_trio, inputs,
+                              MXU_CONV_REL_RMS)
+            lms = time_ms(torch, library, inputs)
+            info = K.trio_kernel_info(c, bf16=x_dt is bf16,
+                                      har_bf16=har_dt is bf16, mxu_bf16=True)
+            b_n, f_n = trio_work(c, s, inject)
+            report(name, label, res, bound(b_n, f_n, PEAK_BF16_FLOPS), lms,
+                   f" T={t_final // s} ({MXU_ROUTE}; {build_info(info)}; "
+                   "library the bf16 cuDNN chain)")
+            err = max(err, res[0])
+            if x_dt is torch.float32:
+                ms_sum, pms_sum, dms_sum = (ms_sum + res[1], pms_sum + res[2],
+                                            dms_sum + res[3])
+                lms_sum += lms
+                n_b, n_f = n_b + b_n, n_f + f_n
+        rows[name] = dict(
+            route="cuda", source="ddsp_svc_tpu_torch/csrc/resblocks.cu",
+            replaces=f"{TPU_KERNELS}:" + ("1373" if "inject" in name
+                                         else "1315"),
+            max_abs_err=err, ms=ms_sum, plain_ms=pms_sum, device_ms=dms_sum,
+            bound=bound(n_b, n_f, PEAK_BF16_FLOPS), library_ms=lms_sum,
+            tol="2^-8 x max|ref| (2^-7 on bf16 x) and rel RMS 2e-3 against "
+                "the plain form and (fp32 x) float64; "
+                + ("times are the sum of the three narrow fp32 stages (C = 64,"
+                   " 32, 16)" if "inject" in name else "the C = 64 stage "
+                   "without the injection") + "; library: the bf16 cuDNN "
+                "conv chain")
+
+    # 10. the three chains at the C = 64 stage
+    c, t_s = 64, t_final // 4
+    err = ms_sum = pms_sum = dms_sum = lms_sum = n_b = n_f = 0.0
+    for k in TRIO_K:
+        inputs = [(randn(1, t_s, c), randn(3, 2, c, c, k,
+                                           scale=(2.0 / (k * c)) ** 0.5),
+                   randn(3, 2, c, scale=0.01), k) for _ in range(2)]
+        res = mxu_compare(
+            torch, f"fused_resblock_chain_mxu_bf16 k={k}",
+            K.fused_resblock_chain_mxu_bf16,
+            functools.partial(K.resblock_chain_plain, mxu_bf16=True), inputs,
+            MXU_CONV_REL_RMS)
+        lms = time_ms(torch, lambda x, w, b_, k_: K.resblock1_cf(
+            x.transpose(1, 2).to(bf16), w.to(bf16), b_.to(bf16), k_,
+            (1, 3, 5)), inputs)
+        f_k = 2 * c * c * 6 * k * t_s
+        b_k = 4 * (2 * c * t_s + 6 * c * c * k + 6 * c)
+        report("fused_resblock_chain_mxu_bf16",
+               f"fused_resblock_chain_mxu_bf16 k={k}", res,
+               bound(b_k, f_k, PEAK_BF16_FLOPS), lms,
+               f" C={c} T={t_s} ({MXU_ROUTE}; "
+               f"{build_info(K.chain_kernel_info(c, k, mxu_bf16=True))})")
+        err = max(err, res[0])
+        ms_sum, pms_sum, dms_sum = (ms_sum + res[1], pms_sum + res[2],
+                                    dms_sum + res[3])
+        lms_sum += lms
+        n_b, n_f = n_b + b_k, n_f + f_k
+    rows["fused_resblock_chain_mxu_bf16"] = dict(
+        route="cuda", source="ddsp_svc_tpu_torch/csrc/resblock_chain.cu",
+        replaces=f"{TPU_KERNELS}:1415", max_abs_err=err, ms=ms_sum,
+        plain_ms=pms_sum, device_ms=dms_sum,
+        bound=bound(n_b, n_f, PEAK_BF16_FLOPS), library_ms=lms_sum,
+        tol="2^-8 x max|ref| and rel RMS 2e-3 against the plain form and "
+            "float64; times are the sum of k = 3,"
+            " 7, 11 at C = 64, T = 65536 (on no path); library: the bf16 "
+            "cuDNN chain")
+
+    # 11. the fused stage at the three narrow stages (u = 2)
+    def stage_inputs(c, s):
+        t_out = t_final // s
+        ws = [randn(3, 2, c, c, k, scale=(2.0 / (k * c)) ** 0.5)
+              for k in TRIO_K]
+        bs = [randn(3, 2, c, scale=0.01) for _ in range(3)]
+        ksrc = 2 * s if s > 1 else 1
+        return (randn(1, t_out // 2, 2 * c), randn(1, t_final, 1, scale=0.1),
+                randn(2 * c, c, 4, scale=(1.0 / (2 * c * 4)) ** 0.5),
+                randn(c, scale=0.05), randn(c, 1, ksrc, scale=0.2),
+                randn(c, scale=0.05), ws, bs, 2, s)
+
+    def library_stage(x_pre, har, uw, ub, nw, nb, ws, bs, u, s):
+        x_up = torch.nn.functional.conv_transpose1d(
+            torch.nn.functional.leaky_relu(x_pre.transpose(1, 2), 0.1), uw, ub,
+            stride=u, padding=u // 2).transpose(1, 2)
+        return cudnn_bf16_trio(torch, K, x_up, har, nw, nb, ws, bs, s,
+                               (1, 3, 5))
+
+    err = ms_sum = pms_sum = dms_sum = lms_sum = n_b = n_f = 0.0
+    for c, s in TRIO_STAGES:
+        inputs = [stage_inputs(c, s) for _ in range(2)]
+        res = mxu_compare(torch, f"fused_stage_mxu_bf16 C={c}",
+                          K.fused_stage_mxu_bf16,
+                          functools.partial(K.stage_plain, mxu_bf16=True),
+                          inputs, MXU_CONV_REL_RMS)
+        lms = time_ms(torch, library_stage, inputs)
+        t_out, ksrc = t_final // s, (2 * s if s > 1 else 1)
+        f_c = (2 * c * c * 6 * 21 * t_out + 2 * 2 * c * c * 2 * t_out
+               + 2 * c * ksrc * t_out)
+        b_c = 4 * (2 * c * t_out // 2 + t_final + c * t_out
+                   + 6 * c * c * 21 + 8 * c * c + 20 * c + c * ksrc)
+        report("fused_stage_mxu_bf16", f"fused_stage_mxu_bf16 C={c}", res,
+               bound(b_c, f_c, PEAK_BF16_FLOPS), lms,
+               f" T_out={t_out} ({MXU_ROUTE}, the transposed conv in 3xTF32; "
+               f"{build_info(K.stage_kernel_info(c, mxu_bf16=True))}; library"
+               " the cuDNN ConvTranspose, then the bf16 cuDNN chain)")
+        err = max(err, res[0])
+        ms_sum, pms_sum, dms_sum = (ms_sum + res[1], pms_sum + res[2],
+                                    dms_sum + res[3])
+        lms_sum += lms
+        n_b, n_f = n_b + b_c, n_f + f_c
+    rows["fused_stage_mxu_bf16"] = dict(
+        route="cuda", source="ddsp_svc_tpu_torch/csrc/fused_stage.cu",
+        replaces=f"{TPU_KERNELS}:1694", max_abs_err=err, ms=ms_sum,
+        plain_ms=pms_sum, device_ms=dms_sum,
+        bound=bound(n_b, n_f, PEAK_BF16_FLOPS), library_ms=lms_sum,
+        tol="2^-8 x max|ref| and rel RMS 2e-3 against the plain form and "
+            "float64; times are the sum of the "
+            "three narrow stages (C = 64, 32, 16); library: the cuDNN "
+            "ConvTranspose, then the bf16 cuDNN chain")
+    return rows
+
+
 def bf16_forms_phase(torch, K, gen) -> dict:
     """The bf16-input forms against their plain versions on the same bf16
     inputs, at the main path's shapes: the trio with the injection (#4) at
@@ -1040,17 +1464,8 @@ def bf16_forms_phase(torch, K, gen) -> dict:
         return (f"{info['registers']} registers, {info['spill_bytes']} bytes "
                 f"spilled, {info['smem_bytes']} bytes of shared memory")
 
-    def cudnn_bf16(x, har, ncw, ncb, ws, bs, s, dils, valid=None):
-        """The bf16 stage's trio as the Generator ran it on cuDNN: the
-        injection conv and the 18 convs in bf16 on weights cast per call."""
-        xc = x.transpose(1, 2)
-        if har is not None:
-            xc = xc + K.noise_conv_cf(har.transpose(1, 2).to(bf16),
-                                      ncw.to(bf16), ncb.to(bf16), s,
-                                      xc.shape[-1])
-        acc = sum(K.resblock1_cf(xc, w.to(bf16), b.to(bf16), w.shape[-1],
-                                 dils) for w, b in zip(ws, bs))
-        return (acc / len(ws)).transpose(1, 2)
+    def cudnn_bf16(*args):
+        return cudnn_bf16_trio(torch, K, *args)
 
     t_final = 512 * H_NSF["hop_size"]
 
@@ -1253,8 +1668,9 @@ def plain_kernels(K):
              (nsf_hifigan, "fused_resblocks_inject",
               K.resblocks_inject_plain),
              (nsf_hifigan, "fused_resblocks",
-              lambda x, ws, bs, dils, valid=None: K.resblocks_inject_plain(
-                  x, None, None, None, ws, bs, 1, dils, valid)),
+              lambda x, ws, bs, dils, valid=None, mxu_bf16=False:
+              K.resblocks_inject_plain(x, None, None, None, ws, bs, 1, dils,
+                                       valid, mxu_bf16)),
              (nsf_hifigan, "fused_stage", K.stage_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, fn in swaps:
@@ -1266,6 +1682,18 @@ def plain_kernels(K):
             setattr(mod, name, fn)
 
 
+def bf16_path_launches(K, label: str, expect) -> dict:
+    """path_launches of a model.bf16 run: each kernel of `expect` counted
+    on its bf16-operand form (bf16_names), and no fp32 form of those
+    launched."""
+    launches = path_launches(K, label, bf16_names(expect))
+    for name in MXU_FORMS:
+        if launches[name]:
+            fail(f"{label} launched {name}'s fp32 form, not its "
+                 "bf16-operand form")
+    return launches
+
+
 def path_launches(K, label: str, expect) -> dict:
     """Read the launch counts of the run just made and fail if a kernel that
     this path runs was launched no time."""
@@ -1275,6 +1703,119 @@ def path_launches(K, label: str, expect) -> dict:
         if launches[name] <= 0:
             fail(f"{name} was not launched on the {label}")
     return launches
+
+
+def offline_inputs(n_unit: int, bs: int):
+    """The offline path's inputs from seed 0: three segments of
+    SEGMENT_FRAMES frames 20 frames apart (their starts and units), the
+    whole f0 and volume, and each segment's noise and SineGen rotations."""
+    rng = np.random.default_rng(0)
+    starts, segments = [], []
+    pos = 0
+    for n in SEGMENT_FRAMES:
+        pos += 20
+        starts.append(pos)
+        segments.append((pos, rng.standard_normal((1, n, n_unit)).astype(np.float32)))
+        pos += n
+    total = pos + 20
+    tt = np.arange(total) / total
+    f0 = (220 + 90 * np.sin(2 * np.pi * 3 * tt))[None, :, None].astype(np.float32)
+    volume = (0.05 + 0.3 * rng.random((1, total))).astype(np.float32)
+    noises = [(rng.random((1, n * bs)) * 2 - 1).astype(np.float32)
+              for n in SEGMENT_FRAMES]
+    rand_inis = []
+    for _ in SEGMENT_FRAMES:
+        ri = rng.random((1, 9)).astype(np.float32)
+        ri[:, 0] = 0
+        rand_inis.append(ri)
+    return starts, segments, f0, volume, noises, rand_inis
+
+
+# the slice's path: the enhancer's forms under fused_mxu_bf16 and the
+# conv-core form each runs (besides #3)
+MXU_ENHANCER_FORMS = (("default", {}, "fused_resblocks_inject_mxu_bf16"),
+                      ("fused_inject=False", {"fused_inject": False},
+                       "fused_resblocks_mxu_bf16"),
+                      ("fused_stage=True", {"fused_stage": True},
+                       "fused_stage_mxu_bf16"))
+
+
+def mxu_path_phase(torch, K, card: str) -> dict:
+    """The slice's main path, on the bf16-operand forms: configs/combsub.yaml
+    (CombSubFast at its published widths, n_spk 100) with model.bf16 and the
+    NSF-HiFiGAN at H_NSF with generator_overrides {"fused_mxu_bf16": True},
+    weights from seeds 0/1, converting the offline path's three segments
+    through convert_features once per enhancer form (default,
+    fused_inject=False, fused_stage=True): each run's counts from 0, #1's
+    and #2's forms and that form's conv-core form launched, #3 too, and no
+    fp32 form of #1, #2, #4, #5 or #11; the audio finite and of its length,
+    against the same run on the plain forms (rel RMS 5e-2, the JAX
+    package's bf16 bound: both round the same operands, and fp32 sum-order
+    differences flip bf16 roundings through the PCmer) and beside the fp32
+    model with the fp32 enhancer. Returns the runs' launches, summed."""
+    from ddsp_svc_tpu_torch.infer.enhancer import Enhancer
+    from ddsp_svc_tpu_torch.infer.offline import convert_features
+    from ddsp_svc_tpu_torch.models.factory import build_model
+    from ddsp_svc_tpu_torch.utils.config import DotDict, load_config
+
+    args = load_config(os.path.join(ROOT, "configs", "combsub.yaml"))
+    args16 = DotDict(json.loads(json.dumps(args)))
+    args16["model"]["bf16"] = True
+    model16 = build_model(args16, device="cuda", seed=0)
+    bs, sr = args.data.block_size, args.data.sampling_rate
+    starts, segments, f0, volume, noises, rand_inis = offline_inputs(
+        args.data.encoder_out_channels, bs)
+
+    def run(model, enhancer):
+        out, sr_o = convert_features(
+            model, segments, f0, volume, spk_id=1, enhancer=enhancer,
+            noise_hook=lambda i, shape: noises[i],
+            enhancer_rand_hook=lambda i: rand_inis[i])
+        torch.cuda.synchronize()
+        return out, sr_o
+
+    def rel_rms(a, b):
+        return float(np.sqrt(np.mean((a - b) ** 2) / np.mean(b ** 2)))
+
+    ref32, _ = run(build_model(args, device="cuda", seed=0),
+                   Enhancer("nsf-hifigan", None, h=H_NSF, seed=1,
+                            device="cuda"))
+    total = {}
+    for label, forms, conv_form in MXU_ENHANCER_FORMS:
+        enhancer = Enhancer("nsf-hifigan", None, h=H_NSF, seed=1,
+                            device="cuda", generator_overrides=dict(
+                                forms, fused_mxu_bf16=True))
+        run(model16, enhancer)  # warm-up
+        path = f"slice path (model.bf16, fused_mxu_bf16, {label})"
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        audio, sr_o = run(model16, enhancer)
+        wall = time.perf_counter() - t0
+        counts = bf16_path_launches(
+            K, path, ("performer_attention", "combsub_spectral",
+                      "harmonic_source", conv_form))
+        for name in ("fused_resblocks_inject", "fused_resblocks",
+                     "fused_stage"):
+            if counts[name]:
+                fail(f"{path} launched {name}'s fp32 form")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        length = round(starts[-1] * bs * sr_o / sr) + SEGMENT_FRAMES[-1] * bs
+        if audio.shape != (length,) or not np.isfinite(audio).all():
+            fail(f"{path} audio: shape {audio.shape} (expected ({length},)) "
+                 "or non-finite")
+        with plain_kernels(K):
+            ref, _ = run(model16, enhancer)
+        to_plain, to_fp32 = rel_rms(audio, ref), rel_rms(audio, ref32)
+        seg_s = sum(SEGMENT_FRAMES) * bs / sr
+        say(f"{card}: {path}: {audio.shape[0]} samples at {sr_o} Hz; against"
+            f" the plain forms rel RMS {to_plain:.3e} (tolerance 5e-2), "
+            f"against the fp32 model and enhancer {to_fp32:.3e}; B=1 "
+            f"{wall * 1e3:.1f} ms for {seg_s:.3f} audio-s "
+            f"({seg_s / wall:.1f} audio-s/s)")
+        if not to_plain <= 5e-2:
+            fail(f"{path} disagrees with the plain forms")
+    return total
 
 
 def main_path_phase(torch, K, synth: str, config: str, expect,
@@ -1298,25 +1839,8 @@ def main_path_phase(torch, K, synth: str, config: str, expect,
         f"{H_NSF['upsample_initial_channel']}, {len(H_NSF['upsample_rates'])}"
         f" stages, {H_NSF['num_mels']} mels; weights from seeds 0/1")
 
-    rng = np.random.default_rng(0)
-    starts, segments = [], []
-    pos = 0
-    for n in SEGMENT_FRAMES:
-        pos += 20
-        starts.append(pos)
-        segments.append((pos, rng.standard_normal((1, n, n_unit)).astype(np.float32)))
-        pos += n
-    total = pos + 20
-    tt = np.arange(total) / total
-    f0 = (220 + 90 * np.sin(2 * np.pi * 3 * tt))[None, :, None].astype(np.float32)
-    volume = (0.05 + 0.3 * rng.random((1, total))).astype(np.float32)
-    noises = [(rng.random((1, n * bs)) * 2 - 1).astype(np.float32)
-              for n in SEGMENT_FRAMES]
-    rand_inis = []
-    for _ in SEGMENT_FRAMES:
-        ri = rng.random((1, 9)).astype(np.float32)
-        ri[:, 0] = 0
-        rand_inis.append(ri)
+    starts, segments, f0, volume, noises, rand_inis = offline_inputs(n_unit,
+                                                                     bs)
 
     def run():
         out, sr_o = convert_features(
@@ -1818,14 +2342,14 @@ def train_phase(torch, K, synth: str, config: str, expect,
              "plain torch.fft one)")
     add(counts)
     if full:
-        # model.bf16: the spectral chain runs on its kernel and its adjoint;
-        # the validation pass at the last step casts q, k, v up to fp32 for
-        # the attention kernel
+        # model.bf16: the spectral chain runs on its kernel's and its
+        # adjoint's bf16-operand forms; the validation pass at the last step
+        # runs the attention's form on bf16 q, k, v
         cfg16 = config_file("bf16", True, BF16_STEPS)
         K.reset_launch_counts()
         run(cfg16, BF16_STEPS, f"train {synth} bf16")
-        add(path_launches(K, f"training path ({synth}, bf16)",
-                          expect_train + ("combsub_spectral_bwd",)))
+        add(bf16_path_launches(K, f"training path ({synth}, bf16)",
+                               expect_train + ("combsub_spectral_bwd",)))
 
     # the four train options together through the entry: K-step graphed
     # dispatches over the device pool, remat and asynchronous checkpoints,
@@ -1837,19 +2361,20 @@ def train_phase(torch, K, synth: str, config: str, expect,
         with sync_twins() as saves:
             run(cfg_opt, OPTION_STEPS, f"train {synth} "
                 f"{'bf16' if bf16 else 'fp32'} {json.dumps(TRAIN_OPTIONS)}")
-        add(path_launches(K, f"training path ({synth}, {name})",
-                          expect_train + (("combsub_spectral_bwd",)
-                                          if bf16 else ())))
+        launches = path_launches if not bf16 else bf16_path_launches
+        add(launches(K, f"training path ({synth}, {name})",
+                     expect_train + (("combsub_spectral_bwd",)
+                                     if bf16 else ())))
         check_twins(torch, saves, f"{synth} {name}")
 
     # the graphed step against the eager one, at this config's width
     for bf16 in ((False, True) if full else (False,)):
         # the kernels a step launches: the synth's own (CombSubFast's
         # spectral chain only under bf16, with its adjoint) and #6
-        step_kernels = tuple(
+        step_kernels = bf16_names(tuple(
             k for k in expect_train if k != "performer_attention"
             and (bf16 or k != "combsub_spectral")) + (
-                ("combsub_spectral_bwd",) if bf16 else ())
+                ("combsub_spectral_bwd",) if bf16 else ()), bf16)
         add(graph_phase(torch, K, config_file("graph", bf16, 10 ** 6),
                         f"{synth} {'bf16' if bf16 else 'fp32'}", step_kernels,
                         full))
@@ -1865,12 +2390,12 @@ def train_phase(torch, K, synth: str, config: str, expect,
                   int(args.loss.n_scale), eps=1e-3)
 
     if full:
-        # the bf16 validation forward (infer=True) on the kernels against the
-        # same forward on the plain versions. Both feed the attention fp32 q,
-        # k, v cast up from bf16; their fp32 rounding differences (~1e-6)
-        # flip bf16 roundings downstream (2^-8 relative each), and the flips
-        # grow through the three PCmer layers towards bf16's own noise (bf16
-        # vs fp32 reads 1.8e-2). So the signal is held to the JAX package's
+        # the bf16 validation forward (infer=True) on the kernels' forms
+        # against the same forward on the plain forms. Both round the same
+        # operands to bf16; their fp32 rounding differences (~1e-6) flip
+        # bf16 roundings downstream (2^-8 relative each), and the flips grow
+        # through the three PCmer layers towards bf16's own noise (bf16 vs
+        # fp32 reads 1.8e-2). So the signal is held to the JAX package's
         # bf16 bound, 5e-2 relative RMS (tests/test_bf16.py); its spectral
         # loss, which the flips hardly move, to 1e-4
         model16 = build_model(load_config(cfg16), device="cuda", seed=0)
@@ -3546,14 +4071,19 @@ def sync(torch, device: str) -> None:
 # time-parallel path, and SvcCore.infer's arguments
 MESH_RUNS = (("nccl", 1), ("gloo", 2))
 MESH_KERNELS = ("performer_attention_moments", "performer_attention_apply",
-                "combsub_spectral", "harmonic_source", "fused_resblocks_inject")
+                "combsub_spectral", "harmonic_source", "fused_resblocks_inject",
+                "performer_attention_moments_mxu_bf16",
+                "performer_attention_apply_mxu_bf16",
+                "combsub_spectral_mxu_bf16")
 MESH_INFER = dict(pitch_extractor_type="dio", enhancer_adaptive_key=0)
-MESH_STAGES = ("synth", "enhance fp32", "enhance staged", "SvcCore.infer")
+MESH_STAGES = ("synth", "synth bf16", "enhance fp32", "enhance staged",
+               "SvcCore.infer")
 
 
-def mesh_calls(torch, d: dict, synth, enhancers: dict, core):
-    """The mesh phase's four calls on the job's inputs `d`, each timed on the
-    host around a synchronize: the bucketed synth, the enhancer fp32 and
+def mesh_calls(torch, d: dict, synths: dict, enhancers: dict, core):
+    """The mesh phase's five calls on the job's inputs `d`, each timed on the
+    host around a synchronize: the bucketed synth fp32 and model.bf16 (the
+    split attention's and #2's bf16-operand forms), the enhancer fp32 and
     staged bf16 on the reference synth's output, and a whole SvcCore
     window. Returns ({stage: output on the CPU}, {stage: seconds})."""
     outs, walls = {}, {}
@@ -3567,8 +4097,9 @@ def mesh_calls(torch, d: dict, synth, enhancers: dict, core):
         walls[name] = time.perf_counter() - t0
         outs[name] = torch.as_tensor(y).float().cpu().reshape(-1)
 
-    timed("synth", lambda: synth(d["units"], d["f0"], d["volume"], d["spk"],
-                                 noise=d["noise"]))
+    for stage, synth in synths.items():
+        timed(stage, lambda synth=synth: synth(
+            d["units"], d["f0"], d["volume"], d["spk"], noise=d["noise"]))
     for kind, enh in enhancers.items():
         timed(f"enhance {kind}", lambda enh=enh: enh.enhance(
             synth_out, d["sr"], d["f0"], d["block"], adaptive_key=0,
@@ -3580,19 +4111,27 @@ def mesh_calls(torch, d: dict, synth, enhancers: dict, core):
 
 
 def mesh_models(d: dict, mesh=None):
-    """The bucketed synth, the two enhancers and a SvcCore of the job's
-    checkpoints, time-sharded over `mesh` (None: unsharded)."""
+    """The bucketed synths (fp32, and model.bf16 on the same weights), the
+    two enhancers and a SvcCore of the job's checkpoints, time-sharded over
+    `mesh` (None: unsharded)."""
     from ddsp_svc_tpu_torch.infer.enhancer import Enhancer
     from ddsp_svc_tpu_torch.infer.streaming import SvcCore
-    from ddsp_svc_tpu_torch.models.factory import load_model, make_bucketed_synth
+    from ddsp_svc_tpu_torch.models.factory import (build_model, load_model,
+                                                   make_bucketed_synth)
+    from ddsp_svc_tpu_torch.utils.config import DotDict
 
     dev = d["device"]
-    model, _ = load_model(d["ckpt"], device=dev)
+    model, args = load_model(d["ckpt"], device=dev)
+    args16 = DotDict(json.loads(json.dumps(args)))
+    args16["model"]["bf16"] = True
+    model16 = build_model(args16, device=dev)
+    model16.load_state_dict(model.state_dict())
     enhancers = {kind: Enhancer("nsf-hifigan", d["nsf"], device=dev,
                                 bf16_min_channels=threshold, mesh=mesh)
                  for kind, threshold in (("fp32", 0), ("staged", CLI_STAGED))}
-    return (make_bucketed_synth(model, mesh=mesh), enhancers,
-            SvcCore(d["ckpt"], device=dev, mesh=mesh))
+    return ({"synth": make_bucketed_synth(model, mesh=mesh),
+             "synth bf16": make_bucketed_synth(model16, mesh=mesh)},
+            enhancers, SvcCore(d["ckpt"], device=dev, mesh=mesh))
 
 
 def mesh_rank(rank: int, world: int, backend: str, port: int, job: str):
@@ -3632,9 +4171,12 @@ def mesh_phase(torch, K, card: str, ckpts: dict, device: str = "cuda"
     synth (1121 frames in the 2048 bucket, noise injected) within 1e-4 x
     max|ref|, the enhancer on the reference synth output fp32 within 1e-5
     x max|ref| and staged bf16 at 128 within rel RMS 2e-2, SvcCore.infer's
-    window (synth and fp32 enhancer sharded) within 1e-4 x max|ref|; each
-    rank launched #1's moments and apply, #2, #3 and #4 and never the
-    single #1. Prints the walls of each run (two ranks share one card: a
+    window (synth and fp32 enhancer sharded) within 1e-4 x max|ref|, and
+    the model.bf16 synth on the same weights (#1's split and #2 in their
+    bf16-operand forms) within rel RMS 5e-2 (the JAX package's bf16 bound:
+    the all-reduced moments sum in another order and flip bf16 roundings
+    downstream); each rank launched #1's moments and apply, #2, #3 and #4
+    and the bf16 forms of #1's split and #2, and never the single #1. Prints the walls of each run (two ranks share one card: a
     record, no speed-up expected). Returns the ranks' launches, summed.
     device='cpu' rehearses it on the CPU, on the plain versions, over Gloo
     only (no kernel launches)."""
@@ -3647,7 +4189,7 @@ def mesh_phase(torch, K, card: str, ckpts: dict, device: str = "cuda"
     os.makedirs(work)
     d = {"ckpt": ckpts["fp32"], "device": device, "nsf": os.path.join(
         os.path.dirname(os.path.dirname(ckpts["fp32"])), "nsf", "model")}
-    synth, enhancers, core = mesh_models(d)
+    synths, enhancers, core = mesh_models(d)
     sr, bs = core.args.data.sampling_rate, core.args.data.block_size
     audio = sung_wav(sr)
     f0 = core._f0_extractor("dio", sr, bs, 50, 1100).extract(audio,
@@ -3663,17 +4205,17 @@ def mesh_phase(torch, K, card: str, ckpts: dict, device: str = "cuda"
                  np.float32), spk=np.ones((1, 1), np.int64),
              noise=(rng.random((1, n * bs)) * 2 - 1).astype(np.float32),
              rand_ini=ri)
-    d["synth_ref"] = synth(d["units"], d["f0"], d["volume"], d["spk"],
-                           noise=d["noise"]).cpu()
-    mesh_calls(torch, d, synth, enhancers, core)
-    refs, walls = mesh_calls(torch, d, synth, enhancers, core)
+    d["synth_ref"] = synths["synth"](d["units"], d["f0"], d["volume"],
+                                     d["spk"], noise=d["noise"]).cpu()
+    mesh_calls(torch, d, synths, enhancers, core)
+    refs, walls = mesh_calls(torch, d, synths, enhancers, core)
     say(f"{card}: mesh phase: {len(audio) / sr:.3f} s wav, {n} frames in "
         f"the {max(32, 1 << (n - 1).bit_length())}-frame bucket; unsharded "
         "(one process, no group) " + ", ".join(
             f"{k} {v * 1e3:.1f} ms" for k, v in walls.items()))
     job = os.path.join(work, "job.pt")
     torch.save(d, job)
-    del synth, enhancers, core
+    del synths, enhancers, core
     total = {}
     for backend, world in MESH_RUNS:
         if device != "cuda":
@@ -3700,19 +4242,21 @@ def mesh_phase(torch, K, card: str, ckpts: dict, device: str = "cuda"
                     fail(f"{label}: {stage} {err:.3e} x max|ref| against the "
                          f"unsharded run, over {tol}")
                 errs.append(f"{stage} {err:.3e} x max|ref| (<= {tol})")
-            got, ref = res["outs"]["enhance staged"], refs["enhance staged"]
-            rel = (torch.linalg.vector_norm(got - ref)
-                   / torch.linalg.vector_norm(ref)).item()
-            if got.shape != ref.shape or not rel <= 2e-2:
-                fail(f"{label}: enhance staged rel RMS {rel:.3e}, over 2e-2")
-            errs.append(f"enhance staged rel RMS {rel:.3e} (<= 2e-2)")
+            for stage, tol in (("enhance staged", 2e-2), ("synth bf16", 5e-2)):
+                got, ref = res["outs"][stage], refs[stage]
+                rel = (torch.linalg.vector_norm(got - ref)
+                       / torch.linalg.vector_norm(ref)).item()
+                if got.shape != ref.shape or not rel <= tol:
+                    fail(f"{label}: {stage} rel RMS {rel:.3e}, over {tol}")
+                errs.append(f"{stage} rel RMS {rel:.3e} (<= {tol})")
             say(f"{label}: " + "; ".join(errs))
             counts = res["launches"]
             say(f"{label} launches: {json.dumps(counts)}")
             for name in MESH_KERNELS if device == "cuda" else ():
                 if counts[name] <= 0:
                     fail(f"{name} was not launched on {label}")
-            if counts["performer_attention"]:
+            if counts["performer_attention"] or counts[
+                    "performer_attention_mxu_bf16"]:
                 fail(f"{label} launched the single #1 on the sharded path")
             for k, v in counts.items():
                 total[k] = total.get(k, 0) + v
@@ -3758,8 +4302,8 @@ MT_GATE_EPS = 1e-3
 MT_GAN_GRAD_REL, MT_GAN_GRAD_COS = 5e-3, 1 - 1e-4
 # the kernels each case must launch on every rank (on the card)
 MT_EXPECT = {"step": ("dft_magnitude",),
-             "step bf16": ("dft_magnitude", "combsub_spectral",
-                           "combsub_spectral_bwd"),
+             "step bf16": ("dft_magnitude", "combsub_spectral_mxu_bf16",
+                           "combsub_spectral_bwd_mxu_bf16"),
              "graphed": ("dft_magnitude",),
              "gan": ("harmonic_source", "fused_resblocks_inject"),
              "causal": ("combsub_spectral",)}
@@ -4487,6 +5031,7 @@ def main() -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = kernel_phase(torch, K, gen)
     rows.update(bf16_forms_phase(torch, K, gen))
+    rows.update(mxu_forms_phase(torch, K, gen))
     keyshift_units_phase(torch, smi[0])
     for name, row in rows.items():
         t_b, by = row["bound"]
@@ -4496,6 +5041,9 @@ def main() -> None:
     # launches: the sum over the main paths' runs, each counted from 0 just
     # before it (the CLI; then offline and training for each synthesizer)
     launches = {k: 0 for k in K.launch_counts()}
+    t0 = time.perf_counter()
+    mxu_counts = mxu_path_phase(torch, K, smi[0])
+    say(f"slice paths (bf16-operand forms): {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     cli_counts, ckpts = cli_phase(torch, K, smi[0])
     say(f"CLI paths: {time.perf_counter() - t0:.1f} s")
@@ -4522,8 +5070,8 @@ def main() -> None:
     say(f"mesh training paths: {time.perf_counter() - t0:.1f} s")
     shutil.rmtree(os.path.join(ROOT, "build", "chip_smoke_cli"),
                   ignore_errors=True)
-    for counts in (cli_counts, batch_counts, pre_counts, gan_counts,
-                   stream_counts, serve_counts, mesh_counts,
+    for counts in (mxu_counts, cli_counts, batch_counts, pre_counts,
+                   gan_counts, stream_counts, serve_counts, mesh_counts,
                    mesh_train_counts):
         for k, v in counts.items():
             launches[k] += v

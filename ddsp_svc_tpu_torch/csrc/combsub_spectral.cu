@@ -29,7 +29,18 @@
 // the window straight to device memory. Shared memory: two padded L-point
 // spectra, 8.5 KB per row at n = 1024, four rows per 256-thread block. n is a
 // power of two, 64..4096.
+//
+// The bf16-operand form (combsub_spectral_pallas(mxu_bf16=True), the
+// CombSubFast of model.bf16): JAX rounds the windowed tooth and noise
+// frames (:595-596), its DFT matrices (:653-658) and the filtered spectrum
+// before its inverse (:616-617) to bf16 for its matrix unit. An FFT has no
+// DFT matrices, so this form rounds the kernel's inputs that JAX rounds:
+// each frame value to bf16 (to nearest even) as the first pass reads it.
+// The transforms, the filter and every spectrum stay fp32 (rounding the
+// spectrum too brings the result no nearer to JAX's, whose rounded DFT
+// matrices dominate the difference).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -50,8 +61,15 @@ __device__ __forceinline__ float2 filtered(float2 a, float2 nz, float hm, float 
   return make_float2(h.x + nz.x * q, h.y + nz.y * q);
 }
 
-// L = n / 2 points per transform; L / 8 threads per row
-template <int L>
+// Both values of v rounded to bf16 (to nearest even) and back.
+__device__ __forceinline__ float2 round_bf16(float2 v) {
+  return make_float2(__bfloat162float(__float2bfloat16_rn(v.x)),
+                     __bfloat162float(__float2bfloat16_rn(v.y)));
+}
+
+// L = n / 2 points per transform; L / 8 threads per row; kMxu: the frames
+// rounded to bf16 on their load
+template <int L, bool kMxu>
 __global__ void __launch_bounds__(L / 8 > kThreads ? L / 8 : kThreads)
 combsub_spectral_kernel(const float* __restrict__ tooth, const float* __restrict__ noise,
                         const float* __restrict__ hm, const float* __restrict__ hp,
@@ -72,7 +90,7 @@ combsub_spectral_kernel(const float* __restrict__ tooth, const float* __restrict
   const float2* src = reinterpret_cast<const float2*>((group ? noise : tooth) + r * n);
   float2* s = group ? sn : sa;
   fft_pow2<L, false>(
-      s, t - group * (L / 16), [=](int i) { return src[i]; },
+      s, t - group * (L / 16), [=](int i) { return kMxu ? round_bf16(src[i]) : src[i]; },
       [s](int i, float2 v) { s[pad(i)] = v; });
   __syncthreads();
 
@@ -116,7 +134,7 @@ combsub_spectral_kernel(const float* __restrict__ tooth, const float* __restrict
                        });
 }
 
-template <int L>
+template <int L, bool kMxu>
 int launch(const float* tooth, const float* noise, const float* hm, const float* hp,
            const float* nm, const float* window, float* out, int rows,
            cudaStream_t stream) {
@@ -125,18 +143,18 @@ int launch(const float* tooth, const float* noise, const float* hm, const float*
   // at most 34,816 bytes (L = 512..2048): under the default 48 KB
   constexpr size_t smem = (size_t)per_block * 2 * padded(L) * sizeof(float2);
   const int blocks = (rows + per_block - 1) / per_block;
-  combsub_spectral_kernel<L><<<blocks, per_block * tpr, smem, stream>>>(
+  combsub_spectral_kernel<L, kMxu><<<blocks, per_block * tpr, smem, stream>>>(
       tooth, noise, hm, hp, nm, window, out, rows);
   return (int)cudaGetLastError();
 }
 
-template <int L>
+template <int L, bool kMxu>
 int launch_l(int l, const float* tooth, const float* noise, const float* hm,
              const float* hp, const float* nm, const float* window, float* out,
              int rows, cudaStream_t stream) {
-  if (l == L) return launch<L>(tooth, noise, hm, hp, nm, window, out, rows, stream);
+  if (l == L) return launch<L, kMxu>(tooth, noise, hm, hp, nm, window, out, rows, stream);
   if constexpr (L < 2048) {
-    return launch_l<2 * L>(l, tooth, noise, hm, hp, nm, window, out, rows, stream);
+    return launch_l<2 * L, kMxu>(l, tooth, noise, hm, hp, nm, window, out, rows, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -150,6 +168,17 @@ extern "C" int combsub_spectral_launch(const float* tooth, const float* noise,
                                        const float* nm, const float* window,
                                        float* out, int rows, int n, void* stream) {
   if (rows == 0) return 0;
-  return launch_l<32>(n / 2, tooth, noise, hm, hp, nm, window, out, rows,
-                      (cudaStream_t)stream);
+  return launch_l<32, false>(n / 2, tooth, noise, hm, hp, nm, window, out, rows,
+                             (cudaStream_t)stream);
+}
+
+// The bf16-operand form: the frames rounded to bf16 on their load; the
+// arguments as combsub_spectral_launch.
+extern "C" int combsub_spectral_mxu_bf16_launch(const float* tooth, const float* noise,
+                                                const float* hm, const float* hp,
+                                                const float* nm, const float* window,
+                                                float* out, int rows, int n, void* stream) {
+  if (rows == 0) return 0;
+  return launch_l<32, true>(n / 2, tooth, noise, hm, hp, nm, window, out, rows,
+                            (cudaStream_t)stream);
 }

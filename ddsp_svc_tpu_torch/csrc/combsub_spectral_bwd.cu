@@ -51,9 +51,16 @@
 // Shared memory: three padded L-point spectra a row, the inverses reusing
 // two: 13,056 bytes at n = 1024, two rows a 128-thread block; 52,224 at n
 // = 4096, over the default 48 KB, set once. n is a power of two,
-// 64..4096. The TPU fed its matrix unit bf16 under model.bf16; this kernel
-// stays fp32.
+// 64..4096.
+//
+// The bf16-operand form (_combsub_spectral_bwd_impl(mxu_bf16=True), model.bf16
+// training): JAX rounds g * window and the two frames to bf16 (:730, :745-
+// 746) besides its DFT matrices and the excitation-gradient spectra; as in
+// the forward's form, this one rounds the kernel's inputs that JAX rounds,
+// g * window and the frames, on their load, and keeps the transforms and
+// every spectrum fp32.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -88,8 +95,15 @@ __device__ __forceinline__ void bin_grads(float2 g, float2 a, float2 nz, int b,
   yn = cscale(g, q);
 }
 
-// L = n / 2 points per transform; L / 8 threads per row
-template <int L>
+// Both values of v rounded to bf16 (to nearest even) and back.
+__device__ __forceinline__ float2 round_bf16(float2 v) {
+  return make_float2(__bfloat162float(__float2bfloat16_rn(v.x)),
+                     __bfloat162float(__float2bfloat16_rn(v.y)));
+}
+
+// L = n / 2 points per transform; L / 8 threads per row; kMxu: g * window
+// and the frames rounded to bf16 on their load
+template <int L, bool kMxu = false>
 __global__ void __launch_bounds__(L / 8 > kThreads ? L / 8 : kThreads)
 combsub_spectral_bwd_kernel(const float* __restrict__ g, const float* __restrict__ tooth,
                             const float* __restrict__ noise, const float* __restrict__ hm,
@@ -116,10 +130,12 @@ combsub_spectral_bwd_kernel(const float* __restrict__ g, const float* __restrict
     fft_pow2<L, false, decltype(radix)::value>(
         s, u,
         [=](int i) {
-          const float2 v = src[i];
-          if (which != 2) return v;
-          const float2 wi = win[i];
-          return make_float2(v.x * wi.x, v.y * wi.y);
+          float2 v = src[i];
+          if (which == 2) {
+            const float2 wi = win[i];
+            v = make_float2(v.x * wi.x, v.y * wi.y);
+          }
+          return kMxu ? round_bf16(v) : v;
         },
         [s](int i, float2 v) { s[pad(i)] = v; });
   };
@@ -185,7 +201,7 @@ constexpr int kRowsPerBlock = L / 8 >= kThreads ? 1 : kThreads / (L / 8);
 template <int L>
 constexpr size_t kSmemBytes = (size_t)kRowsPerBlock<L> * 3 * padded(L) * sizeof(float2);
 
-template <int L>
+template <int L, bool kMxu>
 int launch(const float* g, const float* tooth, const float* noise, const float* hm,
            const float* hp, const float* nm, const float* window, float* d_tooth,
            float* d_noise, float* d_hm, float* d_hp, float* d_nm, int rows,
@@ -194,12 +210,12 @@ int launch(const float* g, const float* tooth, const float* noise, const float* 
   constexpr size_t smem = kSmemBytes<L>;
   if constexpr (smem > 48 * 1024) {  // n = 4096: over the default, set once
     static const cudaError_t attr = cudaFuncSetAttribute(
-        combsub_spectral_bwd_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        combsub_spectral_bwd_kernel<L, kMxu>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (attr != cudaSuccess) return (int)attr;
   }
   const int blocks = (rows + per_block - 1) / per_block;
-  combsub_spectral_bwd_kernel<L><<<blocks, per_block * L / 8, smem, stream>>>(
+  combsub_spectral_bwd_kernel<L, kMxu><<<blocks, per_block * L / 8, smem, stream>>>(
       g, tooth, noise, hm, hp, nm, window, d_tooth, d_noise, d_hm, d_hp, d_nm, rows);
   return (int)cudaGetLastError();
 }
@@ -224,9 +240,23 @@ extern "C" int combsub_spectral_bwd_launch(const float* g, const float* tooth,
                                            float* d_nm, int rows, int n, void* stream) {
   if (rows == 0) return 0;
   return with_l<32>(n / 2, [&](auto l) {
-    return launch<decltype(l)::value>(g, tooth, noise, hm, hp, nm, window, d_tooth,
-                                      d_noise, d_hm, d_hp, d_nm, rows,
-                                      (cudaStream_t)stream);
+    return launch<decltype(l)::value, false>(g, tooth, noise, hm, hp, nm, window, d_tooth,
+                                             d_noise, d_hm, d_hp, d_nm, rows,
+                                             (cudaStream_t)stream);
+  });
+}
+
+// The bf16-operand form: g * window and the frames rounded to bf16 on their
+// load; the arguments as combsub_spectral_bwd_launch.
+extern "C" int combsub_spectral_bwd_mxu_bf16_launch(
+    const float* g, const float* tooth, const float* noise, const float* hm, const float* hp,
+    const float* nm, const float* window, float* d_tooth, float* d_noise, float* d_hm,
+    float* d_hp, float* d_nm, int rows, int n, void* stream) {
+  if (rows == 0) return 0;
+  return with_l<32>(n / 2, [&](auto l) {
+    return launch<decltype(l)::value, true>(g, tooth, noise, hm, hp, nm, window, d_tooth,
+                                            d_noise, d_hm, d_hp, d_nm, rows,
+                                            (cudaStream_t)stream);
   });
 }
 

@@ -41,6 +41,13 @@
 // scratch in device memory (C x W floats a tile, 1.67x the output's bytes
 // at C = 64, mostly in L2), copied back into h before each. The trio mean
 // is summed in the output.
+//
+// The bf16-operand form (fused_stage_pallas(mxu_bf16=True), the
+// Generator's fused_mxu_bf16 on an fp32 stage: the chains' weights cast at
+// :1649, each conv's input at :919/:951): the chains on the core's bf16
+// k-steps (mma.sync.m16n8k16, weights from
+// ops/kernels.py::mma_fragments_bf16); the transposed conv, the injection,
+// x0 and the carries stay fp32, as in JAX.
 
 #include "resblock_mma.cuh"
 
@@ -56,6 +63,7 @@ struct Args {
   const float* wnc;   // (C, ksrc)
   const float* bnc;   // (C,)
   const float* w[3];  // (3, 2, k_r, C / 8, M / 16, 2, 32, 4): fragment order
+                      // (the bf16 form: packed bf16 words, mma_fragments_bf16)
   const float* b[3];  // (3, 2, C)
   float* out;         // (B, C, T_out)
   float* x0;          // (B, n_tiles, C, W): each tile's x0
@@ -180,7 +188,7 @@ __device__ void fill_stage(const Args& a, const float* x, const float* har, floa
     }
 }
 
-template <int C>
+template <int C, bool kMxu>
 __global__ void __launch_bounds__(kThreads, 1) fused_stage_kernel(Args a) {
   using G = Geometry<C>;
   extern __shared__ float sm[];
@@ -212,10 +220,32 @@ __global__ void __launch_bounds__(kThreads, 1) fused_stage_kernel(Args a) {
       }
       __syncthreads();
     }
-    if (r == 0) run_chain<C, 3>(h, t, s_w, a.w[0], a.b[0], d0, d1, d2, g0, a.T);
-    else if (r == 1) run_chain<C, 7>(h, t, s_w, a.w[1], a.b[1], d0, d1, d2, g0, a.T);
-    else run_chain<C, 11>(h, t, s_w, a.w[2], a.b[2], d0, d1, d2, g0, a.T);
+    if (r == 0) run_chain<C, 3, kMxu>(h, t, s_w, a.w[0], a.b[0], d0, d1, d2, g0, a.T);
+    else if (r == 1) run_chain<C, 7, kMxu>(h, t, s_w, a.w[1], a.b[1], d0, d1, d2, g0, a.T);
+    else run_chain<C, 11, kMxu>(h, t, s_w, a.w[2], a.b[2], d0, d1, d2, g0, a.T);
     accumulate_mean<C>(h, out, r, g0, a.T);
+  }
+}
+
+template <bool kMxu>
+int launch(const Args& a, int B, int C, int T, cudaStream_t s) {
+  switch (C) {
+    case 8: return launch_tiles<8>(fused_stage_kernel<8, kMxu>, a, T, B, s);
+    case 16: return launch_tiles<16>(fused_stage_kernel<16, kMxu>, a, T, B, s);
+    case 32: return launch_tiles<32>(fused_stage_kernel<32, kMxu>, a, T, B, s);
+    case 64: return launch_tiles<64>(fused_stage_kernel<64, kMxu>, a, T, B, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <bool kMxu>
+int info(int C, int* out) {
+  switch (C) {
+    case 8: return kernel_info<8>(fused_stage_kernel<8, kMxu>, out);
+    case 16: return kernel_info<16>(fused_stage_kernel<16, kMxu>, out);
+    case 32: return kernel_info<32>(fused_stage_kernel<32, kMxu>, out);
+    case 64: return kernel_info<64>(fused_stage_kernel<64, kMxu>, out);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
@@ -245,14 +275,25 @@ extern "C" int fused_stage_launch(const float* x, const float* har, const float*
   if (u != 1 && u != 2 && u != 4 && u != 8) return (int)cudaErrorInvalidValue;
   Args a{x, har, wup, bup, wnc, bnc, {w0, w1, w2}, {b0, b1, b2}, out, x0,
          t_in, T, u, p, t_final, s_src, ksrc, {d0, d1, d2}};
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (C) {
-    case 8: return launch_tiles<8>(fused_stage_kernel<8>, a, T, B, s);
-    case 16: return launch_tiles<16>(fused_stage_kernel<16>, a, T, B, s);
-    case 32: return launch_tiles<32>(fused_stage_kernel<32>, a, T, B, s);
-    case 64: return launch_tiles<64>(fused_stage_kernel<64>, a, T, B, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return launch<false>(a, B, C, T, (cudaStream_t)stream);
+}
+
+// The bf16-operand form: w_r in the bf16 fragment order of
+// ops/kernels.py::mma_fragments_bf16 (wup stays in the tf32 one); the rest
+// as fused_stage_launch.
+extern "C" int fused_stage_mxu_bf16_launch(const float* x, const float* har, const float* wup,
+                                           const float* bup, const float* wnc, const float* bnc,
+                                           const void* w0, const void* w1, const void* w2,
+                                           const float* b0, const float* b1, const float* b2,
+                                           float* out, float* x0, int B, int C, int t_in, int T,
+                                           int u, int p, int t_final, int s_src, int ksrc,
+                                           int d0, int d1, int d2, void* stream) {
+  if (u != 1 && u != 2 && u != 4 && u != 8) return (int)cudaErrorInvalidValue;
+  Args a{x, har, wup, bup, wnc, bnc,
+         {static_cast<const float*>(w0), static_cast<const float*>(w1),
+          static_cast<const float*>(w2)},
+         {b0, b1, b2}, out, x0, t_in, T, u, p, t_final, s_src, ksrc, {d0, d1, d2}};
+  return launch<true>(a, B, C, T, (cudaStream_t)stream);
 }
 
 extern "C" long long fused_stage_scratch_floats(int B, int C, int T) {
@@ -268,12 +309,7 @@ extern "C" long long fused_stage_scratch_floats(int B, int C, int T) {
 // The compiled kernel at width C: out[0] registers per thread, out[1]
 // local-memory bytes per thread (spills), out[2] dynamic shared memory per
 // block.
-extern "C" int fused_stage_info(int C, int* out) {
-  switch (C) {
-    case 8: return kernel_info<8>(fused_stage_kernel<8>, out);
-    case 16: return kernel_info<16>(fused_stage_kernel<16>, out);
-    case 32: return kernel_info<32>(fused_stage_kernel<32>, out);
-    case 64: return kernel_info<64>(fused_stage_kernel<64>, out);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
+extern "C" int fused_stage_info(int C, int* out) { return info<false>(C, out); }
+
+// As fused_stage_info, for the bf16-operand form.
+extern "C" int fused_stage_mxu_bf16_info(int C, int* out) { return info<true>(C, out); }

@@ -58,10 +58,32 @@
 //     (every shard's, all-reduced), one CTA per query tile, no cluster.
 // Nothing new is computed. Bound as above: the moments are the key half of
 // the operations, the apply the query half.
+//
+// The bf16-operand form (performer_attention_pallas(mxu_bf16=True), the
+// PCmer under model.bf16 at inference): the same three kernels (kMxu), on
+// q, k, v of fp32 or bf16 (read upcast; In). They round to bf16, to
+// nearest even, exactly the operands JAX's kernel rounds: the projection
+// after scaling by d^-0.25 (:537-538; once, as it is staged), q and k
+// before the feature products (:465/:469; x itself, unscaled, the diagonal
+// from the unrounded x: |x|^2 / 2 d^-1/2, :477-478), kf and v before the
+// context product (:488), k_sum and qf before the denominator (:493), ctx
+// and qf before the numerator (:497). The exponentials, k_sum's own sum
+// (from the unrounded kf) and the division stay fp32, and every product
+// sums in fp32: a product of two bf16 values is exact in fp32, so these
+// FMAs give what a bf16 tensor-core product with an fp32 accumulator gives,
+// up to the order of the sums. The context's cluster sum is rounded as its
+// owner stores it, so a peer may read it before or after: rounding twice
+// changes nothing. The moments stay fp32 (as summed over shards, before
+// JAX's rounding); the apply rounds the all-reduced context and key sums as
+// it stages them, so a time-sharded run rounds where the single launch
+// does. The products stay on the CUDA cores here, as in the fp32 form.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -114,6 +136,19 @@ __device__ __forceinline__ float4 add4(float4 a, float4 b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
+// v rounded to bf16 (to nearest even) and back.
+__device__ __forceinline__ float bf16r(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ float4 bf16r4(float4 v) {
+  return make_float4(bf16r(v.x), bf16r(v.y), bf16r(v.z), bf16r(v.w));
+}
+
+// An element read upcast exactly to fp32.
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
 __device__ __forceinline__ void fma4(float4& acc, float a, float4 b) {
   acc.x = fmaf(a, b.x, acc.x);
   acc.y = fmaf(a, b.y, acc.y);
@@ -121,30 +156,47 @@ __device__ __forceinline__ void fma4(float4& acc, float a, float4 b) {
   acc.w = fmaf(a, b.w, acc.w);
 }
 
-// The projection's 266 rows into s_proj (row stride kPS), by cp.async.
-__device__ void stage_proj(const float* __restrict__ proj, float* s_proj) {
+// The projection's 266 rows into s_proj (row stride kPS), by cp.async; for
+// kMxu scaled by dn and rounded to bf16 (plain loads).
+template <bool kMxu>
+__device__ void stage_proj(const float* __restrict__ proj, float* s_proj, float dn) {
   for (int i = threadIdx.x; i < kM * (kD / 4); i += kThreads) {
-    cp_async16(s_proj + (i >> 4) * kPS + 4 * (i & 15), proj + 4 * i);
+    float* dst = s_proj + (i >> 4) * kPS + 4 * (i & 15);
+    if constexpr (kMxu) {
+      const float4 p = reinterpret_cast<const float4*>(proj)[i];
+      *reinterpret_cast<float4*>(dst) =
+          bf16r4(make_float4(p.x * dn, p.y * dn, p.z * dn, p.w * dn));
+    } else {
+      cp_async16(dst, proj + 4 * i);
+    }
   }
   for (int i = threadIdx.x; i < (kMP - kM) * kPS; i += kThreads) s_proj[kM * kPS + i] = 0.f;
 }
 
-// Rows [t0, t0 + n) of x (row stride st floats) into s (row stride ld) by
-// cp.async; rows n..kTT zero.
-__device__ void stage_rows(const float* __restrict__ x, long long st, int t0, int n,
-                           float* s, int ld) {
+// Rows [t0, t0 + n) of x (row stride st elements) into s (row stride ld),
+// fp32 by cp.async, bf16 upcast by plain loads; rows n..kTT zero.
+template <class In>
+__device__ void stage_rows(const In* __restrict__ x, long long st, int t0, int n, float* s,
+                           int ld) {
   for (int i = threadIdx.x; i < kTT * (kD / 4); i += kThreads) {
     const int r = i >> 4, c = 4 * (i & 15);
-    if (r < n) {
-      cp_async16(s + r * ld + c, x + (t0 + r) * st + c);
+    float* dst = s + r * ld + c;
+    if (r >= n) {
+      *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+    } else if constexpr (std::is_same<In, float>::value) {
+      cp_async16(dst, x + (t0 + r) * st + c);
     } else {
-      *reinterpret_cast<float4*>(s + r * ld + c) = make_float4(0.f, 0.f, 0.f, 0.f);
+      const In* src = x + (t0 + r) * st + c;
+      *reinterpret_cast<float4*>(dst) =
+          make_float4(to_f32(src[0]), to_f32(src[1]), to_f32(src[2]), to_f32(src[3]));
     }
   }
 }
 
 // acc[r][q] = xf[tg + 16 r] . proj[jl + 16 q] and sq[r] = |xf[tg + 16 r]|^2
-// for thread (tg, jl) = (tid / 16, tid % 16), xf = x * dn.
+// for thread (tg, jl) = (tid / 16, tid % 16), xf = x * dn. kMxu: acc[r][q] =
+// bf16(x) . proj (s_proj holds proj * dn rounded) and sq[r] = |x|^2.
+template <bool kMxu>
 __device__ __forceinline__ void project(const float* s_x, const float* s_proj, float dn,
                                         float (&acc)[2][kJQ], float (&sq)[2]) {
   const int tg = threadIdx.x >> 4, jl = threadIdx.x & 15;
@@ -160,11 +212,12 @@ __device__ __forceinline__ void project(const float* s_x, const float* s_proj, f
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       xv[r] = *reinterpret_cast<const float4*>(s_x + (tg + 16 * r) * kPS + c);
-      xv[r] = make_float4(xv[r].x * dn, xv[r].y * dn, xv[r].z * dn, xv[r].w * dn);
+      if (!kMxu) xv[r] = make_float4(xv[r].x * dn, xv[r].y * dn, xv[r].z * dn, xv[r].w * dn);
       sq[r] = fmaf(xv[r].x, xv[r].x, sq[r]);
       sq[r] = fmaf(xv[r].y, xv[r].y, sq[r]);
       sq[r] = fmaf(xv[r].z, xv[r].z, sq[r]);
       sq[r] = fmaf(xv[r].w, xv[r].w, sq[r]);
+      if (kMxu) xv[r] = bf16r4(xv[r]);
     }
 #pragma unroll
     for (int q = 0; q < kJQ; ++q) {
@@ -178,6 +231,13 @@ __device__ __forceinline__ void project(const float* s_x, const float* s_proj, f
       }
     }
   }
+}
+
+// The diagonal |xf|^2 / 2 from project's sq: for kMxu sq is |x|^2 and
+// the factor JAX's 0.5 / sqrt(d) (exact: 1/16 at d = 64).
+template <bool kMxu>
+__device__ __forceinline__ float diagonal(float sq) {
+  return kMxu ? sq * (0.5f / 8.0f) : 0.5f * sq;
 }
 
 __device__ __forceinline__ float half_warp_max(float v) {
@@ -197,8 +257,11 @@ __device__ __forceinline__ float half_warp_sum(float v) {
 // tiles aligned to row 0, rows outside the range zero features), stored to
 // s.ctx. The tile `first` is already staged in s.xk / s.v. Context thread
 // (jc, eq) = (tid / 16, tid % 16) owns features jc + 16 q, columns 4 eq..+3.
-__device__ __forceinline__ void key_partials(const float* __restrict__ k,
-                                             const float* __restrict__ v, long long st, int lo,
+// kMxu: the context from kf and v rounded to bf16 as they are read, the key
+// sums from the unrounded kf.
+template <bool kMxu, class In>
+__device__ __forceinline__ void key_partials(const In* __restrict__ k,
+                                             const In* __restrict__ v, long long st, int lo,
                                              int hi, int first, int cs, Smem& s, float dn,
                                              float ratio) {
   const int tg = threadIdx.x >> 4, jl = threadIdx.x & 15;
@@ -217,11 +280,11 @@ __device__ __forceinline__ void key_partials(const float* __restrict__ k,
       __syncthreads();
     }
     float acc[2][kJQ], sq[2];
-    project(s.xk, s.proj, dn, acc, sq);
+    project<kMxu>(s.xk, s.proj, dn, acc, sq);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int t = tg + 16 * r;
-      const float diag = 0.5f * sq[r];
+      const float diag = diagonal<kMxu>(sq[r]);
 #pragma unroll
       for (int i = 0; i < kJQ; ++i) {
         const int j = jl + 16 * i;
@@ -232,9 +295,13 @@ __device__ __forceinline__ void key_partials(const float* __restrict__ k,
     __syncthreads();
 #pragma unroll 4
     for (int t = r0; t < r1; ++t) {
-      const float4 vv = *reinterpret_cast<const float4*>(s.v + t * kD + 4 * eq);
+      float4 vv = *reinterpret_cast<const float4*>(s.v + t * kD + 4 * eq);
+      if (kMxu) vv = bf16r4(vv);
 #pragma unroll
-      for (int i = 0; i < kJQ; ++i) fma4(cacc[i], s.f[t * kFS + jc + 16 * i], vv);
+      for (int i = 0; i < kJQ; ++i) {
+        const float f = s.f[t * kFS + jc + 16 * i];
+        fma4(cacc[i], kMxu ? bf16r(f) : f, vv);
+      }
     }
     for (int t = r0; t < r1; ++t) {
       ksum[0] += s.f[t * kFS + threadIdx.x];
@@ -284,8 +351,10 @@ __device__ __forceinline__ void cluster_slice_sum(cg::cluster_group& cluster, Sm
 // row maxima and denominators in registers, then the output rows of out_bh
 // ((T, 64) of this batch row and head). Output thread (jh, to, eq) =
 // (tid / 128, tid / 16 % 8, tid % 16) owns rows to + 8 r, columns 4 eq..+3,
-// over features [136 jh, 136 jh + 136).
-__device__ __forceinline__ void query_tile(const float* __restrict__ q, long long st, int t0,
+// over features [136 jh, 136 jh + 136). kMxu: s.ctx holds the context and
+// key sums rounded to bf16, and qf is rounded as it is formed.
+template <bool kMxu, class In>
+__device__ __forceinline__ void query_tile(const In* __restrict__ q, long long st, int t0,
                                            int n, bool staged, Smem& s, float dn, float ratio,
                                            float* __restrict__ out_bh) {
   const int tg = threadIdx.x >> 4, jl = threadIdx.x & 15, eq = threadIdx.x & 15;
@@ -297,7 +366,7 @@ __device__ __forceinline__ void query_tile(const float* __restrict__ q, long lon
     __syncthreads();
   }
   float acc[2][kJQ], sq[2];
-  project(s.xq, s.proj, dn, acc, sq);
+  project<kMxu>(s.xq, s.proj, dn, acc, sq);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int t = tg + 16 * r;
@@ -307,12 +376,13 @@ __device__ __forceinline__ void query_tile(const float* __restrict__ q, long lon
       if (jl + 16 * i < kM) mx = fmaxf(mx, acc[r][i]);
     }
     mx = half_warp_max(mx);
-    const float diag = 0.5f * sq[r];
+    const float diag = diagonal<kMxu>(sq[r]);
     float den = 0.f;
 #pragma unroll
     for (int i = 0; i < kJQ; ++i) {
       const int j = jl + 16 * i;
-      const float f = j < kM ? ratio * (expf(acc[r][i] - diag - mx) + kStabEps) : 0.f;
+      float f = j < kM ? ratio * (expf(acc[r][i] - diag - mx) + kStabEps) : 0.f;
+      if (kMxu) f = bf16r(f);
       den = fmaf(f, ksum_s[j], den);
       s.f[t * kFS + j] = f;
     }
@@ -361,9 +431,10 @@ __device__ __forceinline__ void query_tile(const float* __restrict__ q, long lon
   __syncthreads();
 }
 
+template <bool kMxu, class In>
 __global__ void __launch_bounds__(kThreads, 1)
-favor_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, const float* __restrict__ proj,
+favor_kernel(const In* __restrict__ q, const In* __restrict__ k,
+             const In* __restrict__ v, const float* __restrict__ proj,
              const int* __restrict__ valid, int valid_all, float* __restrict__ out,
              int H, int T, long long sb, long long sh, long long st, float dn,
              float ratio) {
@@ -378,7 +449,7 @@ favor_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const size_t base = (size_t)b * sb + (size_t)(bh - b * H) * sh;
 
   // every copy this CTA needs first, in flight together
-  stage_proj(proj, s.proj);
+  stage_proj<kMxu>(proj, s.proj, dn);
   if (rank < n_key) {
     const int n = min(kTT, limit - rank * kTT);
     stage_rows(k + base, st, rank * kTT, n, s.xk, kPS);
@@ -389,13 +460,14 @@ favor_kernel(const float* __restrict__ q, const float* __restrict__ k,
   __syncthreads();
 
   // 1. keys: the context of this CTA's tiles
-  key_partials(k + base, v + base, st, 0, limit, rank, cs, s, dn, ratio);
+  key_partials<kMxu>(k + base, v + base, st, 0, limit, rank, cs, s, dn, ratio);
 
   // 2. slice `rank` of the context summed over the cluster, into own copy
   cluster.sync();
   float4* own = reinterpret_cast<float4*>(s.ctx);
   const int per = (kCtx4 + cs - 1) / cs;
-  cluster_slice_sum(cluster, s, rank, cs, per, [&](int i, float4 sum) { own[i] = sum; });
+  cluster_slice_sum(cluster, s, rank, cs, per,
+                    [&](int i, float4 sum) { own[i] = kMxu ? bf16r4(sum) : sum; });
 
   // 3. the other slices from their owners
   cluster.sync();
@@ -419,7 +491,7 @@ favor_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* out_bh = out + (size_t)bh * T * kD;
   for (int tile = rank; tile < n_tiles; tile += cs) {
     const int t0 = tile * kTT;
-    query_tile(q + base, st, t0, min(kTT, T - t0), tile == rank, s, dn, ratio, out_bh);
+    query_tile<kMxu>(q + base, st, t0, min(kTT, T - t0), tile == rank, s, dn, ratio, out_bh);
   }
   cluster_wait();
 }
@@ -430,8 +502,9 @@ favor_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // written to ctx (B, H, 266, 64) and ksum (B, H, 266). Same cluster size,
 // tiles and rank-order sum as favor_kernel, so the range [0, valid) gives
 // its context bit for bit.
+template <bool kMxu, class In>
 __global__ void __launch_bounds__(kThreads, 1)
-moments_kernel(const float* __restrict__ k, const float* __restrict__ v,
+moments_kernel(const In* __restrict__ k, const In* __restrict__ v,
                const float* __restrict__ proj, const int* __restrict__ key_lo, int lo_all,
                const int* __restrict__ key_hi, int hi_all, float* __restrict__ ctx,
                float* __restrict__ ksum, int H, int T, long long sb, long long sh,
@@ -447,7 +520,7 @@ moments_kernel(const float* __restrict__ k, const float* __restrict__ v,
   const size_t base = (size_t)b * sb + (size_t)(bh - b * H) * sh;
   const int first = first_tile(lo, rank, cs);
 
-  stage_proj(proj, s.proj);
+  stage_proj<kMxu>(proj, s.proj, dn);
   if (first * kTT < hi) {
     const int n = min(kTT, hi - first * kTT);
     stage_rows(k + base, st, first * kTT, n, s.xk, kPS);
@@ -456,7 +529,7 @@ moments_kernel(const float* __restrict__ k, const float* __restrict__ v,
   cp_async_wait_all();
   __syncthreads();
 
-  key_partials(k + base, v + base, st, lo, hi, first, cs, s, dn, ratio);
+  key_partials<kMxu>(k + base, v + base, st, lo, hi, first, cs, s, dn, ratio);
 
   cluster.sync();
   float* ctx_bh = ctx + (size_t)bh * kM * kD;
@@ -483,8 +556,9 @@ moments_kernel(const float* __restrict__ k, const float* __restrict__ v,
 // query tile blockIdx.x of each (batch row, head) from the context and key
 // sums summed over every shard (moments_kernel's outputs, all-reduced).
 // One CTA a tile, no cluster.
+template <bool kMxu, class In>
 __global__ void __launch_bounds__(kThreads, 1)
-apply_kernel(const float* __restrict__ q, const float* __restrict__ proj,
+apply_kernel(const In* __restrict__ q, const float* __restrict__ proj,
              const float* __restrict__ ctx, const float* __restrict__ ksum,
              float* __restrict__ out, int H, int T, long long sb, long long sh,
              long long st, float dn, float ratio) {
@@ -494,29 +568,48 @@ apply_kernel(const float* __restrict__ q, const float* __restrict__ proj,
   const size_t base = (size_t)b * sb + (size_t)(bh - b * H) * sh;
   const int t0 = tile * kTT, n = min(kTT, T - t0);
 
-  stage_proj(proj, s.proj);
+  stage_proj<kMxu>(proj, s.proj, dn);
   const float* ctx_bh = ctx + (size_t)bh * kM * kD;
   for (int i = threadIdx.x; i < kM * (kD / 4); i += kThreads) {
     cp_async16(s.ctx + 4 * i, ctx_bh + 4 * i);
   }
   for (int i = threadIdx.x; i < (kMP - kM) * kD; i += kThreads) s.ctx[kM * kD + i] = 0.f;
   for (int j = threadIdx.x; j < kMP; j += kThreads) {
-    s.ctx[kMP * kD + j] = j < kM ? ksum[(size_t)bh * kM + j] : 0.f;
+    const float ks = j < kM ? ksum[(size_t)bh * kM + j] : 0.f;
+    s.ctx[kMP * kD + j] = kMxu ? bf16r(ks) : ks;
   }
   stage_rows(q + base, st, t0, n, s.xq, kPS);
   cp_async_wait_all();
   __syncthreads();
+  if (kMxu) {  // the all-reduced context rounded where the single launch rounds it
+    float4* c4 = reinterpret_cast<float4*>(s.ctx);
+    for (int i = threadIdx.x; i < kM * (kD / 4); i += kThreads) c4[i] = bf16r4(c4[i]);
+    __syncthreads();
+  }
 
-  query_tile(q + base, st, t0, n, true, s, dn, ratio, out + (size_t)bh * T * kD);
+  query_tile<kMxu>(q + base, st, t0, n, true, s, dn, ratio, out + (size_t)bh * T * kD);
 }
 
-// The dynamic shared memory of the three kernels, set once per process.
+// Every kernel: the fp32 form's, then the bf16-operand form's on fp32 and on
+// bf16 q, k, v (favor, moments, apply each), in performer_attention_info's
+// order.
+const void* const* all_kernels() {
+  static const void* const fns[] = {
+      (const void*)favor_kernel<false, float>, (const void*)moments_kernel<false, float>,
+      (const void*)apply_kernel<false, float>, (const void*)favor_kernel<true, float>,
+      (const void*)moments_kernel<true, float>, (const void*)apply_kernel<true, float>,
+      (const void*)favor_kernel<true, __nv_bfloat16>,
+      (const void*)moments_kernel<true, __nv_bfloat16>,
+      (const void*)apply_kernel<true, __nv_bfloat16>};
+  return fns;
+}
+constexpr int kKernels = 9;
+
+// The dynamic shared memory of every kernel, set once per process.
 cudaError_t setup() {
-  const void* kernels[] = {(const void*)favor_kernel, (const void*)moments_kernel,
-                           (const void*)apply_kernel};
-  for (const void* fn : kernels) {
+  for (int i = 0; i < kKernels; ++i) {
     const cudaError_t err = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(Smem));
+        all_kernels()[i], cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(Smem));
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
@@ -553,20 +646,63 @@ cudaError_t launch_clustered(void (*kernel)(Params...), int BH, int T, void* str
   return cudaGetLastError();
 }
 
+template <bool kMxu, class In>
+int favor_launch(const void* q, const void* k, const void* v, const float* proj,
+                 const int* valid, float* out, int valid_all, int B, int H, int T,
+                 long long sb, long long sh, long long st, float dn, float ratio, void* stream) {
+  static const cudaError_t once = setup();
+  if (once != cudaSuccess) return (int)once;
+  if (B * H == 0 || T == 0) return 0;
+  if (B * H > 65535) return (int)cudaErrorInvalidValue;
+  return (int)launch_clustered(favor_kernel<kMxu, In>, B * H, T, stream,
+                               static_cast<const In*>(q), static_cast<const In*>(k),
+                               static_cast<const In*>(v), proj, valid, valid_all, out, H, T, sb,
+                               sh, st, dn, ratio);
+}
+
+template <bool kMxu, class In>
+int moments_launch(const void* k, const void* v, const float* proj, const int* key_lo,
+                   int lo_all, const int* key_hi, int hi_all, float* ctx, float* ksum, int B,
+                   int H, int T, long long sb, long long sh, long long st, float dn,
+                   float ratio, void* stream) {
+  static const cudaError_t once = setup();
+  if (once != cudaSuccess) return (int)once;
+  if (B * H == 0) return 0;
+  if (B * H > 65535) return (int)cudaErrorInvalidValue;
+  return (int)launch_clustered(moments_kernel<kMxu, In>, B * H, T, stream,
+                               static_cast<const In*>(k), static_cast<const In*>(v), proj,
+                               key_lo, lo_all, key_hi, hi_all, ctx, ksum, H, T, sb, sh, st, dn,
+                               ratio);
+}
+
+template <bool kMxu, class In>
+int apply_launch(const void* q, const float* proj, const float* ctx, const float* ksum,
+                 float* out, int B, int H, int T, long long sb, long long sh, long long st,
+                 float dn, float ratio, void* stream) {
+  static const cudaError_t once = setup();
+  if (once != cudaSuccess) return (int)once;
+  if (B * H == 0 || T == 0) return 0;
+  if (B * H > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((T + kTT - 1) / kTT, B * H, 1);
+  apply_kernel<kMxu, In><<<grid, kThreads, sizeof(Smem), (cudaStream_t)stream>>>(
+      static_cast<const In*>(q), proj, ctx, ksum, out, H, T, sb, sh, st, dn, ratio);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // The cluster size a launch at T takes, then the kernel's registers per
 // thread, local-memory (spilled) bytes per thread and dynamic shared memory
-// per CTA. which: 0 the single launch, 1 the moments, 2 the apply kernel.
+// per CTA. which: 0 the single launch, 1 the moments, 2 the apply kernel;
+// + 3 the bf16-operand form's on fp32 q, k, v, + 6 on bf16 ones.
 extern "C" int performer_attention_info(int T, int which, int* out) {
   static const cudaError_t once = setup();
   if (once != cudaSuccess) return (int)once;
+  if (which < 0 || which >= kKernels) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;
-  const void* fn = which == 1 ? (const void*)moments_kernel
-                 : which == 2 ? (const void*)apply_kernel : (const void*)favor_kernel;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  const cudaError_t err = cudaFuncGetAttributes(&attr, all_kernels()[which]);
   if (err != cudaSuccess) return (int)err;
-  out[0] = which == 2 ? 1 : cluster_size(T);
+  out[0] = which % 3 == 2 ? 1 : cluster_size(T);
   out[1] = attr.numRegs;
   out[2] = (int)attr.localSizeBytes;
   out[3] = (int)sizeof(Smem);
@@ -582,12 +718,22 @@ extern "C" int performer_attention_launch(const float* q, const float* k, const 
                                           int valid_all, int B, int H, int T, long long sb,
                                           long long sh, long long st, float dn, float ratio,
                                           void* stream) {
-  static const cudaError_t once = setup();
-  if (once != cudaSuccess) return (int)once;
-  if (B * H == 0 || T == 0) return 0;
-  if (B * H > 65535) return (int)cudaErrorInvalidValue;
-  return (int)launch_clustered(favor_kernel, B * H, T, stream, q, k, v, proj, valid, valid_all,
-                               out, H, T, sb, sh, st, dn, ratio);
+  return favor_launch<false, float>(q, k, v, proj, valid, out, valid_all, B, H, T, sb, sh, st,
+                                    dn, ratio, stream);
+}
+
+// The bf16-operand form: q, k, v fp32, or bf16 when in_bf16 (strides in
+// elements, as above); the rest as performer_attention_launch.
+extern "C" int performer_attention_mxu_bf16_launch(const void* q, const void* k, const void* v,
+                                                   const float* proj, const int* valid,
+                                                   float* out, int valid_all, int B, int H, int T,
+                                                   long long sb, long long sh, long long st,
+                                                   float dn, float ratio, int in_bf16,
+                                                   void* stream) {
+  return in_bf16 ? favor_launch<true, __nv_bfloat16>(q, k, v, proj, valid, out, valid_all, B, H,
+                                                     T, sb, sh, st, dn, ratio, stream)
+                 : favor_launch<true, float>(q, k, v, proj, valid, out, valid_all, B, H, T, sb,
+                                             sh, st, dn, ratio, stream);
 }
 
 // k, v: views as q, k, v above; key_lo / key_hi: (B,) int32 on the card, or
@@ -598,12 +744,21 @@ extern "C" int performer_attention_moments_launch(
     const float* k, const float* v, const float* proj, const int* key_lo, int lo_all,
     const int* key_hi, int hi_all, float* ctx, float* ksum, int B, int H, int T, long long sb,
     long long sh, long long st, float dn, float ratio, void* stream) {
-  static const cudaError_t once = setup();
-  if (once != cudaSuccess) return (int)once;
-  if (B * H == 0) return 0;
-  if (B * H > 65535) return (int)cudaErrorInvalidValue;
-  return (int)launch_clustered(moments_kernel, B * H, T, stream, k, v, proj, key_lo, lo_all,
-                               key_hi, hi_all, ctx, ksum, H, T, sb, sh, st, dn, ratio);
+  return moments_launch<false, float>(k, v, proj, key_lo, lo_all, key_hi, hi_all, ctx, ksum, B,
+                                      H, T, sb, sh, st, dn, ratio, stream);
+}
+
+// The bf16-operand form's moments (fp32 sums of the rounded kf and v);
+// in_bf16 as above.
+extern "C" int performer_attention_moments_mxu_bf16_launch(
+    const void* k, const void* v, const float* proj, const int* key_lo, int lo_all,
+    const int* key_hi, int hi_all, float* ctx, float* ksum, int B, int H, int T, long long sb,
+    long long sh, long long st, float dn, float ratio, int in_bf16, void* stream) {
+  return in_bf16 ? moments_launch<true, __nv_bfloat16>(k, v, proj, key_lo, lo_all, key_hi,
+                                                       hi_all, ctx, ksum, B, H, T, sb, sh, st,
+                                                       dn, ratio, stream)
+                 : moments_launch<true, float>(k, v, proj, key_lo, lo_all, key_hi, hi_all, ctx,
+                                               ksum, B, H, T, sb, sh, st, dn, ratio, stream);
 }
 
 // q: a view as above; ctx (B, H, 266, 64) and ksum (B, H, 266) contiguous,
@@ -613,12 +768,20 @@ extern "C" int performer_attention_apply_launch(const float* q, const float* pro
                                                 float* out, int B, int H, int T, long long sb,
                                                 long long sh, long long st, float dn,
                                                 float ratio, void* stream) {
-  static const cudaError_t once = setup();
-  if (once != cudaSuccess) return (int)once;
-  if (B * H == 0 || T == 0) return 0;
-  if (B * H > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((T + kTT - 1) / kTT, B * H, 1);
-  apply_kernel<<<grid, kThreads, sizeof(Smem), (cudaStream_t)stream>>>(
-      q, proj, ctx, ksum, out, H, T, sb, sh, st, dn, ratio);
-  return (int)cudaGetLastError();
+  return apply_launch<false, float>(q, proj, ctx, ksum, out, B, H, T, sb, sh, st, dn, ratio,
+                                    stream);
+}
+
+// The bf16-operand form's apply (the context and key sums rounded as they
+// are staged); in_bf16 as above.
+extern "C" int performer_attention_apply_mxu_bf16_launch(const void* q, const float* proj,
+                                                         const float* ctx, const float* ksum,
+                                                         float* out, int B, int H, int T,
+                                                         long long sb, long long sh,
+                                                         long long st, float dn, float ratio,
+                                                         int in_bf16, void* stream) {
+  return in_bf16 ? apply_launch<true, __nv_bfloat16>(q, proj, ctx, ksum, out, B, H, T, sb, sh,
+                                                     st, dn, ratio, stream)
+                 : apply_launch<true, float>(q, proj, ctx, ksum, out, B, H, T, sb, sh, st, dn,
+                                             ratio, stream);
 }

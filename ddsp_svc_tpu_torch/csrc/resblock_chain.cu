@@ -18,6 +18,11 @@
 // parameter. Widths C = 8, 16, 32, 64 only: at C = 256 the two activation
 // tiles alone would need more shared memory than a block has (ROADMAP.md
 // lists the wide form).
+//
+// The bf16-operand form (fused_resblock_chain_pallas(mxu_bf16=True), its
+// default there): the chain on the core's bf16 k-steps (resblock_mma.cuh),
+// weights from ops/kernels.py::mma_fragments_bf16. On no path; chip_smoke.py
+// holds it against its plain version.
 
 #include "resblock_mma.cuh"
 
@@ -34,7 +39,7 @@ struct Args {
   int dil[3];
 };
 
-template <int C, int K>
+template <int C, int K, bool kMxu>
 __global__ void __launch_bounds__(kThreads, 1) resblock_chain_kernel(Args a) {
   using G = Geometry<C>;
   extern __shared__ float sm[];
@@ -47,26 +52,48 @@ __global__ void __launch_bounds__(kThreads, 1) resblock_chain_kernel(Args a) {
   fill_x0<C, float, float>(h, a.x + (size_t)bi * C * a.T, nullptr, nullptr, nullptr, a.T, 0, 0,
                           0, g0, a.T);
   __syncthreads();
-  run_chain<C, K>(h, t, s_w, a.w, a.b, a.dil[0], a.dil[1], a.dil[2], g0, a.T);
+  run_chain<C, K, kMxu>(h, t, s_w, a.w, a.b, a.dil[0], a.dil[1], a.dil[2], g0, a.T);
   store_interior<C>(h, a.out + (size_t)bi * C * a.T, g0, a.T);
 }
 
-template <int C>
+template <int C, bool kMxu>
 int launch_c(const Args& a, int K, int B, cudaStream_t s) {
   switch (K) {
-    case 3: return launch_tiles<C>(resblock_chain_kernel<C, 3>, a, a.T, B, s);
-    case 7: return launch_tiles<C>(resblock_chain_kernel<C, 7>, a, a.T, B, s);
-    case 11: return launch_tiles<C>(resblock_chain_kernel<C, 11>, a, a.T, B, s);
+    case 3: return launch_tiles<C>(resblock_chain_kernel<C, 3, kMxu>, a, a.T, B, s);
+    case 7: return launch_tiles<C>(resblock_chain_kernel<C, 7, kMxu>, a, a.T, B, s);
+    case 11: return launch_tiles<C>(resblock_chain_kernel<C, 11, kMxu>, a, a.T, B, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-template <int C>
+template <int C, bool kMxu>
 int info_c(int K, int* out) {
   switch (K) {
-    case 3: return kernel_info<C>(resblock_chain_kernel<C, 3>, out);
-    case 7: return kernel_info<C>(resblock_chain_kernel<C, 7>, out);
-    case 11: return kernel_info<C>(resblock_chain_kernel<C, 11>, out);
+    case 3: return kernel_info<C>(resblock_chain_kernel<C, 3, kMxu>, out);
+    case 7: return kernel_info<C>(resblock_chain_kernel<C, 7, kMxu>, out);
+    case 11: return kernel_info<C>(resblock_chain_kernel<C, 11, kMxu>, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <bool kMxu>
+int launch(const Args& a, int C, int K, int B, cudaStream_t s) {
+  switch (C) {
+    case 8: return launch_c<8, kMxu>(a, K, B, s);
+    case 16: return launch_c<16, kMxu>(a, K, B, s);
+    case 32: return launch_c<32, kMxu>(a, K, B, s);
+    case 64: return launch_c<64, kMxu>(a, K, B, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <bool kMxu>
+int info(int C, int K, int* out) {
+  switch (C) {
+    case 8: return info_c<8, kMxu>(K, out);
+    case 16: return info_c<16, kMxu>(K, out);
+    case 32: return info_c<32, kMxu>(K, out);
+    case 64: return info_c<64, kMxu>(K, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -81,25 +108,25 @@ extern "C" int resblock_chain_launch(const float* x, const float* w, const float
                                      float* out, int B, int C, int T, int K, int d0,
                                      int d1, int d2, void* stream) {
   Args a{x, w, b, out, T, {d0, d1, d2}};
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (C) {
-    case 8: return launch_c<8>(a, K, B, s);
-    case 16: return launch_c<16>(a, K, B, s);
-    case 32: return launch_c<32>(a, K, B, s);
-    case 64: return launch_c<64>(a, K, B, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return launch<false>(a, C, K, B, (cudaStream_t)stream);
+}
+
+// The bf16-operand form: w in the bf16 fragment order (K, max(C, 16) / 16,
+// M / 16, 32, 8) of packed bf16 (ops/kernels.py::mma_fragments_bf16); the
+// rest as resblock_chain_launch.
+extern "C" int resblock_chain_mxu_bf16_launch(const float* x, const void* w, const float* b,
+                                              float* out, int B, int C, int T, int K, int d0,
+                                              int d1, int d2, void* stream) {
+  Args a{x, static_cast<const float*>(w), b, out, T, {d0, d1, d2}};
+  return launch<true>(a, C, K, B, (cudaStream_t)stream);
 }
 
 // The compiled kernel at width C and kernel size K: out[0] registers per
 // thread, out[1] local-memory bytes per thread (spills), out[2] dynamic
 // shared memory per block.
-extern "C" int resblock_chain_info(int C, int K, int* out) {
-  switch (C) {
-    case 8: return info_c<8>(K, out);
-    case 16: return info_c<16>(K, out);
-    case 32: return info_c<32>(K, out);
-    case 64: return info_c<64>(K, out);
-    default: return (int)cudaErrorInvalidValue;
-  }
+extern "C" int resblock_chain_info(int C, int K, int* out) { return info<false>(C, K, out); }
+
+// As resblock_chain_info, for the bf16-operand form.
+extern "C" int resblock_chain_mxu_bf16_info(int C, int K, int* out) {
+  return info<true>(C, K, out);
 }

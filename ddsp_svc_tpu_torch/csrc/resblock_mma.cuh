@@ -46,6 +46,20 @@
 // tile): in registers it took 80 more and forced one-k-step chunks at 255
 // registers with spills, which measured slower.
 //
+// The bf16-operand form (JAX's mxu_bf16=True: bf16 weights and conv inputs,
+// fp32 accumulation, fp32 h and t). A k-step is one tap and 16 input
+// channels in one mma.sync.m16n8k16 with bf16 operands and an fp32
+// accumulator, which sums the exact products of bf16 operands; the chunks
+// are re-accumulated in fp32 as above. The K order inside a k-step is
+// permuted so that the B loads keep the tf32 form's bank pattern: MMA rows
+// 2q, 2q + 1, 2q + 8, 2q + 9 (q = lane % 4) are input channels q, q + 4,
+// q + 8, q + 12, and the wrapper lays the A fragments out in the same
+// order (ops/kernels.py::mma_fragments_bf16: per k-step and m16 tile one
+// 16-byte load a lane, the weights rounded once, a quarter of the tf32
+// form's bytes). The B fragment packs two input channels with
+// cvt.rn.bf16x2.f32 as it loads (round to nearest even, as astype). At C =
+// 8 the k-step's upper 8 channels are zero weights and a zero B register.
+//
 // The epilogues (leaky and mask into t, the residual add into h, the trio
 // mean) work on the fragment map: a thread holds channels 16 mt + lane / 4
 // (+ 8) at columns 8 nt + 2 (lane % 4) (+ 1) of its warp's run. The
@@ -86,10 +100,24 @@ struct Geometry {
   static_assert(kNTiles * 8 * kWarps == W && S % 32 == 24, "tile geometry");
 };
 
-// Floats of one conv's weights in fragment order, hi and lo: 2 k C M.
-template <int C>
+// The k-steps of one form: kMxu false the 3xTF32 form (8 input channels a
+// k-step, hi and lo fragments), true the bf16-operand form (16 input
+// channels a k-step, one packed bf16 fragment).
+template <int C, bool kMxu>
+struct Steps {
+  static constexpr int kCh = kMxu ? 16 : 8;                     // input channels a k-step
+  static constexpr int kGroups = kMxu ? (C < 16 ? 1 : C / 16) : C / 8;
+  // 32-bit words of a k-step's A fragments, all m16 tiles
+  static constexpr int kWords = Geometry<C>::kMTiles * (kMxu ? 128 : 256);
+  static constexpr int kPerStage = kStageFloats / kWords;
+  static_assert(kPerStage * kWords == kStageFloats, "stage geometry");
+};
+
+// 32-bit words of one conv's weights in fragment order: 2 k C M floats (hi
+// and lo) for tf32, k max(C, 16) M / 2 for bf16.
+template <int C, bool kMxu = false>
 __host__ __device__ constexpr int conv_floats(int k) {
-  return k * Geometry<C>::kGroups * Geometry<C>::kStepFloats;
+  return k * Steps<C, kMxu>::kGroups * Steps<C, kMxu>::kWords;
 }
 
 __device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
@@ -183,6 +211,67 @@ __device__ __forceinline__ void mma_k_step(Frags<C>& part, const float* a, const
   }
 }
 
+// Two fp32 values rounded to bf16 (to nearest even) and packed: lo in the
+// low half, hi in the high half.
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// d = a b + c on one m16n8k16 tile, bf16 operands, fp32 accumulator.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2], const float (&c)[4]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%10,%11,%12,%13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(c[0]),
+        "f"(c[1]), "f"(c[2]), "f"(c[3]));
+}
+
+// One k-step of the bf16-operand form (a tap and 16 input channels) into
+// part, which starts at zero if kZero. a: this lane's packed A fragment of
+// m tile mt at a + 128 mt; b: this lane's B values of n tile nt at b[8 nt]
+// (channel q), b[4 S + 8 nt] (q + 4), b[8 S + 8 nt] (q + 8) and b[12 S +
+// 8 nt] (q + 12), leaky'd first if kLeaky, each rounded to bf16.
+template <int C, bool kLeaky, bool kZero>
+__device__ __forceinline__ void mma_k_step_bf16(Frags<C>& part, const float* a,
+                                                const float* b) {
+  using G = Geometry<C>;
+  constexpr int kMT = G::kMTiles, kNT = G::kNTiles;
+  uint32_t af[kMT][4];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt) {
+    const uint4 v = *reinterpret_cast<const uint4*>(a + mt * 128);
+    af[mt][0] = v.x, af[mt][1] = v.y, af[mt][2] = v.z, af[mt][3] = v.w;
+  }
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt) {
+    float v0 = b[nt * 8], v1 = b[4 * G::S + nt * 8];
+    float v2 = 0.f, v3 = 0.f;
+    if (C >= 16) {
+      v2 = b[8 * G::S + nt * 8];
+      v3 = b[12 * G::S + nt * 8];
+    }
+    if (kLeaky) {
+      v0 = leaky(v0);
+      v1 = leaky(v1);
+      v2 = leaky(v2);
+      v3 = leaky(v3);
+    }
+    const uint32_t bf[2] = {pack_bf16x2(v0, v1), C >= 16 ? pack_bf16x2(v2, v3) : 0u};
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+      if (kZero) {
+        const float zero[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_bf16(part[mt][nt], af[mt], bf, zero);
+      } else {
+        mma_bf16(part[mt][nt], af[mt], bf, part[mt][nt]);
+      }
+    }
+  }
+}
+
 // The fp32 re-accumulation of a chunk: acc += part.
 template <int C>
 __device__ __forceinline__ void add_frags(Frags<C>& acc, const Frags<C>& part) {
@@ -210,22 +299,23 @@ __device__ void zero_buffers(float* h, float* t) {
 // One conv over the tile, all W columns. conv1 (kFirst) reads leaky(src)
 // and stores leaky(conv) * mask into dst; conv2 reads src as it is and adds
 // conv * mask into dst (the residual). w: the conv's weights in fragment
-// order; s_w: two weight stages; g0: sequence index of column 0; limit:
-// the length.
-template <int C, int K, bool kFirst>
+// order (kMxu: the bf16-operand form's); s_w: two weight stages; g0:
+// sequence index of column 0; limit: the length.
+template <int C, int K, bool kFirst, bool kMxu = false>
 __device__ __forceinline__ void conv_pass(const float* src, float* dst,
                                           const float* __restrict__ w,
                                           const float* __restrict__ bias, float* s_w, int d,
                                           int g0, int limit) {
   using G = Geometry<C>;
+  using O = Steps<C, kMxu>;
   constexpr int kMT = G::kMTiles, kNT = G::kNTiles;
-  constexpr int kSteps = K * G::kGroups;
-  constexpr int kStages = (kSteps + G::kStepsPerStage - 1) / G::kStepsPerStage;
+  constexpr int kSteps = K * O::kGroups;
+  constexpr int kStages = (kSteps + O::kPerStage - 1) / O::kPerStage;
   const int lane = threadIdx.x & 31;
   const int row0 = frag_row0(), col0 = frag_col0<C>();
 
   auto stage = [&](int s) {
-    const int n = min(G::kStepsPerStage, kSteps - s * G::kStepsPerStage) * G::kStepFloats;
+    const int n = min(O::kPerStage, kSteps - s * O::kPerStage) * O::kWords;
     const float* gw = w + (size_t)s * kStageFloats;
     float* sw = s_w + (s & 1) * kStageFloats;
     for (int i = threadIdx.x * 4; i < n; i += kThreads * 4) cp_async16(sw + i, gw + i);
@@ -250,9 +340,13 @@ __device__ __forceinline__ void conv_pass(const float* src, float* dst,
   // k-step `step` (its A fragments at sw_step) into part; the first of a
   // chunk starts part at zero
   auto k_step = [&](int step, const float* sw_step, auto zero_start) {
-    const int tap = step / G::kGroups, grp = step % G::kGroups;
-    mma_k_step<C, kFirst, decltype(zero_start)::value>(
-        part, sw_step, src_lane + grp * 8 * G::S + (tap - (K - 1) / 2) * d);
+    const int tap = step / O::kGroups, grp = step % O::kGroups;
+    const float* b = src_lane + grp * O::kCh * G::S + (tap - (K - 1) / 2) * d;
+    if constexpr (kMxu) {
+      mma_k_step_bf16<C, kFirst, decltype(zero_start)::value>(part, sw_step, b);
+    } else {
+      mma_k_step<C, kFirst, decltype(zero_start)::value>(part, sw_step, b);
+    }
   };
 
   stage(0);
@@ -264,14 +358,14 @@ __device__ __forceinline__ void conv_pass(const float* src, float* dst,
     __syncthreads();
     if (s + 1 < kStages) stage(s + 1);
     const float* sw = s_w + (s & 1) * kStageFloats + lane * 4;
-    const int steps = min(G::kStepsPerStage, kSteps - s * G::kStepsPerStage);
+    const int steps = min(O::kPerStage, kSteps - s * O::kPerStage);
 #pragma unroll 1
     for (int j0 = 0; j0 < steps; j0 += kChunk) {
-      const int step0 = s * G::kStepsPerStage + j0;
-      k_step(step0, sw + j0 * G::kStepFloats, std::true_type{});
+      const int step0 = s * O::kPerStage + j0;
+      k_step(step0, sw + j0 * O::kWords, std::true_type{});
 #pragma unroll 1
       for (int j = j0 + 1; j < min(j0 + kChunk, steps); ++j)
-        k_step(step0 + j - j0, sw + j * G::kStepFloats, std::false_type{});
+        k_step(step0 + j - j0, sw + j * O::kWords, std::false_type{});
       add_frags<C>(acc, part);
     }
   }
@@ -304,16 +398,17 @@ __device__ __forceinline__ void conv_pass(const float* src, float* dst,
 
 // One ResBlock1 chain on h (t is its temporary): for each of the three
 // dilations, h += conv_k(leaky(conv_k,d(leaky(h)))). w: the chain's six
-// convs in fragment order; b: (3, 2, C).
-template <int C, int K>
+// convs in fragment order (kMxu: the bf16-operand form's); b: (3, 2, C).
+template <int C, int K, bool kMxu = false>
 __device__ void run_chain(float* h, float* t, float* s_w, const float* w, const float* b,
                           int d0, int d1, int d2, int g0, int limit) {
+  constexpr int kConv = conv_floats<C, kMxu>(K);
   for (int i = 0; i < 3; ++i) {
-    conv_pass<C, K, true>(h, t, w + (size_t)(2 * i) * conv_floats<C>(K), b + 2 * i * C, s_w,
-                          i == 0 ? d0 : i == 1 ? d1 : d2, g0, limit);
+    conv_pass<C, K, true, kMxu>(h, t, w + (size_t)(2 * i) * kConv, b + 2 * i * C, s_w,
+                                i == 0 ? d0 : i == 1 ? d1 : d2, g0, limit);
     __syncthreads();
-    conv_pass<C, K, false>(t, h, w + (size_t)(2 * i + 1) * conv_floats<C>(K),
-                           b + (2 * i + 1) * C, s_w, 1, g0, limit);
+    conv_pass<C, K, false, kMxu>(t, h, w + (size_t)(2 * i + 1) * kConv, b + (2 * i + 1) * C,
+                                 s_w, 1, g0, limit);
     __syncthreads();
   }
 }

@@ -29,6 +29,17 @@
 // form's. The trio mean cannot be summed in a bf16 output without rounding
 // its partial sums, so chains 0 and 1 sum into an fp32 scratch (B, C, T)
 // and chain 2 writes (sum + h) / 3 rounded to nearest even.
+//
+// The bf16-operand form (fused_resblocks_inject_pallas(mxu_bf16=True), the
+// Generator's fused_mxu_bf16: the weights cast to bf16 at :1233, each
+// conv's input at :919/:951, fp32 accumulation, h, the residual carries,
+// the injection conv and the biases fp32): the same kernel with the chains
+// on the core's bf16 k-steps (resblock_mma.cuh, mma.sync.m16n8k16), one MMA
+// per tap and 16 input channels in place of six tf32 ones, on either input
+// type (JAX passes fused_mxu_bf16 to bf16 stages too). Its weights are
+// ops/kernels.py::mma_fragments_bf16's. Bound as above, at the bf16
+// tensor-core rate (989 TFLOP/s, twice TF32's; the 3xTF32 form issues
+// three TF32 products per fp32 one).
 
 #include "resblock_mma.cuh"
 
@@ -42,6 +53,7 @@ struct Args {
   const float* wnc;   // (C, ksrc)
   const float* bnc;   // (C,)
   const float* w[3];  // (n_dil, 2, k, C_in / 8, M / 16, 2, 32, 4): fragment order
+                      // (the bf16 form: packed bf16 words, mma_fragments_bf16)
   const float* b[3];  // (n_dil, 2, C)
   const int* valid;   // (B,) or nullptr
   float* acc;         // (B, C, T) fp32: the trio mean's partial sums (the output for fp32)
@@ -66,7 +78,7 @@ __device__ __forceinline__ void trio_mean(const float* h, float* acc, XT* out, i
   }
 }
 
-template <int C, typename XT, typename HT>
+template <int C, typename XT, typename HT, bool kMxu>
 __global__ void __launch_bounds__(kThreads, 1) resblocks_kernel(Args a) {
   using G = Geometry<C>;
   extern __shared__ float sm[];
@@ -87,31 +99,31 @@ __global__ void __launch_bounds__(kThreads, 1) resblocks_kernel(Args a) {
     fill_x0<C, XT, HT>(h, x, har, a.wnc, a.bnc, a.T, a.t_final, a.s_src, a.ksrc, g0, limit);
     __syncthreads();
     const int d0 = a.dil[0], d1 = a.dil[1], d2 = a.dil[2];
-    if (r == 0) run_chain<C, 3>(h, t, s_w, a.w[0], a.b[0], d0, d1, d2, g0, limit);
-    else if (r == 1) run_chain<C, 7>(h, t, s_w, a.w[1], a.b[1], d0, d1, d2, g0, limit);
-    else run_chain<C, 11>(h, t, s_w, a.w[2], a.b[2], d0, d1, d2, g0, limit);
+    if (r == 0) run_chain<C, 3, kMxu>(h, t, s_w, a.w[0], a.b[0], d0, d1, d2, g0, limit);
+    else if (r == 1) run_chain<C, 7, kMxu>(h, t, s_w, a.w[1], a.b[1], d0, d1, d2, g0, limit);
+    else run_chain<C, 11, kMxu>(h, t, s_w, a.w[2], a.b[2], d0, d1, d2, g0, limit);
     trio_mean<C, XT>(h, a.acc + row, static_cast<XT*>(a.out) + row, r, g0, a.T);
   }
 }
 
-template <typename XT, typename HT>
+template <typename XT, typename HT, bool kMxu = false>
 int launch(const Args& a, int B, int C, cudaStream_t s) {
   switch (C) {
-    case 8: return launch_tiles<8>(resblocks_kernel<8, XT, HT>, a, a.T, B, s);
-    case 16: return launch_tiles<16>(resblocks_kernel<16, XT, HT>, a, a.T, B, s);
-    case 32: return launch_tiles<32>(resblocks_kernel<32, XT, HT>, a, a.T, B, s);
-    case 64: return launch_tiles<64>(resblocks_kernel<64, XT, HT>, a, a.T, B, s);
+    case 8: return launch_tiles<8>(resblocks_kernel<8, XT, HT, kMxu>, a, a.T, B, s);
+    case 16: return launch_tiles<16>(resblocks_kernel<16, XT, HT, kMxu>, a, a.T, B, s);
+    case 32: return launch_tiles<32>(resblocks_kernel<32, XT, HT, kMxu>, a, a.T, B, s);
+    case 64: return launch_tiles<64>(resblocks_kernel<64, XT, HT, kMxu>, a, a.T, B, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-template <typename XT, typename HT>
+template <typename XT, typename HT, bool kMxu = false>
 int info(int C, int* out) {
   switch (C) {
-    case 8: return kernel_info<8>(resblocks_kernel<8, XT, HT>, out);
-    case 16: return kernel_info<16>(resblocks_kernel<16, XT, HT>, out);
-    case 32: return kernel_info<32>(resblocks_kernel<32, XT, HT>, out);
-    case 64: return kernel_info<64>(resblocks_kernel<64, XT, HT>, out);
+    case 8: return kernel_info<8>(resblocks_kernel<8, XT, HT, kMxu>, out);
+    case 16: return kernel_info<16>(resblocks_kernel<16, XT, HT, kMxu>, out);
+    case 32: return kernel_info<32>(resblocks_kernel<32, XT, HT, kMxu>, out);
+    case 64: return kernel_info<64>(resblocks_kernel<64, XT, HT, kMxu>, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -160,4 +172,33 @@ extern "C" int resblocks_info(int C, int* out) { return info<float, float>(C, ou
 extern "C" int resblocks_bf16_info(int C, int har_bf16, int* out) {
   return har_bf16 ? info<__nv_bfloat16, __nv_bfloat16>(C, out)
                   : info<__nv_bfloat16, float>(C, out);
+}
+
+// The bf16-operand form: x, out (B, C, T) fp32, or bf16 when x_bf16 (then
+// har bf16 when har_bf16, else fp32, and acc (B, C, T) fp32 scratch; for
+// fp32 x acc may be null); w_r: chain r's convs in the bf16 fragment order
+// (k_r, max(C, 16) / 16, M / 16, 32, 8) of packed bf16
+// (ops/kernels.py::mma_fragments_bf16); the rest as resblocks_launch.
+extern "C" int resblocks_mxu_bf16_launch(const void* x, int x_bf16, const void* har,
+                                         int har_bf16, const float* wnc, const float* bnc,
+                                         const void* w0, const void* w1, const void* w2,
+                                         const float* b0, const float* b1, const float* b2,
+                                         const int* valid, float* acc, void* out, int B, int C,
+                                         int T, int t_final, int s_src, int ksrc, int d0,
+                                         int d1, int d2, void* stream) {
+  const float* w[3] = {static_cast<const float*>(w0), static_cast<const float*>(w1),
+                       static_cast<const float*>(w2)};
+  Args a{x, har, wnc, bnc, {w[0], w[1], w[2]}, {b0, b1, b2}, valid,
+         x_bf16 ? acc : static_cast<float*>(out), out, T, t_final, s_src, ksrc, {d0, d1, d2}};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (!x_bf16) return launch<float, float, true>(a, B, C, s);
+  return har_bf16 ? launch<__nv_bfloat16, __nv_bfloat16, true>(a, B, C, s)
+                  : launch<__nv_bfloat16, float, true>(a, B, C, s);
+}
+
+// As resblocks_info, for the bf16-operand form on fp32 or bf16 x.
+extern "C" int resblocks_mxu_bf16_info(int C, int x_bf16, int har_bf16, int* out) {
+  if (!x_bf16) return info<float, float, true>(C, out);
+  return har_bf16 ? info<__nv_bfloat16, __nv_bfloat16, true>(C, out)
+                  : info<__nv_bfloat16, float, true>(C, out);
 }

@@ -25,8 +25,21 @@ from .synths import CombSub, CombSubFast, Sins
 def build_model(args: DotDict, device=None, seed: int = 0) -> nn.Module:
     """The synthesizer of `model.type` (Sins, CombSub or CombSubFast) from a
     yaml config, weights drawn from `seed`, on `device` (CUDA unless the
-    caller asks for the CPU). model.bf16 runs the PCmer in bf16; the
-    parameters stay fp32."""
+    caller asks for the CPU). model.bf16 runs the PCmer in bf16 (and
+    CombSubFast's spectral chain in its kernels' bf16-operand form); the
+    parameters stay fp32. model.fused_spectral / model.fused_attention other
+    than unset or true raise ValueError: JAX's switches to its XLA chain
+    (false) or interpret mode ("force"), where the port runs its kernels on
+    every path on the card and has no such switch."""
+    for key in ("fused_spectral", "fused_attention"):
+        value = args.model.get(key)
+        if value is not None and value is not True:
+            raise ValueError(
+                f"model.{key}: {value!r} is not supported: the port runs its "
+                "hand-written kernels on every path on the card (their plain "
+                "versions run only on the CPU), so it has no switch to the "
+                "plain chain or to interpret mode; leave the key unset or "
+                "true")
     device = resolve_device(device)
     mtype = args.model.type
     common = dict(sampling_rate=args.data.sampling_rate,

@@ -14,7 +14,10 @@ Unit2Control outputs, then overlap-added. The filter chain is the
 hand-written combsub_spectral kernel (differentiable, its backward the
 adjoint kernel) exactly where the JAX package's gate uses its Pallas kernel:
 at inference, or in training under bf16, with block_size % 64 == 0. fp32
-training and other block sizes take the plain torch.fft chain.
+training and other block sizes take the plain torch.fft chain. Under
+model.bf16 the chain is the kernels' bf16-operand form (the frames, and in
+the backward g * window, rounded to bf16), as JAX passes self.bf16 as
+mxu_bf16.
 
 Sins: an additive oscillator bank (the oscillator_bank kernel on the card)
 through an all-pass LTV-FIR filter, plus filtered noise. CombSub (the "old"
@@ -211,12 +214,14 @@ class CombSubFast(nn.Module):
         def rows(c):  # last filter frame repeated -> n_frames + 1 rows
             return torch.cat([c, c[:, -1:]], 1).reshape(b * n1, bs + 1)
 
+        # model.bf16 takes the chain's bf16-operand form, as JAX passes
+        # self.bf16 as mxu_bf16 (its backward the adjoint's form)
         chain = (combsub_spectral if (infer or self.bf16) and bs % 64 == 0
                  else combsub_spectral_plain)
         signal_frames = chain(
             tooth_frames.reshape(b * n1, fs), noise_frames.reshape(b * n1, fs),
             rows(ctrls["harmonic_magnitude"]), rows(ctrls["harmonic_phase"]),
-            rows(ctrls["noise_magnitude"]), 2 * bs,
+            rows(ctrls["noise_magnitude"]), 2 * bs, mxu_bf16=self.bf16,
         ).reshape(b, n1, fs)
         signal = overlap_add_half(signal_frames, bs)[:, bs:-bs]
         return signal, phase_frames[..., None], (signal, signal)

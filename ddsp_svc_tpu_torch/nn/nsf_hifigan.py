@@ -33,6 +33,12 @@ JAX's does: x (and a bf16 source) upcast at the kernel's input, the fp32
 weights, fp32 sums, the output rounded once to bf16; on the CPU the plain
 version of that form. The fused stage (#11) takes fp32 stages only, as
 JAX's gate does.
+
+`fused_mxu_bf16=True` (JAX's field of that name, default False) runs the
+kernels of the narrow stages (#4, #5, #11; fp32 or bf16 stages) in their
+bf16-operand forms: each conv of the resblock chains on bf16-rounded
+inputs and weights, fp32 sums, h and residual carries; the injection conv,
+the transposed conv and the biases stay fp32.
 """
 from __future__ import annotations
 
@@ -134,7 +140,7 @@ class Generator(nn.Module):
                  resblock_dilation_sizes: Sequence[Sequence[int]],
                  fused_resblocks: bool = True, fused_inject: bool = True,
                  fused_stage: bool = False, dtype=None,
-                 bf16_min_channels: int = 0):
+                 bf16_min_channels: int = 0, fused_mxu_bf16: bool = False):
         super().__init__()
         self.dtype = dtype
         self.bf16_min_channels = int(bf16_min_channels)
@@ -148,6 +154,7 @@ class Generator(nn.Module):
         self.fused_resblocks = fused_resblocks
         self.fused_inject = fused_inject
         self.fused_stage = fused_stage
+        self.fused_mxu_bf16 = bool(fused_mxu_bf16)
         self.m_source = SourceModule()
         self.conv_pre = nn.Conv1d(num_mels, upsample_initial_channel, 7,
                                   padding=3)
@@ -301,7 +308,8 @@ class Generator(nn.Module):
                                                   stage_dtype):
                 return fused_stage(x.transpose(1, 2), har, up.weight,
                                    up.bias, nc.weight, nc.bias, ws, bs, u, s,
-                                   dils).transpose(1, 2)
+                                   dils, mxu_bf16=self.fused_mxu_bf16
+                                   ).transpose(1, 2)
         x = _conv(F.leaky_relu(x, LRELU_SLOPE), up, stride=u,
                   padding=(k - u) // 2, transposed=True)
         stage_mask = vsamp = None
@@ -312,7 +320,9 @@ class Generator(nn.Module):
             # the trio kernels zero their output past vsamp themselves
             return fused_resblocks_inject(x.transpose(1, 2), har, nc.weight,
                                           nc.bias, ws, bs, s, dils,
-                                          valid=vsamp).transpose(1, 2)
+                                          valid=vsamp,
+                                          mxu_bf16=self.fused_mxu_bf16
+                                          ).transpose(1, 2)
         dt = x.dtype
         x = x + noise_conv_cf(har.transpose(1, 2).to(dt), nc.weight.to(dt),
                               nc.bias.to(dt), s, x.shape[-1])
@@ -320,7 +330,8 @@ class Generator(nn.Module):
             x = x * stage_mask
         if fused:
             return fused_resblocks(x.transpose(1, 2), ws, bs, dils,
-                                   valid=vsamp).transpose(1, 2)
+                                   valid=vsamp, mxu_bf16=self.fused_mxu_bf16
+                                   ).transpose(1, 2)
         x = sum(rb(x, stage_mask) for rb in rbs) / n_k
         if stage_mask is not None:
             x = x * stage_mask
@@ -336,8 +347,8 @@ def _conv(x: torch.Tensor, conv: nn.Module, transposed: bool = False,
 
 def generator_from_h(h: dict, **forms) -> Generator:
     """The Generator of config `h`; forms: fused_resblocks, fused_inject,
-    fused_stage (the JAX package's `generator_overrides`), dtype,
-    bf16_min_channels."""
+    fused_stage, fused_mxu_bf16 (the JAX package's `generator_overrides`),
+    dtype, bf16_min_channels."""
     return Generator(
         sampling_rate=h["sampling_rate"],
         num_mels=h["num_mels"],

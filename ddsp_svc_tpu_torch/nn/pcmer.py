@@ -18,7 +18,12 @@ compute_dtype=torch.bfloat16 (model.bf16) runs the QKV/out projections, the
 random-feature projection, the attention contractions and the conv module's
 matmuls in bf16, as the JAX package does; LayerNorms, the FAVOR+
 exponentials, the attention denominators, the residual stream and the
-parameters stay fp32.
+parameters stay fp32. At inference (and on a time shard) the bf16 q, k and
+v go to the attention kernel's bf16-operand form, as JAX's PCmer passes
+`mxu_bf16=compute_dtype == bfloat16` to its Pallas kernel; in training the
+plain route below rounds the projection to bf16 as JAX's XLA route does.
+The kernel takes any T; JAX's takes T % 128 == 0 and T <= 512 and leaves
+the rest to its XLA route.
 """
 from __future__ import annotations
 
@@ -206,6 +211,10 @@ class SelfAttention(nn.Module):
 
         q, k, v = (split_heads(f) for f in (self.to_q, self.to_k, self.to_v))
         proj = self.fast_attention.projection_matrix
+        # the attention kernels: bf16 q, k, v (model.bf16) take their
+        # bf16-operand form, the fp32 form takes fp32
+        mxu = q.dtype == torch.bfloat16
+        kq, kk, kv = (q, k, v) if mxu else (q.float(), k.float(), v.float())
         if self.causal:
             qf = softmax_kernel(q, proj, is_query=True)
             kf = softmax_kernel(k, proj, is_query=False)
@@ -217,17 +226,16 @@ class SelfAttention(nn.Module):
                        qf, kf, v, carry=window_carry(kf, v, shard),
                        start=shard.lo))
         elif shard is not None:
-            # fp32 on both devices, as the attention kernel takes it
+            # the split on its bf16-operand form under bf16: the moments
+            # summed fp32 over the shards, rounded in the apply
             context, k_sum = performer_attention_moments(
-                k.float(), v.float(), proj, *shard.key_range(valid_frames))
+                kk, kv, proj, *shard.key_range(valid_frames), mxu_bf16=mxu)
             context, k_sum = shard.all_reduce(context, k_sum)
-            out = performer_attention_apply(q.float(), proj, context,
-                                            k_sum).to(q.dtype)
+            out = performer_attention_apply(kq, proj, context, k_sum,
+                                            mxu_bf16=mxu).to(q.dtype)
         elif infer:
-            # the attention kernel takes fp32 only: bf16 q, k, v are cast up
-            # for it (the JAX kernel feeds its matrix unit bf16 here instead)
-            out = performer_attention(q.float(), k.float(), v.float(), proj,
-                                      valid_frames).to(q.dtype)
+            out = performer_attention(kq, kk, kv, proj, valid_frames,
+                                      mxu_bf16=mxu).to(q.dtype)
         else:
             out = performer_attention_plain(q, k, v, proj, valid_frames)
         out = out.transpose(1, 2).reshape(b, n, self.heads * self.dim_head)

@@ -23,6 +23,15 @@ Counterpart of `ddsp_svc_tpu/ops/pallas_kernels.py`:
     oscillator_bank          <- oscillator_bank_pallas
     ltv_fir_convolve         <- ltv_fir_convolve_pallas
 
+The bf16-operand forms (the JAX functions' mxu_bf16=True: bf16 operands of
+the products, fp32 sums) are the keyword `mxu_bf16=True` of the wrappers of
+#1 (and its split), #2, #7, the trio (#4, #5), the chain (#10) and the
+stage (#11). Each plain version takes the same keyword and rounds to bf16
+(to nearest even, as astype) exactly the operands JAX rounds, then computes
+in fp32 (round_bf16). On the card each form launches its own kernel and is
+counted apart, under `<wrapper>_mxu_bf16` (the functions of those names
+call the wrapper with the keyword).
+
 Every wrapper but performer_attention and combsub_spectral_bwd is
 differentiable: on CUDA tensors it runs inside a torch.autograd.Function
 (combsub_spectral, oscillator_bank and harmonic_source only where a
@@ -90,9 +99,17 @@ _SIGNATURES = {
     + [_I] * 3 + [_L] * 3 + [_F, _F, _P],
     "performer_attention_apply_launch": [_P] * 5 + [_I] * 3 + [_L] * 3
     + [_F, _F, _P],
+    "performer_attention_mxu_bf16_launch": [_P] * 6 + [_I] * 4 + [_L] * 3
+    + [_F, _F, _I, _P],
+    "performer_attention_moments_mxu_bf16_launch": [_P] * 4
+    + [_I, _P, _I, _P, _P] + [_I] * 3 + [_L] * 3 + [_F, _F, _I, _P],
+    "performer_attention_apply_mxu_bf16_launch": [_P] * 5 + [_I] * 3
+    + [_L] * 3 + [_F, _F, _I, _P],
     "performer_attention_info": [_I, _I, ctypes.POINTER(_I)],
     "combsub_spectral_launch": [_P] * 7 + [_I, _I, _P],
+    "combsub_spectral_mxu_bf16_launch": [_P] * 7 + [_I, _I, _P],
     "combsub_spectral_bwd_launch": [_P] * 12 + [_I, _I, _P],
+    "combsub_spectral_bwd_mxu_bf16_launch": [_P] * 12 + [_I, _I, _P],
     "combsub_spectral_bwd_info": [_I, ctypes.POINTER(_I)],
     "dft_magnitude_launch": [_P] * 4 + [_I] * 4 + [_P],
     "dft_magnitude_bf16_launch": [_P] * 4 + [_I] * 4 + [_P],
@@ -102,12 +119,19 @@ _SIGNATURES = {
     "resblocks_info": [_I, ctypes.POINTER(_I)],
     "resblocks_bf16_launch": [_P, _P, _I] + [_P] * 11 + [_I] * 9 + [_P],
     "resblocks_bf16_info": [_I, _I, ctypes.POINTER(_I)],
+    "resblocks_mxu_bf16_launch": [_P, _I, _P, _I] + [_P] * 11 + [_I] * 9
+    + [_P],
+    "resblocks_mxu_bf16_info": [_I, _I, _I, ctypes.POINTER(_I)],
     "oscillator_bank_launch": [_P] * 3 + [_I] * 4 + [_P],
     "oscillator_bank_info": [_I, ctypes.POINTER(_I)],
     "ltv_fir_convolve_launch": [_P] * 3 + [_I] * 4 + [_P],
     "resblock_chain_launch": [_P] * 4 + [_I] * 7 + [_P],
     "resblock_chain_info": [_I, _I, ctypes.POINTER(_I)],
+    "resblock_chain_mxu_bf16_launch": [_P] * 4 + [_I] * 7 + [_P],
+    "resblock_chain_mxu_bf16_info": [_I, _I, ctypes.POINTER(_I)],
     "fused_stage_launch": [_P] * 14 + [_I] * 12 + [_P],
+    "fused_stage_mxu_bf16_launch": [_P] * 14 + [_I] * 12 + [_P],
+    "fused_stage_mxu_bf16_info": [_I, ctypes.POINTER(_I)],
     "fused_stage_scratch_floats": [_I] * 3,
     "fused_stage_info": [_I, ctypes.POINTER(_I)],
 }
@@ -166,6 +190,14 @@ def _wants_grad(tensors) -> bool:
     return torch.is_grad_enabled() and any(x.requires_grad for x in tensors)
 
 
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (to nearest even, as JAX's astype) and back to its
+    dtype (fp32 for bf16 x; float64 stays float64, for the card's float64
+    yardsticks): an operand of a bf16-operand form's product."""
+    dtype = torch.float32 if x.dtype == torch.bfloat16 else x.dtype
+    return x.to(torch.bfloat16).to(dtype)
+
+
 def launch_counts() -> dict:
     return {f.__name__: f.launches for f in KERNELS}
 
@@ -201,17 +233,61 @@ def add_launches(counts: dict) -> None:
 # --------------------------- performer attention ---------------------------
 
 
-def performer_attention_plain(q, k, v, projection, valid_frames=None):
+def favor_features_mxu(x, projection, is_query: bool):
+    """The FAVOR+ features of performer_attention_pallas(mxu_bf16=True):
+    dd = bf16(x) . bf16(projection * d^-0.25), the diagonal |x|^2 / 2
+    d^-1/2 from the unrounded x, the exponentials fp32. x (B, H, T, d) of
+    any float dtype -> (B, H, T, m) fp32, unrounded."""
+    d = x.shape[-1]
+    x32 = x.to(torch.promote_types(x.dtype, torch.float32))
+    dd = torch.einsum("bhid,jd->bhij", round_bf16(x32),
+                      round_bf16(projection.to(x32.dtype) * d ** -0.25))
+    diag = (x32 * x32).sum(-1, keepdim=True) * (0.5 / np.sqrt(d))
+    ratio = projection.shape[0] ** -0.5
+    if is_query:
+        return ratio * (torch.exp(dd - diag - dd.amax(-1, keepdim=True))
+                        + 1e-4)
+    return ratio * torch.exp(dd - diag + 1e-4)
+
+
+def attention_moments_mxu(kf, v):
+    """The key moments of the bf16-operand form: context from kf and v
+    rounded to bf16, key sums from the unrounded kf, both fp32."""
+    return (torch.einsum("bhtm,bhtd->bhmd", round_bf16(kf),
+                         round_bf16(v).to(kf.dtype)), kf.sum(dim=-2))
+
+
+def attention_apply_mxu(qf, context, k_sum):
+    """The query half of the bf16-operand form: qf, k_sum and the context
+    rounded to bf16, fp32 sums and division. (B, H, T, d) fp32."""
+    qr = round_bf16(qf)
+    den = torch.einsum("bhtm,bhm->bht", qr, round_bf16(k_sum)) + 1e-8
+    return (torch.einsum("bhtm,bhmd->bhtd", qr, round_bf16(context))
+            / den[..., None])
+
+
+def performer_attention_plain(q, k, v, projection, valid_frames=None,
+                              mxu_bf16: bool = False):
     """softmax_kernel features of q and k, key features zeroed past
-    valid_frames, then non-causal linear attention. (B, H, T, d) fp32."""
+    valid_frames, then non-causal linear attention. (B, H, T, d) fp32.
+    mxu_bf16: the bf16-operand form (favor_features_mxu,
+    attention_moments_mxu, attention_apply_mxu), on q, k, v of fp32 or
+    bf16, fp32 out."""
     # nn.pcmer imports this module, so its feature maps are imported here
     from ..nn.pcmer import linear_attention, softmax_kernel
 
-    qf = softmax_kernel(q, projection, is_query=True)
-    kf = softmax_kernel(k, projection, is_query=False)
+    if mxu_bf16:
+        kf = favor_features_mxu(k, projection, is_query=False)
+    else:
+        kf = softmax_kernel(k, projection, is_query=False)
     if valid_frames is not None:
         kf = kf * frame_mask(k.shape[2], valid_frames, kf.dtype,
                              kf.device)[:, None, :, None]
+    if mxu_bf16:
+        return attention_apply_mxu(
+            favor_features_mxu(q, projection, is_query=True),
+            *attention_moments_mxu(kf, v))
+    qf = softmax_kernel(q, projection, is_query=True)
     return linear_attention(qf, kf, v)
 
 
@@ -234,15 +310,15 @@ def attention_lengths(valid, b: int, t: int, device):
     return _lengths(valid, b, t, device), 0
 
 
-def _attention_strides(x, name: str, shape, device):
+def _attention_strides(x, name: str, shape, device, dtype=torch.float32):
     """The (batch, head, time) strides of a q, k or v view that the kernel
-    reads in place: fp32 on `device`, unit stride over the head dim, the
-    other strides multiples of 4 floats from a 16-byte aligned start (a
+    reads in place: `dtype` on `device`, unit stride over the head dim, the
+    other strides multiples of 4 elements from a 16-byte aligned start (a
     dim of size 1 counts as stride 0)."""
     if x.device != device:
         raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"{name} has dtype {x.dtype}, expected torch.float32")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
     if x.shape != shape:
         raise ValueError(f"{name} has shape {tuple(x.shape)}, "
                          f"expected {tuple(shape)}")
@@ -257,16 +333,20 @@ def _attention_strides(x, name: str, shape, device):
     return strides
 
 
-def _attention_checks(q, k, v, projection):
-    """The attention kernel's checks of its inputs: (m, strides)."""
+def _attention_checks(q, k, v, projection, mxu_bf16: bool = False):
+    """The attention kernel's checks of its inputs: (m, strides). q, k, v
+    fp32; for the bf16-operand form fp32 or bf16, all three alike."""
     b, h, t, d = q.shape
     m = projection.shape[0]
     if (m, d) != (266, 64):
         raise ValueError(f"performer_attention takes dim_head 64 and 266 "
                          f"features, got {d} and {m}")
-    strides = _attention_strides(q, "q", (b, h, t, d), q.device)
+    dtype = q.dtype if mxu_bf16 and q.dtype == torch.bfloat16 \
+        else torch.float32
+    strides = _attention_strides(q, "q", (b, h, t, d), q.device, dtype)
     for name, x in (("k", k), ("v", v)):
-        if _attention_strides(x, name, (b, h, t, d), q.device) != strides:
+        if _attention_strides(x, name, (b, h, t, d), q.device,
+                              dtype) != strides:
             raise ValueError(f"{name} has strides {x.stride()}, q "
                              f"{q.stride()}: q, k and v must share them")
     _check(projection, "projection", (m, d), q.device)
@@ -278,64 +358,88 @@ def _attention_checks(q, k, v, projection):
 def performer_attention_op(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, projection: torch.Tensor,
                            lengths: Optional[torch.Tensor],
-                           valid_all: int) -> torch.Tensor:
+                           valid_all: int,
+                           mxu_bf16: bool = False) -> torch.Tensor:
     """#1 as a custom op: valid_frames as (lengths, valid_all), the pair of
     attention_lengths, lengths a tensor of any int dtype (0-d or (B,)) that
-    the CUDA implementation turns into (B,) int32 on the card."""
+    the CUDA implementation turns into (B,) int32 on the card; mxu_bf16 the
+    bf16-operand form."""
     b, h, t, d = q.shape
-    m, strides = _attention_checks(q, k, v, projection)
+    m, strides = _attention_checks(q, k, v, projection, mxu_bf16)
     if lengths is not None:
         lengths, valid_all = attention_lengths(lengths, b, t, q.device)
     out = torch.empty((b, h, t, d), dtype=torch.float32, device=q.device)
-    _launch("performer_attention", "performer_attention_launch",
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), projection.data_ptr(),
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), projection.data_ptr(),
             _ptr(lengths), out.data_ptr(), valid_all, b, h, t, *strides,
-            d ** -0.25, m ** -0.5, _stream(q))
-    performer_attention.launches += 1
+            d ** -0.25, m ** -0.5)
+    if mxu_bf16:
+        _launch("performer_attention", "performer_attention_mxu_bf16_launch",
+                *args, int(q.dtype == torch.bfloat16), _stream(q))
+        performer_attention_mxu_bf16.launches += 1
+    else:
+        _launch("performer_attention", "performer_attention_launch", *args,
+                _stream(q))
+        performer_attention.launches += 1
     return out
 
 
 @performer_attention_op.register_kernel("cpu")
-def _(q, k, v, projection, lengths, valid_all):
+def _(q, k, v, projection, lengths, valid_all, mxu_bf16=False):
     return performer_attention_plain(
-        q, k, v, projection,
-        valid_all if lengths is None else lengths).contiguous()
+        q, k, v, projection, valid_all if lengths is None else lengths,
+        mxu_bf16).contiguous()
 
 
 @performer_attention_op.register_fake
-def _(q, k, v, projection, lengths, valid_all):
-    return q.new_empty(q.shape)
+def _(q, k, v, projection, lengths, valid_all, mxu_bf16=False):
+    return q.new_empty(q.shape, dtype=torch.float32)
 
 
-def performer_attention(q, k, v, projection, valid_frames=None):
+def performer_attention(q, k, v, projection, valid_frames=None,
+                        mxu_bf16: bool = False):
     """Fused non-causal FAVOR+ attention in one launch (a thread-block
     cluster per batch row and head): q, k, v (B, H, T, 64) fp32, contiguous
     or views with one set of strides (the heads split off a (B, T, H * 64)
     projection), projection (266, 64) -> (B, H, T, 64) contiguous.
     valid_frames (int, 0-d or (B,)) masks the key features of padded
     frames; output rows past it are meaningless, as in the plain
-    version. Through the custom op, except for a CPU tensor where a
-    gradient is wanted (the kernel has no backward: on the card a backward
-    through the op raises)."""
+    version. mxu_bf16: the bf16-operand form on fp32 or bf16 q, k, v (fp32
+    out), counted by performer_attention_mxu_bf16. Through the custom op,
+    except for a CPU tensor where a gradient is wanted (the kernel has no
+    backward: on the card a backward through the op raises)."""
     if q.device.type == "cpu" and _wants_grad((q, k, v, projection)):
-        return performer_attention_plain(q, k, v, projection, valid_frames)
+        return performer_attention_plain(q, k, v, projection, valid_frames,
+                                         mxu_bf16)
     if valid_frames is None:
         lengths, valid_all = None, q.shape[2]
     elif _by_value(valid_frames):
         lengths, valid_all = None, int(valid_frames)
     else:
         lengths, valid_all = torch.as_tensor(valid_frames), 0
-    return performer_attention_op(q, k, v, projection, lengths, valid_all)
+    return performer_attention_op(q, k, v, projection, lengths, valid_all,
+                                  mxu_bf16)
 
 
-def attention_kernel_info(t: int, which: str = "single") -> dict:
+def performer_attention_mxu_bf16(q, k, v, projection, valid_frames=None):
+    """The bf16-operand form of performer_attention
+    (performer_attention_pallas(mxu_bf16=True), the PCmer under model.bf16
+    at inference): q, k, v fp32 or bf16. Its launches are counted here."""
+    return performer_attention(q, k, v, projection, valid_frames,
+                               mxu_bf16=True)
+
+
+def attention_kernel_info(t: int, which: str = "single",
+                          mxu_bf16: bool = False,
+                          in_bf16: bool = False) -> dict:
     """An attention kernel on the current card ('single', 'moments' or
-    'apply'): the cluster size a launch at T frames takes, registers per
-    thread, local-memory (spilled) bytes per thread and dynamic shared
-    memory per CTA."""
+    'apply'; mxu_bf16 the bf16-operand form's, in_bf16 on bf16 q, k, v):
+    the cluster size a launch at T frames takes, registers per thread,
+    local-memory (spilled) bytes per thread and dynamic shared memory per
+    CTA."""
     out = (_I * 4)()
+    form = (6 if in_bf16 else 3) if mxu_bf16 else 0
     err = _c_function("performer_attention", "performer_attention_info")(
-        t, ("single", "moments", "apply").index(which), out)
+        t, form + ("single", "moments", "apply").index(which), out)
     if err != 0:
         raise RuntimeError(f"performer_attention_info failed: CUDA error {err}")
     return dict(cluster=out[0], registers=out[1], spill_bytes=out[2],
@@ -351,83 +455,131 @@ def key_range_mask(t: int, key_lo, key_hi, dtype=None, device=None):
 
 
 def performer_attention_moments_plain(k, v, projection, key_lo=0,
-                                      key_hi=None):
+                                      key_hi=None, mxu_bf16: bool = False):
     """The key moments of non-causal FAVOR+ over the keys [key_lo, key_hi)
     of each batch row: (context (B, H, m, d), k_sum (B, H, m)) fp32, the key
     features summed over that range only (a shard's keys). No key feature
     carries a global maximum, so moments summed over shards equal the
-    moments of the whole sequence."""
+    moments of the whole sequence. mxu_bf16: the bf16-operand form's
+    moments (attention_moments_mxu), left unrounded for the all-reduce."""
     from ..nn.pcmer import attention_moments, softmax_kernel
 
-    kf = softmax_kernel(k, projection, is_query=False)
+    kf = (favor_features_mxu if mxu_bf16 else softmax_kernel)(
+        k, projection, is_query=False)
     kf = kf * key_range_mask(k.shape[2], key_lo, key_hi, kf.dtype,
                              kf.device)[:, None, :, None]
-    return attention_moments(kf, v)
+    return (attention_moments_mxu if mxu_bf16 else attention_moments)(kf, v)
 
 
-def performer_attention_apply_plain(q, projection, context, k_sum):
+def performer_attention_apply_plain(q, projection, context, k_sum,
+                                    mxu_bf16: bool = False):
     """The query half of non-causal FAVOR+: the query features (their max
     stabiliser) against the moments of every key, the 1e-8 denominator.
-    (B, H, T, d) fp32."""
+    (B, H, T, d) fp32. mxu_bf16: the bf16-operand form's
+    (attention_apply_mxu: the all-reduced moments rounded here)."""
     from ..nn.pcmer import attention_apply, softmax_kernel
 
+    if mxu_bf16:
+        return attention_apply_mxu(
+            favor_features_mxu(q, projection, is_query=True), context, k_sum)
     return attention_apply(softmax_kernel(q, projection, is_query=True),
                            context, k_sum)
 
 
-def performer_attention_moments(k, v, projection, key_lo=0, key_hi=None):
+def performer_attention_moments(k, v, projection, key_lo=0, key_hi=None,
+                                mxu_bf16: bool = False):
     """#1's key half on a shard: (context (B, H, 266, 64), k_sum (B, H,
     266)) over the keys [key_lo, key_hi) of each row (ints, 0-d or (B,)
     tensors, clipped to [0, T]; key_hi None is T; an empty range gives
     zeros). k, v: (B, H, T, 64) fp32, contiguous or views with one set of
-    strides, as performer_attention takes them. One clustered launch; the
-    range [0, valid) gives the single launch's moments bit for bit."""
+    strides, as performer_attention takes them (mxu_bf16: the bf16-operand
+    form, fp32 or bf16, counted by performer_attention_moments_mxu_bf16).
+    One clustered launch; the range [0, valid) gives the single launch's
+    moments bit for bit."""
     if k.device.type == "cpu":
         return performer_attention_moments_plain(k, v, projection, key_lo,
-                                                 key_hi)
+                                                 key_hi, mxu_bf16)
     b, h, t, d = k.shape
-    m, strides = _attention_checks(k, k, v, projection)
+    m, strides = _attention_checks(k, k, v, projection, mxu_bf16)
     lo, lo_all = attention_lengths(key_lo, b, t, k.device)
     hi, hi_all = attention_lengths(key_hi, b, t, k.device)
     context = torch.empty((b, h, m, d), dtype=torch.float32, device=k.device)
     k_sum = torch.empty((b, h, m), dtype=torch.float32, device=k.device)
-    _launch("performer_attention", "performer_attention_moments_launch",
-            k.data_ptr(), v.data_ptr(), projection.data_ptr(), _ptr(lo),
+    args = (k.data_ptr(), v.data_ptr(), projection.data_ptr(), _ptr(lo),
             lo_all, _ptr(hi), hi_all, context.data_ptr(), k_sum.data_ptr(),
-            b, h, t, *strides, d ** -0.25, m ** -0.5, _stream(k))
-    performer_attention_moments.launches += 1
+            b, h, t, *strides, d ** -0.25, m ** -0.5)
+    if mxu_bf16:
+        _launch("performer_attention",
+                "performer_attention_moments_mxu_bf16_launch", *args,
+                int(k.dtype == torch.bfloat16), _stream(k))
+        performer_attention_moments_mxu_bf16.launches += 1
+    else:
+        _launch("performer_attention", "performer_attention_moments_launch",
+                *args, _stream(k))
+        performer_attention_moments.launches += 1
     return context, k_sum
 
 
-def performer_attention_apply(q, projection, context, k_sum):
+def performer_attention_apply(q, projection, context, k_sum,
+                              mxu_bf16: bool = False):
     """#1's query half on a shard: q (B, H, T, 64) fp32 (a view as
     performer_attention takes it) against the moments of every shard
     (context (B, H, 266, 64), k_sum (B, H, 266), contiguous) -> (B, H, T,
-    64) contiguous. One CTA per 32-row query tile."""
+    64) contiguous. One CTA per 32-row query tile. mxu_bf16: the
+    bf16-operand form (q fp32 or bf16), counted by
+    performer_attention_apply_mxu_bf16."""
     if q.device.type == "cpu":
-        return performer_attention_apply_plain(q, projection, context, k_sum)
+        return performer_attention_apply_plain(q, projection, context, k_sum,
+                                               mxu_bf16)
     b, h, t, d = q.shape
-    m, strides = _attention_checks(q, q, q, projection)
+    m, strides = _attention_checks(q, q, q, projection, mxu_bf16)
     _check(context, "context", (b, h, m, d), q.device)
     _check(k_sum, "k_sum", (b, h, m), q.device)
     if context.data_ptr() & 15:
         raise ValueError("context is not 16-byte aligned")
     out = torch.empty((b, h, t, d), dtype=torch.float32, device=q.device)
-    _launch("performer_attention", "performer_attention_apply_launch",
-            q.data_ptr(), projection.data_ptr(), context.data_ptr(),
+    args = (q.data_ptr(), projection.data_ptr(), context.data_ptr(),
             k_sum.data_ptr(), out.data_ptr(), b, h, t, *strides, d ** -0.25,
-            m ** -0.5, _stream(q))
-    performer_attention_apply.launches += 1
+            m ** -0.5)
+    if mxu_bf16:
+        _launch("performer_attention",
+                "performer_attention_apply_mxu_bf16_launch", *args,
+                int(q.dtype == torch.bfloat16), _stream(q))
+        performer_attention_apply_mxu_bf16.launches += 1
+    else:
+        _launch("performer_attention", "performer_attention_apply_launch",
+                *args, _stream(q))
+        performer_attention_apply.launches += 1
     return out
+
+
+def performer_attention_moments_mxu_bf16(k, v, projection, key_lo=0,
+                                         key_hi=None):
+    """The bf16-operand form of performer_attention_moments; its launches
+    are counted here."""
+    return performer_attention_moments(k, v, projection, key_lo, key_hi,
+                                       mxu_bf16=True)
+
+
+def performer_attention_apply_mxu_bf16(q, projection, context, k_sum):
+    """The bf16-operand form of performer_attention_apply; its launches are
+    counted here."""
+    return performer_attention_apply(q, projection, context, k_sum,
+                                     mxu_bf16=True)
 
 
 # ------------------------------ combsub spectral ----------------------------
 
 
 def combsub_spectral_plain(tooth_frames, noise_frames, hm, hp, nm,
-                           n_fft: int):
+                           n_fft: int, mxu_bf16: bool = False):
     """irfft(rfft(tooth) * exp(hm + j*pi*hp) + rfft(noise) * exp(nm)/128)
-    * sqrt_hann, per row. (R, n_fft) frames, (R, n_fft//2+1) controls."""
+    * sqrt_hann, per row. (R, n_fft) frames, (R, n_fft//2+1) controls.
+    mxu_bf16: the bf16-operand form, the frames rounded to bf16 first (JAX
+    also rounds its DFT matrices, which an FFT does not have)."""
+    if mxu_bf16:
+        tooth_frames, noise_frames = (round_bf16(tooth_frames),
+                                      round_bf16(noise_frames))
     tf = torch.fft.rfft(tooth_frames, n_fft)
     nf = torch.fft.rfft(noise_frames, n_fft)
     flt = torch.polar(torch.exp(hm), np.pi * hp)
@@ -461,8 +613,8 @@ def combsub_window(n_fft: int, device):
                          device_types="cuda")
 def combsub_spectral_op(tooth_frames: torch.Tensor, noise_frames: torch.Tensor,
                         hm: torch.Tensor, hp: torch.Tensor, nm: torch.Tensor,
-                        n_fft: int) -> torch.Tensor:
-    """#2 as a custom op."""
+                        n_fft: int, mxu_bf16: bool = False) -> torch.Tensor:
+    """#2 as a custom op; mxu_bf16 the bf16-operand form."""
     rows = tooth_frames.shape[0]
     dev = tooth_frames.device
     _check_combsub(n_fft, rows, dev, (
@@ -470,11 +622,12 @@ def combsub_spectral_op(tooth_frames: torch.Tensor, noise_frames: torch.Tensor,
         ("hm", hm), ("hp", hp), ("nm", nm)))
     window = combsub_window(n_fft, dev)
     out = torch.empty_like(tooth_frames)
-    _launch("combsub_spectral", "combsub_spectral_launch",
+    _launch("combsub_spectral", "combsub_spectral_mxu_bf16_launch" if mxu_bf16
+            else "combsub_spectral_launch",
             tooth_frames.data_ptr(), noise_frames.data_ptr(), hm.data_ptr(),
             hp.data_ptr(), nm.data_ptr(), window.data_ptr(), out.data_ptr(),
             rows, n_fft, _stream(out))
-    combsub_spectral.launches += 1
+    (combsub_spectral_mxu_bf16 if mxu_bf16 else combsub_spectral).launches += 1
     return out
 
 
@@ -482,52 +635,74 @@ combsub_spectral_op.register_kernel("cpu")(combsub_spectral_plain)
 
 
 @combsub_spectral_op.register_fake
-def _(tooth_frames, noise_frames, hm, hp, nm, n_fft):
+def _(tooth_frames, noise_frames, hm, hp, nm, n_fft, mxu_bf16=False):
     return tooth_frames.new_empty(tooth_frames.shape)
 
 
 class _CombsubSpectralFn(torch.autograd.Function):
-    """The forward op, with the adjoint kernel as its backward."""
+    """The forward op, with the adjoint kernel (of the same form) as its
+    backward."""
 
     @staticmethod
-    def forward(ctx, tooth_frames, noise_frames, hm, hp, nm, n_fft):
-        ctx.n_fft = n_fft
+    def forward(ctx, tooth_frames, noise_frames, hm, hp, nm, n_fft, mxu_bf16):
+        ctx.n_fft, ctx.mxu_bf16 = n_fft, mxu_bf16
         ctx.save_for_backward(tooth_frames, noise_frames, hm, hp, nm)
         return combsub_spectral_op(tooth_frames, noise_frames, hm, hp, nm,
-                                   n_fft)
+                                   n_fft, mxu_bf16)
 
     @staticmethod
     def backward(ctx, g):
         grads = combsub_spectral_bwd(g.contiguous(), *ctx.saved_tensors,
-                                     ctx.n_fft)
-        return (*grads, None)
+                                     ctx.n_fft, mxu_bf16=ctx.mxu_bf16)
+        return (*grads, None, None)
 
 
-def combsub_spectral(tooth_frames, noise_frames, hm, hp, nm, n_fft: int):
+def combsub_spectral(tooth_frames, noise_frames, hm, hp, nm, n_fft: int,
+                     mxu_bf16: bool = False):
     """The CombSubFast STFT-domain filter chain, per frame row three
     half-length FFTs in shared memory: windowed excitation frames (R, n_fft)
     and raw controls (R, n_fft//2+1) -> windowed output frames (R, n_fft).
     n_fft a power of two, 64..4096. Differentiable in all five inputs; where
-    no gradient is wanted the op runs without the autograd Function."""
+    no gradient is wanted the op runs without the autograd Function.
+    mxu_bf16: the bf16-operand form (model.bf16), the frames rounded to bf16
+    on the kernel's load, its backward the adjoint's form; its launches are
+    counted by combsub_spectral_mxu_bf16 and combsub_spectral_bwd_mxu_bf16
+    (on the CPU too, its gradient is the adjoint's plain form)."""
     tensors = (tooth_frames, noise_frames, hm, hp, nm)
     if not _wants_grad(tensors):
-        return combsub_spectral_op(*tensors, n_fft)
-    if tooth_frames.device.type == "cpu":
+        return combsub_spectral_op(*tensors, n_fft, mxu_bf16)
+    if tooth_frames.device.type == "cpu" and not mxu_bf16:
         return combsub_spectral_plain(*tensors, n_fft)
-    return _CombsubSpectralFn.apply(*tensors, n_fft)
+    return _CombsubSpectralFn.apply(*tensors, n_fft, mxu_bf16)
+
+
+def combsub_spectral_mxu_bf16(tooth_frames, noise_frames, hm, hp, nm,
+                              n_fft: int):
+    """The bf16-operand form of combsub_spectral
+    (combsub_spectral_pallas(mxu_bf16=True)); its launches are counted
+    here."""
+    return combsub_spectral(tooth_frames, noise_frames, hm, hp, nm, n_fft,
+                            mxu_bf16=True)
 
 
 def combsub_spectral_bwd_plain(g, tooth_frames, noise_frames, hm, hp, nm,
-                               n_fft: int):
+                               n_fft: int, mxu_bf16: bool = False):
     """The analytic adjoint of combsub_spectral_plain written out (the
     arithmetic of `_combsub_spectral_bwd_kernel`): returns the gradients of
-    sum(g * out) with respect to (tooth, noise, hm, hp, nm)."""
+    sum(g * out) with respect to (tooth, noise, hm, hp, nm). mxu_bf16: the
+    bf16-operand form, g * window and the frames rounded to bf16 first
+    (JAX also rounds its DFT matrices and the excitation-gradient spectra;
+    the transforms here stay fp32)."""
     bins = n_fft // 2 + 1
     dev = g.device
     win = sqrt_hann_window(n_fft, dtype=g.dtype, device=dev)
     w = torch.full((bins,), 2.0 / n_fft, dtype=g.dtype, device=dev)
     w[0] = w[-1] = 1.0 / n_fft
-    ds = torch.fft.rfft(g * win, n_fft) * w
+    gw = g * win
+    if mxu_bf16:
+        gw, tooth_frames, noise_frames = (
+            round_bf16(x) for x in (gw, tooth_frames, noise_frames))
+    ds = torch.fft.rfft(gw, n_fft) * w
     spec_a = torch.fft.rfft(tooth_frames, n_fft)
     spec_n = torch.fft.rfft(noise_frames, n_fft)
     h = torch.polar(torch.exp(hm), np.pi * hp)
@@ -543,13 +718,15 @@ def combsub_spectral_bwd_plain(g, tooth_frames, noise_frames, hm, hp, nm,
 
 
 def combsub_spectral_bwd(g, tooth_frames, noise_frames, hm, hp, nm,
-                         n_fft: int):
+                         n_fft: int, mxu_bf16: bool = False):
     """The adjoint of combsub_spectral in one kernel (per frame row five
     half-length FFTs in shared memory): the upstream gradient g (R, n_fft)
-    and the forward's inputs -> (d_tooth, d_noise, d_hm, d_hp, d_nm)."""
+    and the forward's inputs -> (d_tooth, d_noise, d_hm, d_hp, d_nm).
+    mxu_bf16: the bf16-operand form, counted by
+    combsub_spectral_bwd_mxu_bf16."""
     if g.device.type == "cpu":
         return combsub_spectral_bwd_plain(g, tooth_frames, noise_frames, hm,
-                                          hp, nm, n_fft)
+                                          hp, nm, n_fft, mxu_bf16)
     rows = g.shape[0]
     dev = g.device
     _check_combsub(n_fft, rows, dev, (
@@ -558,13 +735,24 @@ def combsub_spectral_bwd(g, tooth_frames, noise_frames, hm, hp, nm,
     window = combsub_window(n_fft, dev)
     d_tooth, d_noise = torch.empty_like(g), torch.empty_like(g)
     d_hm, d_hp, d_nm = (torch.empty_like(hm) for _ in range(3))
-    _launch("combsub_spectral_bwd", "combsub_spectral_bwd_launch",
+    _launch("combsub_spectral_bwd", "combsub_spectral_bwd_mxu_bf16_launch"
+            if mxu_bf16 else "combsub_spectral_bwd_launch",
             g.data_ptr(), tooth_frames.data_ptr(), noise_frames.data_ptr(),
             hm.data_ptr(), hp.data_ptr(), nm.data_ptr(), window.data_ptr(),
             d_tooth.data_ptr(), d_noise.data_ptr(), d_hm.data_ptr(),
             d_hp.data_ptr(), d_nm.data_ptr(), rows, n_fft, _stream(g))
-    combsub_spectral_bwd.launches += 1
+    (combsub_spectral_bwd_mxu_bf16 if mxu_bf16
+     else combsub_spectral_bwd).launches += 1
     return d_tooth, d_noise, d_hm, d_hp, d_nm
+
+
+def combsub_spectral_bwd_mxu_bf16(g, tooth_frames, noise_frames, hm, hp, nm,
+                                  n_fft: int):
+    """The bf16-operand form of combsub_spectral_bwd
+    (_combsub_spectral_bwd_impl(mxu_bf16=True)); its launches are counted
+    here."""
+    return combsub_spectral_bwd(g, tooth_frames, noise_frames, hm, hp, nm,
+                                n_fft, mxu_bf16=True)
 
 
 def combsub_bwd_kernel_info(n_fft: int) -> dict:
@@ -802,22 +990,26 @@ STAGE_RATES = (1, 2, 4, 8)
 
 
 def resblock1_cf(x, weights, biases, kernel_size: int,
-                 dilations: Sequence[int], mask=None):
+                 dilations: Sequence[int], mask=None, mxu_bf16: bool = False):
     """One ResBlock1 chain on channel-first x (B, C, T): per dilation
     leaky(0.1) -> dilated conv -> leaky(0.1) -> conv, residual add.
     weights (n_dil, 2, C, C, k), biases (n_dil, 2, C); mask (B?, 1, T)
-    zeroes each conv's input past the valid length."""
+    zeroes each conv's input past the valid length. mxu_bf16: the
+    bf16-operand form, each conv's input and weights rounded to bf16 (the
+    biases, the sums and the residual fp32)."""
     k = kernel_size
+    rnd = round_bf16 if mxu_bf16 else (lambda z: z)
     for i, d in enumerate(dilations):
         t = F.leaky_relu(x, 0.1)
         if mask is not None:
             t = t * mask
-        t = F.conv1d(t, weights[i][0], biases[i][0],
+        t = F.conv1d(rnd(t), rnd(weights[i][0]), biases[i][0],
                      padding=(k * d - d) // 2, dilation=d)
         t = F.leaky_relu(t, 0.1)
         if mask is not None:
             t = t * mask
-        t = F.conv1d(t, weights[i][1], biases[i][1], padding=(k - 1) // 2)
+        t = F.conv1d(rnd(t), rnd(weights[i][1]), biases[i][1],
+                     padding=(k - 1) // 2)
         x = x + t
     return x
 
@@ -830,18 +1022,21 @@ def noise_conv_cf(har, weight, bias, stride: int, t_out: int):
 
 
 def resblocks_inject_plain(x_up, har, nc_weight, nc_bias, weights, biases,
-                           s_src: int, dilations=(1, 3, 5), valid=None):
+                           s_src: int, dilations=(1, 3, 5), valid=None,
+                           mxu_bf16: bool = False):
     """x = x_up + noise_conv(har), then the mean of the ResBlock1 chains.
     x_up (B, T, C); har (B, T_final, 1) or None (no injection); nc_weight
     (C, 1, ksrc); weights[r] (n_dil, 2, C, C, k_r); biases[r] (n_dil, 2, C);
     valid (optional sample counts) masks every conv input and zeroes the
     output past it. Returns (B, T, C). bf16 x_up (the bf16-input form): x_up
     and har upcast exactly, every conv fp32 on the fp32 weights, the output
-    rounded once to bf16."""
+    rounded once to bf16. mxu_bf16: the bf16-operand form, the chains'
+    convs on bf16-rounded inputs and weights (resblock1_cf); the injection
+    conv stays fp32."""
     if x_up.dtype == torch.bfloat16:
         return resblocks_inject_plain(
             x_up.float(), None if har is None else har.float(), nc_weight,
-            nc_bias, weights, biases, s_src, dilations, valid
+            nc_bias, weights, biases, s_src, dilations, valid, mxu_bf16
         ).to(torch.bfloat16)
     x = x_up.transpose(1, 2)
     t = x.shape[-1]
@@ -854,7 +1049,7 @@ def resblocks_inject_plain(x_up, har, nc_weight, nc_bias, weights, biases,
         x = x * mask
     acc = None
     for w, b in zip(weights, biases):
-        h = resblock1_cf(x, w, b, w.shape[-1], dilations, mask)
+        h = resblock1_cf(x, w, b, w.shape[-1], dilations, mask, mxu_bf16)
         acc = h if acc is None else acc + h
     out = acc / len(weights)
     if mask is not None:
@@ -904,6 +1099,60 @@ def _fragment_index(c: int, shapes, device):
         is_lo = (torch.arange(idx.numel()) // 128) % 2 == 1
         _FRAGMENT_INDEX[key] = (idx.to(device), is_lo.to(device))
     return _FRAGMENT_INDEX[key]
+
+
+_FRAGMENT_INDEX_BF16: dict = {}
+
+
+def _fragment_index_bf16(c: int, shapes, device):
+    """For mma_fragments_bf16: the flat index into cat(w.reshape(-1) for w
+    in the weights, [0]) of each slot of the bf16 fragment order; built once
+    per (C, ((convs, k) of each weight), device)."""
+    key = (c, tuple(shapes), str(device))
+    if key not in _FRAGMENT_INDEX_BF16:
+        m, groups = max(c, 16), max(c // 16, 1)
+        lane = torch.arange(32)[:, None]
+        e = torch.arange(8)
+        reg, half = e // 2, e % 2
+        # (m16 tile, lane, element) -> C_out row; (k16 group, ...) -> C_in
+        # col, in the core's K order (MMA rows 2q, 2q + 1, 2q + 8, 2q + 9
+        # are channels q, q + 4, q + 8, q + 12)
+        rows = (torch.arange(m // 16)[:, None, None] * 16 + lane // 4
+                + 8 * (reg % 2))
+        cols = (torch.arange(groups)[:, None, None] * 16 + lane % 4
+                + 4 * half + 8 * (reg // 2))
+        zero_slot = c * c * sum(n * k for n, k in shapes)
+        idx, base = [], 0
+        for n, k in shapes:
+            conv = torch.arange(n)[:, None, None, None, None, None]
+            tap = torch.arange(k)[None, :, None, None, None, None]
+            co, ci = rows[None, None, None], cols[None, None, :, None]
+            flat = base + ((conv * c + co) * c + ci) * k + tap
+            flat = torch.where((co < c) & (ci < c), flat, zero_slot)
+            idx.append(flat.reshape(-1))  # (n, k, G, Mt, 32, 8)
+            base += n * c * c * k
+        _FRAGMENT_INDEX_BF16[key] = torch.cat(idx).to(device)
+    return _FRAGMENT_INDEX_BF16[key]
+
+
+def mma_fragments_bf16(weights):
+    """fp32 conv weights as mma_fragments takes them, rounded to bf16 (to
+    nearest even) in the order the conv core's bf16-operand form reads them
+    (resblock_mma.cuh, mma.m16n8k16): each conv of weights[i] (k_i, G, M /
+    16, 32, 8), G = max(C_in / 16, 1), M = max(C_out, 16). Per k-step (tap,
+    16 input channels) and m16 tile, lane l's A fragment, four registers of
+    two bf16: rows g, g + 8, g, g + 8 and input channels (q, q + 4), (q,
+    q + 4), (q + 8, q + 12), (q + 8, q + 12) of the tile, g = l // 4, q =
+    l % 4 (the core's K order); rows past C_out and channels past C_in (C =
+    8) are zero. A quarter of mma_fragments' bytes. Returns one flat bf16
+    view per weight."""
+    c, m = weights[0].shape[-3], max(weights[0].shape[-3], 16)
+    shapes = [(w.numel() // (c * c * w.shape[-1]), w.shape[-1])
+              for w in weights]
+    idx = _fragment_index_bf16(c, shapes, weights[0].device)
+    flat = torch.cat([*(w.reshape(-1) for w in weights),
+                      weights[0].new_zeros(1)])[idx].to(torch.bfloat16)
+    return flat.split([n * k * max(c // 16, 1) * m * 16 for n, k in shapes])
 
 
 def mma_fragments(weights):
@@ -964,7 +1213,7 @@ def _injection(har, nc_weight, nc_bias, bsz: int, c: int, dev,
 
 
 def _trio_launch(x_up, har, nc_weight, nc_bias, weights, biases, s_src: int,
-                 dilations, valid):
+                 dilations, valid, mxu_bf16: bool = False):
     bsz, t, c = x_up.shape
     dev = x_up.device
     if c not in TRIO_CHANNELS:
@@ -984,19 +1233,28 @@ def _trio_launch(x_up, har, nc_weight, nc_bias, weights, biases, s_src: int,
             har, nc_weight, nc_bias, bsz, c, dev,
             (torch.float32, torch.bfloat16) if bf16 else (torch.float32,))
     vl = None if valid is None else _lengths(valid, bsz, t, dev)
-    w_k = mma_fragments(weights)
+    w_k = (mma_fragments_bf16 if mxu_bf16 else mma_fragments)(weights)
     out = torch.empty_like(x_cf)
     tail = (*(w.data_ptr() for w in w_k), *(b.data_ptr() for b in biases),
             _ptr(vl))
     sizes = (bsz, c, t, t_final, s_src, ksrc, *dils, _stream(out))
-    if bf16:
+    har_bf16 = int(har2 is not None and har2.dtype == torch.bfloat16)
+    if mxu_bf16:
+        # the bf16-operand form on fp32 or bf16 x (a bf16 x's trio mean
+        # summed in an fp32 scratch, as the bf16-input form's)
+        acc = torch.empty(x_cf.shape, dtype=torch.float32,
+                          device=dev) if bf16 else None
+        _launch("resblocks", "resblocks_mxu_bf16_launch", x_cf.data_ptr(),
+                int(bf16), _ptr(har2), har_bf16, _ptr(wnc), _ptr(bnc), *tail,
+                _ptr(acc), out.data_ptr(), *sizes)
+        counter = fused_resblocks_mxu_bf16 if har is None \
+            else fused_resblocks_inject_mxu_bf16
+    elif bf16:
         # the trio mean's partial sums stay fp32 (the output is rounded once)
         acc = torch.empty(x_cf.shape, dtype=torch.float32, device=dev)
         _launch("resblocks", "resblocks_bf16_launch", x_cf.data_ptr(),
-                _ptr(har2), int(har2 is not None
-                                and har2.dtype == torch.bfloat16),
-                _ptr(wnc), _ptr(bnc), *tail, acc.data_ptr(), out.data_ptr(),
-                *sizes)
+                _ptr(har2), har_bf16, _ptr(wnc), _ptr(bnc), *tail,
+                acc.data_ptr(), out.data_ptr(), *sizes)
         counter = fused_resblocks_bf16 if har is None \
             else fused_resblocks_inject_bf16
     else:
@@ -1004,43 +1262,50 @@ def _trio_launch(x_up, har, nc_weight, nc_bias, weights, biases, s_src: int,
                 _ptr(har2), _ptr(wnc), _ptr(bnc), *tail, out.data_ptr(),
                 *sizes)
         counter = fused_resblocks if har is None else fused_resblocks_inject
-    # the no-injection form is the fused_resblocks_pallas kernel and the
-    # bf16-input forms run apart: each is counted apart
+    # the no-injection form is the fused_resblocks_pallas kernel, and the
+    # bf16-input and bf16-operand forms run apart: each is counted apart
     counter.launches += 1
     return out.transpose(1, 2)
 
 
 def fused_resblocks_inject(x_up, har, nc_weight, nc_bias, weights, biases,
-                           s_src: int, dilations=(1, 3, 5), valid=None):
+                           s_src: int, dilations=(1, 3, 5), valid=None,
+                           mxu_bf16: bool = False):
     """The narrow-stage trio in one kernel: injection conv, three ResBlock1
     chains (k = 3/7/11) and their mean, on time tiles held in shared
     memory. Same arguments and result as resblocks_inject_plain; har=None
     runs the trio alone (the fused_resblocks_pallas form). x_up fp32 (har
     fp32), or bf16 (har bf16 or fp32): the bf16-input form, whose launches
-    fused_resblocks_inject_bf16 / fused_resblocks_bf16 count. Differentiable
-    (the backward re-runs the plain version) except with valid=."""
+    fused_resblocks_inject_bf16 / fused_resblocks_bf16 count. mxu_bf16: the
+    bf16-operand form (fused_mxu_bf16) on either input type, counted by
+    fused_resblocks_inject_mxu_bf16 / fused_resblocks_mxu_bf16.
+    Differentiable (the backward re-runs the fp32 plain version, as JAX's
+    re-runs its fp32 reference for every form) except with valid=."""
     if x_up.device.type == "cpu":
         return resblocks_inject_plain(x_up, har, nc_weight, nc_bias, weights,
-                                      biases, s_src, dilations, valid)
+                                      biases, s_src, dilations, valid=valid,
+                                      mxu_bf16=mxu_bf16)
     n = len(weights)
     tensors = (x_up, har, nc_weight, nc_bias, *weights, *biases)
     if valid is not None:
         _inference_only("fused_resblocks_inject", tensors)
         return _trio_launch(x_up, har, nc_weight, nc_bias, weights, biases,
-                            s_src, dilations, valid)
+                            s_src, dilations, valid, mxu_bf16)
     return _PlainBackwardFn.apply(
         lambda x, h, nw, nb, *wb: _trio_launch(x, h, nw, nb, wb[:n], wb[n:],
-                                               s_src, dilations, None),
+                                               s_src, dilations, None,
+                                               mxu_bf16),
         lambda x, h, nw, nb, *wb: resblocks_inject_plain(
             x, h, nw, nb, wb[:n], wb[n:], s_src, dilations),
         *tensors)
 
 
-def fused_resblocks(x, weights, biases, dilations=(1, 3, 5), valid=None):
+def fused_resblocks(x, weights, biases, dilations=(1, 3, 5), valid=None,
+                    mxu_bf16: bool = False):
     """The trio alone (fused_resblocks_pallas): fused_resblocks_inject with
     har=None, whose launches are counted here."""
     return fused_resblocks_inject(x, None, None, None, weights, biases, 1,
-                                  dilations, valid)
+                                  dilations, valid, mxu_bf16)
 
 
 def _require_bf16(x, name: str) -> None:
@@ -1069,6 +1334,25 @@ def fused_resblocks_bf16(x, weights, biases, dilations=(1, 3, 5),
     return fused_resblocks(x, weights, biases, dilations, valid)
 
 
+def fused_resblocks_inject_mxu_bf16(x_up, har, nc_weight, nc_bias, weights,
+                                    biases, s_src: int, dilations=(1, 3, 5),
+                                    valid=None):
+    """The bf16-operand form of fused_resblocks_inject
+    (fused_resblocks_inject_pallas(mxu_bf16=True)) on fp32 or bf16 x_up;
+    its launches are counted here."""
+    return fused_resblocks_inject(x_up, har, nc_weight, nc_bias, weights,
+                                  biases, s_src, dilations, valid,
+                                  mxu_bf16=True)
+
+
+def fused_resblocks_mxu_bf16(x, weights, biases, dilations=(1, 3, 5),
+                             valid=None):
+    """The bf16-operand form of fused_resblocks; its launches are counted
+    here."""
+    return fused_resblocks(x, weights, biases, dilations, valid,
+                           mxu_bf16=True)
+
+
 def _kernel_info(lib_name: str, symbol: str, *args) -> dict:
     out = (_I * 3)()
     err = _c_function(lib_name, symbol)(*args, out)
@@ -1077,11 +1361,15 @@ def _kernel_info(lib_name: str, symbol: str, *args) -> dict:
     return dict(registers=out[0], spill_bytes=out[1], smem_bytes=out[2])
 
 
-def trio_kernel_info(c: int, bf16: bool = False, har_bf16: bool = False
-                     ) -> dict:
+def trio_kernel_info(c: int, bf16: bool = False, har_bf16: bool = False,
+                     mxu_bf16: bool = False) -> dict:
     """The compiled trio kernel at width C on the current card: registers
     per thread, local-memory (spilled) bytes per thread and dynamic shared
-    memory per block; bf16: the bf16-input form (har_bf16: with bf16 har)."""
+    memory per block; bf16: the bf16-input form (har_bf16: with bf16 har);
+    mxu_bf16: the bf16-operand form (on bf16 x if bf16)."""
+    if mxu_bf16:
+        return _kernel_info("resblocks", "resblocks_mxu_bf16_info", c,
+                            int(bf16), int(har_bf16))
     if bf16:
         return _kernel_info("resblocks", "resblocks_bf16_info", c,
                             int(har_bf16))
@@ -1092,14 +1380,16 @@ def trio_kernel_info(c: int, bf16: bool = False, har_bf16: bool = False
 
 
 def resblock_chain_plain(x, weight, bias, kernel_size: int,
-                         dilations=(1, 3, 5)):
+                         dilations=(1, 3, 5), mxu_bf16: bool = False):
     """One ResBlock1 chain on the JAX package's (B, T, C) layout: weight
-    (n_dil, 2, C, C, k), bias (n_dil, 2, C) -> (B, T, C)."""
+    (n_dil, 2, C, C, k), bias (n_dil, 2, C) -> (B, T, C); mxu_bf16 the
+    bf16-operand form (resblock1_cf)."""
     return resblock1_cf(x.transpose(1, 2), weight, bias, kernel_size,
-                        dilations).transpose(1, 2)
+                        dilations, mxu_bf16=mxu_bf16).transpose(1, 2)
 
 
-def _chain_launch(x, weight, bias, kernel_size: int, dilations):
+def _chain_launch(x, weight, bias, kernel_size: int, dilations,
+                  mxu_bf16: bool = False):
     bsz, t, c = x.shape
     k = int(kernel_size)
     dev = x.device
@@ -1111,53 +1401,71 @@ def _chain_launch(x, weight, bias, kernel_size: int, dilations):
     _check(x_cf, "x", (bsz, c, t), dev)
     _check(weight, "weight", (3, 2, c, c, k), dev)
     _check(bias, "bias", (3, 2, c), dev)
-    w_k = mma_fragments([weight])[0]
+    w_k = (mma_fragments_bf16 if mxu_bf16 else mma_fragments)([weight])[0]
     out = torch.empty_like(x_cf)
-    _launch("resblock_chain", "resblock_chain_launch", x_cf.data_ptr(),
+    _launch("resblock_chain", "resblock_chain_mxu_bf16_launch" if mxu_bf16
+            else "resblock_chain_launch", x_cf.data_ptr(),
             w_k.data_ptr(), bias.data_ptr(), out.data_ptr(), bsz, c, t, k,
             *dils, _stream(out))
-    fused_resblock_chain.launches += 1
+    (fused_resblock_chain_mxu_bf16 if mxu_bf16
+     else fused_resblock_chain).launches += 1
     return out.transpose(1, 2)
 
 
-def chain_kernel_info(c: int, k: int) -> dict:
+def chain_kernel_info(c: int, k: int, mxu_bf16: bool = False) -> dict:
     """As trio_kernel_info, for the one-chain kernel of kernel size k."""
-    return _kernel_info("resblock_chain", "resblock_chain_info", c, k)
+    return _kernel_info("resblock_chain", "resblock_chain_mxu_bf16_info"
+                        if mxu_bf16 else "resblock_chain_info", c, k)
 
 
 def fused_resblock_chain(x, weight, bias, kernel_size: int,
-                         dilations=(1, 3, 5)):
+                         dilations=(1, 3, 5), mxu_bf16: bool = False):
     """One ResBlock1 chain (no trio mean) in one kernel, the trio kernel's
     tensor-core tiles with one chain: x (B, T, C) fp32, C in 8..64, k in
-    3/7/11; same arguments and result as resblock_chain_plain.
-    Differentiable (the backward re-runs the plain version)."""
+    3/7/11; same arguments and result as resblock_chain_plain. mxu_bf16:
+    the bf16-operand form (fused_resblock_chain_pallas' default), counted
+    by fused_resblock_chain_mxu_bf16. Differentiable (the backward re-runs
+    the fp32 plain version)."""
     if x.device.type == "cpu":
-        return resblock_chain_plain(x, weight, bias, kernel_size, dilations)
+        return resblock_chain_plain(x, weight, bias, kernel_size, dilations,
+                                    mxu_bf16)
     return _PlainBackwardFn.apply(
-        lambda *ts: _chain_launch(*ts, kernel_size, dilations),
+        lambda *ts: _chain_launch(*ts, kernel_size, dilations, mxu_bf16),
         lambda *ts: resblock_chain_plain(*ts, kernel_size, dilations),
         x, weight, bias)
+
+
+def fused_resblock_chain_mxu_bf16(x, weight, bias, kernel_size: int,
+                                  dilations=(1, 3, 5)):
+    """The bf16-operand form of fused_resblock_chain; its launches are
+    counted here."""
+    return fused_resblock_chain(x, weight, bias, kernel_size, dilations,
+                                mxu_bf16=True)
 
 
 # ------------------------------- fused stage --------------------------------
 
 
 def stage_plain(x_pre, har, up_weight, up_bias, nc_weight, nc_bias, weights,
-                biases, u: int, s_src: int, dilations=(1, 3, 5)):
+                biases, u: int, s_src: int, dilations=(1, 3, 5),
+                mxu_bf16: bool = False):
     """A narrow Generator stage: leaky(0.1) -> ConvTranspose(stride u,
     kernel k, padding (k - u) // 2) -> + the injection conv of har -> the
     trio mean. x_pre (B, T_in, C_in); har (B, T_final, 1); up_weight
     (C_in, C, k) and nc_weight (C, 1, ksrc) in the port's layouts; weights
-    and biases as resblocks_inject_plain. Returns (B, T_out, C)."""
+    and biases as resblocks_inject_plain. Returns (B, T_out, C). mxu_bf16:
+    the bf16-operand form, the trio's (the transposed conv stays fp32)."""
     k = up_weight.shape[-1]
     x = F.conv_transpose1d(F.leaky_relu(x_pre.transpose(1, 2), 0.1),
                            up_weight, up_bias, stride=u, padding=(k - u) // 2)
     return resblocks_inject_plain(x.transpose(1, 2), har, nc_weight, nc_bias,
-                                  weights, biases, s_src, dilations)
+                                  weights, biases, s_src, dilations,
+                                  mxu_bf16=mxu_bf16)
 
 
 def _stage_launch(x_pre, har, up_weight, up_bias, nc_weight, nc_bias,
-                  weights, biases, u: int, s_src: int, dilations):
+                  weights, biases, u: int, s_src: int, dilations,
+                  mxu_bf16: bool = False):
     bsz, t_in, c_in = x_pre.shape
     c, k = up_weight.shape[1], up_weight.shape[-1]
     dev = x_pre.device
@@ -1174,46 +1482,66 @@ def _stage_launch(x_pre, har, up_weight, up_bias, nc_weight, nc_bias,
     _check(up_weight, "up_weight", (c_in, c, k), dev)
     _check(up_bias, "up_bias", (c,), dev)
     _check_trio(weights, biases, c, dev)
-    w_up, *w_k = mma_fragments([stage_up_convs(up_weight, u), *weights])
+    if mxu_bf16:  # the transposed conv stays in 3xTF32, the chains bf16
+        w_up = mma_fragments([stage_up_convs(up_weight, u)])[0]
+        w_k = mma_fragments_bf16(weights)
+    else:
+        w_up, *w_k = mma_fragments([stage_up_convs(up_weight, u), *weights])
     har2, wnc, bnc, t_final, ksrc = _injection(har, nc_weight, nc_bias, bsz,
                                                c, dev)
     out = torch.empty((bsz, c, t_out), dtype=torch.float32, device=dev)
     # each tile's x0, kept for its second and third chains
     x0 = torch.empty((_c_function("fused_stage", "fused_stage_scratch_floats")(
         bsz, c, t_out),), dtype=torch.float32, device=dev)
-    _launch("fused_stage", "fused_stage_launch", x_cf.data_ptr(),
+    _launch("fused_stage", "fused_stage_mxu_bf16_launch" if mxu_bf16
+            else "fused_stage_launch", x_cf.data_ptr(),
             har2.data_ptr(), w_up.data_ptr(), up_bias.data_ptr(),
             wnc.data_ptr(), bnc.data_ptr(), *(w.data_ptr() for w in w_k),
             *(b.data_ptr() for b in biases), out.data_ptr(), x0.data_ptr(),
             bsz, c, t_in,
             t_out, u, p, t_final, s_src, ksrc, *dils, _stream(out))
-    fused_stage.launches += 1
+    (fused_stage_mxu_bf16 if mxu_bf16 else fused_stage).launches += 1
     return out.transpose(1, 2)
 
 
-def stage_kernel_info(c: int) -> dict:
+def stage_kernel_info(c: int, mxu_bf16: bool = False) -> dict:
     """As trio_kernel_info, for the fused-stage kernel."""
-    return _kernel_info("fused_stage", "fused_stage_info", c)
+    return _kernel_info("fused_stage", "fused_stage_mxu_bf16_info"
+                        if mxu_bf16 else "fused_stage_info", c)
 
 
 def fused_stage(x_pre, har, up_weight, up_bias, nc_weight, nc_bias, weights,
-                biases, u: int, s_src: int, dilations=(1, 3, 5)):
+                biases, u: int, s_src: int, dilations=(1, 3, 5),
+                mxu_bf16: bool = False):
     """A whole narrow Generator stage in one kernel: the trio kernel whose
     tile starts from leaky(x_pre) through the transposed conv, read at the
     input's own rate, plus the injection conv. C in 8..64, C_in = 2C, u in
     1/2/4/8 with k = 2u. Same arguments and result as stage_plain.
-    Differentiable (the backward re-runs the plain version)."""
+    mxu_bf16: the bf16-operand form (fused_stage_pallas(mxu_bf16=True)),
+    counted by fused_stage_mxu_bf16. Differentiable (the backward re-runs
+    the fp32 plain version)."""
     if x_pre.device.type == "cpu":
         return stage_plain(x_pre, har, up_weight, up_bias, nc_weight, nc_bias,
-                           weights, biases, u, s_src, dilations)
+                           weights, biases, u, s_src, dilations,
+                           mxu_bf16=mxu_bf16)
     n = len(weights)
     return _PlainBackwardFn.apply(
         lambda x, h, uw, ub, nw, nb, *wb: _stage_launch(
-            x, h, uw, ub, nw, nb, wb[:n], wb[n:], u, s_src, dilations),
+            x, h, uw, ub, nw, nb, wb[:n], wb[n:], u, s_src, dilations,
+            mxu_bf16),
         lambda x, h, uw, ub, nw, nb, *wb: stage_plain(
             x, h, uw, ub, nw, nb, wb[:n], wb[n:], u, s_src, dilations),
         x_pre, har, up_weight, up_bias, nc_weight, nc_bias, *weights,
         *biases)
+
+
+def fused_stage_mxu_bf16(x_pre, har, up_weight, up_bias, nc_weight, nc_bias,
+                         weights, biases, u: int, s_src: int,
+                         dilations=(1, 3, 5)):
+    """The bf16-operand form of fused_stage; its launches are counted
+    here."""
+    return fused_stage(x_pre, har, up_weight, up_bias, nc_weight, nc_bias,
+                       weights, biases, u, s_src, dilations, mxu_bf16=True)
 
 
 # ------------------------------ oscillator bank -----------------------------
@@ -1396,5 +1724,11 @@ KERNELS = (performer_attention, performer_attention_moments,
            fused_resblocks_inject, fused_resblocks,
            fused_resblocks_inject_bf16, fused_resblocks_bf16, dft_magnitude,
            dft_magnitude_bf16, combsub_spectral_bwd, oscillator_bank, ltv_fir_convolve,
-           fused_resblock_chain, fused_stage)
+           fused_resblock_chain, fused_stage,
+           # the bf16-operand forms
+           performer_attention_mxu_bf16, performer_attention_moments_mxu_bf16,
+           performer_attention_apply_mxu_bf16, combsub_spectral_mxu_bf16,
+           combsub_spectral_bwd_mxu_bf16, fused_resblocks_inject_mxu_bf16,
+           fused_resblocks_mxu_bf16, fused_resblock_chain_mxu_bf16,
+           fused_stage_mxu_bf16)
 reset_launch_counts()

@@ -781,14 +781,15 @@ def test_combsub_spectral_plain_at_training_rows(cuda):
 
 
 def test_bf16_infer_forward_matches_plain(cuda, monkeypatch):
-    """A model.bf16 CombSubFast at inference (q, k, v cast up to fp32 for
-    the attention kernel; the spectral chain on its kernel) against the same
-    model with both kernels swapped for their plain versions. Both run the
-    attention in fp32; their fp32 rounding differences (~1e-6) flip bf16
+    """A model.bf16 CombSubFast at inference (bf16 q, k, v on the attention
+    kernel's bf16-operand form; the spectral chain on its form) against the
+    same model with both forms swapped for their plain forms (the wrappers'
+    plain versions take the same mxu_bf16 keyword). Both round the same
+    operands to bf16; their fp32 rounding differences (~1e-6) flip bf16
     roundings downstream (2^-8 each) that grow through the PCmer layers
     towards bf16's own noise, so the bound is the JAX package's bf16 bound,
-    5e-2 relative RMS (tests/test_bf16.py); chip_smoke.py reads 7.3e-3 at
-    full width."""
+    5e-2 relative RMS (tests/test_bf16.py). Only the forms are counted, no
+    fp32 form."""
     from ddsp_svc_tpu_torch.models import synths
     from ddsp_svc_tpu_torch.nn import pcmer
     from ddsp_svc_tpu_torch.nn.layers import lecun_init_
@@ -813,7 +814,9 @@ def test_bf16_infer_forward_matches_plain(cuda, monkeypatch):
                             K.combsub_spectral_plain)
         ref, _, _ = model(*args, infer=True,
                           generator=torch.Generator(device=cuda).manual_seed(1))
-    assert counts["performer_attention"] > 0 and counts["combsub_spectral"] > 0
+    assert counts["performer_attention_mxu_bf16"] > 0
+    assert counts["combsub_spectral_mxu_bf16"] > 0
+    assert counts["performer_attention"] == counts["combsub_spectral"] == 0
     assert got.dtype == torch.float32 and torch.isfinite(got).all()
     rel_rms = ((got - ref).pow(2).mean() / ref.pow(2).mean()).sqrt().item()
     assert rel_rms < 5e-2, rel_rms
@@ -1085,9 +1088,9 @@ def test_generator_forms_on_kernels_match_plain(cuda, monkeypatch):
     ri[:, 0] = 0
     plain = dict(harmonic_source=K.harmonic_source_plain,
                  fused_resblocks_inject=K.resblocks_inject_plain,
-                 fused_resblocks=lambda x_, w_, b_, d_, valid=None:
-                 K.resblocks_inject_plain(x_, None, None, None, w_, b_, 1, d_,
-                                          valid),
+                 fused_resblocks=lambda x_, w_, b_, d_, valid=None,
+                 mxu_bf16=False: K.resblocks_inject_plain(
+                     x_, None, None, None, w_, b_, 1, d_, valid, mxu_bf16),
                  fused_stage=K.stage_plain)
     for forms, kernel in (({}, "fused_resblocks_inject"),
                           ({"fused_inject": False}, "fused_resblocks"),
@@ -1136,7 +1139,16 @@ def test_wrappers_count_launches(cuda):
                                  "oscillator_bank": 0,
                                  "ltv_fir_convolve": 0,
                                  "fused_resblock_chain": 0,
-                                 "fused_stage": 0}
+                                 "fused_stage": 0,
+                                 "performer_attention_mxu_bf16": 0,
+                                 "performer_attention_moments_mxu_bf16": 0,
+                                 "performer_attention_apply_mxu_bf16": 0,
+                                 "combsub_spectral_mxu_bf16": 0,
+                                 "combsub_spectral_bwd_mxu_bf16": 0,
+                                 "fused_resblocks_inject_mxu_bf16": 0,
+                                 "fused_resblocks_mxu_bf16": 0,
+                                 "fused_resblock_chain_mxu_bf16": 0,
+                                 "fused_stage_mxu_bf16": 0}
 
 
 def test_staged_bf16_generator_on_card(cuda, monkeypatch):
@@ -2093,7 +2105,8 @@ def test_graphed_dispatch_matches_eager(cuda, mtype, bf16):
     against 4 eager steps from the same weights, batches and seeds, then a
     second dispatch: the losses and parameters at chip_smoke.py's gate, and
     the replays' launch counts equal to the eager steps' (#6 8 a step at
-    n_scale 4; under bf16 #2 and #7 once a step; Sins #8 once and #9 twice
+    n_scale 4; under bf16 #2's and #7's bf16-operand forms once a step;
+    Sins #8 once and #9 twice
     a step, CombSub #9 three times)."""
     from ddsp_svc_tpu_torch.models.losses import RSSLoss
     from ddsp_svc_tpu_torch.train.graphed import GraphedTrainSteps
@@ -2113,9 +2126,11 @@ def test_graphed_dispatch_matches_eager(cuda, mtype, bf16):
     counts_g = K.launch_counts()
     _assert_graphed_matches_eager(eager, graphed, le, lg)
     assert counts_g == counts_e
+    spectral = int(bf16 and mtype == "CombSubFast")
     per_step = {"dft_magnitude": 8,
-                "combsub_spectral": int(bf16 and mtype == "CombSubFast"),
-                "combsub_spectral_bwd": int(bf16 and mtype == "CombSubFast"),
+                "combsub_spectral_mxu_bf16": spectral,
+                "combsub_spectral_bwd_mxu_bf16": spectral,
+                "combsub_spectral": 0, "combsub_spectral_bwd": 0,
                 "oscillator_bank": int(mtype == "Sins"),
                 "ltv_fir_convolve": {"Sins": 2, "CombSub": 3}.get(mtype, 0)}
     for name, n in per_step.items():
@@ -2241,3 +2256,252 @@ def test_capture_with_host_copy_raises(cuda, monkeypatch):
     with pytest.raises(RuntimeError):
         G.GraphedTrainSteps(state, RSSLoss(128, 512, n_scale=4), x)
     torch.cuda.synchronize()
+
+
+# ------------------------------------------- the bf16-operand forms ---
+# Each form's kernel against its plain form on the same inputs: max |err|
+# <= 2^-8 x max |ref| and rel RMS <= 1e-3 (the same bf16 rounding points;
+# only the order of fp32 sums differs, and a bf16 rounding it flips), and
+# against float64 (the plain form evaluated in float64 with the same bf16
+# roundings) within the same bounds. A flipped rounding of a dominant
+# feature moves an attention output by up to 2^-8 of itself, so the
+# largest error of either fp32 side against float64 is a draw of a few
+# flips: on the card the kernel read 2.2e-3 x max|ref| where the plain
+# form read 3.6e-4 (B = 1, T = 512, bf16 q, k, v), so "twice the plain
+# form's error" is no gate here; the bounds are the forms' own.
+# The conv core's chains are 18 convs deep, and each flipped rounding of a
+# conv input moves its outputs by 2^-9 of a product, which flips more
+# downstream: at the path's shapes kernel and plain part by up to 9.5e-4
+# rel RMS on fp32 output (the stage at C = 64), so its gate is 2e-3; on a
+# bf16 output each of the two rounds the result once more, and a flipped
+# output rounding is one bf16 ulp (2^-8..2^-7 of the value): max 2^-7.
+MXU_MAX, MXU_REL_RMS = 2.0 ** -8, 1e-3
+MXU_CONV_REL_RMS, MXU_BF16_OUT_MAX = 2e-3, 2.0 ** -7
+
+
+def _assert_mxu_close(got, ref, f64=None, rel_rms=MXU_REL_RMS):
+    bf16_out = got.dtype == torch.bfloat16
+    got, ref = got.float(), ref.float()
+    scale = ref.abs().max().item()
+    err = (got - ref).abs().max().item()
+    rel = ((got - ref).pow(2).mean() / ref.pow(2).mean()).sqrt().item()
+    limit = MXU_BF16_OUT_MAX if bf16_out else MXU_MAX
+    assert err <= limit * scale and rel <= rel_rms, (err / scale, rel)
+    if f64 is not None:
+        d = got.double() - f64
+        e_kern = d.abs().max().item() / f64.abs().max().item()
+        rel = (d.pow(2).mean() / f64.pow(2).mean()).sqrt().item()
+        assert e_kern <= limit and rel <= rel_rms, (e_kern, rel)
+
+
+def _f64(args):
+    return [[y.double() for y in a] if isinstance(a, list)
+            else a.double() if torch.is_tensor(a) else a for a in args]
+
+
+def _only(counts, name, n=1):
+    assert counts[name] == n and sum(counts.values()) == n, counts
+
+
+@pytest.mark.parametrize("c,t,s_src,valid,x,har", [
+    (64, 700, 4, None, "fp32", "fp32"), (32, 1500, 2, [1400, 600], "fp32",
+                                         "fp32"),
+    (16, 3000, 1, None, "bf16", "fp32"), (8, 5000, 1, 4000, "bf16", "bf16"),
+    (64, 333, 1, None, "fp32", None), (64, 2000, 4, None, "bf16", None),
+    (64, 65536, 8, None, "fp32", "fp32")])
+def test_resblocks_mxu_bf16_kernel(cuda, c, t, s_src, valid, x, har):
+    """The trio's bf16-operand form (#4, #5) on fp32 and bf16 x, fp32 and
+    bf16 har, with and without the injection and valid lengths, against its
+    plain form: the bounds above (float64 on fp32 x), the tail past a row's
+    length exactly 0, one launch counted on the form and none elsewhere."""
+    g = torch.Generator(device=cuda).manual_seed(c * t + 7)
+    ksrc = 2 * s_src if s_src > 1 else 1
+    ws, bs = _trio(g, c)
+    h = None if har is None else _randn(g, 2, t * s_src, 1, scale=0.1)
+    if har == "bf16":
+        h = h.to(torch.bfloat16)
+    xx = _randn(g, 2, t, c)
+    if x == "bf16":
+        xx = xx.to(torch.bfloat16)
+    args = (xx, h, _randn(g, c, 1, ksrc, scale=0.2), _randn(g, c, scale=0.05),
+            ws, bs, s_src)
+    with torch.no_grad():
+        ref = K.resblocks_inject_plain(*args, valid=valid, mxu_bf16=True)
+        f64 = (K.resblocks_inject_plain(*_f64(args), valid=valid,
+                                        mxu_bf16=True)
+               if x == "fp32" else None)
+        K.reset_launch_counts()
+        got = K.fused_resblocks_inject(*args, valid=valid, mxu_bf16=True)
+        counts = K.launch_counts()
+    _only(counts, "fused_resblocks_mxu_bf16" if har is None
+          else "fused_resblocks_inject_mxu_bf16")
+    assert got.dtype == xx.dtype and got.shape == xx.shape
+    _assert_mxu_close(got, ref, f64, MXU_CONV_REL_RMS)
+    if valid is not None:
+        for i, n in enumerate(np.broadcast_to(valid, (2,))):
+            assert not got[i, n:].any()
+
+
+@pytest.mark.parametrize("c,t,k", [(64, 700, 3), (32, 1500, 7),
+                                   (16, 3000, 11), (8, 4000, 7)])
+def test_resblock_chain_mxu_bf16_kernel(cuda, c, t, k):
+    """#10's bf16-operand form against its plain form."""
+    g = torch.Generator(device=cuda).manual_seed(c + t + k)
+    ws, bs = _trio(g, c)
+    w, b = ws[(3, 7, 11).index(k)], bs[0]
+    x = _randn(g, 2, t, c)
+    ref = K.resblock_chain_plain(x, w, b, k, mxu_bf16=True)
+    f64 = K.resblock_chain_plain(x.double(), w.double(), b.double(), k,
+                                 mxu_bf16=True)
+    K.reset_launch_counts()
+    got = K.fused_resblock_chain(x, w, b, k, mxu_bf16=True)
+    _only(K.launch_counts(), "fused_resblock_chain_mxu_bf16")
+    _assert_mxu_close(got, ref, f64, MXU_CONV_REL_RMS)
+
+
+@pytest.mark.parametrize("c,t_in,u,s_src,b", [
+    (64, 350, 2, 4, 1), (32, 700, 2, 2, 2), (16, 333, 4, 2, 2),
+    (8, 517, 1, 2, 2), (32, 100, 8, 1, 1)])
+def test_fused_stage_mxu_bf16_kernel(cuda, c, t_in, u, s_src, b):
+    """#11's bf16-operand form (the transposed conv fp32) against its plain
+    form."""
+    g = torch.Generator(device=cuda).manual_seed(c * t_in + u)
+    args = _stage_args(g, c, t_in, u, s_src, b)
+    ref = K.stage_plain(*args, mxu_bf16=True)
+    f64 = K.stage_plain(*_f64(args), mxu_bf16=True)
+    K.reset_launch_counts()
+    got = K.fused_stage(*args, mxu_bf16=True)
+    _only(K.launch_counts(), "fused_stage_mxu_bf16")
+    _assert_mxu_close(got, ref, f64, MXU_CONV_REL_RMS)
+
+
+def test_mxu_bf16_kernels_backward(cuda):
+    """The conv core's forms are differentiable as the fp32 forms are: the
+    backward replays the fp32 plain version (JAX's VJPs re-run their fp32
+    references), so a form's gradient equals the fp32 form's, bit for bit
+    with cuDNN's deterministic algorithms."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    ws, bs = _trio(g, 16)
+    x = _randn(g, 1, 900, 16).requires_grad_()
+    har = _randn(g, 1, 1800, 1, scale=0.1)
+    nw, nb = _randn(g, 16, 1, 4, scale=0.2), _randn(g, 16, scale=0.05)
+    up = _randn(g, 1, 900, 16)
+    grads = []
+    for mxu in (True, False):
+        x.grad = None
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=True, allow_tf32=False):
+            (K.fused_resblocks_inject(x, har, nw, nb, ws, bs, 2,
+                                      mxu_bf16=mxu) * up).sum().backward()
+        grads.append(x.grad.clone())
+    torch.testing.assert_close(grads[0], grads[1], atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("b,t,valid,dtype", [
+    (1, 512, 384, "bf16"), (16, 512, None, "bf16"), (2, 1000, [999, 3], "fp32"),
+    (2, 64, [0, 64], "bf16"), (3, 100, None, "fp32")])
+def test_performer_attention_mxu_bf16_kernel(cuda, b, t, valid, dtype):
+    """#1's bf16-operand form on bf16 (the PCmer's) or fp32 q, k, v against
+    its plain form, each row's valid prefix; then its split (moments of two
+    key ranges of each row's valid keys summed, the apply) against the
+    single launch at the same bounds (the two sum the context in other
+    orders before rounding it), each counted on its own form."""
+    q, k, v, proj = _attention_case(cuda, b, t)
+    if dtype == "bf16":
+        q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    vf = valid if valid is None or isinstance(valid, int) \
+        else torch.tensor(valid, device=cuda)
+    ref = K.performer_attention_plain(q, k, v, proj, vf, mxu_bf16=True)
+    f64 = K.performer_attention_plain(q.double(), k.double(), v.double(),
+                                      proj.double(), vf, mxu_bf16=True)
+    K.reset_launch_counts()
+    got = K.performer_attention(q, k, v, proj, vf, mxu_bf16=True)
+    _only(K.launch_counts(), "performer_attention_mxu_bf16")
+    assert got.dtype == torch.float32
+    n = [t] * b if valid is None else np.minimum(np.broadcast_to(valid, (b,)), t)
+    rows = [i for i in range(b) if n[i] > 0]
+    pick = (lambda y: torch.cat([y[i, :, :n[i]].flatten() for i in rows]))
+    _assert_mxu_close(pick(got), pick(ref), pick(f64))
+    hi = [min(int(x), t) for x in n]
+    mid = [min(t // 3, x) for x in hi]
+    parts = [K.performer_attention_moments(
+        k, v, proj, torch.tensor(a, device=cuda),
+        torch.tensor(z, device=cuda), mxu_bf16=True)
+        for a, z in (([0] * b, mid), (mid, hi))]
+    split = K.performer_attention_apply(q, proj, parts[0][0] + parts[1][0],
+                                        parts[0][1] + parts[1][1],
+                                        mxu_bf16=True)
+    counts = K.launch_counts()
+    assert counts["performer_attention_moments_mxu_bf16"] == 2
+    assert counts["performer_attention_apply_mxu_bf16"] == 1
+    assert counts["performer_attention_moments"] == 0
+    assert counts["performer_attention_apply"] == 0
+    _assert_mxu_close(pick(split), pick(got))
+
+
+@pytest.mark.parametrize("n_fft,rows", [(64, 37), (512, 300), (1024, 513),
+                                        (4096, 9)])
+def test_combsub_spectral_mxu_bf16_kernels(cuda, n_fft, rows):
+    """#2's and #7's bf16-operand forms (the frames, and g * window,
+    rounded on load) against their plain forms: 2e-5 of max |ref| (the fp32
+    forms' card tolerance: the transforms stay fp32), each gradient apart;
+    each counted on its form."""
+    g = torch.Generator(device=cuda).manual_seed(n_fft + rows)
+    win = K.combsub_window(n_fft, cuda)
+    bins = n_fft // 2 + 1
+    args = (_randn(g, rows, n_fft) * win, _randn(g, rows, n_fft) * win,
+            _randn(g, rows, bins, scale=0.5, shift=-1.0),
+            _randn(g, rows, bins), _randn(g, rows, bins, scale=0.5))
+    gg = _randn(g, rows, n_fft, scale=1e-3)
+    ref = K.combsub_spectral_plain(*args, n_fft, mxu_bf16=True)
+    refs = K.combsub_spectral_bwd_plain(gg, *args, n_fft, mxu_bf16=True)
+    K.reset_launch_counts()
+    got = K.combsub_spectral(*args, n_fft, mxu_bf16=True)
+    gots = K.combsub_spectral_bwd(gg, *args, n_fft, mxu_bf16=True)
+    counts = K.launch_counts()
+    assert counts["combsub_spectral_mxu_bf16"] == 1
+    assert counts["combsub_spectral_bwd_mxu_bf16"] == 1
+    assert sum(counts.values()) == 2, counts
+    for a, r in ((got, ref), *zip(gots, refs)):
+        assert (a - r).abs().max().item() <= 2e-5 * r.abs().max().item()
+    # the forms differ from the fp32 forms by the rounding of their inputs
+    fp32 = K.combsub_spectral(*args, n_fft)
+    assert (fp32 - got).abs().max().item() > 1e-5 * ref.abs().max().item()
+
+
+def test_combsub_spectral_mxu_bf16_autograd(cuda):
+    """Through combsub_spectral(mxu_bf16=True) with gradients wanted: the
+    forward's form and then the adjoint's form, one launch each."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    n = 1024
+    win = K.combsub_window(n, cuda)
+    tooth = _randn(g, 65, n) * win
+    noise = _randn(g, 65, n) * win
+    ctl = [_randn(g, 65, n // 2 + 1, scale=0.3).requires_grad_()
+           for _ in range(3)]
+    K.reset_launch_counts()
+    out = K.combsub_spectral(tooth, noise, *ctl, n, mxu_bf16=True)
+    (out * _randn(g, 65, n)).sum().backward()
+    counts = K.launch_counts()
+    assert counts["combsub_spectral_mxu_bf16"] == 1
+    assert counts["combsub_spectral_bwd_mxu_bf16"] == 1
+    assert sum(counts.values()) == 2, counts
+
+
+def test_custom_ops_mxu_bf16_on_card(cuda):
+    """The attention and spectral ops' bf16-operand forms under
+    torch.library.opcheck (schema and fake tensors) on CUDA tensors, bf16
+    q, k, v for the attention."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v = (_randn(g, 2, 8, 40, 64).to(torch.bfloat16) for _ in range(3))
+    proj = torch.from_numpy(gaussian_orthogonal_random_matrix(266, 64, 5)).to(
+        cuda)
+    rows, n = 5, 1024
+    spectral = [_randn(g, rows, n) for _ in range(2)] + [
+        _randn(g, rows, n // 2 + 1, scale=0.3) for _ in range(3)]
+    for op, args in ((K.performer_attention_op,
+                      (q, k, v, proj, torch.tensor([30, 12], device=cuda), 0,
+                       True)),
+                     (K.combsub_spectral_op, (*spectral, n, True))):
+        torch.library.opcheck(op, args, test_utils=("test_schema",
+                                                    "test_faketensor"))

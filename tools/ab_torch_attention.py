@@ -61,9 +61,9 @@ VARIANTS = (
     ("cluster 16", replace(
         ("constexpr int kMaxCluster = 8;", "constexpr int kMaxCluster = 16;"),
         ("cudaError_t setup() {\n", "cudaError_t setup() {\n  cudaFuncSetAttribute("
-         "favor_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);\n"))),
-    ("no keys", replace(("key_partials(k + base, v + base, st, 0, limit,",
-                         "key_partials(k + base, v + base, st, 0, 0,"))),
+         "favor_kernel<false, float>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);\n"))),
+    ("no keys", replace(("key_partials<kMxu>(k + base, v + base, st, 0, limit,",
+                         "key_partials<kMxu>(k + base, v + base, st, 0, 0,"))),
     ("no reduction", replace(
         ("for (int i = lo + threadIdx.x; i < hi; i += kThreads) {",
          "for (int i = lo + threadIdx.x; i < lo; i += kThreads) {"),
@@ -74,8 +74,8 @@ VARIANTS = (
         ("for (int j = j0; j < j0 + kMP / 2; j += 4) {",
          "for (int j = j0; j < j0; j += 4) {"))),
     ("no context product", replace(
-        ("for (int t = r0; t < r1; ++t) {\n      const float4 vv",
-         "for (int t = r0; t < r0; ++t) {\n      const float4 vv"))),
+        ("for (int t = r0; t < r1; ++t) {\n      float4 vv",
+         "for (int t = r0; t < r0; ++t) {\n      float4 vv"))),
     ("no projection", replace(("for (int c = 0; c < kD; c += 4) {",
                                "for (int c = 0; c < 0; c += 4) {"))),
     ("no exp", replace(("expf(", "("))),

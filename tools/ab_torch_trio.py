@@ -66,8 +66,8 @@ def no_reaccumulation(text: str) -> str:
          "  for (int nt = 0; nt < kNT; ++nt) {\n    const int col",
          "    }\n  }\n\n#pragma unroll\n"
          "  for (int nt = 0; nt < kNT; ++nt) {\n    const int col"),
-        ("mma_k_step<C, kFirst, decltype(zero_start)::value>(\n        part,",
-         "mma_k_step<C, kFirst, false>(\n        acc,"))(text)
+        ("mma_k_step<C, kFirst, decltype(zero_start)::value>(part, sw_step, b);",
+         "mma_k_step<C, kFirst, false>(acc, sw_step, b);"))(text)
 
 
 VARIANTS = (
